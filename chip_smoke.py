@@ -1,0 +1,458 @@
+"""Chip smoke test of the PyTorch/CUDA port (kajiya_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from csrc/, holds each kernel against its
+plain PyTorch version on the card at the shapes the 1080p frame gives it
+(timing both with CUDA events), checks the GPU path against the CPU path on
+a small frame, then renders 4 frames at 1920x1080 of the raster + sun-shadow
+slice on the cornell box (32 triangles, brute kernel B) and on the
+196,610-triangle procedural city (culled kernel C), with the launch counters
+set to 0 just before and read just after, and prints one JSON line of
+per-kernel numbers. The last line is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
+Any failed check raises, so the exit code is not 0 and no result is printed.
+Needs a CUDA device; imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+WIDTH, HEIGHT = 1920, 1080
+N_FRAMES = 4
+T_TOL = 2e-5          # t agreement where the kernel and plain ids agree
+ID_AGREE = 0.999      # fraction of rays whose triangle ids agree
+WARP_TOL = 1e-6       # warp kernel vs plain sampler, absolute
+# GPU path vs CPU path of the small frame: per-pixel bound, fraction of
+# pixels within it, mean abs bound; and the fraction of pixels whose primary
+# triangle ids agree. The kernels agree bit for bit with their plain versions,
+# but the plain PyTorch ops around them (cos/sin/exp/log, summation order)
+# round differently on the card by an ulp or so; that flips the occasional
+# sun ray that grazes an edge, and the a-trous filter spreads each flip over
+# a 15 x 15 neighbourhood.
+FRAME_TOL = (1e-3, 0.97, 5e-4)
+HIT_AGREE = 0.995
+# H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
+# cores and HBM3 bandwidth
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+OPS_PER_VISIT = 30    # fp32 ops per ray x triangle Woop test
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def log(*a):
+    print(*a, file=sys.stderr, flush=True)
+
+
+def time_ms(fn, reps):
+    """Mean device time of fn() over `reps` calls, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def bound(bytes_moved, ops):
+    t_bytes = bytes_moved / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_FP32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def slice_cfg(width, height):
+    from kajiya_tpu_torch.frame import RenderConfig
+
+    return RenderConfig(width=width, height=height, primary="raster",
+                        sun_soft_shadows=True, use_rtdgi=False, use_rtr=False,
+                        use_ssao=False, use_taa=False, use_ircache=False,
+                        use_motion_blur=False)
+
+
+SCENES = {
+    # name: (scene factory, eye, forward, per-frame eye step)
+    "cornell": (lambda p: p.cornell_box(), (0.0, 0.0, 2.4), (0.0, 0.0, -1.0),
+                (0.01, 0.005, 0.0)),
+    "city": (lambda p: p.city(n=16, subdiv=8), (0.0, 14.0, 28.0),
+             (0.0, -0.45, -1.0), (0.05, 0.0, -0.05)),
+}
+
+
+def views(eye, fwd, step, n, width, height, device):
+    from kajiya_tpu_torch.core.camera import make_view_constants
+
+    out, prev = [], None
+    for k in range(n):
+        e = tuple(eye[i] + k * step[i] for i in range(3))
+        prev = make_view_constants(e, fwd, width=width, height=height,
+                                   prev=prev, device=device)
+        out.append(prev)
+    return out
+
+
+# ----------------------------------------------------------------------------
+# Kernel phases
+# ----------------------------------------------------------------------------
+
+def compare_hits(name, k_out, p_out, any_hit, live=None):
+    t_k, tri_k = k_out[0], k_out[1]
+    t_p, tri_p = p_out[0], p_out[1]
+    if live is not None:
+        t_k, tri_k, t_p, tri_p = t_k[live], tri_k[live], t_p[live], tri_p[live]
+    occ_k, occ_p = tri_k >= 0, tri_p >= 0
+    mismatch = int((occ_k != occ_p).sum())
+    if any_hit:
+        if mismatch:
+            raise AssertionError(f"{name}: {mismatch} occlusion mismatches")
+        return 0.0
+    if mismatch:
+        raise AssertionError(f"{name}: {mismatch} hit/miss mismatches")
+    same = tri_k == tri_p
+    agree = float(same[occ_p].float().mean()) if bool(occ_p.any()) else 1.0
+    if agree < ID_AGREE:
+        raise AssertionError(f"{name}: triangle ids agree on {agree:.6f}")
+    both = same & occ_p
+    err = 0.0
+    for a, b in ((t_k, t_p), (k_out[2], p_out[2]), (k_out[3], p_out[3])):
+        if live is not None and a.shape != both.shape:
+            a, b = a[live], b[live]
+        if bool(both.any()):
+            err = max(err, float((a[both] - b[both]).abs().max()))
+    if err > T_TOL:
+        raise AssertionError(f"{name}: max |t|,|u|,|v| error {err}")
+    return err
+
+
+def brute_phase(dev):
+    """Kernel B: cornell, 1080p camera rays (closest) and the slice's sun
+    shadow rays (any-hit)."""
+    from kajiya_tpu_torch.core.camera import camera_rays
+    from kajiya_tpu_torch.ops import woop_cuda as wc
+    from kajiya_tpu_torch.renderers import gbuffer, shadows
+    from kajiya_tpu_torch.scene import procedural
+    from kajiya_tpu_torch.scene.scene import build_gpu_scene
+    from kajiya_tpu_torch.world import build_trace_scene
+
+    make, eye, fwd, _ = SCENES["cornell"]
+    ts, _ = build_trace_scene(build_gpu_scene(make(procedural), device=dev),
+                              device=dev)
+    view = views(eye, fwd, (0, 0, 0), 1, WIDTH, HEIGHT, dev)[0]
+    coef = wc.coef_rows(ts.woop)
+    n_tris = coef.shape[0]
+    org, d = (x.reshape(-1, 3).contiguous()
+              for x in camera_rays(view, WIDTH, HEIGHT))
+    tmax = wc.ray_tmax(org, None)
+    gb = gbuffer.raster_gbuffer(ts, view, WIDTH, HEIGHT)
+    sorg, sdir, _need = shadows.sun_shadow_rays(ts, gb, 0)
+    sorg, sdir = sorg.contiguous(), sdir.contiguous()
+    stmax = wc.ray_tmax(sorg, None)
+    cases = []
+    for case, (o, dd, tm, t_min, any_hit) in {
+            "primary_closest": (org, d, tmax, 1e-4, False),
+            "shadow_any_hit": (sorg, sdir, stmax, shadows.RAY_EPS, True)}.items():
+        k_out = wc.brute_launch(coef, o, dd, tm, t_min, any_hit)
+        p_out = wc.brute_plain(coef, o, dd, tm, t_min)
+        torch.cuda.synchronize()
+        err = compare_hits(f"woop_brute/{case}", k_out, p_out, any_hit)
+        ms = time_ms(lambda: wc.brute_launch(coef, o, dd, tm, t_min, any_hit),
+                     20)
+        plain_ms = time_ms(lambda: wc.brute_plain(coef, o, dd, tm, t_min), 3)
+        r = o.shape[0]
+        if any_hit:      # a thread stops at its first hit in index order
+            visits = torch.where(k_out[1] >= 0, k_out[1].long() + 1, n_tris)
+            visits = torch.where(tm > t_min, visits, 0).sum()
+        else:
+            visits = torch.tensor(r * n_tris)
+        ops = OPS_PER_VISIT * float(visits)
+        bytes_moved = r * (24 + 4 + 16) + coef.numel() * 4
+        b_ms, b_by = bound(bytes_moved, ops)
+        cases.append(dict(case=case, rays=r, tris=n_tris, max_abs_err=err,
+                          ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by, visits=float(visits)))
+        log(f"woop_brute/{case}: err {err} kernel {ms:.4f} ms plain "
+            f"{plain_ms:.3f} ms bound {b_ms:.5f} ms ({b_by})")
+    return cases
+
+
+def culled_phase(dev):
+    """Kernel C: city, 1080p raster block lists (closest) and beam-culled
+    sun shadow rays (any-hit). The plain version walks the same lists."""
+    from kajiya_tpu_torch.ops import woop_cuda as wc
+    from kajiya_tpu_torch.ops.tiling import tile_order
+    from kajiya_tpu_torch.renderers import gbuffer, raster, shadows
+    from kajiya_tpu_torch.scene import procedural
+    from kajiya_tpu_torch.scene.scene import build_gpu_scene
+    from kajiya_tpu_torch.world import build_trace_scene
+
+    make, eye, fwd, _ = SCENES["city"]
+    ts, _ = build_trace_scene(build_gpu_scene(make(procedural), device=dev),
+                              device=dev)
+    view = views(eye, fwd, (0, 0, 0), 1, WIDTH, HEIGHT, dev)[0]
+    gb = gbuffer.raster_gbuffer(ts, view, WIDTH, HEIGHT)
+    sorg, sdir, _need = shadows.sun_shadow_rays(ts, gb, 0)
+    batches = {
+        "raster_closest": (raster.raster_batch(ts, view, WIDTH, HEIGHT),
+                           1e-4, False),
+        "shadow_any_hit": (wc.prepare_culled(
+            ts.woop, tile_order(sorg.reshape(HEIGHT, WIDTH, 3)).reshape(-1, 3),
+            tile_order(sdir.reshape(HEIGHT, WIDTH, 3)).reshape(-1, 3)),
+            shadows.RAY_EPS, True),
+    }
+    cases = []
+    for case, (b, t_min, any_hit) in batches.items():
+        k_out = wc.culled_launch(b, t_min, any_hit, True)
+        walked = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_out = wc.culled_plain(b, t_min, any_hit, True,
+                                chunks_per_step=256, visits=walked)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = compare_hits(f"woop_culled/{case}", k_out, p_out, any_hit)
+        ms = time_ms(lambda: wc.culled_launch(b, t_min, any_hit, True), 10)
+        walked = torch.cat(walked)
+        live = (b.tmax.reshape(-1, b.rb) > t_min).sum(dim=1)
+        visits = float((walked * live).sum()) * wc.CULL_TB
+        ops = OPS_PER_VISIT * visits
+        r = b.org.shape[0]
+        bytes_moved = (r * (28 + 16) + b.blist.numel() * 8
+                       + b.coef.numel() * 4)
+        b_ms, b_by = bound(bytes_moved, ops)
+        cases.append(dict(case=case, rays=r, chunks=b.n_chunks,
+                          mean_listed=float(b.count.float().mean()),
+                          mean_walked=float(walked.float().mean()),
+                          max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, visits=visits))
+        log(f"woop_culled/{case}: err {err} kernel {ms:.4f} ms plain "
+            f"{plain_ms:.1f} ms bound {b_ms:.5f} ms ({b_by}); mean listed "
+            f"{cases[-1]['mean_listed']:.1f} walked "
+            f"{cases[-1]['mean_walked']:.1f} blocks/chunk")
+    return cases
+
+
+def warp_phase(dev):
+    """Kernel W at 1080p: 1-channel nearest (prev depth) and 3-channel
+    bilinear (shadow moments + history length) on a reprojection-like uv
+    field (pixel centers plus a smooth motion of a few pixels)."""
+    import torch.nn.functional as F
+
+    from kajiya_tpu_torch.core import img as im
+    from kajiya_tpu_torch.ops import warp_cuda
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    uv = im.pixel_uv(HEIGHT, WIDTH, device=dev)
+    yy, xx = uv[..., 1], uv[..., 0]
+    motion = torch.stack([torch.sin(6.0 * yy + 2.0 * xx),
+                          torch.cos(5.0 * xx - 3.0 * yy)], dim=-1) * 3.0
+    uv = (uv + motion / torch.tensor([WIDTH, HEIGHT], device=dev)).contiguous()
+    cases = []
+    for case, c, bilinear in (("nearest_c1", 1, False), ("bilinear_c3", 3, True)):
+        img = torch.rand((HEIGHT, WIDTH, c), generator=g, device=dev)
+        img = img[..., 0].contiguous() if c == 1 else img
+        k_out = warp_cuda.warp_launch(img, uv, bilinear)
+        p_out = warp_cuda.warp_plain(img, uv, bilinear)
+        torch.cuda.synchronize()
+        err = float((k_out - p_out).abs().max())
+        if err > WARP_TOL:
+            raise AssertionError(f"warp/{case}: max error {err}")
+        ms = time_ms(lambda: warp_cuda.warp_launch(img, uv, bilinear), 50)
+        plain_ms = time_ms(lambda: warp_cuda.warp_plain(img, uv, bilinear), 10)
+        # yardstick only: one PyTorch call computing the same sampling
+        # (border padding = clamp addressing); the port never calls it
+        src = (img[None, None] if c == 1 else img.permute(2, 0, 1)[None]
+               ).contiguous()
+        grid = (uv * 2.0 - 1.0)[None]
+        mode = "bilinear" if bilinear else "nearest"
+        lib_ms = time_ms(lambda: F.grid_sample(
+            src, grid, mode=mode, padding_mode="border", align_corners=False),
+            50)
+        n = HEIGHT * WIDTH
+        bytes_moved = n * 8 + 2 * n * c * 4       # uv + output + image once
+        b_ms, b_by = bound(bytes_moved, 0.0)
+        cases.append(dict(case=case, pixels=n, channels=c, max_abs_err=err,
+                          ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=b_ms, bound_by=b_by))
+        log(f"warp/{case}: err {err} kernel {ms:.4f} ms plain {plain_ms:.3f} "
+            f"ms grid_sample {lib_ms:.4f} ms bound {b_ms:.5f} ms")
+    return cases
+
+
+# ----------------------------------------------------------------------------
+# Frame phases
+# ----------------------------------------------------------------------------
+
+def draw_checked(r, view, name):
+    """Renderer.draw, failing if the frame failed: draw presents the last
+    good frame after an error, which must not pass for a rendered one."""
+    out = r.draw(view)
+    if r._last_error is not None:
+        raise RuntimeError(f"{name}: frame failed: {r._last_error}")
+    return out
+
+
+def reference_phase(dev):
+    """The GPU path (kernels) against the CPU path (plain versions) on a
+    small frame of each scene: three frames at 64x48 from the same views."""
+    from kajiya_tpu_torch.frame import Renderer
+    from kajiya_tpu_torch.scene import procedural
+
+    w, h = 64, 48
+    cfg = slice_cfg(w, h)
+    worst = {}
+    for name, (make, eye, fwd, step) in SCENES.items():
+        if name == "city":
+            make = lambda p: p.city(n=4, subdiv=8)      # noqa: E731
+            eye, fwd, step = (0.0, 8.0, 14.0), (0.0, -0.45, -1.0), step
+        outs = {}
+        for d in (dev, torch.device("cpu")):
+            r = Renderer(make(procedural), cfg, device=d)
+            for v in views(eye, fwd, step, 3, w, h, d):
+                o = draw_checked(r, v, name)
+            outs[d.type] = o
+        same = float((outs["cuda"]["gbuffer"]["hit"].cpu()
+                      == outs["cpu"]["gbuffer"]["hit"]).float().mean())
+        if same < HIT_AGREE:
+            raise AssertionError(f"{name}: GPU vs CPU hit masks agree on "
+                                 f"{same}")
+        for k in ("final", "lit", "shadow"):
+            a, b = outs["cuda"][k].cpu(), outs["cpu"][k]
+            diff = (a - b).abs()
+            frac = float((diff <= FRAME_TOL[0]).float().mean())
+            mean = float(diff.mean())
+            if not bool(torch.isfinite(a).all()) or frac < FRAME_TOL[1] \
+                    or mean > FRAME_TOL[2]:
+                raise AssertionError(f"{name}/{k}: GPU vs CPU frac {frac} "
+                                     f"mean {mean}")
+            worst[f"{name}/{k}"] = (frac, mean)
+    log("GPU vs CPU small frames (fraction within 1e-3, mean abs diff):", worst)
+    return worst
+
+
+def frame_phase(dev):
+    """4 frames at 1920x1080 per scene through Renderer.draw, counters set
+    to 0 just before and read just after each scene's frames."""
+    from kajiya_tpu_torch.frame import Renderer
+    from kajiya_tpu_torch.ops import _native
+    from kajiya_tpu_torch.scene import procedural
+
+    cfg = slice_cfg(WIDTH, HEIGHT)
+    result = {}
+    for name, (make, eye, fwd, step) in SCENES.items():
+        t0 = time.perf_counter()
+        r = Renderer(make(procedural), cfg, device=dev)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        vs = views(eye, fwd, step, N_FRAMES, WIDTH, HEIGHT, dev)
+        _native.reset_launches()
+        times = []
+        for v in vs:
+            t0 = time.perf_counter()
+            out = draw_checked(r, v, name)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts = dict(_native.launches)
+        final = out["final"]
+        if tuple(final.shape) != (HEIGHT, WIDTH, 3):
+            raise AssertionError(f"{name}: final shape {tuple(final.shape)}")
+        for k in ("final", "lit", "shadow"):
+            if not bool(torch.isfinite(out[k]).all()):
+                raise AssertionError(f"{name}: non-finite {k}")
+        mean = float(final.mean())
+        if mean <= 0.01:
+            raise AssertionError(f"{name}: final mean {mean}")
+        # per frame: primaries + sun shadows through B (cornell) or C (city);
+        # prev depth (nearest) + moments/history (bilinear) through W
+        want = {"woop_brute": 2 * N_FRAMES if name == "cornell" else 0,
+                "woop_culled": 2 * N_FRAMES if name == "city" else 0,
+                "warp": 2 * N_FRAMES}
+        if counts != want:
+            raise AssertionError(f"{name}: launches {counts}, expected {want}")
+        result[name] = dict(frame_ms=times, median_ms=statistics.median(times),
+                            launches=counts, final_mean=mean,
+                            tris=int(r.gpu.num_triangles), setup_s=setup_s,
+                            hit_frac=float(out["gbuffer"]["hit"].float().mean()))
+        log(f"frame {name}: {int(r.gpu.num_triangles)} tris, setup "
+            f"{setup_s:.1f} s, frame ms {[round(t, 2) for t in times]}, "
+            f"launches {counts}, final mean {mean:.4f}")
+    return result
+
+
+def kernel_entry(name, source, replaces, cases, launches, library):
+    """One JSON entry per kernel: the per-frame sum over its cases (the
+    calls one frame makes), worst error over cases."""
+    return dict(
+        name=name, route="cuda", source=source, replaces=replaces,
+        launches=launches,
+        max_abs_err=max(c["max_abs_err"] for c in cases),
+        ms=sum(c["ms"] for c in cases),
+        plain_ms=sum(c["plain_ms"] for c in cases),
+        bound_ms=sum(c["bound_ms"] for c in cases),
+        bound_by=max(cases, key=lambda c: c["bound_ms"])["bound_by"],
+        library_ms=(sum(c["library_ms"] for c in cases) if library else None),
+        cases=cases)
+
+
+def main():
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device")
+        return 1
+    sys.path.insert(0, REPO)
+    from kajiya_tpu_torch.ops import _native
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
+        f"{torch.cuda.get_device_name(0)}, power limit not read"
+    print(card, flush=True)
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    _native.library()
+    log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+
+    brute = brute_phase(dev)
+    culled = culled_phase(dev)
+    warp = warp_phase(dev)
+    reference_phase(dev)
+    frames = frame_phase(dev)
+
+    kernels = [
+        kernel_entry("woop_brute", "kajiya_tpu_torch/csrc/woop.cu",
+                     "kajiya_tpu/ops/woop_pallas.py:31", brute,
+                     frames["cornell"]["launches"]["woop_brute"], False),
+        kernel_entry("woop_culled", "kajiya_tpu_torch/csrc/woop.cu",
+                     "kajiya_tpu/ops/woop_pallas.py:243", culled,
+                     frames["city"]["launches"]["woop_culled"], False),
+        kernel_entry("warp", "kajiya_tpu_torch/csrc/warp.cu",
+                     "kajiya_tpu/ops/warp_pallas.py:57", warp,
+                     frames["cornell"]["launches"]["warp"]
+                     + frames["city"]["launches"]["warp"], True),
+    ]
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
+        json.dump({"card": card, "kernels": kernels, "frames": frames}, f,
+                  indent=1)
+    print(json.dumps({"frames": {k: {"median_ms": v["median_ms"],
+                                     "frame_ms": v["frame_ms"],
+                                     "tris": v["tris"]}
+                                 for k, v in frames.items()}}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,157 @@
+"""Layered GGX + Lambert BRDF: the parts `renderers/deferred.py` uses (port
+of `kajiya_tpu/brdf/ggx.py`): eval, split-sum energy compensation through a
+polynomial fit of the integrated FG table, metalness lobes. VNDF sampling and
+pdfs come with the reflection passes."""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..ops.smallvec import dot3 as _dot
+from ..ops.smallvec import matmul_small
+
+MIN_ROUGHNESS = 1e-3
+
+
+def f_schlick(f0, cos_theta):
+    return f0 + (1.0 - f0) * torch.pow(torch.clamp(1.0 - cos_theta, 0.0, 1.0),
+                                       5.0)
+
+
+def ndf_ggx(a2, ndoth):
+    d = ndoth * ndoth * (a2 - 1.0) + 1.0
+    return a2 / torch.clamp(math.pi * d * d, min=1e-12)
+
+
+def g_smith_correlated(a2, ndotv, ndotl):
+    lv = ndotl * torch.sqrt((ndotv - a2 * ndotv) * ndotv + a2)
+    ll = ndotv * torch.sqrt((ndotl - a2 * ndotl) * ndotl + a2)
+    return 0.5 / torch.clamp(lv + ll, min=1e-12)
+
+
+def _g1_smith(a2, ndotx):
+    return 2.0 * ndotx / torch.clamp(
+        ndotx + torch.sqrt(a2 + (1.0 - a2) * ndotx * ndotx), min=1e-12)
+
+
+def specular_brdf(f0, roughness, n, wo, wi):
+    """GGX specular BRDF value (RGB) and its VNDF sampling pdf."""
+    a = torch.clamp(roughness, min=MIN_ROUGHNESS) ** 2
+    a2 = a * a
+    h = wo + wi
+    h = h * (1.0 / torch.clamp(torch.sqrt(torch.clamp(_dot(h, h), min=1e-24)),
+                               min=1e-12))[..., None]
+    ndoth = torch.clamp(_dot(n, h), 0.0, 1.0)
+    ndotv = torch.clamp(_dot(n, wo), 1e-5, 1.0)
+    ndotl = torch.clamp(_dot(n, wi), 0.0, 1.0)
+    hdotv = torch.clamp(_dot(h, wo), 1e-5, 1.0)
+    d = ndf_ggx(a2, ndoth)
+    vis = g_smith_correlated(a2, ndotv, ndotl)
+    f = f_schlick(f0, hdotv[..., None])
+    brdf = f * (d * vis)[..., None]
+    pdf = d * _g1_smith(a2, ndotv) / torch.clamp(4.0 * ndotv, min=1e-12)
+    return brdf, pdf
+
+
+_FG_RES = 64
+_POLY_DEG = 5
+_FG_POLY = None     # (n_feats, 2) float32 numpy, fitted once
+
+
+def _compute_fg_lut():
+    """(R, V, 2) split-sum (scale, bias) table for F0: integral of GGX."""
+    res = _FG_RES
+    n_samples = 256
+    rough = (np.arange(res) + 0.5) / res
+    ndotv = (np.arange(res) + 0.5) / res
+    out = np.zeros((res, res, 2), np.float32)
+    i = np.arange(n_samples)
+    u1 = (i + 0.5) / n_samples
+    u2 = (i * 0.6180339887498949) % 1.0
+    for ri, r in enumerate(rough):
+        a = max(r, MIN_ROUGHNESS) ** 2
+        a2 = a * a
+        cos_h = np.sqrt((1.0 - u1) / (1.0 + (a2 - 1.0) * u1))
+        sin_h = np.sqrt(np.maximum(0.0, 1.0 - cos_h**2))
+        phi = 2.0 * np.pi * u2
+        h = np.stack([sin_h * np.cos(phi), sin_h * np.sin(phi), cos_h], -1)
+        for vi, nv in enumerate(ndotv):
+            v = np.array([np.sqrt(max(0.0, 1 - nv * nv)), 0.0, nv])
+            l = 2.0 * (h @ v)[:, None] * h - v
+            nl = np.clip(l[:, 2], 0, 1)
+            nh = np.clip(h[:, 2], 0, 1)
+            vh = np.clip(h @ v, 1e-5, 1)
+            mask = nl > 0
+            g1l = 2 * nl / np.maximum(nl + np.sqrt(a2 + (1 - a2) * nl * nl), 1e-9)
+            g1v = 2 * nv / np.maximum(nv + np.sqrt(a2 + (1 - a2) * nv * nv), 1e-9)
+            g_vis = g1l * g1v * vh / np.maximum(nh * nv, 1e-9)
+            fc = (1.0 - vh) ** 5
+            out[ri, vi, 0] = np.sum(np.where(mask, (1 - fc) * g_vis, 0)) / n_samples
+            out[ri, vi, 1] = np.sum(np.where(mask, fc * g_vis, 0)) / n_samples
+    return out
+
+
+def _fit_fg_poly():
+    """Least-squares polynomial fit of the FG table over (roughness, ndotv)."""
+    lut = _compute_fg_lut()
+    res = lut.shape[0]
+    r = (np.arange(res) + 0.5) / res
+    rr, vv = np.meshgrid(r, r, indexing="ij")
+    rf, vf = rr.ravel(), vv.ravel()
+    feats = np.stack([rf ** i * vf ** j
+                      for i in range(_POLY_DEG + 1)
+                      for j in range(_POLY_DEG + 1 - i)], axis=-1)
+    coef, *_ = np.linalg.lstsq(feats, lut.reshape(-1, 2), rcond=None)
+    return coef.astype(np.float32)
+
+
+def _poly_features(r, v):
+    rp = [torch.ones_like(r)]
+    vp = [torch.ones_like(v)]
+    for _ in range(_POLY_DEG):
+        rp.append(rp[-1] * r)
+        vp.append(vp[-1] * v)
+    return torch.stack([rp[i] * vp[j]
+                        for i in range(_POLY_DEG + 1)
+                        for j in range(_POLY_DEG + 1 - i)], dim=-1)
+
+
+def env_brdf_approx(roughness, ndotv):
+    """(scale, bias) of the split-sum env BRDF via the polynomial fit."""
+    global _FG_POLY
+    if _FG_POLY is None:
+        _FG_POLY = _fit_fg_poly()
+    c = torch.as_tensor(_FG_POLY, device=roughness.device)
+    feats = _poly_features(torch.clamp(roughness, 0.0, 1.0),
+                           torch.clamp(ndotv, 0.0, 1.0))
+    out = matmul_small(feats, c)
+    return out[..., 0], out[..., 1]
+
+
+def preintegrated_specular(f0, roughness, ndotv):
+    """Split-sum specular reflectance E[f_spec] for (f0, roughness, ndotv)."""
+    scale, bias = env_brdf_approx(roughness, ndotv)
+    return f0 * scale[..., None] + bias[..., None]
+
+
+def derive_lobes(base_color, metallic):
+    """Diffuse albedo and F0 from the metalness workflow."""
+    albedo = base_color * (1.0 - metallic[..., None])
+    f0 = 0.04 * (1.0 - metallic[..., None]) + base_color * metallic[..., None]
+    return albedo, f0
+
+
+def eval_layered(base_color, metallic, roughness, n, wo, wi):
+    """Full layered BRDF value (RGB). Zero below the horizon."""
+    albedo, f0 = derive_lobes(base_color, metallic)
+    ndotl = _dot(n, wi)
+    ndotv = _dot(n, wo)
+    spec, _ = specular_brdf(f0, roughness, n, wo, wi)
+    e_ss = preintegrated_specular(f0, roughness, torch.clamp(ndotv, 1e-5, 1.0))
+    spec = spec * (1.0 + f0 * (1.0 / torch.clamp(e_ss, 1e-3, 1.0) - 1.0))
+    kd = 1.0 - f_schlick(f0, torch.clamp(ndotv, 0.0, 1.0)[..., None])
+    diff = albedo * kd / math.pi
+    valid = ((ndotl > 0.0) & (ndotv > 0.0))[..., None]
+    return torch.where(valid, spec + diff, 0.0)

@@ -1,0 +1,82 @@
+"""Carry state across from the JAX package: numpy dicts -> the port's types.
+
+The JAX side's arrays are handed over as numpy (`np.asarray` of each field),
+so this module needs neither JAX nor the JAX package. Field names are the
+JAX dataclasses' own:
+
+- `trace_scene_from_numpy`: the fields of a JAX `TraceScene` (`gpu` as a dict
+  of `GpuScene` fields, `woop` as its dict; `bvh` is ignored);
+- `frame_state_from_numpy`: an `init_frame_state`-shaped dict;
+- `view_from_numpy`: the fields of a JAX `ViewConstants`.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .core.camera import ViewConstants
+from .device import resolve_device
+from .scene.scene import GpuScene
+from .world import TraceScene
+
+_INT_GPU_FIELDS = {"tri_idx", "tri_mat", "tri_inst", "light_tri", "num_lights"}
+
+
+def _t(x, dev, dtype=None):
+    a = np.asarray(x)
+    if dtype is None:
+        dtype = {np.dtype(np.bool_): torch.bool,
+                 np.dtype(np.int32): torch.int32,
+                 np.dtype(np.int64): torch.int64}.get(a.dtype, torch.float32)
+    return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
+
+
+def to_numpy_dict(obj):
+    """A dataclass or dict of array-likes (e.g. a JAX TraceScene, GpuScene,
+    ViewConstants or frame state) -> nested dict of numpy arrays."""
+    if obj is None:
+        return None
+    if dataclasses.is_dataclass(obj):
+        return {f.name: to_numpy_dict(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if isinstance(obj, dict):
+        return {k: to_numpy_dict(v) for k, v in obj.items()}
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(to_numpy_dict(v) for v in obj)
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    return np.asarray(obj)
+
+
+def gpu_scene_from_numpy(d: dict, device=None) -> GpuScene:
+    dev = resolve_device(device)
+    if any(d.get(k) is not None for k in ("tex_pages", "mat_tex", "page_sub")):
+        raise NotImplementedError("textured scenes are not ported yet")
+    kw = {}
+    for name in GpuScene.__dataclass_fields__:
+        dtype = torch.int32 if name in _INT_GPU_FIELDS else torch.float32
+        kw[name] = _t(d[name], dev, dtype)
+    return GpuScene(**kw)
+
+
+def trace_scene_from_numpy(d: dict, device=None) -> TraceScene:
+    dev = resolve_device(device)
+    woop = None
+    if d.get("woop") is not None:
+        woop = {k: _t(v, dev) for k, v in d["woop"].items() if v is not None}
+    kw = {name: _t(d[name], dev) for name in TraceScene.__dataclass_fields__
+          if name not in ("gpu", "woop")}
+    return TraceScene(gpu=gpu_scene_from_numpy(d["gpu"], dev), woop=woop, **kw)
+
+
+def frame_state_from_numpy(d: dict, device=None) -> dict:
+    dev = resolve_device(device)
+    return {k: _t(v, dev) for k, v in d.items()}
+
+
+def view_from_numpy(d: dict, device=None) -> ViewConstants:
+    dev = resolve_device(device)
+    return ViewConstants(**{name: _t(d[name], dev, torch.float32)
+                            for name in ViewConstants.__dataclass_fields__})

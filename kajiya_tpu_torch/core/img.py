@@ -1,0 +1,193 @@
+"""Image-space utilities shared by the screen-space passes (port of the parts
+of `kajiya_tpu/core/img.py` the ported passes use).
+
+Convention: images are (H, W) or (H, W, C); uv has its origin at the top-left
+with v pointing down. The JAX module writes resampling as one-hot matmuls to
+avoid TPU gathers; on the GPU they are plain strided slices and index
+selects, with the same summation order so float results agree.
+`warp_bilinear` / `warp_nearest` dispatch to the warp kernel
+(ops/warp_cuda.py) for CUDA tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _gather2d(img, iy, ix):
+    """img[(iy, ix)] with clamped integer indices."""
+    h, w = img.shape[0], img.shape[1]
+    idx = iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)
+    return img.reshape((h * w,) + tuple(img.shape[2:]))[idx]
+
+
+def sample_nearest(img, uv):
+    """Nearest sample at uv in [0,1)^2. uv: (..., 2) -> (..., C)."""
+    h, w = img.shape[0], img.shape[1]
+    ix = torch.floor(uv[..., 0] * w).to(torch.int64)
+    iy = torch.floor(uv[..., 1] * h).to(torch.int64)
+    return _gather2d(img, iy, ix)
+
+
+def sample_bilinear(img, uv):
+    """Bilinear sample at uv with clamp-to-edge addressing per tap."""
+    h, w = img.shape[0], img.shape[1]
+    x = uv[..., 0] * w - 0.5
+    y = uv[..., 1] * h - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = x - x0
+    fy = y - y0
+    if img.ndim == 3:
+        fx = fx[..., None]
+        fy = fy[..., None]
+    x0i = x0.to(torch.int64)
+    y0i = y0.to(torch.int64)
+    c00 = _gather2d(img, y0i, x0i)
+    c10 = _gather2d(img, y0i, x0i + 1)
+    c01 = _gather2d(img, y0i + 1, x0i)
+    c11 = _gather2d(img, y0i + 1, x0i + 1)
+    top = c00 * (1.0 - fx) + c10 * fx
+    bot = c01 * (1.0 - fx) + c11 * fx
+    return top * (1.0 - fy) + bot * fy
+
+
+def pixel_uv(h: int, w: int, device=None):
+    """(H, W, 2) pixel-center uv lattice."""
+    u = (torch.arange(w, dtype=torch.float32, device=device) + 0.5) / w
+    v = (torch.arange(h, dtype=torch.float32, device=device) + 0.5) / h
+    return torch.stack([u[None, :].expand(h, w), v[:, None].expand(h, w)],
+                       dim=-1)
+
+
+def warp_bilinear(img, uv):
+    """Bilinear sample for local warps (reprojection / temporal fetches):
+    the warp kernel on CUDA, `sample_bilinear` on the CPU."""
+    from ..ops.warp_cuda import warp2d
+
+    return warp2d(img, uv, bilinear=True)
+
+
+def warp_nearest(img, uv):
+    """Nearest-sample twin of `warp_bilinear`."""
+    from ..ops.warp_cuda import warp2d
+
+    return warp2d(img, uv, bilinear=False)
+
+
+def _avg_axis(x, axis: int):
+    """0.5 * (x[2i] + x[2i+1]) along axis 0 or 1 (even extent), summed in
+    float32 and rounded to x's dtype once: the two-hot averaging matmul of
+    the JAX module."""
+    if axis == 0:
+        ev, od = x[0::2], x[1::2]
+    else:
+        ev, od = x[:, 0::2], x[:, 1::2]
+    return ((ev.float() + od.float()) * 0.5).to(x.dtype)
+
+
+def downsample_2x(img):
+    """2x2 box reduce. Same stage order as the JAX matmul form: (H, W) images
+    reduce columns first, (H, W, C) images rows first."""
+    x = img[:img.shape[0] // 2 * 2, :img.shape[1] // 2 * 2]
+    if x.ndim == 2:
+        return _avg_axis(_avg_axis(x, 1), 0)
+    return _avg_axis(_avg_axis(x, 0), 1)
+
+
+def decimate2(img):
+    """img[::2, ::2] (even extent)."""
+    h, w = img.shape[0] // 2 * 2, img.shape[1] // 2 * 2
+    return img[:h:2, :w:2]
+
+
+def downsample_nearest(img):
+    return decimate2(img)
+
+
+def upsample_bilinear(img, out_h: int, out_w: int):
+    """Bilinear resize with clamped hat-function weights, as separable
+    products; exact 2x takes `upsample2x_bilinear`."""
+    h, w = img.shape[0], img.shape[1]
+    if out_h == h * 2 and out_w == w * 2:
+        return upsample2x_bilinear(img)
+    dev = img.device
+
+    def weights(n_out, n_in):
+        pos = ((torch.arange(n_out, dtype=torch.float32, device=dev) + 0.5)
+               * (n_in / n_out) - 0.5).clamp(0.0, n_in - 1.0)
+        cols = torch.arange(n_in, dtype=torch.float32, device=dev)
+        return torch.clamp(1.0 - torch.abs(cols[None, :] - pos[:, None]),
+                           min=0.0)
+
+    wy = weights(out_h, h)
+    wx = weights(out_w, w)
+    squeeze = img.ndim == 2
+    x = (img[..., None] if squeeze else img).float()
+    t = torch.tensordot(wy, x, dims=([1], [0]))          # (H2, W, C)
+    out = torch.tensordot(wx, t, dims=([1], [1]))        # (W2, H2, C)
+    out = out.permute(1, 0, 2)
+    return out[..., 0] if squeeze else out
+
+
+def shift_stack(img, offsets):
+    """All static shifts of `img`, edge-clamped, stacked: (N, H, W[, C]).
+    Tap k is out[k][i, j] = img[clamp(i + dy), clamp(j + dx)]."""
+    h, w = img.shape[0], img.shape[1]
+    dev = img.device
+    ys = torch.arange(h, device=dev)
+    xs = torch.arange(w, device=dev)
+    taps = []
+    for dy, dx in offsets:
+        t = img.index_select(0, (ys + dy).clamp(0, h - 1))
+        taps.append(t.index_select(1, (xs + dx).clamp(0, w - 1)))
+    return torch.stack(taps, dim=0)
+
+
+def shift2d(img, dy: int, dx: int):
+    """Shift with edge clamp (static offsets)."""
+    return shift_stack(img, [(dy, dx)])[0]
+
+
+def separable_blur(img, taps):
+    """Separable odd-length blur with static weights."""
+    r = len(taps) // 2
+    wt = torch.as_tensor(taps, dtype=img.dtype, device=img.device).reshape(
+        (-1,) + (1,) * img.ndim)
+    sx = shift_stack(img, [(0, i - r) for i in range(len(taps))])
+    acc = torch.sum(sx * wt, dim=0)
+    sy = shift_stack(acc, [(i - r, 0) for i in range(len(taps))])
+    return torch.sum(sy * wt, dim=0)
+
+
+GAUSS5 = (0.0625, 0.25, 0.375, 0.25, 0.0625)
+
+
+def interleave_rows(a, b):
+    """out[2i] = a[i], out[2i+1] = b[i]."""
+    return torch.stack([a, b], dim=1).reshape(
+        (2 * a.shape[0],) + tuple(a.shape[1:]))
+
+
+def interleave_cols(a, b):
+    return torch.stack([a, b], dim=2).reshape(
+        (a.shape[0], 2 * a.shape[1]) + tuple(a.shape[2:]))
+
+
+def upsample2x_bilinear(img):
+    """Exact 2x bilinear upsample: per-axis phase blend + interleave."""
+    a = shift_stack(img, [(-1, 0), (0, 0), (1, 0)])
+    r = interleave_rows(0.25 * a[0] + 0.75 * a[1], 0.75 * a[1] + 0.25 * a[2])
+    b = shift_stack(r, [(0, -1), (0, 0), (0, 1)])
+    return interleave_cols(0.25 * b[0] + 0.75 * b[1],
+                           0.75 * b[1] + 0.25 * b[2])
+
+
+OFF3X3 = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+
+
+def local_moments_3x3(img):
+    """Per-pixel mean and variance over the 3x3 neighborhood."""
+    s = shift_stack(img, OFF3X3)
+    m1 = s.mean(dim=0)
+    m2 = (s * s).mean(dim=0)
+    return m1, torch.clamp(m2 - m1 * m1, min=0.0)

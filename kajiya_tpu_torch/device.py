@@ -1,0 +1,19 @@
+"""Device selection for the port's entry points.
+
+Every entry point (`Renderer`, `build_gpu_scene`, `build_trace_scene`,
+`make_view_constants`) takes an explicit `device`. It defaults to CUDA and
+raises when no CUDA device exists: the port never slips onto the CPU unless
+the caller asks for it with `device="cpu"` (as the CPU parity tests do).
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "kajiya_tpu_torch: no CUDA device is available; pass "
+            "device='cpu' to run the plain PyTorch path on the CPU")
+    return dev

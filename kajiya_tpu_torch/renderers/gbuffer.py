@@ -1,0 +1,71 @@
+"""G-buffer from primary visibility (port of
+`kajiya_tpu/renderers/gbuffer.py`, the raster path). Outputs are planar
+(H, W[, C]) float32 planes plus the `hit` mask."""
+from __future__ import annotations
+
+import torch
+
+from ..core.camera import ViewConstants, camera_rays
+from ..ops.smallvec import matvec
+from ..world import TraceScene, hit_attributes
+
+
+def _project(m, p):
+    """(4,4) @ (..., 3) homogeneous -> clip (..., 4)."""
+    return matvec(m[:, :3], p) + m[:, 3]
+
+
+def raster_gbuffer(ts: TraceScene, view: ViewConstants, width: int,
+                   height: int, max_trace_steps=None,
+                   no_normal_maps: bool = False):
+    """Rasterized primary visibility feeding the gbuffer planes."""
+    from .raster import raster_hit
+
+    _, d = camera_rays(view, width, height)
+    hit = raster_hit(ts, view, width, height, max_trace_steps=max_trace_steps)
+    return gbuffer_from_hit(ts, view, hit, d.reshape(-1, 3), width, height,
+                            no_normal_maps=no_normal_maps)
+
+
+def gbuffer_from_hit(ts: TraceScene, view: ViewConstants, hit, df,
+                     width: int, height: int, no_normal_maps: bool = False):
+    """Per-pixel Hit -> gbuffer dict; hit/df flat row-major over pixels."""
+    spread = 0.3 * 2.0 / (view.view_to_clip[1, 1] * height)
+    cone_w = spread * torch.where(hit.hit_mask, hit.t, 0.0)
+    attrs = hit_attributes(ts, hit, df, no_normal_maps=no_normal_maps,
+                           with_prev_pos=True, cone_width=cone_w)
+    m = hit.hit_mask
+    mc = m[:, None]
+    pos = attrs["pos"]
+
+    # reversed-infinite-Z depth from view-space z
+    vpos = _project(view.world_to_view, pos)[..., :3]
+    near = view.view_to_clip[2, 3]
+    depth = torch.where(m, near / torch.clamp(-vpos[..., 2], min=1e-8), 0.0)
+
+    clip_cur = _project(view.world_to_clip, pos)
+    clip_prev = _project(view.world_to_clip_prev, attrs["pos_prev"])
+    ndc_cur = clip_cur[..., :2] / torch.clamp(clip_cur[..., 3:4], min=1e-8)
+    ndc_prev = clip_prev[..., :2] / torch.clamp(clip_prev[..., 3:4], min=1e-8)
+    uv_cur = torch.stack([0.5 + 0.5 * ndc_cur[..., 0],
+                          0.5 - 0.5 * ndc_cur[..., 1]], -1)
+    uv_prev = torch.stack([0.5 + 0.5 * ndc_prev[..., 0],
+                           0.5 - 0.5 * ndc_prev[..., 1]], -1)
+    velocity = torch.where(mc, uv_prev - uv_cur, 0.0)
+
+    def r(x):
+        return x.reshape((height, width) + tuple(x.shape[1:]))
+
+    return {
+        "depth": r(depth),
+        "normal": r(torch.where(mc, attrs["normal"], 0.0)),
+        "geo_normal": r(torch.where(mc, attrs["geo_normal"], 0.0)),
+        "albedo": r(torch.where(mc, attrs["base_color"], 0.0)),
+        "metallic": r(torch.where(m, attrs["metallic"], 0.0)),
+        "roughness": r(torch.where(m, attrs["roughness"], 1.0)),
+        "emissive": r(torch.where(mc, attrs["emissive"], 0.0)),
+        "velocity": r(velocity),
+        "pos": r(torch.where(mc, pos, 0.0)),
+        "hit": r(m),
+        "ray_dir": r(df),
+    }

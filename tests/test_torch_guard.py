@@ -1,0 +1,113 @@
+"""Guards for the PyTorch port: it imports neither JAX nor the JAX package,
+its entry points refuse to slip onto the CPU without being asked, and its
+kernel wrappers never answer a CUDA request with the plain version."""
+import ast
+import os
+
+import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+from kajiya_tpu_torch import convert
+from kajiya_tpu_torch.core import camera
+from kajiya_tpu_torch.frame import RenderConfig, Renderer
+from kajiya_tpu_torch.ops import warp_cuda, woop_cuda
+from kajiya_tpu_torch.scene import procedural, scene
+from kajiya_tpu_torch import world
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SLICE = dict(width=64, height=48, use_rtdgi=False, use_rtr=False,
+             use_ssao=False, use_taa=False, use_ircache=False,
+             use_motion_blur=False)
+
+
+def _port_files():
+    pkg = os.path.join(ROOT, "kajiya_tpu_torch")
+    for dirpath, _, names in os.walk(pkg):
+        for n in names:
+            if n.endswith(".py"):
+                yield os.path.join(dirpath, n)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_no_jax():
+    files = list(_port_files())
+    assert len(files) > 20
+    for path in files:
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "kajiya_tpu"), (path, mod)
+
+
+def _cuda_present():
+    return torch.cuda.is_available()
+
+
+@pytest.mark.parametrize("entry", ["make_view_constants", "build_gpu_scene",
+                                   "build_trace_scene", "Renderer",
+                                   "init_frame_state", "convert"])
+def test_entry_points_raise_without_cuda(entry):
+    if _cuda_present():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    sc = procedural.cornell_box()
+    calls = {
+        "make_view_constants": lambda: camera.make_view_constants(
+            (0, 0, 2.4), (0, 0, -1)),
+        "build_gpu_scene": lambda: scene.build_gpu_scene(sc),
+        "build_trace_scene": lambda: world.build_trace_scene(
+            scene.build_gpu_scene(sc, device="cpu")),
+        "Renderer": lambda: Renderer(sc, RenderConfig(**SLICE)),
+        "init_frame_state": lambda: __import__(
+            "kajiya_tpu_torch.frame", fromlist=["x"]).init_frame_state(
+                RenderConfig(**SLICE)),
+        "convert": lambda: convert.frame_state_from_numpy({}),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+    # and the same call runs when the CPU is asked for explicitly
+    if entry == "make_view_constants":
+        camera.make_view_constants((0, 0, 2.4), (0, 0, -1), device="cpu")
+    if entry == "Renderer":
+        Renderer(sc, RenderConfig(**SLICE), device="cpu")
+
+
+def _fail_plain(*_a, **_k):
+    raise AssertionError("plain version called for a CUDA request")
+
+
+@pytest.mark.parametrize("kernel", ["brute", "culled", "warp"])
+def test_kernel_wrappers_raise_on_cuda_request(kernel, monkeypatch):
+    """CUDA-typed tensors (fake tensors: no card here) must go to the
+    kernel path and raise, never to the plain version."""
+    if _cuda_present():
+        pytest.skip("a CUDA device is present")
+    monkeypatch.setattr(woop_cuda, "brute_plain", _fail_plain)
+    monkeypatch.setattr(woop_cuda, "culled_plain", _fail_plain)
+    monkeypatch.setattr(warp_cuda, "warp_plain", _fail_plain)
+    with FakeTensorMode():
+        dev = torch.device("cuda")
+        org = torch.zeros((512, 3), device=dev)
+        d = torch.ones((512, 3), device=dev)
+        woop = {"a_o": torch.zeros((3 * 256, 4), device=dev),
+                "a_d": torch.zeros((3 * 256, 3), device=dev)}
+        if kernel == "culled":
+            woop.update(cmin=torch.zeros((1, 3), device=dev),
+                        cmax=torch.zeros((1, 3), device=dev),
+                        cmin64=torch.zeros((2, 3), device=dev),
+                        cmax64=torch.zeros((2, 3), device=dev))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            if kernel == "warp":
+                warp_cuda.warp2d(torch.zeros((48, 64, 3), device=dev),
+                                 torch.zeros((48, 64, 2), device=dev))
+            else:
+                woop_cuda.intersect_scene(woop, org, d)

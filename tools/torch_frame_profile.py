@@ -1,0 +1,112 @@
+"""Where a 1080p frame of the PyTorch port spends its time, per scene.
+
+    python3 tools/torch_frame_profile.py [--frames 3]
+
+Renders the raster + sun-shadow slice of `kajiya_tpu_torch` at 1920x1080 on
+the scenes of `chip_smoke.py` (cornell, city), two warm-up frames and then
+`--frames` frames under `torch.profiler` (CPU + CUDA activity). Prints per
+scene: wall ms per frame, the device busy share (summed kernel, copy and set
+time over wall time; the port runs on one stream, so they do not overlap),
+host ms and device span per pass (`core/profiling.py::pass_scope` ranges) and
+the kernels with the most device time. The whole report goes to
+`chiprun_out/torch_frame_profile.json`. Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PASSES = ("sky_env", "gbuffer", "reprojection", "shadow_trace",
+          "shadow_denoise", "sky_ambient", "sky_bg", "deferred", "post")
+
+
+def profile_scene(name, frames):
+    from chip_smoke import HEIGHT, SCENES, WIDTH, slice_cfg, views
+    from kajiya_tpu_torch.frame import Renderer
+    from kajiya_tpu_torch.scene import procedural
+
+    make, eye, fwd, step = SCENES[name]
+    dev = torch.device("cuda", 0)
+    r = Renderer(make(procedural), slice_cfg(WIDTH, HEIGHT), device=dev)
+    vs = views(eye, fwd, step, frames + 2, WIDTH, HEIGHT, dev)
+    for v in vs[:2]:
+        r.draw(v)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for v in vs[2:]:
+            r.draw(v)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / frames
+    cuda = torch.autograd.DeviceType.CUDA
+    per_pass = {p: {"device_ms": 0.0, "host_ms": 0.0} for p in PASSES}
+    kern = {}
+    for e in prof.events():
+        us = e.time_range.elapsed_us()
+        if e.name in PASSES:
+            # a pass is a host range plus, on newer PyTorch, a device range
+            # spanning its kernels (idle gaps between them included)
+            key = "device_ms" if e.device_type == cuda else "host_ms"
+            per_pass[e.name][key] += us / 1e3 / frames
+        elif e.device_type == cuda:
+            n, t = kern.get(e.name, (0, 0.0))
+            kern[e.name] = (n + 1, t + us)
+    busy_ms = sum(t for _, t in kern.values()) / 1e3 / frames
+    top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:15]
+    return {
+        "wall_ms_per_frame": wall_ms,
+        "device_busy_ms_per_frame": busy_ms,
+        "device_busy_share": busy_ms / wall_ms,
+        "kernel_launches_per_frame": sum(n for n, _ in kern.values()) / frames,
+        "passes": per_pass,
+        "top_kernels": [{"name": k[:120], "device_ms": t / 1e3 / frames,
+                         "count_per_frame": n / frames}
+                        for k, (n, t) in top],
+    }
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=3)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_frame_profile: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    import subprocess
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    report = {"card": card, "frames": args.frames}
+    for name in ("cornell", "city"):
+        rep = profile_scene(name, args.frames)
+        report[name] = rep
+        print(f"{name}: wall {rep['wall_ms_per_frame']:.2f} ms/frame, device "
+              f"busy {rep['device_busy_ms_per_frame']:.2f} ms "
+              f"({100 * rep['device_busy_share']:.1f}%), "
+              f"{rep['kernel_launches_per_frame']:.0f} kernels/frame")
+        for p, v in sorted(rep["passes"].items(), key=lambda kv: -kv[1]["device_ms"]):
+            print(f"  {p:15s} device span {v['device_ms']:8.3f} ms  host "
+                  f"{v['host_ms']:8.3f} ms")
+        for k in rep["top_kernels"][:8]:
+            print(f"  {k['device_ms']:8.3f} ms x{k['count_per_frame']:.0f} "
+                  f"{k['name'][:90]}")
+    print(card)
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "torch_frame_profile.json"),
+              "w") as f:
+        json.dump(report, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
