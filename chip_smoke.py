@@ -2,14 +2,16 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from csrc/, holds each kernel against its
-plain PyTorch version on the card at the shapes the 1080p frame gives it
-(timing both with CUDA events), checks the GPU path against the CPU path on
-a small frame, then renders 4 frames at 1920x1080 of the raster + sun-shadow
-slice on the cornell box (32 triangles, brute kernel B) and on the
-196,610-triangle procedural city (culled kernel C), with the launch counters
-set to 0 just before and read just after, and prints one JSON line of
-per-kernel numbers. The last line is
+Builds the port's CUDA kernels from csrc/, holds each kernel (B brute Woop,
+C culled Woop, W image warp, S per-tile shift) against its plain PyTorch
+version on the card at the shapes the 1080p frame gives it (timing both with
+CUDA events), checks the GPU path against the CPU path on a small frame, then
+renders at 1920x1080, on the cornell box (32 triangles, brute kernel B) and
+on the 196,610-triangle procedural city (culled kernel C), 2 frames of the
+raster + sun-shadow path and 4 frames of the diffuse-GI path (SSAO, sorted
+secondary-ray wavefront, ReSTIR temporal + spatial, resolve), with the launch
+counters set to 0 just before each path and read just after, and prints one
+JSON line of per-kernel numbers. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Any failed check raises, so the exit code is not 0 and no result is printed.
 Needs a CUDA device; imports nothing of JAX.
@@ -26,7 +28,7 @@ import time
 import torch
 
 WIDTH, HEIGHT = 1920, 1080
-N_FRAMES = 4
+N_FRAMES = {"raster": 2, "gi": 4}     # frames per scene of each path
 T_TOL = 2e-5          # t agreement where the kernel and plain ids agree
 ID_AGREE = 0.999      # fraction of rays whose triangle ids agree
 WARP_TOL = 1e-6       # warp kernel vs plain sampler, absolute
@@ -39,6 +41,12 @@ WARP_TOL = 1e-6       # warp kernel vs plain sampler, absolute
 # a 15 x 15 neighbourhood.
 FRAME_TOL = (1e-3, 0.97, 5e-4)
 HIT_AGREE = 0.995
+# The GI path adds decisions that one ulp flips (reservoir takes, geometry
+# and occlusion gates, shadow rays at secondary hits); a flipped lane changes
+# its whole payload and the spatial passes, the resolve and the temporal
+# filter spread it. Bounds per output: fraction of pixels within 5e-3, and
+# the mean absolute difference (an H100 run showed >= 0.9986 and <= 2.4e-5).
+GI_FRAME_TOL = (5e-3, 0.97, 1e-3)
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores and HBM3 bandwidth
 PEAK_FP32 = 67e12
@@ -71,12 +79,16 @@ def bound(bytes_moved, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def slice_cfg(width, height):
+def slice_cfg(width, height, path="raster"):
+    """The configuration of a ported path: "raster" (raster + sun shadows)
+    or "gi" (that plus SSAO, RTDGI and ReSTIR GI)."""
     from kajiya_tpu_torch.frame import RenderConfig
 
+    gi = path == "gi"
     return RenderConfig(width=width, height=height, primary="raster",
-                        sun_soft_shadows=True, use_rtdgi=False, use_rtr=False,
-                        use_ssao=False, use_taa=False, use_ircache=False,
+                        sun_soft_shadows=True, use_ssao=gi, use_rtdgi=gi,
+                        use_restir_gi=gi, secondary_full_shading=True,
+                        use_rtr=False, use_taa=False, use_ircache=False,
                         use_motion_blur=False)
 
 
@@ -135,11 +147,11 @@ def compare_hits(name, k_out, p_out, any_hit, live=None):
 
 
 def brute_phase(dev):
-    """Kernel B: cornell, 1080p camera rays (closest) and the slice's sun
-    shadow rays (any-hit)."""
+    """Kernel B: cornell, 1080p camera rays (closest), the sun shadow rays
+    (any-hit) and the half-res GI candidate rays (closest, divergent)."""
     from kajiya_tpu_torch.core.camera import camera_rays
     from kajiya_tpu_torch.ops import woop_cuda as wc
-    from kajiya_tpu_torch.renderers import gbuffer, shadows
+    from kajiya_tpu_torch.renderers import gbuffer, rtdgi, shadows
     from kajiya_tpu_torch.scene import procedural
     from kajiya_tpu_torch.scene.scene import build_gpu_scene
     from kajiya_tpu_torch.world import build_trace_scene
@@ -157,10 +169,14 @@ def brute_phase(dev):
     sorg, sdir, _need = shadows.sun_shadow_rays(ts, gb, 0)
     sorg, sdir = sorg.contiguous(), sdir.contiguous()
     stmax = wc.ray_tmax(sorg, None)
+    corg, cdir, _rng = rtdgi.candidate_rays(rtdgi.half_gbuffer(gb), 0)
+    corg, cdir = corg.contiguous(), cdir.contiguous()
+    ctmax = wc.ray_tmax(corg, None)
     cases = []
     for case, (o, dd, tm, t_min, any_hit) in {
             "primary_closest": (org, d, tmax, 1e-4, False),
-            "shadow_any_hit": (sorg, sdir, stmax, shadows.RAY_EPS, True)}.items():
+            "shadow_any_hit": (sorg, sdir, stmax, shadows.RAY_EPS, True),
+            "gi_candidates_closest": (corg, cdir, ctmax, 1e-4, False)}.items():
         k_out = wc.brute_launch(coef, o, dd, tm, t_min, any_hit)
         p_out = wc.brute_plain(coef, o, dd, tm, t_min)
         torch.cuda.synchronize()
@@ -186,11 +202,15 @@ def brute_phase(dev):
 
 
 def culled_phase(dev):
-    """Kernel C: city, 1080p raster block lists (closest) and beam-culled
-    sun shadow rays (any-hit). The plain version walks the same lists."""
+    """Kernel C: city, 1080p raster block lists (closest), beam-culled sun
+    shadow rays (any-hit) and the half-res GI candidate rays as the frame
+    traces them: key-sorted, in 128-ray chunks, most of them divergent
+    (closest). The plain version walks the same lists. Also times the sort
+    and the beam cull that the sorted wavefront pays before the kernel."""
+    from kajiya_tpu_torch.ops import raysort
     from kajiya_tpu_torch.ops import woop_cuda as wc
     from kajiya_tpu_torch.ops.tiling import tile_order
-    from kajiya_tpu_torch.renderers import gbuffer, raster, shadows
+    from kajiya_tpu_torch.renderers import gbuffer, raster, rtdgi, shadows
     from kajiya_tpu_torch.scene import procedural
     from kajiya_tpu_torch.scene.scene import build_gpu_scene
     from kajiya_tpu_torch.world import build_trace_scene
@@ -201,6 +221,11 @@ def culled_phase(dev):
     view = views(eye, fwd, (0, 0, 0), 1, WIDTH, HEIGHT, dev)[0]
     gb = gbuffer.raster_gbuffer(ts, view, WIDTH, HEIGHT)
     sorg, sdir, _need = shadows.sun_shadow_rays(ts, gb, 0)
+    corg, cdir, _rng = rtdgi.candidate_rays(rtdgi.half_gbuffer(gb), 0)
+    corg0, cdir0 = corg, cdir
+    perm = raysort.sort_permutation(ts.woop, corg0, cdir0)
+    corg, cdir = corg0[perm], cdir0[perm]
+    rb = raysort.SORT_RAY_BLOCK
     batches = {
         "raster_closest": (raster.raster_batch(ts, view, WIDTH, HEIGHT),
                            1e-4, False),
@@ -208,7 +233,22 @@ def culled_phase(dev):
             ts.woop, tile_order(sorg.reshape(HEIGHT, WIDTH, 3)).reshape(-1, 3),
             tile_order(sdir.reshape(HEIGHT, WIDTH, 3)).reshape(-1, 3)),
             shadows.RAY_EPS, True),
+        "gi_sorted_closest": (wc.prepare_culled(ts.woop, corg, cdir, rb=rb),
+                              1e-4, False),
     }
+    overhead = {
+        "sort_ms": time_ms(lambda: raysort.sort_permutation(
+            ts.woop, corg0, cdir0), 5),
+        "cull_ms": time_ms(lambda: wc.prepare_culled(ts.woop, corg, cdir,
+                                                     rb=rb), 5),
+    }
+    b = batches["gi_sorted_closest"][0]
+    nrb = b.n_chunks
+    coherent = wc._chunk_beams(b.org, b.d, b.tmax, nrb, rb)[5]
+    overhead["coherent_chunk_share"] = float(coherent.float().mean())
+    log(f"sorted GI wavefront: {b.n_rays} rays, {nrb} chunks of {rb}, "
+        f"{overhead['coherent_chunk_share']:.3f} coherent; sort "
+        f"{overhead['sort_ms']:.3f} ms, cull {overhead['cull_ms']:.3f} ms")
     cases = []
     for case, (b, t_min, any_hit) in batches.items():
         k_out = wc.culled_launch(b, t_min, any_hit, True)
@@ -216,7 +256,8 @@ def culled_phase(dev):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         p_out = wc.culled_plain(b, t_min, any_hit, True,
-                                chunks_per_step=256, visits=walked)
+                                chunks_per_step=256 * 512 // b.rb,
+                                visits=walked)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         err = compare_hits(f"woop_culled/{case}", k_out, p_out, any_hit)
@@ -229,7 +270,8 @@ def culled_phase(dev):
         bytes_moved = (r * (28 + 16) + b.blist.numel() * 8
                        + b.coef.numel() * 4)
         b_ms, b_by = bound(bytes_moved, ops)
-        cases.append(dict(case=case, rays=r, chunks=b.n_chunks,
+        cases.append(dict(case=case, rays=r, chunks=b.n_chunks, rb=b.rb,
+                          **(overhead if case == "gi_sorted_closest" else {}),
                           mean_listed=float(b.count.float().mean()),
                           mean_walked=float(walked.float().mean()),
                           max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -242,23 +284,29 @@ def culled_phase(dev):
 
 
 def warp_phase(dev):
-    """Kernel W at 1080p: 1-channel nearest (prev depth) and 3-channel
-    bilinear (shadow moments + history length) on a reprojection-like uv
-    field (pixel centers plus a smooth motion of a few pixels)."""
+    """Kernel W at the frame's shapes, on a reprojection-like uv field (pixel
+    centers plus a smooth motion of a few pixels): at 1080p 1-channel nearest
+    (prev depth), 3-channel bilinear (shadow moments + history length) and
+    4-channel bilinear (GI history + length); at half res 13-channel nearest
+    (the ReSTIR temporal fetch of the packed reservoirs)."""
     import torch.nn.functional as F
 
     from kajiya_tpu_torch.core import img as im
     from kajiya_tpu_torch.ops import warp_cuda
 
     g = torch.Generator(device=dev).manual_seed(0)
-    uv = im.pixel_uv(HEIGHT, WIDTH, device=dev)
-    yy, xx = uv[..., 1], uv[..., 0]
-    motion = torch.stack([torch.sin(6.0 * yy + 2.0 * xx),
-                          torch.cos(5.0 * xx - 3.0 * yy)], dim=-1) * 3.0
-    uv = (uv + motion / torch.tensor([WIDTH, HEIGHT], device=dev)).contiguous()
     cases = []
-    for case, c, bilinear in (("nearest_c1", 1, False), ("bilinear_c3", 3, True)):
-        img = torch.rand((HEIGHT, WIDTH, c), generator=g, device=dev)
+    for case, h, w, c, bilinear in (
+            ("nearest_c1", HEIGHT, WIDTH, 1, False),
+            ("bilinear_c3", HEIGHT, WIDTH, 3, True),
+            ("bilinear_c4", HEIGHT, WIDTH, 4, True),
+            ("nearest_c13_half", HEIGHT // 2, WIDTH // 2, 13, False)):
+        uv = im.pixel_uv(h, w, device=dev)
+        yy, xx = uv[..., 1], uv[..., 0]
+        motion = torch.stack([torch.sin(6.0 * yy + 2.0 * xx),
+                              torch.cos(5.0 * xx - 3.0 * yy)], dim=-1) * 3.0
+        uv = (uv + motion / torch.tensor([w, h], device=dev)).contiguous()
+        img = torch.rand((h, w, c), generator=g, device=dev)
         img = img[..., 0].contiguous() if c == 1 else img
         k_out = warp_cuda.warp_launch(img, uv, bilinear)
         p_out = warp_cuda.warp_plain(img, uv, bilinear)
@@ -277,7 +325,7 @@ def warp_phase(dev):
         lib_ms = time_ms(lambda: F.grid_sample(
             src, grid, mode=mode, padding_mode="border", align_corners=False),
             50)
-        n = HEIGHT * WIDTH
+        n = h * w
         bytes_moved = n * 8 + 2 * n * c * 4       # uv + output + image once
         b_ms, b_by = bound(bytes_moved, 0.0)
         cases.append(dict(case=case, pixels=n, channels=c, max_abs_err=err,
@@ -285,6 +333,48 @@ def warp_phase(dev):
                           bound_ms=b_ms, bound_by=b_by))
         log(f"warp/{case}: err {err} kernel {ms:.4f} ms plain {plain_ms:.3f} "
             f"ms grid_sample {lib_ms:.4f} ms bound {b_ms:.5f} ms")
+    return cases
+
+
+def tileshift_phase(dev):
+    """Kernel S: the packed 20-channel half-res reservoir plane with the
+    per-tile tap offsets of a real frame (spatial pass 0, tap 6: the widest
+    radius), and a ragged small plane with offsets beyond the clip range.
+    Pure data movement: the kernel must equal the plain gather bit for bit."""
+    from kajiya_tpu_torch.ops import tileshift_cuda as tsc
+    from kajiya_tpu_torch.renderers import restir_gi
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    hh, hw = HEIGHT // 2, WIDTH // 2
+    dy_s, dx_s = restir_gi.spatial_offsets(hh, hw, 1, 0, dev)
+    nty, ntx = tsc.tile_grid(45, 200)
+    wild = torch.randint(-200, 201, (2, nty * ntx), generator=g, device=dev,
+                         dtype=torch.int32)
+    cases = []
+    for case, shape, dy, dx in (
+            ("restir_plane_c20", (hh, hw, 20), dy_s[6], dx_s[6]),
+            ("ragged_clipped_c20", (45, 200, 20), wild[0], wild[1]),
+            ("ragged_2d", (45, 200), wild[1], wild[0])):
+        img = torch.randn(shape, generator=g, device=dev)
+        k_out = tsc.tile_shift_launch(img, dy, dx)
+        p_out = tsc.tile_shift_plain(img, dy, dx)
+        torch.cuda.synchronize()
+        err = float((k_out - p_out).abs().max())
+        if err != 0.0 or not torch.equal(k_out, p_out):
+            raise AssertionError(f"tile_shift/{case}: differs from the plain "
+                                 f"gather, max error {err}")
+        if case != "restir_plane_c20":
+            continue        # the small shapes are checks, not frame calls
+        if int(dy.abs().max()) == 0 and int(dx.abs().max()) == 0:
+            raise AssertionError("tile_shift: the frame's offsets are all 0")
+        ms = time_ms(lambda: tsc.tile_shift_launch(img, dy, dx), 50)
+        plain_ms = time_ms(lambda: tsc.tile_shift_plain(img, dy, dx), 10)
+        b_ms, b_by = bound(2 * img.numel() * 4 + 2 * dy.numel() * 4, 0.0)
+        cases.append(dict(case=case, shape=list(shape), max_abs_err=err,
+                          ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by))
+        log(f"tile_shift/{case}: err {err} kernel {ms:.4f} ms plain "
+            f"{plain_ms:.3f} ms bound {b_ms:.5f} ms ({b_by})")
     return cases
 
 
@@ -303,57 +393,86 @@ def draw_checked(r, view, name):
 
 def reference_phase(dev):
     """The GPU path (kernels) against the CPU path (plain versions) on a
-    small frame of each scene: three frames at 64x48 from the same views."""
+    small frame of each scene, for both ported paths: three frames (four on
+    the GI path, so that frame 3 validates live reservoirs) at 64x48 from
+    the same views."""
     from kajiya_tpu_torch.frame import Renderer
     from kajiya_tpu_torch.scene import procedural
 
     w, h = 64, 48
-    cfg = slice_cfg(w, h)
     worst = {}
-    for name, (make, eye, fwd, step) in SCENES.items():
-        if name == "city":
-            make = lambda p: p.city(n=4, subdiv=8)      # noqa: E731
-            eye, fwd, step = (0.0, 8.0, 14.0), (0.0, -0.45, -1.0), step
-        outs = {}
-        for d in (dev, torch.device("cpu")):
-            r = Renderer(make(procedural), cfg, device=d)
-            for v in views(eye, fwd, step, 3, w, h, d):
-                o = draw_checked(r, v, name)
-            outs[d.type] = o
-        same = float((outs["cuda"]["gbuffer"]["hit"].cpu()
-                      == outs["cpu"]["gbuffer"]["hit"]).float().mean())
-        if same < HIT_AGREE:
-            raise AssertionError(f"{name}: GPU vs CPU hit masks agree on "
-                                 f"{same}")
-        for k in ("final", "lit", "shadow"):
-            a, b = outs["cuda"][k].cpu(), outs["cpu"][k]
-            diff = (a - b).abs()
-            frac = float((diff <= FRAME_TOL[0]).float().mean())
-            mean = float(diff.mean())
-            if not bool(torch.isfinite(a).all()) or frac < FRAME_TOL[1] \
-                    or mean > FRAME_TOL[2]:
-                raise AssertionError(f"{name}/{k}: GPU vs CPU frac {frac} "
-                                     f"mean {mean}")
-            worst[f"{name}/{k}"] = (frac, mean)
-    log("GPU vs CPU small frames (fraction within 1e-3, mean abs diff):", worst)
+    for path, keys, (tol, min_frac, max_mean) in (
+            ("raster", ("final", "lit", "shadow"), FRAME_TOL),
+            ("gi", ("final", "lit", "diffuse_gi", "ssao"), GI_FRAME_TOL)):
+        cfg = slice_cfg(w, h, path)
+        for name, (make, eye, fwd, step) in SCENES.items():
+            if name == "city":
+                make = lambda p: p.city(n=4, subdiv=8)      # noqa: E731
+                eye, fwd = (0.0, 8.0, 14.0), (0.0, -0.45, -1.0)
+            outs = {}
+            for d in (dev, torch.device("cpu")):
+                r = Renderer(make(procedural), cfg, device=d)
+                n = 4 if path == "gi" else 3
+                for v in views(eye, fwd, step, n, w, h, d):
+                    o = draw_checked(r, v, name)
+                outs[d.type] = o
+            same = float((outs["cuda"]["gbuffer"]["hit"].cpu()
+                          == outs["cpu"]["gbuffer"]["hit"]).float().mean())
+            if same < HIT_AGREE:
+                raise AssertionError(f"{path}/{name}: GPU vs CPU hit masks "
+                                     f"agree on {same}")
+            for k in keys:
+                a, b = outs["cuda"][k].cpu(), outs["cpu"][k]
+                diff = (a - b).abs()
+                frac = float((diff <= tol).float().mean())
+                mean = float(diff.mean())
+                worst[f"{path}/{name}/{k}"] = (frac, mean)
+                if not bool(torch.isfinite(a).all()) or frac < min_frac \
+                        or mean > max_mean:
+                    raise AssertionError(f"{path}/{name}/{k}: GPU vs CPU "
+                                         f"frac {frac} mean {mean}")
+    log("GPU vs CPU small frames (fraction within tolerance, mean abs "
+        "diff):", worst)
     return worst
 
 
-def frame_phase(dev):
-    """4 frames at 1920x1080 per scene through Renderer.draw, counters set
-    to 0 just before and read just after each scene's frames."""
+def expected_launches(path, name, n_frames):
+    """Kernel launches of `n_frames` frames from a fresh state (frame index
+    0 onwards). Per frame, the traces go through B (cornell) or C (city):
+    primaries + sun shadows; on the GI path also the candidate rays, their
+    sun-NEE and light-NEE shadow rays and, on every third frame, the
+    validation rays + their sun-NEE. W: prev depth + shadow moments; on the
+    GI path also the SSAO history, the ReSTIR temporal fetch, the occlusion
+    march of spatial pass 1 (4 taps x 2 samples) and the GI history. S: the
+    7 + 4 taps of the two ReSTIR spatial passes."""
+    gi = path == "gi"
+    validations = len(range(0, n_frames, 3)) if gi else 0
+    traces = (5 if gi else 2) * n_frames + 2 * validations
+    return {"woop_brute": traces if name == "cornell" else 0,
+            "woop_culled": traces if name == "city" else 0,
+            "warp": (13 if gi else 2) * n_frames,
+            "tile_shift": 11 * n_frames if gi else 0}
+
+
+def frame_phase(dev, path):
+    """Frames at 1920x1080 per scene through Renderer.draw on one ported
+    path, counters set to 0 just before and read just after each scene's
+    frames."""
     from kajiya_tpu_torch.frame import Renderer
     from kajiya_tpu_torch.ops import _native
     from kajiya_tpu_torch.scene import procedural
 
-    cfg = slice_cfg(WIDTH, HEIGHT)
+    cfg = slice_cfg(WIDTH, HEIGHT, path)
+    n_frames = N_FRAMES[path]
+    keys = ("final", "lit", "shadow") + (("diffuse_gi", "ssao")
+                                         if path == "gi" else ())
     result = {}
     for name, (make, eye, fwd, step) in SCENES.items():
         t0 = time.perf_counter()
         r = Renderer(make(procedural), cfg, device=dev)
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
-        vs = views(eye, fwd, step, N_FRAMES, WIDTH, HEIGHT, dev)
+        vs = views(eye, fwd, step, n_frames, WIDTH, HEIGHT, dev)
         _native.reset_launches()
         times = []
         for v in vs:
@@ -365,32 +484,42 @@ def frame_phase(dev):
         final = out["final"]
         if tuple(final.shape) != (HEIGHT, WIDTH, 3):
             raise AssertionError(f"{name}: final shape {tuple(final.shape)}")
-        for k in ("final", "lit", "shadow"):
+        for k in keys:
             if not bool(torch.isfinite(out[k]).all()):
-                raise AssertionError(f"{name}: non-finite {k}")
+                raise AssertionError(f"{path}/{name}: non-finite {k}")
         mean = float(final.mean())
         if mean <= 0.01:
-            raise AssertionError(f"{name}: final mean {mean}")
-        # per frame: primaries + sun shadows through B (cornell) or C (city);
-        # prev depth (nearest) + moments/history (bilinear) through W
-        want = {"woop_brute": 2 * N_FRAMES if name == "cornell" else 0,
-                "woop_culled": 2 * N_FRAMES if name == "city" else 0,
-                "warp": 2 * N_FRAMES}
+            raise AssertionError(f"{path}/{name}: final mean {mean}")
+        extra = {}
+        if path == "gi":
+            gi_mean = float(out["diffuse_gi"].mean())
+            m_max = float(r.state["gi_res_M"].max())
+            if gi_mean <= 1e-3 or float(out["diffuse_gi"].min()) < 0.0:
+                raise AssertionError(f"{name}: diffuse GI mean {gi_mean}")
+            if m_max <= 1.0:
+                raise AssertionError(f"{name}: reservoirs never merged "
+                                     f"(max M {m_max})")
+            extra = dict(gi_mean=gi_mean, reservoir_m_max=m_max,
+                         ssao_mean=float(out["ssao"].mean()))
+        want = expected_launches(path, name, n_frames)
         if counts != want:
-            raise AssertionError(f"{name}: launches {counts}, expected {want}")
+            raise AssertionError(f"{path}/{name}: launches {counts}, "
+                                 f"expected {want}")
         result[name] = dict(frame_ms=times, median_ms=statistics.median(times),
                             launches=counts, final_mean=mean,
                             tris=int(r.gpu.num_triangles), setup_s=setup_s,
-                            hit_frac=float(out["gbuffer"]["hit"].float().mean()))
-        log(f"frame {name}: {int(r.gpu.num_triangles)} tris, setup "
+                            hit_frac=float(out["gbuffer"]["hit"].float().mean()),
+                            **extra)
+        log(f"frame {path}/{name}: {int(r.gpu.num_triangles)} tris, setup "
             f"{setup_s:.1f} s, frame ms {[round(t, 2) for t in times]}, "
-            f"launches {counts}, final mean {mean:.4f}")
+            f"launches {counts}, final mean {mean:.4f} {extra}")
     return result
 
 
 def kernel_entry(name, source, replaces, cases, launches, library):
-    """One JSON entry per kernel: the per-frame sum over its cases (the
-    calls one frame makes), worst error over cases."""
+    """One JSON entry per kernel: the sum over its cases (one launch at each
+    shape the frame gives it), the worst error over cases, and the launches
+    of the main paths' runs summed over paths and scenes."""
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches,
@@ -407,6 +536,7 @@ def main():
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device")
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, REPO)
     from kajiya_tpu_torch.ops import _native
     smi = subprocess.run(
@@ -424,29 +554,43 @@ def main():
     brute = brute_phase(dev)
     culled = culled_phase(dev)
     warp = warp_phase(dev)
+    tileshift = tileshift_phase(dev)
     reference_phase(dev)
-    frames = frame_phase(dev)
+    frames = {path: frame_phase(dev, path) for path in N_FRAMES}
+
+    def launched(kernel):
+        n = sum(frames[p][sc]["launches"][kernel]
+                for p in frames for sc in frames[p])
+        if n <= 0:
+            raise AssertionError(f"{kernel} was never launched by a frame")
+        return n
 
     kernels = [
         kernel_entry("woop_brute", "kajiya_tpu_torch/csrc/woop.cu",
                      "kajiya_tpu/ops/woop_pallas.py:31", brute,
-                     frames["cornell"]["launches"]["woop_brute"], False),
+                     launched("woop_brute"), False),
         kernel_entry("woop_culled", "kajiya_tpu_torch/csrc/woop.cu",
                      "kajiya_tpu/ops/woop_pallas.py:243", culled,
-                     frames["city"]["launches"]["woop_culled"], False),
+                     launched("woop_culled"), False),
         kernel_entry("warp", "kajiya_tpu_torch/csrc/warp.cu",
                      "kajiya_tpu/ops/warp_pallas.py:57", warp,
-                     frames["cornell"]["launches"]["warp"]
-                     + frames["city"]["launches"]["warp"], True),
+                     launched("warp"), True),
+        kernel_entry("tile_shift", "kajiya_tpu_torch/csrc/tileshift.cu",
+                     "kajiya_tpu/ops/tileshift_pallas.py:41", tileshift,
+                     launched("tile_shift"), False),
     ]
+    wall_s = time.perf_counter() - t_start
+    log(f"chip_smoke wall time {wall_s:.1f} s")
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kernels": kernels, "frames": frames}, f,
-                  indent=1)
-    print(json.dumps({"frames": {k: {"median_ms": v["median_ms"],
-                                     "frame_ms": v["frame_ms"],
-                                     "tris": v["tris"]}
-                                 for k, v in frames.items()}}), flush=True)
+        json.dump({"card": card, "wall_s": wall_s, "kernels": kernels,
+                   "frames": frames}, f, indent=1)
+    print(json.dumps({"frames": {
+        path: {k: {"median_ms": v["median_ms"], "frame_ms": v["frame_ms"],
+                   "tris": v["tris"], "launches": v["launches"]}
+               for k, v in per_scene.items()}
+        for path, per_scene in frames.items()}, "wall_s": wall_s}),
+        flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

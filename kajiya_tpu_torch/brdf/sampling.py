@@ -24,6 +24,16 @@ def to_world(n, v_local):
             + n * v_local[..., 2:3])
 
 
+def cosine_hemisphere(u1, u2):
+    """Cosine-weighted hemisphere sample in local space (+Z up). pdf = cos/pi."""
+    r = torch.sqrt(u1)
+    phi = 2.0 * math.pi * u2
+    x = r * torch.cos(phi)
+    y = r * torch.sin(phi)
+    z = torch.sqrt(torch.clamp(1.0 - u1, min=0.0))
+    return torch.stack([x, y, z], dim=-1)
+
+
 def uniform_cone(u1, u2, cos_theta_max):
     """Uniform direction in a cone around +Z."""
     cos_t = 1.0 - u1 * (1.0 - cos_theta_max)
@@ -31,3 +41,24 @@ def uniform_cone(u1, u2, cos_theta_max):
     phi = 2.0 * math.pi * u2
     return torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi),
                         cos_t], dim=-1)
+
+
+def uniform_sphere(u1, u2):
+    z = 1.0 - 2.0 * u1
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = 2.0 * math.pi * u2
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def uniform_triangle(u1, u2):
+    """Uniform barycentrics on a triangle (sqrt parameterization)."""
+    su = torch.sqrt(u1)
+    b1 = 1.0 - su
+    b2 = u2 * su
+    return b1, b2
+
+
+def power_heuristic(pdf_a, pdf_b):
+    """MIS power heuristic (beta=2) weight for strategy a."""
+    a2 = pdf_a * pdf_a
+    return a2 / torch.clamp(a2 + pdf_b * pdf_b, min=1e-20)

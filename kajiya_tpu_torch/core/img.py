@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from ..device import const_tensor
+
 
 def _gather2d(img, iy, ix):
     """img[(iy, ix)] with clamped integer indices."""
@@ -67,8 +69,9 @@ def warp_bilinear(img, uv):
     return warp2d(img, uv, bilinear=True)
 
 
-def warp_nearest(img, uv):
-    """Nearest-sample twin of `warp_bilinear`."""
+def warp_nearest(img, uv, window_rows=None):
+    """Nearest-sample twin of `warp_bilinear`. `window_rows` (the height of
+    the TPU kernel's source window) is accepted and has no meaning here."""
     from ..ops.warp_cuda import warp2d
 
     return warp2d(img, uv, bilinear=False)
@@ -102,6 +105,29 @@ def decimate2(img):
 
 def downsample_nearest(img):
     return decimate2(img)
+
+
+def phase_extract(img, py: int, px: int):
+    """img[py::2, px::2] (even extent)."""
+    h, w = img.shape[0] // 2 * 2, img.shape[1] // 2 * 2
+    return img[py:h:2, px:w:2]
+
+
+def phase_split(x):
+    """(H, W[, C]) -> nested [[p00, p01], [p10, p11]] half-res phase planes
+    (p[py][px][i, j] = x[2i+py, 2j+px])."""
+    return [[phase_extract(x, py, px) for px in (0, 1)] for py in (0, 1)]
+
+
+def weave2x2(ph):
+    """Inverse of phase_split: out[2i+py, 2j+px] = ph[py][px][i, j]."""
+    p00 = ph[0][0]
+    hh, hw = p00.shape[0], p00.shape[1]
+    out = p00.new_empty((2 * hh, 2 * hw) + tuple(p00.shape[2:]))
+    for py in (0, 1):
+        for px in (0, 1):
+            out[py::2, px::2] = ph[py][px]
+    return out
 
 
 def upsample_bilinear(img, out_h: int, out_w: int):
@@ -151,7 +177,7 @@ def shift2d(img, dy: int, dx: int):
 def separable_blur(img, taps):
     """Separable odd-length blur with static weights."""
     r = len(taps) // 2
-    wt = torch.as_tensor(taps, dtype=img.dtype, device=img.device).reshape(
+    wt = const_tensor(tuple(taps), img.device, img.dtype).reshape(
         (-1,) + (1,) * img.ndim)
     sx = shift_stack(img, [(0, i - r) for i in range(len(taps))])
     acc = torch.sum(sx * wt, dim=0)
@@ -191,3 +217,8 @@ def local_moments_3x3(img):
     m1 = s.mean(dim=0)
     m2 = (s * s).mean(dim=0)
     return m1, torch.clamp(m2 - m1 * m1, min=0.0)
+
+
+def minmax_3x3(img):
+    s = shift_stack(img, OFF3X3)
+    return s.amin(dim=0), s.amax(dim=0)

@@ -2,8 +2,14 @@
 
 `pass_scope(name)` is `torch.profiler.record_function`: each pass shows up as
 a named range in a `torch.profiler` trace, with the device time of the
-kernels it launched. Outside a profiler it adds only a small host cost
-per pass (nine ranges per frame).
+kernels it launched. Outside a profiler it adds only a small host cost per
+range. The frame's ranges: `sky_env`, `gbuffer`, `reprojection`, `ssao`,
+`shadow_trace`, `shadow_denoise`, `gi_validate`, `gi_trace` (with `trace`
+and `shade` inside, and `attrs`, `sun_nee`, `light_nee`, `ambient`,
+`screen_reuse` inside each hit-lighting call), `rtdgi` (with `restir` >
+`spatial0` / `spatial1`, `resolve`, `temporal` inside), `sky_ambient`,
+`sky_refl`, `sky_bg`, `deferred`, `post`; `tools/torch_frame_profile.py`
+reports them.
 """
 from __future__ import annotations
 

@@ -55,6 +55,17 @@ def pixel_rng(px_x, px_y, frame_idx, stream: int = 0):
     return hash_combine(hash3(px_x, px_y, frame_idx), (0x85EBCA6B + stream) & MASK)
 
 
+def next_rng(rng):
+    """Advance a seed lattice one step."""
+    return pcg_hash(rng)
+
+
+def rand_u01(rng):
+    """Draw one float in [0,1) and return (value, advanced rng)."""
+    rng2 = next_rng(rng)
+    return u01(rng2), rng2
+
+
 def radical_inverse(n: int, base: int) -> float:
     val, inv_b, f = 0.0, 1.0 / base, 1.0 / base
     while n > 0:

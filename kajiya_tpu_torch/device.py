@@ -7,6 +7,8 @@ the caller asks for it with `device="cpu"` (as the CPU parity tests do).
 """
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 
 
@@ -17,3 +19,16 @@ def resolve_device(device=None) -> torch.device:
             "kajiya_tpu_torch: no CUDA device is available; pass "
             "device='cpu' to run the plain PyTorch path on the CPU")
     return dev
+
+
+@lru_cache(maxsize=256)
+def _const(values, dtype, device):
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def const_tensor(values, device, dtype=torch.float32) -> torch.Tensor:
+    """A small constant tensor, built once per (values, dtype, device) and
+    reused: building it anew on every call would be a host-to-device copy
+    per pass per frame. `values` is a (nested) tuple of numbers. Callers
+    must not write into the result."""
+    return _const(values, dtype, torch.device(device))

@@ -2,12 +2,14 @@
 
     state', outputs = render_frame(trace_scene, state, view, cfg)
 
-This slice renders the raster + sun-shadow frame: raster gbuffer ->
-reprojection -> sun shadow trace + denoise -> deferred lighting with SH9 sky
-ambient and sky reflections -> exposure + post. SSAO, the irradiance cache,
-ReSTIR GI, RTR, TAA and motion blur are not ported yet: `render_frame`
-raises NotImplementedError when the config asks for them, naming the
-ROADMAP step that brings them. Their state planes are still created by
+The port renders: raster gbuffer -> reprojection -> SSAO -> sun shadow trace
++ denoise -> the shared secondary-ray wavefront (every-third-frame reservoir
+validation, GI candidate trace + hit lighting) -> diffuse GI (ReSTIR
+temporal + spatial reservoirs, resolve, temporal filter) -> deferred
+lighting with sky reflections -> exposure + post. The irradiance cache, RTR,
+TAA and motion blur are not ported yet: `render_frame` raises
+NotImplementedError when the config asks for them, naming the ROADMAP step
+that brings them. Their state planes are still created by
 `init_frame_state` and passed through unchanged, so the state dict matches
 the JAX one key for key.
 
@@ -26,7 +28,10 @@ from .core import rng as rng_mod
 from .core.camera import ViewConstants
 from .core.profiling import pass_scope
 from .device import resolve_device
-from .renderers import deferred, gbuffer, post, reprojection, shadows
+from .renderers import (deferred, gbuffer, post, reprojection, restir_gi,
+                        rtdgi, shadows, ssgi)
+from .renderers.hit_lighting import hit_radiance
+from .rt.trace import scene_trace_closest
 from .sky import env as sky_env_mod
 from .sky.atmosphere import sky_radiance
 from .world import build_trace_scene, refresh_trace_scene
@@ -107,7 +112,6 @@ class RenderConfig:
 def check_supported(cfg: RenderConfig, ircache_lookup=None, ibl_env=None):
     """Raise NotImplementedError for any pass this slice does not port."""
     missing = [
-        (cfg.use_ssao, "use_ssao (SSAO, ROADMAP section 1, step 5)"),
         (cfg.use_taa, "use_taa (TAA, ROADMAP section 1, step 5)"),
         (cfg.temporal_upsampling != 1.0,
          "temporal_upsampling (TAA super-res, ROADMAP section 1, step 5)"),
@@ -115,7 +119,6 @@ def check_supported(cfg: RenderConfig, ircache_lookup=None, ibl_env=None):
          "use_motion_blur (motion blur, ROADMAP section 1, step 5)"),
         (cfg.use_ircache or ircache_lookup is not None,
          "use_ircache (irradiance cache, ROADMAP section 1, step 6)"),
-        (cfg.use_rtdgi, "use_rtdgi (diffuse GI, ROADMAP section 1, step 7)"),
         (cfg.use_rtr, "use_rtr (reflections, ROADMAP section 1, step 8)"),
         (cfg.use_wrc, "use_wrc (world radiance cache, ROADMAP section 1, "
                       "step 10)"),
@@ -160,9 +163,8 @@ def init_frame_state(cfg: RenderConfig, device=None):
         "prev_lit": z(h, w, 3),
     }
     state.update(shadows.init_state(h, w, device=dev))
-    state["ssao_history"] = torch.ones((h, w), dtype=torch.float32,
-                                       device=dev)
-    state.update(rtdgi_history=z(h, w, 3), rtdgi_hist_len=z(h, w))
+    state.update(ssgi.init_state(h, w, device=dev))
+    state.update(rtdgi.init_state(h, w, device=dev))
     state.update(
         rtr_history=z(h, w, 3), rtr_hist_len=z(h, w), rtr_ray_len=z(h, w),
         rtr_res_radiance=z(hh, hw, 3), rtr_res_dir=z(hh, hw, 3),
@@ -180,10 +182,7 @@ def init_frame_state(cfg: RenderConfig, device=None):
             ircache_valid=z(e, dtype=torch.bool),
             ircache_ray_dir=z(e, s, 3), ircache_ray_rad=z(e, s, 3))
     if cfg.use_rtdgi and cfg.use_restir_gi:
-        state.update(
-            gi_res_payload_radiance=z(hh, hw, 3), gi_res_payload_hit=z(hh, hw, 3),
-            gi_res_payload_hitn=z(hh, hw, 3), gi_res_w_sum=z(hh, hw),
-            gi_res_M=z(hh, hw), gi_res_W=z(hh, hw), gi_res_p_hat=z(hh, hw))
+        state.update(restir_gi.init_state(h, w, device=dev))
     if cfg.use_wrc:
         n = cfg.wrc.grid[0] * cfg.wrc.grid[1] * cfg.wrc.grid[2]
         r = cfg.wrc.probe_res
@@ -235,8 +234,16 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
         reproj = reprojection.calculate_reprojection_map(
             gb, state["prev_depth"], view, near=cfg.near)
 
-    ao = torch.ones((h, w), dtype=torch.float32, device=gb["depth"].device)
-    ssgi_state = {"ssao_history": state["ssao_history"]}
+    if cfg.use_ssao:
+        with pass_scope("ssao"):
+            ao, ssgi_state = ssgi.ssao_pipeline(
+                gb, view, frame_idx,
+                {"ssao_history": state["ssao_history"]}, reproj,
+                near=cfg.near)
+    else:
+        ao = torch.ones((h, w), dtype=torch.float32,
+                        device=gb["depth"].device)
+        ssgi_state = {"ssao_history": state["ssao_history"]}
 
     if cfg.sun_soft_shadows:
         with pass_scope("shadow_trace"):
@@ -251,14 +258,88 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
         shadow_state = {"moments": state["moments"],
                         "history_len": state["history_len"]}
 
-    with pass_scope("sky_ambient"):
-        dgi = sky_env_mod.sample_env(diffuse_env, gb["normal"].reshape(-1, 3)
-                                     ).reshape(h, w, 3) * ao[..., None]
+    # --- shared secondary-ray wavefront: the rays of every GI pass are
+    # concatenated into single trace + shade calls (GI rays first; the
+    # reflection rays append here once RTR is ported)
+    restir_state = {k: v for k, v in state.items()
+                    if k.startswith("gi_res_")}
+    rtdgi_candidates = None
+    gi_invalidity = None
+    use_gi_restir = cfg.use_rtdgi and cfg.use_restir_gi
+    if cfg.use_rtdgi:
+        # screen-space radiance reuse reads a decimated copy of last
+        # frame's lit image: halve only while the source stays >= ~480 px
+        # wide (4x at production resolutions, none for tiny test frames)
+        prev_lit_q, prev_depth_q = state["prev_lit"], state["prev_depth"]
+        while prev_lit_q.shape[1] >= 960:
+            prev_lit_q = im.downsample_2x(prev_lit_q)
+            prev_depth_q = im.downsample_nearest(prev_depth_q)
+        shade_kw = dict(prev_lit=prev_lit_q, prev_depth=prev_depth_q,
+                        view=view, ircache_lookup=ircache_lookup,
+                        max_trace_steps=cfg.max_trace_steps,
+                        full_shading=cfg.secondary_full_shading)
+        gb_h = rtdgi.half_gbuffer(gb)
+
+        # ---- batched validation of the stored reservoir rays, every third
+        # frame: the one host read of the frame index in a frame
+        if use_gi_restir:
+            with pass_scope("gi_validate"):
+                if int(frame_idx) % restir_gi.VALIDATE_PERIOD == 0:
+                    org, d, ctx = restir_gi.validation_rays(restir_state,
+                                                            gb_h)
+                    hit = scene_trace_closest(
+                        ts, org, d, t_min=1e-4,
+                        max_steps=cfg.max_trace_steps, sort=True)
+                    fresh = hit_radiance(ts, hit, d, sky_env, diffuse_env,
+                                         **shade_kw)
+                    restir_state, gi_invalidity = restir_gi.apply_validation(
+                        restir_state, ctx, hit.t, fresh)
+                else:
+                    gi_invalidity = torch.zeros_like(gb_h["depth"])
+
+        # ---- batched candidate trace + shade
+        with pass_scope("gi_trace"):
+            org, wi, rng = rtdgi.candidate_rays(gb_h, frame_idx)
+            with pass_scope("trace"):
+                hit = scene_trace_closest(ts, org, wi, t_min=1e-4,
+                                          max_steps=cfg.max_trace_steps,
+                                          sort=True)
+            with pass_scope("shade"):
+                rad, aux = hit_radiance(ts, hit, wi, sky_env, diffuse_env,
+                                        rng=rng, return_aux=True, **shade_kw)
+            rtdgi_candidates = rtdgi.finish_candidates(
+                gb_h, org, wi, hit.hit_mask, hit.t, rad, aux)
+
+    # --- diffuse GI
+    if cfg.use_rtdgi:
+        with pass_scope("rtdgi"):
+            dgi, rtdgi_state, restir_state, _ = rtdgi.rtdgi_pipeline(
+                ts, gb, view, frame_idx,
+                {"rtdgi_history": state["rtdgi_history"],
+                 "rtdgi_hist_len": state["rtdgi_hist_len"]},
+                reproj, sky_env, diffuse_env, ssao=ao,
+                prev_lit=state["prev_lit"], prev_depth=state["prev_depth"],
+                ircache_lookup=ircache_lookup,
+                max_trace_steps=cfg.max_trace_steps,
+                use_restir=cfg.use_restir_gi,
+                restir_state=restir_state if cfg.use_restir_gi else None,
+                secondary_full_shading=cfg.secondary_full_shading,
+                candidates=rtdgi_candidates, invalidity=gi_invalidity,
+                validated=True)
+            restir_state = restir_state or {}
+    else:
+        with pass_scope("sky_ambient"):
+            dgi = sky_env_mod.sample_env(
+                diffuse_env, gb["normal"].reshape(-1, 3)
+            ).reshape(h, w, 3) * ao[..., None]
+        rtdgi_state = {"rtdgi_history": state["rtdgi_history"],
+                       "rtdgi_hist_len": state["rtdgi_hist_len"]}
+
+    # --- reflections: the sky along the mirror direction until RTR is ported
+    with pass_scope("sky_refl"):
         refl = sky_env_mod.sample_env(
             sky_env, _reflect(gb["ray_dir"], gb["normal"]).reshape(-1, 3)
         ).reshape(h, w, 3)
-    rtdgi_state = {"rtdgi_history": state["rtdgi_history"],
-                   "rtdgi_hist_len": state["rtdgi_hist_len"]}
     rtr_state = {k: state[k] for k in _RTR_KEYS}
 
     # background sky at quarter res, upsampled (it is smooth)
@@ -289,14 +370,14 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
         final = post.post_combine(aa, exposure / pre_mult)
 
     passthrough = {k: v for k, v in state.items()
-                   if k.startswith(("ircache_", "gi_res_", "wrc_"))}
+                   if k.startswith(("ircache_", "wrc_"))}
     new_state = {
         "frame_idx": frame_idx + 1,
         "prev_depth": gb["depth"],
         "prev_lit": lit,
         "pre_mult": pre_mult,
         **shadow_state, **ssgi_state, **rtdgi_state, **rtr_state,
-        **taa_state, **exp_state, **passthrough,
+        **taa_state, **exp_state, **passthrough, **restir_state,
     }
     outputs = {
         "final": final, "lit": lit, "gbuffer": gb, "shadow": shadow,

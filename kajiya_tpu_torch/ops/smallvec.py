@@ -57,3 +57,11 @@ def cross(a, b):
     return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
                         a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
                         a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
+
+
+def pow8(x):
+    """x ** 8 by three squarings (the order XLA's integer power takes, so
+    the weights built from it round as the JAX ones do)."""
+    x2 = x * x
+    x4 = x2 * x2
+    return x4 * x4

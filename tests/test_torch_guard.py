@@ -11,7 +11,8 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from kajiya_tpu_torch import convert
 from kajiya_tpu_torch.core import camera
 from kajiya_tpu_torch.frame import RenderConfig, Renderer
-from kajiya_tpu_torch.ops import warp_cuda, woop_cuda
+from kajiya_tpu_torch.ops import (_native, tileshift_cuda, warp_cuda,
+                                  woop_cuda)
 from kajiya_tpu_torch.scene import procedural, scene
 from kajiya_tpu_torch import world
 
@@ -43,6 +44,13 @@ def _imported_modules(path):
 def test_port_imports_no_jax():
     files = list(_port_files())
     assert len(files) > 20
+    names = {os.path.relpath(f, ROOT) for f in files}
+    for new in ("ops/raysort.py", "ops/reservoir.py", "ops/tileshift_cuda.py",
+                "renderers/lights.py", "renderers/hit_lighting.py",
+                "renderers/ssgi.py", "renderers/rtdgi.py",
+                "renderers/restir_gi.py"):
+        assert os.path.join("kajiya_tpu_torch", new) in names, new
+    assert "chip_smoke.py" in names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -85,7 +93,21 @@ def _fail_plain(*_a, **_k):
     raise AssertionError("plain version called for a CUDA request")
 
 
-@pytest.mark.parametrize("kernel", ["brute", "culled", "warp"])
+def test_native_sources_name_every_kernel_file():
+    """Every .cu under csrc/ is built, every built kernel has a launch
+    counter and a C signature."""
+    on_disk = sorted(n for n in os.listdir(_native.CSRC) if n.endswith(".cu"))
+    assert sorted(_native.SOURCES) == on_disk
+    assert set(_native.launches) == {"woop_brute", "woop_culled", "warp",
+                                     "tile_shift"}
+    assert set(_native._SIGNATURES) == {"kt_woop_brute", "kt_woop_culled",
+                                        "kt_warp", "kt_tile_shift"}
+    for name in _native._SIGNATURES:
+        assert any(name in open(os.path.join(_native.CSRC, f)).read()
+                   for f in on_disk), name
+
+
+@pytest.mark.parametrize("kernel", ["brute", "culled", "warp", "tile_shift"])
 def test_kernel_wrappers_raise_on_cuda_request(kernel, monkeypatch):
     """CUDA-typed tensors (fake tensors: no card here) must go to the
     kernel path and raise, never to the plain version."""
@@ -94,6 +116,7 @@ def test_kernel_wrappers_raise_on_cuda_request(kernel, monkeypatch):
     monkeypatch.setattr(woop_cuda, "brute_plain", _fail_plain)
     monkeypatch.setattr(woop_cuda, "culled_plain", _fail_plain)
     monkeypatch.setattr(warp_cuda, "warp_plain", _fail_plain)
+    monkeypatch.setattr(tileshift_cuda, "tile_shift_plain", _fail_plain)
     with FakeTensorMode():
         dev = torch.device("cuda")
         org = torch.zeros((512, 3), device=dev)
@@ -109,5 +132,9 @@ def test_kernel_wrappers_raise_on_cuda_request(kernel, monkeypatch):
             if kernel == "warp":
                 warp_cuda.warp2d(torch.zeros((48, 64, 3), device=dev),
                                  torch.zeros((48, 64, 2), device=dev))
+            elif kernel == "tile_shift":
+                off = torch.zeros((6,), dtype=torch.int32, device=dev)
+                tileshift_cuda.tile_shift(
+                    torch.zeros((48, 64, 20), device=dev), off, off)
             else:
                 woop_cuda.intersect_scene(woop, org, d)

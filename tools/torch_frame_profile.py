@@ -1,15 +1,18 @@
 """Where a 1080p frame of the PyTorch port spends its time, per scene.
 
-    python3 tools/torch_frame_profile.py [--frames 3]
+    python3 tools/torch_frame_profile.py [--frames 3] [--path raster|gi]
 
-Renders the raster + sun-shadow slice of `kajiya_tpu_torch` at 1920x1080 on
-the scenes of `chip_smoke.py` (cornell, city), two warm-up frames and then
-`--frames` frames under `torch.profiler` (CPU + CUDA activity). Prints per
+Renders one ported path of `kajiya_tpu_torch` at 1920x1080 ("raster": the
+raster + sun-shadow frame; "gi": that plus SSAO, RTDGI and ReSTIR GI) on the
+scenes of `chip_smoke.py` (cornell, city), three warm-up frames and then
+`--frames` frames under `torch.profiler` (CPU + CUDA activity; with the
+default 3 frames from frame index 3 on, one of them validates the GI
+reservoirs). Prints per
 scene: wall ms per frame, the device busy share (summed kernel, copy and set
 time over wall time; the port runs on one stream, so they do not overlap),
 host ms and device span per pass (`core/profiling.py::pass_scope` ranges) and
 the kernels with the most device time. The whole report goes to
-`chiprun_out/torch_frame_profile.json`. Needs a CUDA device.
+`chiprun_out/torch_frame_profile_<path>.json`. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -22,36 +25,43 @@ import time
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PASSES = ("sky_env", "gbuffer", "reprojection", "shadow_trace",
-          "shadow_denoise", "sky_ambient", "sky_bg", "deferred", "post")
+PASSES = ("sky_env", "gbuffer", "reprojection", "ssao", "shadow_trace",
+          "shadow_denoise", "gi_validate", "gi_trace", "rtdgi", "sky_ambient",
+          "sky_refl", "sky_bg", "deferred", "post")
+# ranges nested inside the passes above (reported, not summed with them)
+SUB_PASSES = ("trace", "shade", "attrs", "sun_nee", "light_nee", "ambient",
+              "screen_reuse", "restir", "spatial0", "spatial1", "resolve",
+              "temporal")
+WARMUP = 3
 
 
-def profile_scene(name, frames):
+def profile_scene(name, frames, path):
     from chip_smoke import HEIGHT, SCENES, WIDTH, slice_cfg, views
     from kajiya_tpu_torch.frame import Renderer
     from kajiya_tpu_torch.scene import procedural
 
     make, eye, fwd, step = SCENES[name]
     dev = torch.device("cuda", 0)
-    r = Renderer(make(procedural), slice_cfg(WIDTH, HEIGHT), device=dev)
-    vs = views(eye, fwd, step, frames + 2, WIDTH, HEIGHT, dev)
-    for v in vs[:2]:
+    r = Renderer(make(procedural), slice_cfg(WIDTH, HEIGHT, path), device=dev)
+    vs = views(eye, fwd, step, frames + WARMUP, WIDTH, HEIGHT, dev)
+    for v in vs[:WARMUP]:
         r.draw(v)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for v in vs[2:]:
+        for v in vs[WARMUP:]:
             r.draw(v)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / frames
     cuda = torch.autograd.DeviceType.CUDA
-    per_pass = {p: {"device_ms": 0.0, "host_ms": 0.0} for p in PASSES}
+    per_pass = {p: {"device_ms": 0.0, "host_ms": 0.0}
+                for p in PASSES + SUB_PASSES}
     kern = {}
     for e in prof.events():
         us = e.time_range.elapsed_us()
-        if e.name in PASSES:
+        if e.name in per_pass:
             # a pass is a host range plus, on newer PyTorch, a device range
             # spanning its kernels (idle gaps between them included)
             key = "device_ms" if e.device_type == cuda else "host_ms"
@@ -66,7 +76,9 @@ def profile_scene(name, frames):
         "device_busy_ms_per_frame": busy_ms,
         "device_busy_share": busy_ms / wall_ms,
         "kernel_launches_per_frame": sum(n for n, _ in kern.values()) / frames,
-        "passes": per_pass,
+        "passes": {p: per_pass[p] for p in PASSES},
+        "sub_passes": {p: per_pass[p] for p in SUB_PASSES
+                       if per_pass[p]["host_ms"] > 0.0},
         "top_kernels": [{"name": k[:120], "device_ms": t / 1e3 / frames,
                          "count_per_frame": n / frames}
                         for k, (n, t) in top],
@@ -76,6 +88,7 @@ def profile_scene(name, frames):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=3)
+    ap.add_argument("--path", choices=("raster", "gi"), default="gi")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_frame_profile: no CUDA device", file=sys.stderr)
@@ -86,24 +99,28 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    report = {"card": card, "frames": args.frames}
+    report = {"card": card, "frames": args.frames, "path": args.path}
     for name in ("cornell", "city"):
-        rep = profile_scene(name, args.frames)
+        rep = profile_scene(name, args.frames, args.path)
         report[name] = rep
         print(f"{name}: wall {rep['wall_ms_per_frame']:.2f} ms/frame, device "
               f"busy {rep['device_busy_ms_per_frame']:.2f} ms "
               f"({100 * rep['device_busy_share']:.1f}%), "
               f"{rep['kernel_launches_per_frame']:.0f} kernels/frame")
-        for p, v in sorted(rep["passes"].items(), key=lambda kv: -kv[1]["device_ms"]):
-            print(f"  {p:15s} device span {v['device_ms']:8.3f} ms  host "
-                  f"{v['host_ms']:8.3f} ms")
-        for k in rep["top_kernels"][:8]:
+        for group in ("passes", "sub_passes"):
+            print(f" {group}:")
+            for p, v in sorted(rep[group].items(),
+                               key=lambda kv: -kv[1]["device_ms"]):
+                print(f"  {p:15s} device span {v['device_ms']:8.3f} ms  host "
+                      f"{v['host_ms']:8.3f} ms")
+        for k in rep["top_kernels"][:10]:
             print(f"  {k['device_ms']:8.3f} ms x{k['count_per_frame']:.0f} "
                   f"{k['name'][:90]}")
     print(card)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(REPO, "chiprun_out", "torch_frame_profile.json"),
-              "w") as f:
+    out = os.path.join(REPO, "chiprun_out",
+                       f"torch_frame_profile_{args.path}.json")
+    with open(out, "w") as f:
         json.dump(report, f, indent=1)
     return 0
 
