@@ -59,15 +59,27 @@ def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
-def time_ms(fn, reps):
-    """Mean device time of fn() over `reps` calls, after one warm-up."""
+def time_ms(fn, reps, graph=False):
+    """Mean device time of fn() over `reps` calls, after one warm-up. With
+    `graph` the calls are captured into one CUDA graph and a replay is
+    timed: a kernel of a few tens of microseconds ends before the host has
+    enqueued the next eager call, so an eager loop would time the host."""
     fn()
     torch.cuda.synchronize()
+    run, n = fn, reps
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        run, n = g.replay, 1
+        run()
+        torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    for _ in range(n):
+        run()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
@@ -160,7 +172,7 @@ def brute_phase(dev):
     ts, _ = build_trace_scene(build_gpu_scene(make(procedural), device=dev),
                               device=dev)
     view = views(eye, fwd, (0, 0, 0), 1, WIDTH, HEIGHT, dev)[0]
-    coef = wc.coef_rows(ts.woop)
+    coef = ts.woop["coef_rows"]
     n_tris = coef.shape[0]
     org, d = (x.reshape(-1, 3).contiguous()
               for x in camera_rays(view, WIDTH, HEIGHT))
@@ -201,12 +213,9 @@ def brute_phase(dev):
     return cases
 
 
-def culled_phase(dev):
-    """Kernel C: city, 1080p raster block lists (closest), beam-culled sun
-    shadow rays (any-hit) and the half-res GI candidate rays as the frame
-    traces them: key-sorted, in 128-ray chunks, most of them divergent
-    (closest). The plain version walks the same lists. Also times the sort
-    and the beam cull that the sorted wavefront pays before the kernel."""
+def culled_batches(dev):
+    """Kernel C's cases on the city at 1080p, as name -> (CulledBatch, t_min,
+    any_hit), and the things the sorted wavefront's overhead is timed on."""
     from kajiya_tpu_torch.ops import raysort
     from kajiya_tpu_torch.ops import woop_cuda as wc
     from kajiya_tpu_torch.ops.tiling import tile_order
@@ -221,8 +230,7 @@ def culled_phase(dev):
     view = views(eye, fwd, (0, 0, 0), 1, WIDTH, HEIGHT, dev)[0]
     gb = gbuffer.raster_gbuffer(ts, view, WIDTH, HEIGHT)
     sorg, sdir, _need = shadows.sun_shadow_rays(ts, gb, 0)
-    corg, cdir, _rng = rtdgi.candidate_rays(rtdgi.half_gbuffer(gb), 0)
-    corg0, cdir0 = corg, cdir
+    corg0, cdir0, _rng = rtdgi.candidate_rays(rtdgi.half_gbuffer(gb), 0)
     perm = raysort.sort_permutation(ts.woop, corg0, cdir0)
     corg, cdir = corg0[perm], cdir0[perm]
     rb = raysort.SORT_RAY_BLOCK
@@ -235,7 +243,30 @@ def culled_phase(dev):
             shadows.RAY_EPS, True),
         "gi_sorted_closest": (wc.prepare_culled(ts.woop, corg, cdir, rb=rb),
                               1e-4, False),
+        "gi_sorted_closest_rb512": (wc.prepare_culled(ts.woop, corg, cdir,
+                                                      rb=512), 1e-4, False),
     }
+    return batches, (ts, corg0, cdir0, corg, cdir, rb)
+
+
+def culled_phase(dev):
+    """Kernel C: city, 1080p raster block lists (closest), beam-culled sun
+    shadow rays (any-hit) and the half-res GI candidate rays as the frame
+    traces them: key-sorted, in 128-ray chunks, most of them divergent
+    (closest). The plain version walks the same lists. Also times the sort
+    and the beam cull that the sorted wavefront pays before the kernel, and
+    the sorted wavefront in 512-ray chunks (a check against the 128-ray
+    chunks' hits and a time beside theirs, not a frame call). A checking
+    launch per case counts the ray x block pairs the kernel's per-ray walk
+    tested; it must equal the plain version's count, sets the bound's work
+    (30 operations x 128 triangles a pair) and is reported as a share of
+    the pairs the chunk-level walk covers."""
+    from kajiya_tpu_torch.ops import raysort
+    from kajiya_tpu_torch.ops import woop_cuda as wc
+
+    batches, (ts, corg0, cdir0, corg, cdir, rb) = culled_batches(dev)
+    not_frame = ("gi_sorted_closest_rb512",)
+    plain_outs = {}
     overhead = {
         "sort_ms": time_ms(lambda: raysort.sort_permutation(
             ts.woop, corg0, cdir0), 5),
@@ -251,51 +282,93 @@ def culled_phase(dev):
         f"{overhead['sort_ms']:.3f} ms, cull {overhead['cull_ms']:.3f} ms")
     cases = []
     for case, (b, t_min, any_hit) in batches.items():
-        k_out = wc.culled_launch(b, t_min, any_hit, True)
-        walked = []
+        tested = torch.zeros((1,), dtype=torch.int64, device=dev)
+        k_out = wc.culled_launch(b, t_min, any_hit, True, tested=tested)
+        if case in not_frame:
+            # the chunk size enters no result: the same rays in other chunks
+            # must find what the frame's chunks found (checked against that
+            # case's plain version, whose walk is not repeated here)
+            p128 = tuple(x[:b.n_rays] for x in plain_outs["gi_sorted_closest"])
+            err = compare_hits(f"woop_culled/{case}",
+                               tuple(x[:b.n_rays] for x in k_out), p128, False)
+            ms = time_ms(lambda: wc.culled_launch(b, t_min, any_hit, True), 10)
+            live = int((b.tmax > t_min).sum())
+            cases.append(dict(case=case, rays=b.org.shape[0],
+                              chunks=b.n_chunks, rb=b.rb, frame_call=False,
+                              mean_listed=float(b.count.float().mean()),
+                              tested_pairs_per_live_ray=int(tested) / live,
+                              max_abs_err=err, ms=ms))
+            log(f"woop_culled/{case}: err {err} kernel {ms:.4f} ms; mean "
+                f"listed {cases[-1]['mean_listed']:.1f} blocks/chunk, "
+                f"{cases[-1]['tested_pairs_per_live_ray']:.2f} blocks tested "
+                f"per live ray")
+            continue
+        walked, ray_walked = [], []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         p_out = wc.culled_plain(b, t_min, any_hit, True,
                                 chunks_per_step=256 * 512 // b.rb,
-                                visits=walked)
+                                visits=walked, ray_visits=ray_walked)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
+        plain_outs[case] = p_out
         err = compare_hits(f"woop_culled/{case}", k_out, p_out, any_hit)
+        # the kernel's exhaustive walk (no bound, no box test) must return
+        # what its per-ray walk returns
+        x_out = wc.culled_launch(b, t_min, any_hit, False)
+        same = (torch.equal(x_out[1] >= 0, k_out[1] >= 0) if any_hit else
+                all(torch.equal(a, c) for a, c in zip(x_out, k_out)))
+        if not same:
+            raise AssertionError(f"woop_culled/{case}: the per-ray walk "
+                                 "differs from the exhaustive walk")
         ms = time_ms(lambda: wc.culled_launch(b, t_min, any_hit, True), 10)
         walked = torch.cat(walked)
         live = (b.tmax.reshape(-1, b.rb) > t_min).sum(dim=1)
-        visits = float((walked * live).sum()) * wc.CULL_TB
-        ops = OPS_PER_VISIT * visits
+        pairs = float((walked * live).sum())    # ray x block, chunk walk
+        ray_pairs = int(torch.cat(ray_walked).sum())
+        if int(tested) != ray_pairs:
+            raise AssertionError(f"woop_culled/{case}: the kernel tested "
+                                 f"{int(tested)} ray x block pairs, the "
+                                 f"plain per-ray walk {ray_pairs}")
+        # the bound counts the tests this run's data needs: the ray x block
+        # pairs of the per-ray walk (plain count, equal to the kernel's)
+        visits = float(ray_pairs) * wc.CULL_TB
         r = b.org.shape[0]
         bytes_moved = (r * (28 + 16) + b.blist.numel() * 8
                        + b.coef.numel() * 4)
-        b_ms, b_by = bound(bytes_moved, ops)
+        b_ms, b_by = bound(bytes_moved, OPS_PER_VISIT * visits)
+        # the same count for the chunk-level walk, whose pairs the per-ray
+        # walk thins out (information, no bound: the kernel beats it)
+        chunk_ms = OPS_PER_VISIT * pairs * wc.CULL_TB / PEAK_FP32 * 1e3
         cases.append(dict(case=case, rays=r, chunks=b.n_chunks, rb=b.rb,
                           **(overhead if case == "gi_sorted_closest" else {}),
                           mean_listed=float(b.count.float().mean()),
                           mean_walked=float(walked.float().mean()),
+                          tested_share=ray_pairs / max(pairs, 1.0),
+                          tested_pairs_per_live_ray=ray_pairs / max(
+                              int(live.sum()), 1),
+                          chunk_walk_ops_ms=chunk_ms,
                           max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=b_ms, bound_by=b_by, visits=visits))
         log(f"woop_culled/{case}: err {err} kernel {ms:.4f} ms plain "
             f"{plain_ms:.1f} ms bound {b_ms:.5f} ms ({b_by}); mean listed "
             f"{cases[-1]['mean_listed']:.1f} walked "
-            f"{cases[-1]['mean_walked']:.1f} blocks/chunk")
+            f"{cases[-1]['mean_walked']:.1f} blocks/chunk, tested "
+            f"{cases[-1]['tested_share']:.4f} of the walked ray x block "
+            f"pairs")
     return cases
 
 
-def warp_phase(dev):
-    """Kernel W at the frame's shapes, on a reprojection-like uv field (pixel
-    centers plus a smooth motion of a few pixels): at 1080p 1-channel nearest
-    (prev depth), 3-channel bilinear (shadow moments + history length) and
-    4-channel bilinear (GI history + length); at half res 13-channel nearest
-    (the ReSTIR temporal fetch of the packed reservoirs)."""
-    import torch.nn.functional as F
-
+def warp_inputs(dev):
+    """Kernel W's cases at the frame's shapes, on a reprojection-like uv
+    field (pixel centers plus a smooth motion of a few pixels): at 1080p
+    1-channel nearest (prev depth), 3-channel bilinear (shadow moments +
+    history length) and 4-channel bilinear (GI history + length); at half res
+    13-channel nearest (the ReSTIR temporal fetch of the packed reservoirs).
+    Yields (case, img, uv, bilinear)."""
     from kajiya_tpu_torch.core import img as im
-    from kajiya_tpu_torch.ops import warp_cuda
 
     g = torch.Generator(device=dev).manual_seed(0)
-    cases = []
     for case, h, w, c, bilinear in (
             ("nearest_c1", HEIGHT, WIDTH, 1, False),
             ("bilinear_c3", HEIGHT, WIDTH, 3, True),
@@ -307,14 +380,48 @@ def warp_phase(dev):
                               torch.cos(5.0 * xx - 3.0 * yy)], dim=-1) * 3.0
         uv = (uv + motion / torch.tensor([w, h], device=dev)).contiguous()
         img = torch.rand((h, w, c), generator=g, device=dev)
-        img = img[..., 0].contiguous() if c == 1 else img
+        yield case, (img[..., 0].contiguous() if c == 1 else img), uv, bilinear
+
+
+def warp_phase(dev):
+    """Kernel W on the cases of `warp_inputs` against the plain sampler, with
+    `grid_sample` timed beside it as the yardstick. Before those, small
+    check-only cases launch the instances of the kernel that no frame shape
+    reaches: float2 elements (C = 2, 6), float4 with several elements a
+    pixel (C = 16) and the run-time divisor (C = 5, 20), on a uv grid of
+    another size than the image with taps off every edge."""
+    import torch.nn.functional as F
+
+    from kajiya_tpu_torch.ops import warp_cuda
+
+    cases = []
+    g = torch.Generator(device=dev).manual_seed(2)
+    for c in (2, 5, 6, 16, 20):
+        img = torch.randn((45, 200, c), generator=g, device=dev)
+        uv = torch.rand((37, 333, 2), generator=g, device=dev) * 1.1 - 0.05
+        for bilinear in (False, True):
+            case = f"check_{'bilinear' if bilinear else 'nearest'}_c{c}"
+            err = float((warp_cuda.warp_launch(img, uv, bilinear)
+                         - warp_cuda.warp_plain(img, uv, bilinear)).abs().max())
+            if not err <= WARP_TOL:
+                raise AssertionError(f"warp/{case}: max error {err}")
+            cases.append(dict(case=case, pixels=37 * 333, channels=c,
+                              frame_call=False, max_abs_err=err))
+    log("warp check-only cases: max error",
+        max(x["max_abs_err"] for x in cases))
+    for case, img, uv, bilinear in warp_inputs(dev):
+        h, w = img.shape[:2]
+        c = 1 if img.ndim == 2 else img.shape[2]
         k_out = warp_cuda.warp_launch(img, uv, bilinear)
         p_out = warp_cuda.warp_plain(img, uv, bilinear)
         torch.cuda.synchronize()
         err = float((k_out - p_out).abs().max())
-        if err > WARP_TOL:
+        if not err <= WARP_TOL:
             raise AssertionError(f"warp/{case}: max error {err}")
-        ms = time_ms(lambda: warp_cuda.warp_launch(img, uv, bilinear), 50)
+        ms = time_ms(lambda: warp_cuda.warp_launch(img, uv, bilinear), 50,
+                     graph=True)
+        eager_ms = time_ms(lambda: warp_cuda.warp_launch(img, uv, bilinear),
+                           50)
         plain_ms = time_ms(lambda: warp_cuda.warp_plain(img, uv, bilinear), 10)
         # yardstick only: one PyTorch call computing the same sampling
         # (border padding = clamp addressing); the port never calls it
@@ -324,15 +431,16 @@ def warp_phase(dev):
         mode = "bilinear" if bilinear else "nearest"
         lib_ms = time_ms(lambda: F.grid_sample(
             src, grid, mode=mode, padding_mode="border", align_corners=False),
-            50)
+            50, graph=True)
         n = h * w
         bytes_moved = n * 8 + 2 * n * c * 4       # uv + output + image once
         b_ms, b_by = bound(bytes_moved, 0.0)
         cases.append(dict(case=case, pixels=n, channels=c, max_abs_err=err,
-                          ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=b_ms, bound_by=b_by))
-        log(f"warp/{case}: err {err} kernel {ms:.4f} ms plain {plain_ms:.3f} "
-            f"ms grid_sample {lib_ms:.4f} ms bound {b_ms:.5f} ms")
+                          ms=ms, eager_loop_ms=eager_ms, plain_ms=plain_ms,
+                          library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+        log(f"warp/{case}: err {err} kernel {ms:.4f} ms (eager loop "
+            f"{eager_ms:.4f}) plain {plain_ms:.3f} ms grid_sample "
+            f"{lib_ms:.4f} ms bound {b_ms:.5f} ms")
     return cases
 
 
@@ -367,13 +475,16 @@ def tileshift_phase(dev):
             continue        # the small shapes are checks, not frame calls
         if int(dy.abs().max()) == 0 and int(dx.abs().max()) == 0:
             raise AssertionError("tile_shift: the frame's offsets are all 0")
-        ms = time_ms(lambda: tsc.tile_shift_launch(img, dy, dx), 50)
+        ms = time_ms(lambda: tsc.tile_shift_launch(img, dy, dx), 50,
+                     graph=True)
+        eager_ms = time_ms(lambda: tsc.tile_shift_launch(img, dy, dx), 50)
         plain_ms = time_ms(lambda: tsc.tile_shift_plain(img, dy, dx), 10)
         b_ms, b_by = bound(2 * img.numel() * 4 + 2 * dy.numel() * 4, 0.0)
         cases.append(dict(case=case, shape=list(shape), max_abs_err=err,
-                          ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by))
-        log(f"tile_shift/{case}: err {err} kernel {ms:.4f} ms plain "
+                          ms=ms, eager_loop_ms=eager_ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by))
+        log(f"tile_shift/{case}: err {err} kernel {ms:.4f} ms (eager loop "
+            f"{eager_ms:.4f}) plain "
             f"{plain_ms:.3f} ms bound {b_ms:.5f} ms ({b_by})")
     return cases
 
@@ -518,17 +629,19 @@ def frame_phase(dev, path):
 
 def kernel_entry(name, source, replaces, cases, launches, library):
     """One JSON entry per kernel: the sum over its cases (one launch at each
-    shape the frame gives it), the worst error over cases, and the launches
-    of the main paths' runs summed over paths and scenes."""
+    shape the frame gives it; a case marked `frame_call=False` is listed but
+    not summed), the worst error over all cases, and the launches of the
+    main paths' runs summed over paths and scenes."""
+    summed = [c for c in cases if c.get("frame_call", True)]
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches,
         max_abs_err=max(c["max_abs_err"] for c in cases),
-        ms=sum(c["ms"] for c in cases),
-        plain_ms=sum(c["plain_ms"] for c in cases),
-        bound_ms=sum(c["bound_ms"] for c in cases),
-        bound_by=max(cases, key=lambda c: c["bound_ms"])["bound_by"],
-        library_ms=(sum(c["library_ms"] for c in cases) if library else None),
+        ms=sum(c["ms"] for c in summed),
+        plain_ms=sum(c["plain_ms"] for c in summed),
+        bound_ms=sum(c["bound_ms"] for c in summed),
+        bound_by=max(summed, key=lambda c: c["bound_ms"])["bound_by"],
+        library_ms=(sum(c["library_ms"] for c in summed) if library else None),
         cases=cases)
 
 

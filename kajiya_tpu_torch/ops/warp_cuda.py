@@ -7,6 +7,10 @@ take the plain version (core/img.py's `sample_bilinear` / `sample_nearest`,
 which the JAX package also takes off the TPU); CUDA tensors launch the kernel
 in csrc/warp.cu or raise. The TPU kernel's window clamp (a limit of its VMEM
 window) has no counterpart here: the port is held to the plain sampler.
+
+The kernel spreads the channels over its threads: the output is a flat run
+of elements, the element being the widest vector (4, 2 or 1 floats) that
+divides C (`vector_width`).
 """
 from __future__ import annotations
 
@@ -20,6 +24,15 @@ def warp_plain(img, uv, bilinear: bool = True):
     return im.sample_bilinear(img, uv) if bilinear else im.sample_nearest(img, uv)
 
 
+def vector_width(c: int) -> int:
+    """Floats per element of the kernel's flat output run."""
+    return 4 if c % 4 == 0 else (2 if c % 2 == 0 else 1)
+
+
+def _aligned(t, nbytes):
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
+
+
 def warp_launch(img, uv, bilinear: bool = True):
     """Launch kernel W on CUDA tensors."""
     _native.check_cuda(img, uv)
@@ -30,9 +43,13 @@ def warp_launch(img, uv, bilinear: bool = True):
         raise ValueError("warp kernel takes float32 image and uv")
     if uv.shape[-1] != 2:
         raise ValueError(f"uv must end in 2, got {tuple(uv.shape)}")
-    img3 = img3.contiguous()
-    uv = uv.contiguous()
     n = uv.numel() // 2
+    if n * c >= 1 << 31:
+        raise ValueError(f"warp kernel indexes {n} x {c} outputs in 32 bits")
+    # the kernel moves 16-, 8- or 4-byte elements: a view at an odd offset
+    # is copied to an aligned buffer
+    img3 = _aligned(img3.contiguous(), 4 * vector_width(c))
+    uv = _aligned(uv.contiguous(), 8)
     out = torch.empty(tuple(uv.shape[:-1]) + (c,), dtype=torch.float32,
                       device=img.device)
     if n:

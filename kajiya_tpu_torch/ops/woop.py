@@ -65,7 +65,8 @@ def build_clusters(v0, e1, e2, pad_to: int, tri_block: int = TRI_BLOCK):
 def intersect_brute(woop, org, d, t_min=1e-4, t_max=None, any_hit=False):
     """Closest hit over all triangles: (t, tri, u, v) with t = 1e30 and
     tri = -1 on a miss. Dense reference, any device."""
-    from .woop_cuda import brute_plain, coef_rows, ray_tmax
+    from .woop_cuda import brute_plain, coef_rows, ray_tmax, stored_table
 
     tm = ray_tmax(org, t_max)
-    return brute_plain(coef_rows(woop), org, d, tm, t_min)
+    return brute_plain(stored_table(woop, "coef_rows", coef_rows), org, d, tm,
+                       t_min)

@@ -13,7 +13,15 @@ C  `intersect_culled_cuda`: per 512-ray chunk, a front-to-back list of
    active 128-triangle blocks from the beam/cone/reach-box cull
    (`active_blocks`) or from the rasterizer's screen-rect lists; closest hit
    stops once every ray's best t beats the next block's bound, any-hit once
-   every live ray has a hit.
+   every live ray has a hit. The kernel takes those decisions per ray (a
+   warp owns 32 rays and leaves a ray out of a block it cannot hit in: one
+   whose bound lies above the ray's best t, or whose padded box the ray does
+   not cross); `culled_plain(ray_skip=True)` is that walk in plain PyTorch,
+   and returns the chunk-level walk's bits.
+
+The tables the kernels read ((T, 21) rows for B; (T / 128, 21, 128) slabs and
+(T / 128, 8) padded block boxes for C) are built once per scene refresh by
+`attach_coef_tables` and travel in the `woop` dictionary.
 """
 from __future__ import annotations
 
@@ -26,12 +34,14 @@ from . import _native
 
 INF = float(np.float32(1e30))
 CULL_TB = 128            # triangles per culled block
-CULL_RAY_BLOCK = 512     # rays per chunk (one CUDA thread block)
+CULL_RAY_BLOCK = 512     # rays per chunk (one block list; 16 warps of rays)
 N_COEF = 21              # 12 a_o + 9 a_d coefficients per triangle
 
 _BEPS = float(np.float32(1e-5))
 _ONE_BEPS = float(np.float32(1.0 + 1e-5))
 _RW_EPS = float(np.float32(1e-12))
+_BOX_EPS = float(np.float32(1e-3))    # block box margin, of the scene size
+_RAY_PAD = float(np.float32(1e-5))    # per-ray box pad, of |org|_1 + tmax
 
 
 def _f32(x) -> float:
@@ -56,6 +66,39 @@ def coef_blocks(woop) -> torch.Tensor:
     c = coef_rows(woop)
     nt = c.shape[0] // CULL_TB
     return c.reshape(nt, CULL_TB, N_COEF).permute(0, 2, 1).contiguous()
+
+
+def block_bounds(woop) -> torch.Tensor:
+    """(T / 128, 8): each culled block's box [min xyz, 0 | max xyz, 0], grown
+    by a thousandth of the scene's largest coordinate. The kernel's per-ray
+    slab test reads it; the margin (with the per-ray pad the test adds) lies
+    far above the rounding of that test and above the 1e-5 barycentric slack
+    of the triangle test, so a ray that hits a triangle crosses its block's
+    box."""
+    cmin, cmax = woop["cmin64"], woop["cmax64"]
+    big = torch.maximum(cmin.amin(dim=0).abs(), cmax.amax(dim=0).abs()).amax()
+    eps = _BOX_EPS * big
+    zero = cmin.new_zeros((cmin.shape[0], 1))
+    return torch.cat([cmin - eps, zero, cmax + eps, zero], dim=1).contiguous()
+
+
+def attach_coef_tables(woop):
+    """Store the kernels' tables in the `woop` dictionary: "coef_rows" and,
+    where the scene has cluster tables, "coef_blocks" and "block_bounds".
+    Called where the dictionary is built, so the tables live exactly as long
+    as the a_o / a_d they derive from."""
+    woop["coef_rows"] = coef_rows(woop)
+    if woop.get("cmin64") is not None:
+        woop["coef_blocks"] = coef_blocks(woop)
+        woop["block_bounds"] = block_bounds(woop)
+    return woop
+
+
+def stored_table(woop, key, build):
+    """The table stored by `attach_coef_tables`, or a fresh one for a
+    dictionary that comes straight from build_woop."""
+    table = woop.get(key)
+    return build(woop) if table is None else table
 
 
 def ray_tmax(org, t_max) -> torch.Tensor:
@@ -154,7 +197,7 @@ def intersect_brute_cuda(woop, org, d, t_min=1e-4, t_max=None,
                          any_hit: bool = False):
     """Kernel B wrapper (port of `intersect_brute_pallas`): (t, tri, u, v),
     tri int32 with -1 on a miss."""
-    coef = coef_rows(woop)
+    coef = stored_table(woop, "coef_rows", coef_rows)
     tmax = ray_tmax(org, t_max)
     org, d = org.contiguous(), d.contiguous()
     if org.device.type == "cpu":
@@ -244,6 +287,7 @@ class CulledBatch:
     bdist: torch.Tensor     # (nrb, nt) float32
     count: torch.Tensor     # (nrb,) int32
     coef: torch.Tensor      # (nt, 21, 128)
+    bounds: torch.Tensor    # (nt, 8) padded block boxes
     rb: int
     n_rays: int             # unpadded ray count
 
@@ -275,7 +319,7 @@ def prepare_culled(woop, org, d, t_max=None, block_lists=None, rb=None):
     rb = CULL_RAY_BLOCK if rb is None else rb
     if rb % 32 or not 32 <= rb <= 1024:
         raise ValueError(f"ray chunk {rb} must be a multiple of 32 in "
-                         "[32, 1024] (one CUDA block per chunk)")
+                         "[32, 1024] (a warp of the kernel owns 32 rays)")
     rpad = (-rtot) % rb
     if rpad:
         org = torch.cat([org, org.new_zeros((rpad, 3))])
@@ -294,16 +338,27 @@ def prepare_culled(woop, org, d, t_max=None, block_lists=None, rb=None):
                        blist=blist.to(torch.int32).contiguous(),
                        bdist=bdist.to(torch.float32).contiguous(),
                        count=count.to(torch.int32).contiguous(),
-                       coef=coef_blocks(woop), rb=rb, n_rays=rtot)
+                       coef=stored_table(woop, "coef_blocks", coef_blocks),
+                       bounds=stored_table(woop, "block_bounds", block_bounds),
+                       rb=rb, n_rays=rtot)
 
 
 def culled_plain(b: CulledBatch, t_min, any_hit: bool, early_stop: bool,
-                 chunks_per_step: int = 64, visits=None):
-    """Plain version of kernel C over every chunk: the same block walk,
-    early stop and any-hit exit, with the chunks of one step processed side
-    by side. Returns padded (t, tri, u, v) of shape (n_chunks * rb,). If
-    `visits` is a list, each step's per-chunk count of visited blocks is
-    appended to it (the work the kernel does)."""
+                 chunks_per_step: int = 64, visits=None, ray_visits=None,
+                 ray_skip: bool = False):
+    """Plain version of kernel C over every chunk: the chunk-level block
+    walk, early stop and any-hit exit, with the chunks of one step processed
+    side by side. Returns padded (t, tri, u, v) of shape (n_chunks * rb,).
+    If `visits` is a list, each step's per-chunk count of visited blocks is
+    appended to it (the work the bound counts). If `ray_visits` is a list,
+    each step's per-chunk count of ray x block pairs that the kernel's
+    per-ray walk tests is appended to it. `ray_skip` takes the kernel's
+    per-ray decisions as well: a ray is left out of a block whose bound lies
+    above its min(t_best, tmax) (closest hit, early stop), whose padded box
+    it does not cross within (t_min, that limit) (early stop) or once it has
+    a hit (any-hit), and dead rays (tmax <= t_min) are never tested. Bounds
+    and boxes are conservative, so the results are the same bits either way
+    (any-hit: the same occlusion mask)."""
     dev = b.org.device
     t_min = _f32(t_min)
     chunks = torch.arange(b.n_chunks, device=dev)
@@ -319,12 +374,18 @@ def culled_plain(b: CulledBatch, t_min, any_hit: bool, early_stop: bool,
         dd = [dirs[g, :, j:j + 1] for j in range(3)]
         tm = tmax[g]
         cnt = b.count[g]
+        per_ray = ray_skip or ray_visits is not None
+        if per_ray and early_stop:
+            inv = [_slab_inv(x[..., 0]) for x in dd]
+            pad = _RAY_PAD * (((o[0].abs() + o[1].abs()) + o[2].abs())[..., 0]
+                              + tm)
         tb = torch.full((n, rb), INF, dtype=torch.float32, device=dev)
         tri = torch.full((n, rb), -1, dtype=torch.int32, device=dev)
         ub = torch.zeros((n, rb), dtype=torch.float32, device=dev)
         vb = torch.zeros((n, rb), dtype=torch.float32, device=dev)
         alive = torch.ones((n,), dtype=torch.bool, device=dev)
         walked = torch.zeros((n,), dtype=torch.int64, device=dev)
+        ray_walked = torch.zeros((n,), dtype=torch.int64, device=dev)
         for k in range(int(cnt.max()) if n else 0):
             go = alive & (k < cnt)
             if any_hit:
@@ -337,13 +398,27 @@ def culled_plain(b: CulledBatch, t_min, any_hit: bool, early_stop: bool,
                 break
             walked += go
             blk = b.blist[g, k].to(torch.int64).clamp(0, nblk - 1)
+            need = go[:, None]
+            if per_ray:
+                # the rays a per-ray walk still tests against this block
+                need = (tm > t_min) & need
+                limit = torch.minimum(tb, tm)
+                if any_hit:
+                    need &= tri < 0
+                elif early_stop:
+                    need &= b.bdist[g, k][:, None] <= limit
+                if early_stop:
+                    need &= _crosses_box(b.bounds[blk],
+                                         [x[..., 0] for x in o], inv, pad,
+                                         t_min, limit)
+                ray_walked += need.sum(dim=1)
             c = b.coef[blk]                                # (n, 21, 128)
             cb = [c[:, r, None, :] for r in range(N_COEF)]  # (n, 1, 128)
             t, u, v, rw_ok = _woop_math(cb, o, dd)
             ok = (rw_ok & (u >= -_BEPS) & (v >= -_BEPS)
                   & ((u + v) <= _ONE_BEPS) & (t > t_min)
                   & (t < tb[..., None]) & (t < tm[..., None])
-                  & go[:, None, None])
+                  & (need if ray_skip else go[:, None])[..., None])
             bt, idx, bu, bv = _select_first_min(t, u, v, ok)
             closer = bt < tb
             tb = torch.where(closer, bt, tb)
@@ -354,13 +429,39 @@ def culled_plain(b: CulledBatch, t_min, any_hit: bool, early_stop: bool,
         outs.append((tb, tri, ub, vb))
         if visits is not None:
             visits.append(walked)
+        if ray_visits is not None:
+            ray_visits.append(ray_walked)
     return tuple(torch.cat([x[i].reshape(-1) for x in outs])
                  if outs else torch.empty(0, device=dev) for i in range(4))
 
 
-def culled_launch(b: CulledBatch, t_min, any_hit: bool, early_stop: bool):
-    """Launch kernel C on a prepared batch; returns padded (t, tri, u, v)."""
-    _native.check_cuda(b.org, b.d, b.tmax, b.blist, b.bdist, b.count, b.coef)
+def _slab_inv(d):
+    """The reciprocal the kernel's slab test multiplies by."""
+    tiny = torch.where(d < 0, -_RW_EPS, _RW_EPS)
+    return 1.0 / torch.where(d.abs() < _RW_EPS, tiny, d)
+
+
+def _crosses_box(box, o, inv, pad, t_min, limit):
+    """The kernel's per-ray slab test in its order of operations: box (n, 8)
+    per chunk, o / inv lists of (n, rb), pad and limit (n, rb). True where
+    the ray crosses the padded box within (t_min, limit)."""
+    t_in = t_out = None
+    for j in range(3):
+        a = ((box[:, j, None] - pad) - o[j]) * inv[j]
+        c = ((box[:, 4 + j, None] + pad) - o[j]) * inv[j]
+        near, far = torch.minimum(a, c), torch.maximum(a, c)
+        t_in = near if t_in is None else torch.maximum(t_in, near)
+        t_out = far if t_out is None else torch.minimum(t_out, far)
+    return ~((t_in > t_out) | (t_out < t_min) | (t_in > limit))
+
+
+def culled_launch(b: CulledBatch, t_min, any_hit: bool, early_stop: bool,
+                  tested=None):
+    """Launch kernel C on a prepared batch; returns padded (t, tri, u, v).
+    `tested`, a zeroed int64 CUDA tensor of one element, makes this a
+    checking launch: the kernel adds the ray x block pairs it tested."""
+    _native.check_cuda(b.org, b.d, b.tmax, b.blist, b.bdist, b.count, b.coef,
+                       b.bounds)
     r, nrb = b.org.shape[0], b.n_chunks
     nt = b.blist.shape[1]
     _check(b.org, (r, 3))
@@ -370,8 +471,13 @@ def culled_launch(b: CulledBatch, t_min, any_hit: bool, early_stop: bool):
     _check(b.bdist, (nrb, nt))
     _check(b.count, (nrb,), torch.int32)
     _check(b.coef, (b.coef.shape[0], N_COEF, CULL_TB))
-    if r != nrb * b.rb:
-        raise ValueError("rays are not padded to whole chunks")
+    _check(b.bounds, (b.coef.shape[0], 8))
+    if r != nrb * b.rb or b.rb % 32:
+        raise ValueError("rays are not padded to whole chunks of a multiple "
+                         "of 32 rays")
+    if tested is not None:
+        _native.check_cuda(tested)
+        _check(tested, (1,), torch.int64)
     outs = _empty_hits(r, b.org.device)
     if nrb == 0:
         return outs
@@ -379,8 +485,9 @@ def culled_launch(b: CulledBatch, t_min, any_hit: bool, early_stop: bool):
     status = lib.kt_woop_culled(
         b.org.data_ptr(), b.d.data_ptr(), b.tmax.data_ptr(),
         b.blist.data_ptr(), b.bdist.data_ptr(), b.count.data_ptr(), nrb,
-        b.rb, nt, b.coef.data_ptr(), _f32(t_min), int(any_hit),
-        int(early_stop), *(x.data_ptr() for x in outs),
+        b.rb, nt, b.coef.data_ptr(), b.bounds.data_ptr(), _f32(t_min),
+        int(any_hit), int(early_stop), *(x.data_ptr() for x in outs),
+        None if tested is None else tested.data_ptr(),
         _native.stream_ptr(b.org))
     _native.check_status("woop_culled", status)
     _native.launches["woop_culled"] += 1

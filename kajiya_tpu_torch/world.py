@@ -114,7 +114,7 @@ def refresh_trace_scene(gpu: GpuScene) -> TraceScene:
     """Recompute world geometry, Woop/cluster tables and the attribute
     tables for the current transforms."""
     from .ops.woop import build_clusters, build_woop
-    from .ops.woop_cuda import CULL_TB
+    from .ops.woop_cuda import CULL_TB, attach_coef_tables
 
     n = gpu.num_triangles
     if n > CULLED_BRUTE_MAX_TRIS:
@@ -126,6 +126,7 @@ def refresh_trace_scene(gpu: GpuScene) -> TraceScene:
         woop["cmin"], woop["cmax"] = build_clusters(v0, e1, e2, pad_to=pad)
         woop["cmin64"], woop["cmax64"] = build_clusters(
             v0, e1, e2, pad_to=pad, tri_block=CULL_TB)
+    attach_coef_tables(woop)     # the tables kernels B and C read
 
     mt = gpu.tri_mat.long()
     v0p, e1p, e2p = gpu.triangle_corners(gpu.xforms_prev)

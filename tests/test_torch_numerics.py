@@ -19,7 +19,7 @@ from kajiya_tpu_torch.core import color as col_t
 from kajiya_tpu_torch.core import img as im_t
 from kajiya_tpu_torch.core import rng as rng_t
 from kajiya_tpu_torch.ops import tiling as til_t
-from kajiya_tpu_torch.ops.warp_cuda import warp2d
+from kajiya_tpu_torch.ops.warp_cuda import vector_width, warp2d, warp_plain
 
 # Tolerances: RNG streams and blue-noise masks are bit-exact; camera rays,
 # colors and image helpers agree to 1e-6 absolute (float32 rounding of the
@@ -223,3 +223,63 @@ def test_warp_plain_matches_pallas_interpret(bilinear):
     assert np.all(np.abs(got - ref) <= np.abs(sampler - ref) + ATOL)
     if not bilinear:
         np.testing.assert_array_equal(got, ref)
+
+
+def element_index(n: int, c: int, device=None):
+    """The warp kernel's thread mapping, written out in plain PyTorch: flat
+    element q of an (n, c) output -> (pixel, first channel, channels in the
+    element)."""
+    width = vector_width(c)
+    cv = c // width
+    q = torch.arange(n * cv, device=device)
+    return q // cv, (q % cv) * width, width
+
+
+def warp_by_elements(img, uv, bilinear: bool = True):
+    """The plain sampler evaluated in the kernel's thread order: every flat
+    element samples its pixel's uv and keeps its own channels. Equals
+    `warp_plain` bit for bit if the mapping covers every output float once.
+    (The kernel's own index arithmetic is launched on the card, for every
+    instance of its template, by `chip_smoke.py`.)"""
+    squeeze = img.ndim == 2
+    img3 = img[..., None] if squeeze else img
+    c = img3.shape[-1]
+    uv2 = uv.reshape(-1, 2)
+    pix, ch, width = element_index(uv2.shape[0], c, img.device)
+    full = warp_plain(img3, uv2[pix], bilinear)             # (n * cv, c)
+    cols = ch[:, None] + torch.arange(width, device=img.device)
+    out = full.gather(1, cols).reshape(tuple(uv.shape[:-1]) + (c,))
+    return out[..., 0] if squeeze else out
+
+
+@pytest.mark.parametrize("bilinear", [True, False])
+@pytest.mark.parametrize("c", [0, 1, 2, 3, 4, 13, 16])
+def test_warp_channel_counts_and_thread_mapping(bilinear, c):
+    """Every channel count the kernel specialises (and 0: a 2-D image), at a
+    uv grid of another size than the image, with taps off every edge: the
+    wrapper against the JAX sampler to 1e-6, and the kernel's mapping of
+    flat elements to (pixel, channels) in plain PyTorch against the wrapper,
+    exactly."""
+    h, w, h2, w2 = 37, 50, 29, 41
+    img = _img((h, w) if c == 0 else (h, w, c), seed=10 + c, lo=-1.0, hi=1.0)
+    rng = np.random.default_rng(20 + c)
+    uv = rng.uniform(-0.05, 1.05, (h2, w2, 2)).astype(np.float32)
+    samp = im_j.sample_bilinear if bilinear else im_j.sample_nearest
+    ref = np.asarray(samp(jnp.asarray(img), jnp.asarray(uv)))
+    got = _n(warp2d(_t(img), _t(uv), bilinear=bilinear))
+    assert got.shape == ref.shape == ((h2, w2) if c == 0 else (h2, w2, c))
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
+    spread = _n(warp_by_elements(_t(img), _t(uv), bilinear=bilinear))
+    np.testing.assert_array_equal(spread, got)
+    # the flat run covers every output float once, in order
+    cc = max(c, 1)
+    pix, ch, width = element_index(h2 * w2, cc)
+    assert width == vector_width(cc) and cc % width == 0
+    flat = (_n(pix)[:, None] * cc + _n(ch)[:, None]
+            + np.arange(width)[None, :]).reshape(-1)
+    np.testing.assert_array_equal(flat, np.arange(h2 * w2 * cc))
+
+
+def test_warp_vector_widths():
+    assert [vector_width(c) for c in (1, 2, 3, 4, 6, 13, 16, 20)] == \
+        [1, 2, 1, 4, 2, 1, 4, 4]
