@@ -5,30 +5,36 @@
 Builds the port's CUDA kernels from csrc/, holds each kernel (B brute Woop,
 C culled Woop, W image warp, S per-tile shift) against its plain PyTorch
 version on the card at the shapes the 1080p frame gives it (timing both with
-CUDA events), checks the GPU path against the CPU path on a small frame, then
+CUDA events), checks the GPU path against the CPU path on small frames, then
 renders at 1920x1080, on the cornell box (32 triangles, brute kernel B) and
 on the 196,610-triangle procedural city (culled kernel C), 2 frames of the
-raster + sun-shadow path and 4 frames of the diffuse-GI path (SSAO, sorted
-secondary-ray wavefront, ReSTIR temporal + spatial, resolve), with the launch
-counters set to 0 just before each path and read just after, and prints one
-JSON line of per-kernel numbers. The last line is
+raster + sun-shadow path, 4 frames of the diffuse-GI path (SSAO, sorted
+secondary-ray wavefront, ReSTIR temporal + spatial, resolve) and 4 frames of
+the default frame (`RenderConfig(width=1920, height=1080)`: that plus the
+irradiance cache, RTR with mesh-light specular on cornell, the pre-exposure
+split, TAA with the Halton jitter and motion blur), with the launch counters
+set to 0 just before each path and read just after, and prints one JSON
+line of per-kernel numbers. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Any failed check raises, so the exit code is not 0 and no result is printed.
 Needs a CUDA device; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
 WIDTH, HEIGHT = 1920, 1080
-N_FRAMES = {"raster": 2, "gi": 4}     # frames per scene of each path
+N_FRAMES = {"raster": 2, "gi": 4, "default": 4}   # frames per scene of each
+                                                   # path
 T_TOL = 2e-5          # t agreement where the kernel and plain ids agree
 ID_AGREE = 0.999      # fraction of rays whose triangle ids agree
 WARP_TOL = 1e-6       # warp kernel vs plain sampler, absolute
@@ -91,11 +97,22 @@ def bound(bytes_moved, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def slice_cfg(width, height, path="raster"):
-    """The configuration of a ported path: "raster" (raster + sun shadows)
-    or "gi" (that plus SSAO, RTDGI and ReSTIR GI)."""
-    from kajiya_tpu_torch.frame import RenderConfig
+# the irradiance cache of the small GPU-vs-CPU frames (the default traces
+# 16,384 x 4 rays a frame, which the CPU path would take minutes over)
+SMALL_IRCACHE = dict(max_entries=4096, active_budget=1024)
 
+
+def slice_cfg(width, height, path="raster", small_ircache=False):
+    """The configuration of a ported path: "raster" (raster + sun shadows),
+    "gi" (that plus SSAO, RTDGI and ReSTIR GI) or "default" (the default
+    `RenderConfig`, every default flag on)."""
+    from kajiya_tpu_torch.frame import RenderConfig
+    from kajiya_tpu_torch.renderers.ircache import IrcacheConfig
+
+    if path == "default":
+        kw = ({"ircache": IrcacheConfig(**SMALL_IRCACHE)} if small_ircache
+              else {})
+        return RenderConfig(width=width, height=height, **kw)
     gi = path == "gi"
     return RenderConfig(width=width, height=height, primary="raster",
                         sun_soft_shadows=True, use_ssao=gi, use_rtdgi=gi,
@@ -113,13 +130,17 @@ SCENES = {
 }
 
 
-def views(eye, fwd, step, n, width, height, device):
+def views(eye, fwd, step, n, width, height, device, jitter=False):
+    """The views of `n` frames from frame index 0; `jitter` adds the TAA
+    sub-pixel jitter of each frame, as a caller of the default frame does."""
     from kajiya_tpu_torch.core.camera import make_view_constants
+    from kajiya_tpu_torch.frame import jitter_for_frame
 
     out, prev = [], None
     for k in range(n):
         e = tuple(eye[i] + k * step[i] for i in range(3))
         prev = make_view_constants(e, fwd, width=width, height=height,
+                                   jitter=jitter_for_frame(k, jitter),
                                    prev=prev, device=device)
         out.append(prev)
     return out
@@ -158,12 +179,31 @@ def compare_hits(name, k_out, p_out, any_hit, live=None):
     return err
 
 
+def ircache_rays(gb, eye, dev):
+    """The irradiance cache's entry wavefront of a 1080p frame at the
+    default `IrcacheConfig`: entries allocated from the frame's query
+    points, then frame 1's rays (fresh uniform-sphere directions), 16,384 x
+    4 of them, traced unsorted as the frame traces them."""
+    from kajiya_tpu_torch.frame import ircache_queries
+    from kajiya_tpu_torch.renderers import ircache
+
+    cfg = ircache.IrcacheConfig()
+    st = ircache.init_state(cfg, device=dev)
+    q_pos, q_mask = ircache_queries(gb, HEIGHT, WIDTH)
+    st = ircache.allocate(st, ircache.build_grid(st, eye, cfg), q_pos, q_mask,
+                          eye, 0, cfg)
+    rays = ircache.entry_rays(st, 1, cfg)
+    return rays["org"].contiguous(), rays["dir"].contiguous()
+
+
 def brute_phase(dev):
     """Kernel B: cornell, 1080p camera rays (closest), the sun shadow rays
-    (any-hit) and the half-res GI candidate rays (closest, divergent)."""
+    (any-hit), the half-res GI candidate rays (closest, divergent), the
+    default frame's shared wavefront (GI candidates + reflection rays,
+    closest) and the irradiance cache's entry wavefront (closest)."""
     from kajiya_tpu_torch.core.camera import camera_rays
     from kajiya_tpu_torch.ops import woop_cuda as wc
-    from kajiya_tpu_torch.renderers import gbuffer, rtdgi, shadows
+    from kajiya_tpu_torch.renderers import gbuffer, rtdgi, rtr, shadows
     from kajiya_tpu_torch.scene import procedural
     from kajiya_tpu_torch.scene.scene import build_gpu_scene
     from kajiya_tpu_torch.world import build_trace_scene
@@ -184,11 +224,19 @@ def brute_phase(dev):
     corg, cdir, _rng = rtdgi.candidate_rays(rtdgi.half_gbuffer(gb), 0)
     corg, cdir = corg.contiguous(), cdir.contiguous()
     ctmax = wc.ray_tmax(corg, None)
+    rorg, rdir, _pdf, _rng = rtr.reflection_rays(gb, 0)
+    worg = torch.cat([corg, rorg]).contiguous()
+    wdir = torch.cat([cdir, rdir]).contiguous()
+    iorg, idir = ircache_rays(gb, view.eye_position, dev)
     cases = []
     for case, (o, dd, tm, t_min, any_hit) in {
             "primary_closest": (org, d, tmax, 1e-4, False),
             "shadow_any_hit": (sorg, sdir, stmax, shadows.RAY_EPS, True),
-            "gi_candidates_closest": (corg, cdir, ctmax, 1e-4, False)}.items():
+            "gi_candidates_closest": (corg, cdir, ctmax, 1e-4, False),
+            "gi_rtr_closest": (worg, wdir, wc.ray_tmax(worg, None), 1e-4,
+                               False),
+            "ircache_closest": (iorg, idir, wc.ray_tmax(iorg, None), 1e-4,
+                                False)}.items():
         k_out = wc.brute_launch(coef, o, dd, tm, t_min, any_hit)
         p_out = wc.brute_plain(coef, o, dd, tm, t_min)
         torch.cuda.synchronize()
@@ -215,11 +263,14 @@ def brute_phase(dev):
 
 def culled_batches(dev):
     """Kernel C's cases on the city at 1080p, as name -> (CulledBatch, t_min,
-    any_hit), and the things the sorted wavefront's overhead is timed on."""
+    any_hit), and the things the sorted wavefronts' overhead and the
+    irradiance cache's cull are timed on: for each sorted case its unsorted
+    rays, and the ircache rays."""
     from kajiya_tpu_torch.ops import raysort
     from kajiya_tpu_torch.ops import woop_cuda as wc
     from kajiya_tpu_torch.ops.tiling import tile_order
-    from kajiya_tpu_torch.renderers import gbuffer, raster, rtdgi, shadows
+    from kajiya_tpu_torch.renderers import (gbuffer, raster, rtdgi, rtr,
+                                            shadows)
     from kajiya_tpu_torch.scene import procedural
     from kajiya_tpu_torch.scene.scene import build_gpu_scene
     from kajiya_tpu_torch.world import build_trace_scene
@@ -231,9 +282,18 @@ def culled_batches(dev):
     gb = gbuffer.raster_gbuffer(ts, view, WIDTH, HEIGHT)
     sorg, sdir, _need = shadows.sun_shadow_rays(ts, gb, 0)
     corg0, cdir0, _rng = rtdgi.candidate_rays(rtdgi.half_gbuffer(gb), 0)
-    perm = raysort.sort_permutation(ts.woop, corg0, cdir0)
-    corg, cdir = corg0[perm], cdir0[perm]
+    # the default frame's shared wavefront: GI candidates, then the
+    # reflection rays, sorted as one batch
+    rorg, rdir, _pdf, _rng = rtr.reflection_rays(gb, 0)
+    unsorted = {"gi_sorted_closest": (corg0, cdir0),
+                "gi_rtr_sorted_closest": (torch.cat([corg0, rorg]),
+                                          torch.cat([cdir0, rdir]))}
     rb = raysort.SORT_RAY_BLOCK
+    srt = {}
+    for case, (o, dd) in unsorted.items():
+        perm = raysort.sort_permutation(ts.woop, o, dd)
+        srt[case] = (o[perm], dd[perm])
+    iorg, idir = ircache_rays(gb, view.eye_position, dev)
     batches = {
         "raster_closest": (raster.raster_batch(ts, view, WIDTH, HEIGHT),
                            1e-4, False),
@@ -241,20 +301,26 @@ def culled_batches(dev):
             ts.woop, tile_order(sorg.reshape(HEIGHT, WIDTH, 3)).reshape(-1, 3),
             tile_order(sdir.reshape(HEIGHT, WIDTH, 3)).reshape(-1, 3)),
             shadows.RAY_EPS, True),
-        "gi_sorted_closest": (wc.prepare_culled(ts.woop, corg, cdir, rb=rb),
-                              1e-4, False),
-        "gi_sorted_closest_rb512": (wc.prepare_culled(ts.woop, corg, cdir,
-                                                      rb=512), 1e-4, False),
+        **{case: (wc.prepare_culled(ts.woop, *srt[case], rb=rb), 1e-4, False)
+           for case in srt},
+        "gi_sorted_closest_rb512": (wc.prepare_culled(
+            ts.woop, *srt["gi_sorted_closest"], rb=512), 1e-4, False),
+        "ircache_closest": (wc.prepare_culled(ts.woop, iorg, idir), 1e-4,
+                            False),
     }
-    return batches, (ts, corg0, cdir0, corg, cdir, rb)
+    return batches, (ts, unsorted, srt, rb, iorg, idir)
 
 
 def culled_phase(dev):
     """Kernel C: city, 1080p raster block lists (closest), beam-culled sun
     shadow rays (any-hit) and the half-res GI candidate rays as the frame
     traces them: key-sorted, in 128-ray chunks, most of them divergent
-    (closest). The plain version walks the same lists. Also times the sort
-    and the beam cull that the sorted wavefront pays before the kernel, and
+    (closest), the default frame's wavefront of those rays and the
+    half-res reflection rays, sorted together (closest), and the irradiance
+    cache's 65,536-ray entry wavefront, traced unsorted in 512-ray chunks as
+    the default frame traces it (closest). The plain version walks the same
+    lists. Also times the sort and the beam cull that each sorted wavefront
+    pays before the kernel, the cull of the entry wavefront, and
     the sorted wavefront in 512-ray chunks (a check against the 128-ray
     chunks' hits and a time beside theirs, not a frame call). A checking
     launch per case counts the ray x block pairs the kernel's per-ray walk
@@ -264,22 +330,26 @@ def culled_phase(dev):
     from kajiya_tpu_torch.ops import raysort
     from kajiya_tpu_torch.ops import woop_cuda as wc
 
-    batches, (ts, corg0, cdir0, corg, cdir, rb) = culled_batches(dev)
+    batches, (ts, unsorted, srt, rb, iorg, idir) = culled_batches(dev)
     not_frame = ("gi_sorted_closest_rb512",)
     plain_outs = {}
-    overhead = {
-        "sort_ms": time_ms(lambda: raysort.sort_permutation(
-            ts.woop, corg0, cdir0), 5),
-        "cull_ms": time_ms(lambda: wc.prepare_culled(ts.woop, corg, cdir,
-                                                     rb=rb), 5),
-    }
-    b = batches["gi_sorted_closest"][0]
-    nrb = b.n_chunks
-    coherent = wc._chunk_beams(b.org, b.d, b.tmax, nrb, rb)[5]
-    overhead["coherent_chunk_share"] = float(coherent.float().mean())
-    log(f"sorted GI wavefront: {b.n_rays} rays, {nrb} chunks of {rb}, "
-        f"{overhead['coherent_chunk_share']:.3f} coherent; sort "
-        f"{overhead['sort_ms']:.3f} ms, cull {overhead['cull_ms']:.3f} ms")
+    overhead = {}
+    for case, (o, dd) in unsorted.items():
+        so, sd = srt[case]
+        b = batches[case][0]
+        coherent = wc._chunk_beams(b.org, b.d, b.tmax, b.n_chunks, rb)[5]
+        overhead[case] = {
+            "sort_ms": time_ms(lambda: raysort.sort_permutation(
+                ts.woop, o, dd), 5),
+            "cull_ms": time_ms(lambda: wc.prepare_culled(ts.woop, so, sd,
+                                                         rb=rb), 5),
+            "coherent_chunk_share": float(coherent.float().mean())}
+        log(f"{case} wavefront: {b.n_rays} rays, {b.n_chunks} chunks of "
+            f"{rb}, {overhead[case]['coherent_chunk_share']:.3f} coherent; "
+            f"sort {overhead[case]['sort_ms']:.3f} ms, cull "
+            f"{overhead[case]['cull_ms']:.3f} ms")
+    overhead["ircache_closest"] = {"cull_ms": time_ms(
+        lambda: wc.prepare_culled(ts.woop, iorg, idir), 5)}
     cases = []
     for case, (b, t_min, any_hit) in batches.items():
         tested = torch.zeros((1,), dtype=torch.int64, device=dev)
@@ -341,7 +411,7 @@ def culled_phase(dev):
         # walk thins out (information, no bound: the kernel beats it)
         chunk_ms = OPS_PER_VISIT * pairs * wc.CULL_TB / PEAK_FP32 * 1e3
         cases.append(dict(case=case, rays=r, chunks=b.n_chunks, rb=b.rb,
-                          **(overhead if case == "gi_sorted_closest" else {}),
+                          **overhead.get(case, {}),
                           mean_listed=float(b.count.float().mean()),
                           mean_walked=float(walked.float().mean()),
                           tested_share=ray_pairs / max(pairs, 1.0),
@@ -363,9 +433,11 @@ def warp_inputs(dev):
     """Kernel W's cases at the frame's shapes, on a reprojection-like uv
     field (pixel centers plus a smooth motion of a few pixels): at 1080p
     1-channel nearest (prev depth), 3-channel bilinear (shadow moments +
-    history length) and 4-channel bilinear (GI history + length); at half res
-    13-channel nearest (the ReSTIR temporal fetch of the packed reservoirs).
-    Yields (case, img, uv, bilinear)."""
+    history length), 4-channel bilinear (GI and RTR history + length) and
+    9-channel bilinear (TAA's packed history fetch); at half res 13-channel
+    nearest (the ReSTIR GI temporal fetch of the packed reservoirs) and
+    11-channel nearest (RTR's); at quarter res 4-channel nearest (each of
+    the 8 motion-blur taps). Yields (case, img, uv, bilinear)."""
     from kajiya_tpu_torch.core import img as im
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -373,7 +445,10 @@ def warp_inputs(dev):
             ("nearest_c1", HEIGHT, WIDTH, 1, False),
             ("bilinear_c3", HEIGHT, WIDTH, 3, True),
             ("bilinear_c4", HEIGHT, WIDTH, 4, True),
-            ("nearest_c13_half", HEIGHT // 2, WIDTH // 2, 13, False)):
+            ("bilinear_c9", HEIGHT, WIDTH, 9, True),
+            ("nearest_c13_half", HEIGHT // 2, WIDTH // 2, 13, False),
+            ("nearest_c11_half", HEIGHT // 2, WIDTH // 2, 11, False),
+            ("nearest_c4_quarter", HEIGHT // 4, WIDTH // 4, 4, False)):
         uv = im.pixel_uv(h, w, device=dev)
         yy, xx = uv[..., 1], uv[..., 0]
         motion = torch.stack([torch.sin(6.0 * yy + 2.0 * xx),
@@ -502,20 +577,41 @@ def draw_checked(r, view, name):
     return out
 
 
+def draw_counting_syncs(r, view, name):
+    """draw_checked, and the operations in it that made the host wait for
+    the card (`torch.cuda.set_sync_debug_mode("warn")` warns once for each:
+    a read of a device value, a blocking copy), counted per source line."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = draw_checked(r, view, name)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in caught
+        if "synchronizing CUDA operation" in str(w.message))
+    return out, sites
+
+
 def reference_phase(dev):
     """The GPU path (kernels) against the CPU path (plain versions) on a
-    small frame of each scene, for both ported paths: three frames (four on
-    the GI path, so that frame 3 validates live reservoirs) at 64x48 from
-    the same views."""
+    small frame of each scene, for every ported path: three frames (four on
+    the GI and default paths, so that frame 3 validates live reservoirs and
+    the cache's stored rays) at 64x48 from the same views; the default path
+    with the small irradiance cache. Every comparison is made and logged
+    before a failure is raised."""
     from kajiya_tpu_torch.frame import Renderer
     from kajiya_tpu_torch.scene import procedural
 
     w, h = 64, 48
-    worst = {}
+    worst, failed = {}, []
     for path, keys, (tol, min_frac, max_mean) in (
             ("raster", ("final", "lit", "shadow"), FRAME_TOL),
-            ("gi", ("final", "lit", "diffuse_gi", "ssao"), GI_FRAME_TOL)):
-        cfg = slice_cfg(w, h, path)
+            ("gi", ("final", "lit", "diffuse_gi", "ssao"), GI_FRAME_TOL),
+            ("default", ("final", "lit", "diffuse_gi", "ssao",
+                         "reflections", "taa"), GI_FRAME_TOL)):
+        cfg = slice_cfg(w, h, path, small_ircache=True)
         for name, (make, eye, fwd, step) in SCENES.items():
             if name == "city":
                 make = lambda p: p.city(n=4, subdiv=8)      # noqa: E731
@@ -523,15 +619,16 @@ def reference_phase(dev):
             outs = {}
             for d in (dev, torch.device("cpu")):
                 r = Renderer(make(procedural), cfg, device=d)
-                n = 4 if path == "gi" else 3
-                for v in views(eye, fwd, step, n, w, h, d):
+                n = 3 if path == "raster" else 4
+                for v in views(eye, fwd, step, n, w, h, d,
+                               jitter=path == "default"):
                     o = draw_checked(r, v, name)
                 outs[d.type] = o
             same = float((outs["cuda"]["gbuffer"]["hit"].cpu()
                           == outs["cpu"]["gbuffer"]["hit"]).float().mean())
             if same < HIT_AGREE:
-                raise AssertionError(f"{path}/{name}: GPU vs CPU hit masks "
-                                     f"agree on {same}")
+                failed.append(f"{path}/{name}: GPU vs CPU hit masks agree "
+                              f"on {same}")
             for k in keys:
                 a, b = outs["cuda"][k].cpu(), outs["cpu"][k]
                 diff = (a - b).abs()
@@ -540,10 +637,12 @@ def reference_phase(dev):
                 worst[f"{path}/{name}/{k}"] = (frac, mean)
                 if not bool(torch.isfinite(a).all()) or frac < min_frac \
                         or mean > max_mean:
-                    raise AssertionError(f"{path}/{name}/{k}: GPU vs CPU "
-                                         f"frac {frac} mean {mean}")
+                    failed.append(f"{path}/{name}/{k}: GPU vs CPU frac "
+                                  f"{frac} mean {mean}")
     log("GPU vs CPU small frames (fraction within tolerance, mean abs "
         "diff):", worst)
+    if failed:
+        raise AssertionError("; ".join(failed))
     return worst
 
 
@@ -552,45 +651,59 @@ def expected_launches(path, name, n_frames):
     0 onwards). Per frame, the traces go through B (cornell) or C (city):
     primaries + sun shadows; on the GI path also the candidate rays, their
     sun-NEE and light-NEE shadow rays and, on every third frame, the
-    validation rays + their sun-NEE. W: prev depth + shadow moments; on the
-    GI path also the SSAO history, the ReSTIR temporal fetch, the occlusion
-    march of spatial pass 1 (4 taps x 2 samples) and the GI history. S: the
-    7 + 4 taps of the two ReSTIR spatial passes."""
-    gi = path == "gi"
+    validation rays + their sun-NEE. The default path traces the candidate
+    and reflection rays as one wavefront (+ its two NEE batches, + the
+    validation of both passes' reservoirs as one batch + its sun-NEE every
+    third frame), and adds the irradiance cache's entry wavefront + its
+    sun-NEE and light-NEE batches, and on cornell (emissive triangles) the
+    2 shadow batches of the mesh-light specular. W: prev depth + shadow
+    moments; on the GI path also the SSAO history, the ReSTIR temporal
+    fetch, the occlusion march of spatial pass 1 (4 taps x 2 samples) and
+    the GI history; the default path adds the RTR reservoir fetch and
+    history, TAA's packed history fetch (its other fetches are resizes,
+    which do not run at temporal_upsampling 1) and the 8 motion-blur taps.
+    S: the 7 + 4 taps of the two ReSTIR spatial passes."""
+    gi = path in ("gi", "default")
     validations = len(range(0, n_frames, 3)) if gi else 0
-    traces = (5 if gi else 2) * n_frames + 2 * validations
+    per_frame = {"raster": 2, "gi": 5,
+                 "default": 8 + (2 if name == "cornell" else 0)}[path]
+    traces = per_frame * n_frames + 2 * validations
     return {"woop_brute": traces if name == "cornell" else 0,
             "woop_culled": traces if name == "city" else 0,
-            "warp": (13 if gi else 2) * n_frames,
+            "warp": {"raster": 2, "gi": 13, "default": 24}[path] * n_frames,
             "tile_shift": 11 * n_frames if gi else 0}
 
 
 def frame_phase(dev, path):
     """Frames at 1920x1080 per scene through Renderer.draw on one ported
     path, counters set to 0 just before and read just after each scene's
-    frames."""
+    frames, and the host syncs of each frame counted (those of the last
+    frame per source line)."""
     from kajiya_tpu_torch.frame import Renderer
     from kajiya_tpu_torch.ops import _native
     from kajiya_tpu_torch.scene import procedural
 
     cfg = slice_cfg(WIDTH, HEIGHT, path)
     n_frames = N_FRAMES[path]
-    keys = ("final", "lit", "shadow") + (("diffuse_gi", "ssao")
-                                         if path == "gi" else ())
+    keys = ("final", "lit", "shadow") + (
+        ("diffuse_gi", "ssao") if path != "raster" else ()) + (
+        ("reflections", "taa") if path == "default" else ())
     result = {}
     for name, (make, eye, fwd, step) in SCENES.items():
         t0 = time.perf_counter()
         r = Renderer(make(procedural), cfg, device=dev)
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
-        vs = views(eye, fwd, step, n_frames, WIDTH, HEIGHT, dev)
+        vs = views(eye, fwd, step, n_frames, WIDTH, HEIGHT, dev,
+                   jitter=path == "default")
         _native.reset_launches()
-        times = []
+        times, syncs = [], []
         for v in vs:
             t0 = time.perf_counter()
-            out = draw_checked(r, v, name)
+            out, sync_sites = draw_counting_syncs(r, v, name)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
+            syncs.append(sum(sync_sites.values()))
         counts = dict(_native.launches)
         final = out["final"]
         if tuple(final.shape) != (HEIGHT, WIDTH, 3):
@@ -602,7 +715,7 @@ def frame_phase(dev, path):
         if mean <= 0.01:
             raise AssertionError(f"{path}/{name}: final mean {mean}")
         extra = {}
-        if path == "gi":
+        if path != "raster":
             gi_mean = float(out["diffuse_gi"].mean())
             m_max = float(r.state["gi_res_M"].max())
             if gi_mean <= 1e-3 or float(out["diffuse_gi"].min()) < 0.0:
@@ -612,18 +725,37 @@ def frame_phase(dev, path):
                                      f"(max M {m_max})")
             extra = dict(gi_mean=gi_mean, reservoir_m_max=m_max,
                          ssao_mean=float(out["ssao"].mean()))
+        if path == "default":
+            refl = out["reflections"]
+            if float(refl.min()) < 0.0:
+                raise AssertionError(f"{name}: negative reflections")
+            live = r.state["ircache_valid"]
+            n_live = int(live.sum())
+            if n_live <= 0:
+                raise AssertionError(f"{name}: the irradiance cache is empty")
+            sh_abs = float(r.state["ircache_sh"][live].abs().sum())
+            if sh_abs <= 0.0:
+                raise AssertionError(f"{name}: the live cache entries' SH is "
+                                     f"all zero after {n_frames} frames")
+            extra.update(reflections_mean=float(refl.mean()),
+                         ircache_live=n_live, ircache_sh_abs_sum=sh_abs,
+                         rtr_res_m_max=float(r.state["rtr_res_M"].max()),
+                         pre_mult=float(r.state["pre_mult"]))
         want = expected_launches(path, name, n_frames)
         if counts != want:
             raise AssertionError(f"{path}/{name}: launches {counts}, "
                                  f"expected {want}")
         result[name] = dict(frame_ms=times, median_ms=statistics.median(times),
-                            launches=counts, final_mean=mean,
+                            launches=counts, host_syncs=syncs,
+                            last_frame_sync_sites=dict(sync_sites),
+                            final_mean=mean,
                             tris=int(r.gpu.num_triangles), setup_s=setup_s,
                             hit_frac=float(out["gbuffer"]["hit"].float().mean()),
                             **extra)
         log(f"frame {path}/{name}: {int(r.gpu.num_triangles)} tris, setup "
             f"{setup_s:.1f} s, frame ms {[round(t, 2) for t in times]}, "
-            f"launches {counts}, final mean {mean:.4f} {extra}")
+            f"launches {counts}, host syncs per frame {syncs}, final mean "
+            f"{mean:.4f} {extra}")
     return result
 
 
@@ -670,6 +802,16 @@ def main():
     tileshift = tileshift_phase(dev)
     reference_phase(dev)
     frames = {path: frame_phase(dev, path) for path in N_FRAMES}
+    # the default frame's passes wait for the card nowhere the GI frame's
+    # do not: the same frame indices make the same number of host syncs
+    # (from frame 1: a path's first frame also copies the constants it
+    # caches on the card, once)
+    for sc in SCENES:
+        got, want = (frames[p][sc]["host_syncs"][1:] for p in ("default",
+                                                               "gi"))
+        if got != want:
+            raise AssertionError(f"default/{sc}: host syncs per frame {got}, "
+                                 f"the GI frame's {want}")
 
     def launched(kernel):
         n = sum(frames[p][sc]["launches"][kernel]
@@ -700,7 +842,8 @@ def main():
                    "frames": frames}, f, indent=1)
     print(json.dumps({"frames": {
         path: {k: {"median_ms": v["median_ms"], "frame_ms": v["frame_ms"],
-                   "tris": v["tris"], "launches": v["launches"]}
+                   "tris": v["tris"], "launches": v["launches"],
+                   "host_syncs": v["host_syncs"]}
                for k, v in per_scene.items()}
         for path, per_scene in frames.items()}, "wall_s": wall_s}),
         flush=True)

@@ -1,7 +1,7 @@
-"""Layered GGX + Lambert BRDF: the parts `renderers/deferred.py` uses (port
-of `kajiya_tpu/brdf/ggx.py`): eval, split-sum energy compensation through a
-polynomial fit of the integrated FG table, metalness lobes. VNDF sampling and
-pdfs come with the reflection passes."""
+"""Layered GGX + Lambert BRDF (port of the parts of `kajiya_tpu/brdf/ggx.py`
+the ported passes use): eval, VNDF sampling and its pdf, split-sum energy
+compensation through a polynomial fit of the integrated FG table,
+metalness lobes."""
 from __future__ import annotations
 
 import math
@@ -9,8 +9,10 @@ import math
 import numpy as np
 import torch
 
+from ..device import const_tensor
+from ..ops.smallvec import cross, matmul_small
 from ..ops.smallvec import dot3 as _dot
-from ..ops.smallvec import matmul_small
+from .sampling import orthonormal_basis
 
 MIN_ROUGHNESS = 1e-3
 
@@ -53,6 +55,60 @@ def specular_brdf(f0, roughness, n, wo, wi):
     brdf = f * (d * vis)[..., None]
     pdf = d * _g1_smith(a2, ndotv) / torch.clamp(4.0 * ndotv, min=1e-12)
     return brdf, pdf
+
+
+def _normalize(v):
+    return v * (1.0 / torch.clamp(torch.sqrt(torch.clamp(_dot(v, v),
+                                                         min=1e-24)),
+                                  min=1e-12))[..., None]
+
+
+def sample_vndf(roughness, n, wo, u1, u2):
+    """Sample a GGX half-vector with the visible-NDF method (Heitz 2018).
+    Returns world-space wi (reflected wo); it may point below the surface."""
+    a = torch.clamp(roughness, min=MIN_ROUGHNESS) ** 2
+    t, b = orthonormal_basis(n)
+    # wo in local space
+    vo = torch.stack([_dot(wo, t), _dot(wo, b), _dot(wo, n)], dim=-1)
+    vh = _normalize(torch.stack([a * vo[..., 0], a * vo[..., 1], vo[..., 2]],
+                                dim=-1))
+    # orthonormal frame around vh
+    lensq = vh[..., 0] ** 2 + vh[..., 1] ** 2
+    inv = 1.0 / torch.sqrt(torch.clamp(lensq, min=1e-12))
+    t1 = torch.where(
+        (lensq > 1e-9)[..., None],
+        torch.stack([-vh[..., 1] * inv, vh[..., 0] * inv,
+                     torch.zeros_like(inv)], dim=-1),
+        const_tensor((1.0, 0.0, 0.0), vh.device).expand(vh.shape))
+    t2 = cross(vh, t1)
+    r = torch.sqrt(u1)
+    phi = 2.0 * math.pi * u2
+    p1 = r * torch.cos(phi)
+    p2 = r * torch.sin(phi)
+    s = 0.5 * (1.0 + vh[..., 2])
+    p2 = (1.0 - s) * torch.sqrt(torch.clamp(1.0 - p1 * p1, min=0.0)) + s * p2
+    pz = torch.sqrt(torch.clamp(1.0 - p1 * p1 - p2 * p2, min=0.0))
+    nh = t1 * p1[..., None] + t2 * p2[..., None] + vh * pz[..., None]
+    # unstretch
+    h_local = _normalize(torch.stack(
+        [a * nh[..., 0], a * nh[..., 1], torch.clamp(nh[..., 2], min=1e-6)],
+        dim=-1))
+    h_world = (t * h_local[..., 0:1] + b * h_local[..., 1:2]
+               + n * h_local[..., 2:3])
+    return 2.0 * _dot(wo, h_world)[..., None] * h_world - wo
+
+
+def pdf_vndf(roughness, n, wo, wi):
+    """Solid-angle pdf of `sample_vndf` for direction wi:
+    G1(wo) * D(h) / (4 * n.wo)."""
+    a = torch.clamp(roughness, min=MIN_ROUGHNESS) ** 2
+    a2 = a * a
+    h = _normalize(wi + wo)
+    ndotv = torch.clamp(_dot(n, wo), min=1e-6)
+    ndoth = torch.clamp(_dot(n, h), 0.0, 1.0)
+    d = ndf_ggx(a2, ndoth)
+    g1 = _g1_smith(a2, ndotv)
+    return torch.clamp(g1 * d / (4.0 * ndotv), min=1e-12)
 
 
 _FG_RES = 64

@@ -9,6 +9,7 @@ the screen; the shift and tiling are one index gather on the device.
 from __future__ import annotations
 
 import os
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -90,12 +91,18 @@ def load_masks() -> np.ndarray:
     return _masks
 
 
+@lru_cache(maxsize=4 * _N_MASKS)
+def _mask_on(k: int, device: torch.device) -> torch.Tensor:
+    """Mask k on `device`, copied there once (a copy per call would make the
+    host wait for the card). Callers must not write into it."""
+    return torch.as_tensor(load_masks()[k], device=device)
+
+
 def blue_noise_plane(h: int, w: int, frame_idx, stream: int = 0,
                      device=None):
     """(h, w) float32 in (0, 1): the blue-noise mask tiled over the screen,
     shifted by the frame's R2 offset. `stream` decorrelates consumers."""
-    masks = load_masks()
-    bn = torch.as_tensor(masks[stream % _N_MASKS], device=device)
+    bn = _mask_on(stream % _N_MASKS, torch.device(device or "cpu"))
     if stream >= _N_MASKS:
         k = stream // _N_MASKS
         bn = torch.remainder(bn + _PHI * k, 1.0)

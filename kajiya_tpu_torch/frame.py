@@ -2,18 +2,21 @@
 
     state', outputs = render_frame(trace_scene, state, view, cfg)
 
-The port renders: raster gbuffer -> reprojection -> SSAO -> sun shadow trace
-+ denoise -> the shared secondary-ray wavefront (every-third-frame reservoir
-validation, GI candidate trace + hit lighting) -> diffuse GI (ReSTIR
-temporal + spatial reservoirs, resolve, temporal filter) -> deferred
-lighting with sky reflections -> exposure + post. The irradiance cache, RTR,
-TAA and motion blur are not ported yet: `render_frame` raises
-NotImplementedError when the config asks for them, naming the ROADMAP step
-that brings them. Their state planes are still created by
-`init_frame_state` and passed through unchanged, so the state dict matches
-the JAX one key for key.
+The port renders the default frame: raster gbuffer -> reprojection ->
+irradiance cache (allocate, trace, value grid) -> SSAO -> sun shadow trace +
+denoise -> the shared secondary-ray wavefront (every-third-frame validation
+of the GI and reflection reservoirs, then the GI candidate and reflection
+rays traced and shaded together) -> diffuse GI (ReSTIR temporal + spatial,
+resolve, temporal filter) -> reflections (mesh-light specular, ReSTIR
+temporal, lobe resolve, temporal filter) -> deferred lighting -> the
+pre-exposure split -> TAA -> motion blur -> exposure + post. The world
+radiance cache, depth of field, IBL skies and the raytraced gbuffer are not
+ported yet: `render_frame` raises NotImplementedError when the config asks
+for them, naming the ROADMAP step that brings them.
 
-PyTorch runs eagerly; there is no jit and no hot reload.
+PyTorch runs eagerly; there is no jit and no hot reload. The frame reads its
+frame index on the host once (the validation branch); everything else that
+depends on it stays on the device.
 """
 from __future__ import annotations
 
@@ -28,30 +31,14 @@ from .core import rng as rng_mod
 from .core.camera import ViewConstants
 from .core.profiling import pass_scope
 from .device import resolve_device
-from .renderers import (deferred, gbuffer, post, reprojection, restir_gi,
-                        rtdgi, shadows, ssgi)
+from .renderers import (deferred, gbuffer, ircache, post, reprojection,
+                        restir_gi, rtdgi, rtr, shadows, ssgi, taa)
 from .renderers.hit_lighting import hit_radiance
+from .renderers.ircache import IrcacheConfig
 from .rt.trace import scene_trace_closest
 from .sky import env as sky_env_mod
 from .sky.atmosphere import sky_radiance
 from .world import build_trace_scene, refresh_trace_scene
-
-
-@dataclass(frozen=True)
-class IrcacheConfig:
-    """Irradiance-cache shapes (mirror of `kajiya_tpu/renderers/ircache.py`
-    IrcacheConfig; the pass itself is ROADMAP section 1, step 6)."""
-    cascades: int = 12
-    grid_res: int = 32
-    max_entries: int = 65536
-    rays_per_entry: int = 4
-    base_cell_size: float = 0.25
-    expire_frames: int = 60
-    hysteresis_frames: float = 32.0
-    active_budget: int = 16384
-    validate_period: int = 3
-    validate_rel: float = 0.5
-    reposition_rate: float = 0.25
 
 
 @dataclass(frozen=True)
@@ -109,17 +96,9 @@ class RenderConfig:
         return int(round(self.height * self.temporal_upsampling))
 
 
-def check_supported(cfg: RenderConfig, ircache_lookup=None, ibl_env=None):
-    """Raise NotImplementedError for any pass this slice does not port."""
+def check_supported(cfg: RenderConfig, ibl_env=None):
+    """Raise NotImplementedError for any pass the port does not have yet."""
     missing = [
-        (cfg.use_taa, "use_taa (TAA, ROADMAP section 1, step 5)"),
-        (cfg.temporal_upsampling != 1.0,
-         "temporal_upsampling (TAA super-res, ROADMAP section 1, step 5)"),
-        (cfg.use_motion_blur,
-         "use_motion_blur (motion blur, ROADMAP section 1, step 5)"),
-        (cfg.use_ircache or ircache_lookup is not None,
-         "use_ircache (irradiance cache, ROADMAP section 1, step 6)"),
-        (cfg.use_rtr, "use_rtr (reflections, ROADMAP section 1, step 8)"),
         (cfg.use_wrc, "use_wrc (world radiance cache, ROADMAP section 1, "
                       "step 10)"),
         (cfg.use_dof, "use_dof (depth of field, ROADMAP section 1, step 10)"),
@@ -151,8 +130,6 @@ def init_frame_state(cfg: RenderConfig, device=None):
     `init_frame_state` for the same config."""
     dev = resolve_device(device)
     h, w = cfg.height, cfg.width
-    oh, ow = cfg.out_height, cfg.out_width
-    hh, hw = h // 2, w // 2
 
     def z(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -165,22 +142,11 @@ def init_frame_state(cfg: RenderConfig, device=None):
     state.update(shadows.init_state(h, w, device=dev))
     state.update(ssgi.init_state(h, w, device=dev))
     state.update(rtdgi.init_state(h, w, device=dev))
-    state.update(
-        rtr_history=z(h, w, 3), rtr_hist_len=z(h, w), rtr_ray_len=z(h, w),
-        rtr_res_radiance=z(hh, hw, 3), rtr_res_dir=z(hh, hw, 3),
-        rtr_res_t=z(hh, hw), rtr_res_w_sum=z(hh, hw), rtr_res_M=z(hh, hw),
-        rtr_res_W=z(hh, hw), rtr_res_p_hat=z(hh, hw))
-    state.update(taa_history=z(oh, ow, 3), taa_coverage=z(oh, ow),
-                 taa_smooth_var=z(oh, ow, 3), taa_velocity=z(oh, ow, 2))
+    state.update(rtr.init_state(h, w, device=dev))
+    state.update(taa.init_state(cfg.out_height, cfg.out_width, device=dev))
     state.update(post.init_exposure_state(device=dev))
     if cfg.use_ircache:
-        e, s = cfg.ircache.max_entries, cfg.ircache.rays_per_entry
-        state.update(
-            ircache_pos=z(e, 3), ircache_sh=z(e, 3, 4), ircache_life=z(e),
-            ircache_seen=torch.full((e,), -(10 ** 6), dtype=torch.int32,
-                                    device=dev),
-            ircache_valid=z(e, dtype=torch.bool),
-            ircache_ray_dir=z(e, s, 3), ircache_ray_rad=z(e, s, 3))
+        state.update(ircache.init_state(cfg.ircache, device=dev))
     if cfg.use_rtdgi and cfg.use_restir_gi:
         state.update(restir_gi.init_state(h, w, device=dev))
     if cfg.use_wrc:
@@ -190,21 +156,44 @@ def init_frame_state(cfg: RenderConfig, device=None):
     return state
 
 
-_RTR_KEYS = ("rtr_history", "rtr_hist_len", "rtr_ray_len", "rtr_res_radiance",
-             "rtr_res_dir", "rtr_res_t", "rtr_res_w_sum", "rtr_res_M",
-             "rtr_res_W", "rtr_res_p_hat")
-_TAA_KEYS = ("taa_history", "taa_coverage", "taa_smooth_var", "taa_velocity")
-
-
 def _reflect(d, n):
     return d - 2.0 * torch.sum(d * n, dim=-1, keepdim=True) * n
 
 
+def ircache_queries(gb, h: int, w: int):
+    """The cache's query points: the gbuffer decimated by the smallest power
+    of two stride (at least 4) that keeps them within 32,768."""
+    sy = 4
+    while (h // sy) * (w // sy) > 32768:
+        sy *= 2
+    q_pos, q_mask = gb["pos"], gb["hit"]
+    while sy > 1:
+        q_pos = im.decimate2(q_pos)
+        q_mask = im.decimate2(q_mask)
+        sy //= 2
+    return q_pos.reshape(-1, 3), q_mask.reshape(-1)
+
+
+def pre_exposure(pre_prev, smoothed_ev, use_taa: bool):
+    """(pre_mult, pre_delta) of a frame: pre_mult chases last frame's
+    metered exposure with a 0.9 / 0.1 EMA while TAA runs (1 otherwise);
+    pre_delta = pre_mult over last frame's, by which the temporal history
+    is rescaled."""
+    if use_taa:
+        pre_mult = pre_prev * 0.9 + torch.exp2(smoothed_ev) * 0.1
+    else:
+        pre_mult = torch.ones_like(pre_prev)
+    return pre_mult, pre_mult / torch.clamp(pre_prev, min=1e-20)
+
+
 def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
                  levels=None, ircache_lookup=None, ibl_env=None):
-    """One frame. Returns (new_state, outputs)."""
-    check_supported(cfg, ircache_lookup, ibl_env)
+    """One frame. Returns (new_state, outputs). `ircache_lookup`, when
+    given, replaces the frame's own irradiance cache (which is then left
+    as it is)."""
+    check_supported(cfg, ibl_env)
     h, w = cfg.height, cfg.width
+    mts = cfg.max_trace_steps
     frame_idx = state["frame_idx"]
     if levels is not None:
         ts = refresh_trace_scene(ts.gpu)
@@ -234,6 +223,35 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
         reproj = reprojection.calculate_reprojection_map(
             gb, state["prev_depth"], view, near=cfg.near)
 
+    # --- irradiance cache: allocate from quarter-res (or coarser) surface
+    # query points, trace per-entry rays, expose the lookup to every
+    # downstream pass
+    ir_state = {k: v for k, v in state.items() if k.startswith("ircache_")}
+    if cfg.use_ircache and ircache_lookup is None:
+        eye = view.eye_position
+        q_pos, q_mask = ircache_queries(gb, h, w)
+        with pass_scope("ircache"):
+            with pass_scope("ircache_alloc"):
+                grid0 = ircache.build_grid(ir_state, eye, cfg.ircache)
+                ir_state = ircache.allocate(ir_state, grid0, q_pos, q_mask,
+                                            eye, frame_idx, cfg.ircache)
+            with pass_scope("ircache_trace"):
+                ir_state = ircache.trace_update(
+                    ir_state, ts, sky_env, diffuse_env, eye, frame_idx,
+                    cfg.ircache, max_trace_steps=mts,
+                    secondary_full_shading=cfg.secondary_full_shading)
+            with pass_scope("ircache_value_grid"):
+                ir_grid = ircache.build_value_grid(
+                    ir_state, ircache.build_grid(ir_state, eye, cfg.ircache),
+                    cfg.ircache)
+
+        def ircache_lookup(p, n, _st=ir_state, _g=ir_grid, _e=eye):
+            return ircache.lookup_irradiance(_st, _g, p, n, _e, diffuse_env,
+                                             cfg.ircache)
+
+        if not cfg.ircache_feeds_gi:
+            ircache_lookup = None
+
     if cfg.use_ssao:
         with pass_scope("ssao"):
             ao, ssgi_state = ssgi.ssao_pipeline(
@@ -258,15 +276,18 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
         shadow_state = {"moments": state["moments"],
                         "history_len": state["history_len"]}
 
-    # --- shared secondary-ray wavefront: the rays of every GI pass are
-    # concatenated into single trace + shade calls (GI rays first; the
-    # reflection rays append here once RTR is ported)
+    # --- shared secondary-ray wavefront: the GI candidate rays and the
+    # reflection rays, and both passes' every-third-frame validation
+    # re-traces, are concatenated (GI first) into single trace + shade calls
     restir_state = {k: v for k, v in state.items()
                     if k.startswith("gi_res_")}
+    rtr_state_in = {k: state[k] for k in rtr.KEYS}
     rtdgi_candidates = None
     gi_invalidity = None
+    rtr_half = None
     use_gi_restir = cfg.use_rtdgi and cfg.use_restir_gi
-    if cfg.use_rtdgi:
+    use_rtr_restir = cfg.use_rtr
+    if cfg.use_rtdgi or cfg.use_rtr:
         # screen-space radiance reuse reads a decimated copy of last
         # frame's lit image: halve only while the source stays >= ~480 px
         # wide (4x at production resolutions, none for tiny test frames)
@@ -276,56 +297,90 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
             prev_depth_q = im.downsample_nearest(prev_depth_q)
         shade_kw = dict(prev_lit=prev_lit_q, prev_depth=prev_depth_q,
                         view=view, ircache_lookup=ircache_lookup,
-                        max_trace_steps=cfg.max_trace_steps,
+                        max_trace_steps=mts,
                         full_shading=cfg.secondary_full_shading)
         gb_h = rtdgi.half_gbuffer(gb)
 
-        # ---- batched validation of the stored reservoir rays, every third
-        # frame: the one host read of the frame index in a frame
-        if use_gi_restir:
+        # ---- batched validation of both passes' stored reservoir rays,
+        # every third frame: the one host read of the frame index
+        if use_gi_restir or use_rtr_restir:
             with pass_scope("gi_validate"):
                 if int(frame_idx) % restir_gi.VALIDATE_PERIOD == 0:
-                    org, d, ctx = restir_gi.validation_rays(restir_state,
-                                                            gb_h)
-                    hit = scene_trace_closest(
-                        ts, org, d, t_min=1e-4,
-                        max_steps=cfg.max_trace_steps, sort=True)
+                    orgs, dirs = [], []
+                    if use_gi_restir:
+                        oa, da, ctx_a = restir_gi.validation_rays(
+                            restir_state, gb_h)
+                        orgs.append(oa)
+                        dirs.append(da)
+                    if use_rtr_restir:
+                        ob, db, ctx_b = rtr.validation_rays(rtr_state_in, gb)
+                        orgs.append(ob)
+                        dirs.append(db)
+                    d = torch.cat(dirs)
+                    hit = scene_trace_closest(ts, torch.cat(orgs), d,
+                                              t_min=1e-4, max_steps=mts,
+                                              sort=True)
                     fresh = hit_radiance(ts, hit, d, sky_env, diffuse_env,
                                          **shade_kw)
-                    restir_state, gi_invalidity = restir_gi.apply_validation(
-                        restir_state, ctx, hit.t, fresh)
-                else:
+                    na = orgs[0].shape[0] if use_gi_restir else 0
+                    if use_gi_restir:
+                        restir_state, gi_invalidity = \
+                            restir_gi.apply_validation(
+                                restir_state, ctx_a, hit.t[:na], fresh[:na])
+                    if use_rtr_restir:
+                        rtr_state_in = rtr.apply_validation(
+                            rtr_state_in, ctx_b, hit.t[na:], fresh[na:])
+                elif use_gi_restir:
                     gi_invalidity = torch.zeros_like(gb_h["depth"])
 
-        # ---- batched candidate trace + shade
+        # ---- batched candidate + reflection trace and shade
         with pass_scope("gi_trace"):
-            org, wi, rng = rtdgi.candidate_rays(gb_h, frame_idx)
+            orgs, dirs, rngs = [], [], []
+            if cfg.use_rtdgi:
+                org_c, wi_c, rng_c = rtdgi.candidate_rays(gb_h, frame_idx)
+                orgs.append(org_c)
+                dirs.append(wi_c)
+                rngs.append(rng_c)
+            if cfg.use_rtr:
+                org_r, wi_r, pdf_r, rng_r = rtr.reflection_rays(gb, frame_idx)
+                orgs.append(org_r)
+                dirs.append(wi_r)
+                rngs.append(rng_r)
+            d = torch.cat(dirs)
             with pass_scope("trace"):
-                hit = scene_trace_closest(ts, org, wi, t_min=1e-4,
-                                          max_steps=cfg.max_trace_steps,
-                                          sort=True)
+                hit = scene_trace_closest(ts, torch.cat(orgs), d, t_min=1e-4,
+                                          max_steps=mts, sort=True)
             with pass_scope("shade"):
-                rad, aux = hit_radiance(ts, hit, wi, sky_env, diffuse_env,
-                                        rng=rng, return_aux=True, **shade_kw)
-            rtdgi_candidates = rtdgi.finish_candidates(
-                gb_h, org, wi, hit.hit_mask, hit.t, rad, aux)
+                rad, aux = hit_radiance(ts, hit, d, sky_env, diffuse_env,
+                                        rng=torch.cat(rngs), return_aux=True,
+                                        **shade_kw)
+            nc = orgs[0].shape[0] if cfg.use_rtdgi else 0
+            if cfg.use_rtdgi:
+                rtdgi_candidates = rtdgi.finish_candidates(
+                    gb_h, org_c, wi_c, hit.hit_mask[:nc], hit.t[:nc],
+                    rad[:nc], {"hit_pos": aux["hit_pos"][:nc],
+                               "hit_geo_normal": aux["hit_geo_normal"][:nc]})
+            if cfg.use_rtr:
+                rtr_half = rtr.finish_reflections(gb, wi_r, pdf_r,
+                                                  hit.t[nc:], rad[nc:])
 
     # --- diffuse GI
     if cfg.use_rtdgi:
         with pass_scope("rtdgi"):
-            dgi, rtdgi_state, restir_state, _ = rtdgi.rtdgi_pipeline(
-                ts, gb, view, frame_idx,
-                {"rtdgi_history": state["rtdgi_history"],
-                 "rtdgi_hist_len": state["rtdgi_hist_len"]},
-                reproj, sky_env, diffuse_env, ssao=ao,
-                prev_lit=state["prev_lit"], prev_depth=state["prev_depth"],
-                ircache_lookup=ircache_lookup,
-                max_trace_steps=cfg.max_trace_steps,
-                use_restir=cfg.use_restir_gi,
-                restir_state=restir_state if cfg.use_restir_gi else None,
-                secondary_full_shading=cfg.secondary_full_shading,
-                candidates=rtdgi_candidates, invalidity=gi_invalidity,
-                validated=True)
+            dgi, rtdgi_state, restir_state, rtdgi_candidates = \
+                rtdgi.rtdgi_pipeline(
+                    ts, gb, view, frame_idx,
+                    {"rtdgi_history": state["rtdgi_history"],
+                     "rtdgi_hist_len": state["rtdgi_hist_len"]},
+                    reproj, sky_env, diffuse_env, ssao=ao,
+                    prev_lit=state["prev_lit"],
+                    prev_depth=state["prev_depth"],
+                    ircache_lookup=ircache_lookup, max_trace_steps=mts,
+                    use_restir=cfg.use_restir_gi,
+                    restir_state=restir_state if cfg.use_restir_gi else None,
+                    secondary_full_shading=cfg.secondary_full_shading,
+                    candidates=rtdgi_candidates, invalidity=gi_invalidity,
+                    validated=True)
             restir_state = restir_state or {}
     else:
         with pass_scope("sky_ambient"):
@@ -335,12 +390,25 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
         rtdgi_state = {"rtdgi_history": state["rtdgi_history"],
                        "rtdgi_hist_len": state["rtdgi_hist_len"]}
 
-    # --- reflections: the sky along the mirror direction until RTR is ported
-    with pass_scope("sky_refl"):
-        refl = sky_env_mod.sample_env(
-            sky_env, _reflect(gb["ray_dir"], gb["normal"]).reshape(-1, 3)
-        ).reshape(h, w, 3)
-    rtr_state = {k: state[k] for k in _RTR_KEYS}
+    # --- reflections
+    if cfg.use_rtr:
+        with pass_scope("rtr"):
+            refl, rtr_state = rtr.rtr_pipeline(
+                ts, gb, view, frame_idx, rtr_state_in, reproj, sky_env,
+                diffuse_env, prev_lit=state["prev_lit"],
+                prev_depth=state["prev_depth"],
+                ircache_lookup=ircache_lookup, max_trace_steps=mts,
+                half=rtr_half,
+                mesh_light_specular=cfg.use_mesh_light_specular,
+                rtdgi_candidates=rtdgi_candidates,
+                secondary_full_shading=cfg.secondary_full_shading,
+                validated=True)
+    else:
+        with pass_scope("sky_refl"):
+            refl = sky_env_mod.sample_env(
+                sky_env, _reflect(gb["ray_dir"], gb["normal"]).reshape(-1, 3)
+            ).reshape(h, w, 3)
+        rtr_state = {k: state[k] for k in rtr.KEYS}
 
     # background sky at quarter res, upsampled (it is smooth)
     with pass_scope("sky_bg"):
@@ -358,26 +426,53 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
             gb, shadow, dgi, refl, sky_bg, ts.gpu.sun_radiance,
             ts.gpu.sun_direction, ssao=ao, debug_mode=cfg.debug_mode)
 
-    # without TAA nothing temporal runs pre-exposed: pre_mult stays 1
-    pre_mult = torch.ones_like(state["pre_mult"])
-    aa = lit
-    taa_state = {k: state[k] for k in _TAA_KEYS}
+    # --- pre-exposure split: pre_mult chases last frame's metered exposure
+    # (0.9 / 0.1 EMA); everything temporal downstream of `lit` runs
+    # pre-exposed, history is rescaled by this frame's pre_mult delta, and
+    # post applies only the remaining exposure / pre_mult
+    pre_mult, pre_delta = pre_exposure(state["pre_mult"],
+                                       state["smoothed_ev"], cfg.use_taa)
 
+    # --- TAA (temporal super-res)
+    if cfg.use_taa:
+        with pass_scope("taa"):
+            aa, taa_state = taa.taa(
+                lit * pre_mult, {k: state[k] for k in taa.KEYS},
+                reproj, gb["depth"], view.sample_offset_pixels,
+                cfg.out_height, cfg.out_width, pre_delta=pre_delta)
+    else:
+        aa = lit
+        taa_state = {k: state[k] for k in taa.KEYS}
+
+    # --- motion blur (taa -> motion blur -> post)
+    if cfg.use_motion_blur:
+        from .renderers import motion_blur as mb
+
+        vel_out = gb["velocity"]
+        depth_for_mb = gb["depth"]
+        if aa.shape[:2] != gb["depth"].shape:
+            vel_out = im.upsample_bilinear(vel_out, aa.shape[0], aa.shape[1])
+            depth_for_mb = im.upsample_bilinear(gb["depth"], aa.shape[0],
+                                                aa.shape[1])
+        with pass_scope("motion_blur"):
+            aa = mb.motion_blur(aa, vel_out, depth_for_mb,
+                                frame_fraction=cfg.motion_blur_scale)
+
+    # --- post: exposure + glare + tonemap; `aa` is pre-exposed, so post
+    # applies only the remainder
     with pass_scope("post"):
         exposure, exp_state = post.update_exposure(
             {"smoothed_ev": state["smoothed_ev"]}, lit, dt=cfg.dt,
             ev_shift=cfg.ev_shift)
         final = post.post_combine(aa, exposure / pre_mult)
 
-    passthrough = {k: v for k, v in state.items()
-                   if k.startswith(("ircache_", "wrc_"))}
     new_state = {
         "frame_idx": frame_idx + 1,
         "prev_depth": gb["depth"],
         "prev_lit": lit,
         "pre_mult": pre_mult,
         **shadow_state, **ssgi_state, **rtdgi_state, **rtr_state,
-        **taa_state, **exp_state, **passthrough, **restir_state,
+        **taa_state, **exp_state, **ir_state, **restir_state,
     }
     outputs = {
         "final": final, "lit": lit, "gbuffer": gb, "shadow": shadow,

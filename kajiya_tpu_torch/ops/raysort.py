@@ -14,6 +14,8 @@ through the scatter back (no round trip through float).
 """
 from __future__ import annotations
 
+import numbers
+
 import torch
 
 _OBITS = 5
@@ -84,7 +86,10 @@ def sorted_trace(trace_fn, woop, org, d, t_max=None, obits: int = SORT_OBITS,
     r = org.shape[0]
     perm = sort_permutation(woop, org, d, obits, dbits)
     tm = None
-    if t_max is not None:
+    if isinstance(t_max, numbers.Real):    # filled on the device, no copy
+        tm = torch.full((r,), float(t_max), dtype=torch.float32,
+                        device=org.device)
+    elif t_max is not None:
         tm = torch.as_tensor(t_max, dtype=torch.float32,
                              device=org.device).expand(r)[perm]
     outs = trace_fn(org[perm], d[perm], tm)

@@ -25,6 +25,7 @@ The tables the kernels read ((T, 21) rows for B; (T / 128, 21, 128) slabs and
 """
 from __future__ import annotations
 
+import numbers
 from dataclasses import dataclass
 
 import numpy as np
@@ -102,9 +103,13 @@ def stored_table(woop, key, build):
 
 
 def ray_tmax(org, t_max) -> torch.Tensor:
+    """(R,) float32 tmax from None (no limit), a number or per-ray values.
+    A number is filled on the device: a copy from the host would make the
+    host wait for the card."""
     r = org.shape[0]
-    if t_max is None:
-        return torch.full((r,), INF, dtype=torch.float32, device=org.device)
+    if t_max is None or isinstance(t_max, numbers.Real):
+        return torch.full((r,), INF if t_max is None else float(t_max),
+                          dtype=torch.float32, device=org.device)
     return torch.as_tensor(t_max, dtype=torch.float32,
                            device=org.device).expand(r).contiguous()
 

@@ -2,8 +2,8 @@
 of `kajiya_tpu/renderers/hit_lighting.py`).
 
 At each secondary hit: emissive + sun NEE (one shadow ray) + emissive
-triangle NEE + ambient (the convolved sky; the irradiance cache is not ported
-yet) + screen-space reuse of last frame's lit image when the hit point is on
+triangle NEE + ambient (the irradiance cache where the frame runs one, else
+the convolved sky) + screen-space reuse of last frame's lit image when the hit point is on
 screen (the temporal feedback that makes GI multi-bounce). On a miss: the
 sky.
 """
@@ -47,12 +47,9 @@ def hit_radiance(ts, hit, ray_dir, sky_env, diffuse_env,
     prev_lit / prev_depth + view enable screen-space radiance reuse. When
     `rng` ((R,) seed lattice) is given, one NEE sample of the emissive
     triangles + its shadow ray is added. full_shading interpolates vertex
-    attributes at the hit; False takes the face normal. `ircache_lookup` and
-    `wrc_lookup` belong to passes that are not ported yet and raise."""
-    if ircache_lookup is not None:
-        raise NotImplementedError(
-            "ircache_lookup (irradiance cache, ROADMAP section 1, step 6) is "
-            "not ported to kajiya_tpu_torch yet")
+    attributes at the hit; False takes the face normal.
+    `ircache_lookup(pos, normal) -> E/pi` supplies the ambient term;
+    `wrc_lookup` belongs to a pass that is not ported yet and raises."""
     if wrc_lookup is not None:
         raise NotImplementedError(
             "wrc_lookup (world radiance cache, ROADMAP section 1, step 10) "
@@ -97,9 +94,12 @@ def hit_radiance(ts, hit, ray_dir, sky_env, diffuse_env,
         direct = direct + torch.where((possible & ~occ_l)[:, None], contrib,
                                       0.0)
 
-    # --- ambient: the convolved sky
+    # --- ambient: irradiance cache (preferred) or the convolved sky
     with pass_scope("ambient"):
-        amb_irr = sample_env(diffuse_env, n)
+        if ircache_lookup is not None:
+            amb_irr = ircache_lookup(pos, n)
+        else:
+            amb_irr = sample_env(diffuse_env, n)
     ambient = albedo * amb_irr
 
     radiance = attrs["emissive"] + direct + ambient

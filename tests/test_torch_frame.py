@@ -155,18 +155,18 @@ def test_renderer_draw_and_unported_flags():
     assert out["final"].shape == (H, W, 3)
     assert torch.isfinite(out["final"]).all()
     assert int(r.state["frame_idx"]) == 1
-    for flag in ("use_taa", "use_ircache", "use_rtr", "use_motion_blur",
-                 "use_wrc", "use_dof"):
+    for flag in ("use_wrc", "use_dof"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             check_supported(CfgT(**{**SLICE, flag: True}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_supported(CfgT(**{**SLICE, "primary": "trace"}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_supported(CfgT(**SLICE), ibl_env=object())
-    for flag in ("use_ssao", "use_rtdgi"):
+    for flag in ("use_ssao", "use_rtdgi", "use_taa", "use_ircache", "use_rtr",
+                 "use_motion_blur"):
         check_supported(CfgT(**{**SLICE, flag: True}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_t(r.ts, r.state, v, CfgT(**{**SLICE, "use_taa": True}))
+        render_t(r.ts, r.state, v, CfgT(**{**SLICE, "use_wrc": True}))
 
 
 def test_renderer_set_transforms_matches_jax_refresh():

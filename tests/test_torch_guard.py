@@ -48,7 +48,10 @@ def test_port_imports_no_jax():
     for new in ("ops/raysort.py", "ops/reservoir.py", "ops/tileshift_cuda.py",
                 "renderers/lights.py", "renderers/hit_lighting.py",
                 "renderers/ssgi.py", "renderers/rtdgi.py",
-                "renderers/restir_gi.py"):
+                "renderers/restir_gi.py", "ops/scan.py",
+                "renderers/ircache.py", "renderers/lighting.py",
+                "renderers/rtr.py", "renderers/taa.py",
+                "renderers/motion_blur.py"):
         assert os.path.join("kajiya_tpu_torch", new) in names, new
     assert "chip_smoke.py" in names
     for path in files:

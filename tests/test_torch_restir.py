@@ -200,7 +200,7 @@ def test_hit_radiance(stages, batch):
 
 def test_hit_radiance_refuses_unported_lookups(stages):
     s = stages
-    for kw in ("ircache_lookup", "wrc_lookup"):
+    for kw in ("wrc_lookup",):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             hl_t.hit_radiance(s.ts_t, _hit_t(s.hit_v), _t(s.d_v), *s.envs_t,
                               **{kw: lambda p, n: p})

@@ -1,25 +1,27 @@
 #!/bin/bash
-# GI frames of the PyTorch port at 1920x1080 in two source trees, on one card
-# in one call, in turns (A, B, B, A):
+# Frames of the PyTorch port at 1920x1080 in two source trees, on one card in
+# one call, in turns (A, B, B, A):
 #
-#     bash tools/torch_frame_ab.sh TREE_A TREE_B [FRAMES]
+#     bash tools/torch_frame_ab.sh TREE_A TREE_B [FRAMES] [PATH]
 #
 # Each tree is a checkout of the repo (for an earlier commit: `git archive`
 # unpacked into a gitignored directory). Every turn is a fresh process that
-# runs `chip_smoke.frame_phase` on the GI path (cornell, then the city) for
-# FRAMES frames (default 12) with the launch counts asserted, and prints the
-# frame times in ms; the first frames of a process carry its warm-up. Frames
+# runs `chip_smoke.frame_phase` on PATH (default: gi; or raster, or default,
+# which a tree has only from the default-frame slice on; cornell, then the
+# city) for FRAMES frames (default 12) with the launch counts asserted, and
+# prints the frame times in ms; the first frames of a process carry its warm-up. Frames
 # of a few thousand small launches are bound by the host, so read the spread
 # between the two turns of one tree before the difference between the trees.
 set -e
 frames=${3:-12}
+path=${4:-gi}
 run() {
   (cd "$1" && python3 -c "
 import statistics, sys, torch
 sys.path.insert(0, '.')
 import chip_smoke
-chip_smoke.N_FRAMES['gi'] = $frames
-res = chip_smoke.frame_phase(torch.device('cuda', 0), 'gi')
+chip_smoke.N_FRAMES['$path'] = $frames
+res = chip_smoke.frame_phase(torch.device('cuda', 0), '$path')
 for name, r in res.items():
     ms = r['frame_ms']
     print('$2', name, 'median of frames 2.. %.2f ms;' % statistics.median(ms[2:]),

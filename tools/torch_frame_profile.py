@@ -1,13 +1,14 @@
 """Where a 1080p frame of the PyTorch port spends its time, per scene.
 
-    python3 tools/torch_frame_profile.py [--frames 3] [--path raster|gi]
+    python3 tools/torch_frame_profile.py [--frames 3] [--path raster|gi|default]
 
 Renders one ported path of `kajiya_tpu_torch` at 1920x1080 ("raster": the
-raster + sun-shadow frame; "gi": that plus SSAO, RTDGI and ReSTIR GI) on the
-scenes of `chip_smoke.py` (cornell, city), three warm-up frames and then
-`--frames` frames under `torch.profiler` (CPU + CUDA activity; with the
-default 3 frames from frame index 3 on, one of them validates the GI
-reservoirs). Prints per
+raster + sun-shadow frame; "gi": that plus SSAO, RTDGI and ReSTIR GI;
+"default": the default `RenderConfig`, which adds the irradiance cache, RTR,
+TAA with the jitter and motion blur) on the scenes of `chip_smoke.py`
+(cornell, city), three warm-up frames and then `--frames` frames under
+`torch.profiler` (CPU + CUDA activity; with the default 3 frames from frame
+index 3 on, one of them validates the reservoirs). Prints per
 scene: wall ms per frame, the device busy share (summed kernel, copy and set
 time over wall time; the port runs on one stream, so they do not overlap),
 host ms and device span per pass (`core/profiling.py::pass_scope` ranges) and
@@ -25,13 +26,17 @@ import time
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PASSES = ("sky_env", "gbuffer", "reprojection", "ssao", "shadow_trace",
-          "shadow_denoise", "gi_validate", "gi_trace", "rtdgi", "sky_ambient",
-          "sky_refl", "sky_bg", "deferred", "post")
+PASSES = ("sky_env", "gbuffer", "reprojection", "ircache", "ssao",
+          "shadow_trace", "shadow_denoise", "gi_validate", "gi_trace",
+          "rtdgi", "rtr", "sky_ambient", "sky_refl", "sky_bg", "deferred",
+          "taa", "motion_blur", "post")
 # ranges nested inside the passes above (reported, not summed with them)
-SUB_PASSES = ("trace", "shade", "attrs", "sun_nee", "light_nee", "ambient",
+SUB_PASSES = ("ircache_alloc", "ircache_trace", "ircache_value_grid", "trace",
+              "shade", "attrs", "sun_nee", "light_nee", "ambient",
               "screen_reuse", "restir", "spatial0", "spatial1", "resolve",
-              "temporal")
+              "temporal", "rtr_restir", "rtr_resolve", "rtr_temporal",
+              "filter_input", "closest_vel", "warp9", "filter_history",
+              "input_prob", "unjitter", "tiles", "taps")
 WARMUP = 3
 
 
@@ -43,7 +48,8 @@ def profile_scene(name, frames, path):
     make, eye, fwd, step = SCENES[name]
     dev = torch.device("cuda", 0)
     r = Renderer(make(procedural), slice_cfg(WIDTH, HEIGHT, path), device=dev)
-    vs = views(eye, fwd, step, frames + WARMUP, WIDTH, HEIGHT, dev)
+    vs = views(eye, fwd, step, frames + WARMUP, WIDTH, HEIGHT, dev,
+               jitter=path == "default")
     for v in vs[:WARMUP]:
         r.draw(v)
     torch.cuda.synchronize()
@@ -88,7 +94,8 @@ def profile_scene(name, frames, path):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=3)
-    ap.add_argument("--path", choices=("raster", "gi"), default="gi")
+    ap.add_argument("--path", choices=("raster", "gi", "default"),
+                    default="default")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_frame_profile: no CUDA device", file=sys.stderr)
