@@ -4,17 +4,27 @@
 
 Builds the port's CUDA kernels from csrc/, holds each kernel (B brute Woop,
 C culled Woop, W image warp, S per-tile shift) against its plain PyTorch
-version on the card at the shapes the 1080p frame gives it (timing both with
-CUDA events), checks the GPU path against the CPU path on small frames, then
-renders at 1920x1080, on the cornell box (32 triangles, brute kernel B) and
-on the 196,610-triangle procedural city (culled kernel C), 2 frames of the
-raster + sun-shadow path, 4 frames of the diffuse-GI path (SSAO, sorted
-secondary-ray wavefront, ReSTIR temporal + spatial, resolve) and 4 frames of
-the default frame (`RenderConfig(width=1920, height=1080)`: that plus the
-irradiance cache, RTR with mesh-light specular on cornell, the pre-exposure
-split, TAA with the Halton jitter and motion blur), with the launch counters
-set to 0 just before each path and read just after, and prints one JSON
-line of per-kernel numbers. The last line is
+version on the card at the shapes the 1080p frame and the path tracer give
+it (timing both with CUDA events), checks the GPU path against the CPU path
+on small frames of every path, then renders at 1920x1080, on the cornell box
+(32 triangles, brute kernel B) and on the 196,610-triangle procedural city
+(culled kernel C):
+- 2 frames of the raster + sun-shadow path;
+- 4 frames of the diffuse-GI path (SSAO, sorted secondary-ray wavefront,
+  ReSTIR temporal + spatial, resolve);
+- 4 frames of the default frame (`RenderConfig(width=1920, height=1080)`:
+  that plus the irradiance cache, RTR with mesh-light specular on cornell,
+  the pre-exposure split, TAA with the Halton jitter and motion blur);
+- 2 progressive frames of the reference path tracer
+  (`render_frame_reference`: 16 bounces, 1 spp, the gaussian pixel filter);
+- 2 frames of the default frame with the last four options on (traced
+  g-buffer, world radiance cache, depth of field, an IBL sky from an .hdr
+  panorama the script writes),
+with the launch counters set to 0 just before each path and read just after,
+and the host syncs of each frame counted. Then the oracle datum (the port's
+hybrid frame against its path tracer on cornell at 64x48, held to
+tests/test_oracle.py's bounds) and one run of the headless viewer in a
+subprocess. Prints one JSON line of per-kernel numbers; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Any failed check raises, so the exit code is not 0 and no result is printed.
 Needs a CUDA device; imports nothing of JAX.
@@ -24,17 +34,22 @@ from __future__ import annotations
 import collections
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
+
+import numpy as np
 
 import torch
 
 WIDTH, HEIGHT = 1920, 1080
-N_FRAMES = {"raster": 2, "gi": 4, "default": 4}   # frames per scene of each
-                                                   # path
+N_FRAMES = {"raster": 2, "gi": 4, "default": 4,   # frames per scene of each
+            "refpt": 2, "options": 2}               # path
+PT_BOUNCES = 16
 T_TOL = 2e-5          # t agreement where the kernel and plain ids agree
 ID_AGREE = 0.999      # fraction of rays whose triangle ids agree
 WARP_TOL = 1e-6       # warp kernel vs plain sampler, absolute
@@ -53,6 +68,10 @@ HIT_AGREE = 0.995
 # filter spread it. Bounds per output: fraction of pixels within 5e-3, and
 # the mean absolute difference (an H100 run showed >= 0.9986 and <= 2.4e-5).
 GI_FRAME_TOL = (5e-3, 0.97, 1e-3)
+# The path tracer's small frames: one ulp can send a path elsewhere at any of
+# its 16 bounces, and a path that differs differs by its whole radiance
+# (the emitter is 20), so the mean bound is looser than the GI frame's.
+PT_FRAME_TOL = (5e-3, 0.97, 1e-2)
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores and HBM3 bandwidth
 PEAK_FP32 = 67e12
@@ -97,21 +116,31 @@ def bound(bytes_moved, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# the irradiance cache of the small GPU-vs-CPU frames (the default traces
-# 16,384 x 4 rays a frame, which the CPU path would take minutes over)
+# the irradiance cache and the world radiance cache of the small GPU-vs-CPU
+# frames (the defaults trace 16,384 x 4 and 196,608 rays a frame, which the
+# CPU path would take minutes over on the city)
 SMALL_IRCACHE = dict(max_entries=4096, active_budget=1024)
+SMALL_WRC = dict(grid=(4, 2, 4), probe_res=8)
 
 
 def slice_cfg(width, height, path="raster", small_ircache=False):
     """The configuration of a ported path: "raster" (raster + sun shadows),
-    "gi" (that plus SSAO, RTDGI and ReSTIR GI) or "default" (the default
-    `RenderConfig`, every default flag on)."""
+    "gi" (that plus SSAO, RTDGI and ReSTIR GI), "default" (the default
+    `RenderConfig`, every default flag on), "options" (that plus the traced
+    g-buffer, the world radiance cache and depth of field; the IBL sky is
+    the Renderer's) or "refpt" (the default config, which the path
+    tracer's frame reads for its size and exposure)."""
     from kajiya_tpu_torch.frame import RenderConfig
     from kajiya_tpu_torch.renderers.ircache import IrcacheConfig
+    from kajiya_tpu_torch.renderers.wrc import WrcConfig
 
-    if path == "default":
+    if path in ("default", "options", "refpt"):
         kw = ({"ircache": IrcacheConfig(**SMALL_IRCACHE)} if small_ircache
               else {})
+        if path == "options":
+            kw.update(primary="trace", use_wrc=True, use_dof=True)
+            if small_ircache:
+                kw.update(wrc=WrcConfig(**SMALL_WRC))
         return RenderConfig(width=width, height=height, **kw)
     gi = path == "gi"
     return RenderConfig(width=width, height=height, primary="raster",
@@ -196,11 +225,36 @@ def ircache_rays(gb, eye, dev):
     return rays["org"].contiguous(), rays["dir"].contiguous()
 
 
+def pt_wavefront(ts, view, bounce):
+    """The closest-hit wavefront of the reference path tracer's bounce
+    `bounce` (0 = camera rays) of frame 0 at 1080p: (org, dir, tmax) as
+    `path_trace` hands them to the trace, ended paths with tmax 0."""
+    from kajiya_tpu_torch.renderers import reference
+
+    calls = []
+    trace = reference.scene_trace_closest
+
+    def record(ts_, org, d, **kw):
+        calls.append((org, d, kw["t_max"]))
+        return trace(ts_, org, d, **kw)
+
+    reference.scene_trace_closest = record
+    try:
+        reference.render_sample(ts, view, WIDTH, HEIGHT, 0,
+                                num_bounces=bounce + 1)
+    finally:
+        reference.scene_trace_closest = trace
+    org, d, tmax = calls[bounce]
+    return org.contiguous(), d.contiguous(), tmax.contiguous()
+
+
 def brute_phase(dev):
     """Kernel B: cornell, 1080p camera rays (closest), the sun shadow rays
     (any-hit), the half-res GI candidate rays (closest, divergent), the
     default frame's shared wavefront (GI candidates + reflection rays,
-    closest) and the irradiance cache's entry wavefront (closest)."""
+    closest), the irradiance cache's entry wavefront (closest) and the
+    path tracer's bounce-2 wavefront (closest; ended paths are dead
+    lanes)."""
     from kajiya_tpu_torch.core.camera import camera_rays
     from kajiya_tpu_torch.ops import woop_cuda as wc
     from kajiya_tpu_torch.renderers import gbuffer, rtdgi, rtr, shadows
@@ -228,6 +282,7 @@ def brute_phase(dev):
     worg = torch.cat([corg, rorg]).contiguous()
     wdir = torch.cat([cdir, rdir]).contiguous()
     iorg, idir = ircache_rays(gb, view.eye_position, dev)
+    porg, pdir, ptmax = pt_wavefront(ts, view, 2)
     cases = []
     for case, (o, dd, tm, t_min, any_hit) in {
             "primary_closest": (org, d, tmax, 1e-4, False),
@@ -236,7 +291,8 @@ def brute_phase(dev):
             "gi_rtr_closest": (worg, wdir, wc.ray_tmax(worg, None), 1e-4,
                                False),
             "ircache_closest": (iorg, idir, wc.ray_tmax(iorg, None), 1e-4,
-                                False)}.items():
+                                False),
+            "pt_bounce2_closest": (porg, pdir, ptmax, 1e-4, False)}.items():
         k_out = wc.brute_launch(coef, o, dd, tm, t_min, any_hit)
         p_out = wc.brute_plain(coef, o, dd, tm, t_min)
         torch.cuda.synchronize()
@@ -245,15 +301,18 @@ def brute_phase(dev):
                      20)
         plain_ms = time_ms(lambda: wc.brute_plain(coef, o, dd, tm, t_min), 3)
         r = o.shape[0]
-        if any_hit:      # a thread stops at its first hit in index order
+        # dead lanes (tmax <= t_min) test nothing; a live any-hit thread
+        # stops at its first hit in index order
+        if any_hit:
             visits = torch.where(k_out[1] >= 0, k_out[1].long() + 1, n_tris)
-            visits = torch.where(tm > t_min, visits, 0).sum()
         else:
-            visits = torch.tensor(r * n_tris)
+            visits = torch.full_like(tm, n_tris, dtype=torch.int64)
+        visits = torch.where(tm > t_min, visits, 0).sum()
         ops = OPS_PER_VISIT * float(visits)
         bytes_moved = r * (24 + 4 + 16) + coef.numel() * 4
         b_ms, b_by = bound(bytes_moved, ops)
         cases.append(dict(case=case, rays=r, tris=n_tris, max_abs_err=err,
+                          live_rays=int((tm > t_min).sum()),
                           ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                           bound_by=b_by, visits=float(visits)))
         log(f"woop_brute/{case}: err {err} kernel {ms:.4f} ms plain "
@@ -264,13 +323,14 @@ def brute_phase(dev):
 def culled_batches(dev):
     """Kernel C's cases on the city at 1080p, as name -> (CulledBatch, t_min,
     any_hit), and the things the sorted wavefronts' overhead and the
-    irradiance cache's cull are timed on: for each sorted case its unsorted
-    rays, and the ircache rays."""
+    unsorted wavefronts' cull are timed on: for each sorted case its
+    unsorted rays and their tmax, and the rays of each unsorted case."""
     from kajiya_tpu_torch.ops import raysort
     from kajiya_tpu_torch.ops import woop_cuda as wc
+    from kajiya_tpu_torch.core.camera import camera_rays
     from kajiya_tpu_torch.ops.tiling import tile_order
     from kajiya_tpu_torch.renderers import (gbuffer, raster, rtdgi, rtr,
-                                            shadows)
+                                            shadows, wrc)
     from kajiya_tpu_torch.scene import procedural
     from kajiya_tpu_torch.scene.scene import build_gpu_scene
     from kajiya_tpu_torch.world import build_trace_scene
@@ -285,15 +345,27 @@ def culled_batches(dev):
     # the default frame's shared wavefront: GI candidates, then the
     # reflection rays, sorted as one batch
     rorg, rdir, _pdf, _rng = rtr.reflection_rays(gb, 0)
-    unsorted = {"gi_sorted_closest": (corg0, cdir0),
+    # the path tracer's bounce-2 wavefront, ended paths as dead lanes
+    unsorted = {"gi_sorted_closest": (corg0, cdir0, None),
                 "gi_rtr_sorted_closest": (torch.cat([corg0, rorg]),
-                                          torch.cat([cdir0, rdir]))}
+                                          torch.cat([cdir0, rdir]), None),
+                "pt_bounce2_sorted_closest": pt_wavefront(ts, view, 2)}
     rb = raysort.SORT_RAY_BLOCK
     srt = {}
-    for case, (o, dd) in unsorted.items():
+    for case, (o, dd, tm) in unsorted.items():
         perm = raysort.sort_permutation(ts.woop, o, dd)
-        srt[case] = (o[perm], dd[perm])
+        srt[case] = (o[perm], dd[perm], None if tm is None else tm[perm])
     iorg, idir = ircache_rays(gb, view.eye_position, dev)
+    # the traced g-buffer's camera rays in 64x128 screen tiles, and the
+    # world radiance cache's probe texels (default config, unsorted)
+    corg, cdir = camera_rays(view, WIDTH, HEIGHT)
+    worg, wdir = wrc.probe_rays(wrc.WrcConfig(), dev)
+    plain_rays = {"ircache_closest": (iorg, idir),
+                  "traced_primary_closest": (
+                      tile_order(corg).reshape(-1, 3).contiguous(),
+                      tile_order(cdir).reshape(-1, 3).contiguous()),
+                  "wrc_probes_closest": (worg.contiguous(),
+                                         wdir.contiguous())}
     batches = {
         "raster_closest": (raster.raster_batch(ts, view, WIDTH, HEIGHT),
                            1e-4, False),
@@ -301,14 +373,16 @@ def culled_batches(dev):
             ts.woop, tile_order(sorg.reshape(HEIGHT, WIDTH, 3)).reshape(-1, 3),
             tile_order(sdir.reshape(HEIGHT, WIDTH, 3)).reshape(-1, 3)),
             shadows.RAY_EPS, True),
-        **{case: (wc.prepare_culled(ts.woop, *srt[case], rb=rb), 1e-4, False)
+        **{case: (wc.prepare_culled(ts.woop, *srt[case][:2],
+                                    t_max=srt[case][2], rb=rb), 1e-4, False)
            for case in srt},
         "gi_sorted_closest_rb512": (wc.prepare_culled(
-            ts.woop, *srt["gi_sorted_closest"], rb=512), 1e-4, False),
-        "ircache_closest": (wc.prepare_culled(ts.woop, iorg, idir), 1e-4,
-                            False),
+            ts.woop, *srt["gi_sorted_closest"][:2], rb=512), 1e-4, False),
+        **{case: (wc.prepare_culled(ts.woop, *rays),
+                  1e-3 if case == "wrc_probes_closest" else 1e-4, False)
+           for case, rays in plain_rays.items()},
     }
-    return batches, (ts, unsorted, srt, rb, iorg, idir)
+    return batches, (ts, unsorted, srt, rb, plain_rays)
 
 
 def culled_phase(dev):
@@ -318,9 +392,12 @@ def culled_phase(dev):
     (closest), the default frame's wavefront of those rays and the
     half-res reflection rays, sorted together (closest), and the irradiance
     cache's 65,536-ray entry wavefront, traced unsorted in 512-ray chunks as
-    the default frame traces it (closest). The plain version walks the same
-    lists. Also times the sort and the beam cull that each sorted wavefront
-    pays before the kernel, the cull of the entry wavefront, and
+    the default frame traces it (closest), the path tracer's bounce-2
+    wavefront (sorted, 128-ray chunks, ended paths dead), the traced
+    g-buffer's tiled camera rays and the world radiance cache's 196,608
+    probe rays (unsorted, 512-ray chunks; closest). The plain version walks
+    the same lists. Also times the sort and the beam cull that each sorted
+    wavefront pays before the kernel, the cull of each unsorted one, and
     the sorted wavefront in 512-ray chunks (a check against the 128-ray
     chunks' hits and a time beside theirs, not a frame call). A checking
     launch per case counts the ray x block pairs the kernel's per-ray walk
@@ -330,26 +407,29 @@ def culled_phase(dev):
     from kajiya_tpu_torch.ops import raysort
     from kajiya_tpu_torch.ops import woop_cuda as wc
 
-    batches, (ts, unsorted, srt, rb, iorg, idir) = culled_batches(dev)
+    batches, (ts, unsorted, srt, rb, plain_rays) = culled_batches(dev)
     not_frame = ("gi_sorted_closest_rb512",)
     plain_outs = {}
     overhead = {}
-    for case, (o, dd) in unsorted.items():
-        so, sd = srt[case]
+    for case, (o, dd, _tm) in unsorted.items():
+        so, sd, stm = srt[case]
         b = batches[case][0]
         coherent = wc._chunk_beams(b.org, b.d, b.tmax, b.n_chunks, rb)[5]
         overhead[case] = {
             "sort_ms": time_ms(lambda: raysort.sort_permutation(
                 ts.woop, o, dd), 5),
-            "cull_ms": time_ms(lambda: wc.prepare_culled(ts.woop, so, sd,
-                                                         rb=rb), 5),
-            "coherent_chunk_share": float(coherent.float().mean())}
-        log(f"{case} wavefront: {b.n_rays} rays, {b.n_chunks} chunks of "
+            "cull_ms": time_ms(lambda: wc.prepare_culled(
+                ts.woop, so, sd, t_max=stm, rb=rb), 5),
+            "coherent_chunk_share": float(coherent.float().mean()),
+            "live_rays": int((b.tmax > 1e-4).sum())}
+        log(f"{case} wavefront: {b.n_rays} rays "
+            f"({overhead[case]['live_rays']} live), {b.n_chunks} chunks of "
             f"{rb}, {overhead[case]['coherent_chunk_share']:.3f} coherent; "
             f"sort {overhead[case]['sort_ms']:.3f} ms, cull "
             f"{overhead[case]['cull_ms']:.3f} ms")
-    overhead["ircache_closest"] = {"cull_ms": time_ms(
-        lambda: wc.prepare_culled(ts.woop, iorg, idir), 5)}
+    for case, (o, dd) in plain_rays.items():
+        overhead[case] = {"cull_ms": time_ms(
+            lambda: wc.prepare_culled(ts.woop, o, dd), 5)}
     cases = []
     for case, (b, t_min, any_hit) in batches.items():
         tested = torch.zeros((1,), dtype=torch.int64, device=dev)
@@ -568,24 +648,15 @@ def tileshift_phase(dev):
 # Frame phases
 # ----------------------------------------------------------------------------
 
-def draw_checked(r, view, name):
-    """Renderer.draw, failing if the frame failed: draw presents the last
-    good frame after an error, which must not pass for a rendered one."""
-    out = r.draw(view)
-    if r._last_error is not None:
-        raise RuntimeError(f"{name}: frame failed: {r._last_error}")
-    return out
-
-
-def draw_counting_syncs(r, view, name):
-    """draw_checked, and the operations in it that made the host wait for
-    the card (`torch.cuda.set_sync_debug_mode("warn")` warns once for each:
-    a read of a device value, a blocking copy), counted per source line."""
+def counting_syncs(step):
+    """step(), and the operations in it that made the host wait for the
+    card (`torch.cuda.set_sync_debug_mode("warn")` warns once for each: a
+    read of a device value, a blocking copy), counted per source line."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            out = draw_checked(r, view, name)
+            out = step()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     sites = collections.Counter(
@@ -594,42 +665,111 @@ def draw_counting_syncs(r, view, name):
     return out, sites
 
 
-def reference_phase(dev):
+def write_panorama(path, seed=0):
+    """A 256x512 lat-long .hdr sky written with the port's RGBE writer: a
+    blue gradient with seeded cloud noise and a small bright sun."""
+    from kajiya_tpu_torch.sky.ibl import write_hdr
+
+    rs = np.random.default_rng(seed)
+    h, w = 256, 512
+    v = (np.arange(h) + 0.5)[:, None] / h
+    u = (np.arange(w) + 0.5)[None, :] / w
+    sky = np.stack([0.3 + 0.5 * v, 0.5 + 0.4 * v, 1.0 + 0.2 * v], -1)
+    sky = sky * (1.0 + 0.3 * rs.random((h, w, 1)))
+    sun = np.exp(-(((u - 0.3) * 40.0) ** 2 + ((v - 0.25) * 20.0) ** 2))
+    write_hdr(path, (sky + 200.0 * sun[..., None]).astype(np.float32))
+
+
+class PathRun:
+    """One ported path on one scene: `step(view)` renders a frame through
+    the entry points a user calls (`Renderer.draw`; for the path tracer
+    `render_frame_reference` on the Renderer's trace scene, as the viewer's
+    reference mode does), failing if the frame failed."""
+
+    def __init__(self, path, make, dev, width, height, ibl=None,
+                 small_ircache=False):
+        from kajiya_tpu_torch.frame import Renderer, init_reference_state
+        from kajiya_tpu_torch.scene import procedural
+
+        self.path = path
+        self.cfg = slice_cfg(width, height, path, small_ircache)
+        self.r = Renderer(make(procedural), self.cfg, device=dev,
+                          ibl=ibl if path == "options" else None)
+        self.ref_state = (init_reference_state(self.cfg, device=dev)
+                          if path == "refpt" else None)
+
+    def step(self, view):
+        from kajiya_tpu_torch.frame import render_frame_reference
+
+        if self.path == "refpt":
+            self.ref_state, out = render_frame_reference(
+                self.r.ts, self.ref_state, view, self.cfg,
+                num_bounces=PT_BOUNCES)
+            return out
+        out = self.r.draw(view)
+        if self.r._last_error is not None:
+            raise RuntimeError(f"{self.path}: frame failed: "
+                               f"{self.r._last_error}")
+        return out
+
+    def views(self, eye, fwd, step, n, dev):
+        """A progressive path tracer keeps its camera still; the hybrid
+        paths move it (and the default frames jitter it for TAA)."""
+        w, h = self.cfg.width, self.cfg.height
+        if self.path == "refpt":
+            return views(eye, fwd, (0.0, 0.0, 0.0), n, w, h, dev)
+        return views(eye, fwd, step, n, w, h, dev,
+                     jitter=self.path in ("default", "options"))
+
+
+FRAME_KEYS = {
+    "raster": ("final", "lit", "shadow"),
+    "gi": ("final", "lit", "shadow", "diffuse_gi", "ssao"),
+    "default": ("final", "lit", "shadow", "diffuse_gi", "ssao",
+                "reflections", "taa"),
+    "options": ("final", "lit", "shadow", "diffuse_gi", "ssao",
+                "reflections", "taa"),
+    "refpt": ("final", "lit"),
+}
+
+
+def reference_phase(dev, ibl):
     """The GPU path (kernels) against the CPU path (plain versions) on a
     small frame of each scene, for every ported path: three frames (four on
-    the GI and default paths, so that frame 3 validates live reservoirs and
-    the cache's stored rays) at 64x48 from the same views; the default path
-    with the small irradiance cache. Every comparison is made and logged
-    before a failure is raised."""
-    from kajiya_tpu_torch.frame import Renderer
-    from kajiya_tpu_torch.scene import procedural
-
+    the GI, default and options paths, so that frame 3 validates live
+    reservoirs and the cache's stored rays; two progressive frames of the
+    path tracer) at 64x48 from the same views; the default and options
+    paths with the small irradiance cache (and the options path with the
+    small world radiance cache). Every comparison is made and logged before
+    a failure is raised."""
     w, h = 64, 48
     worst, failed = {}, []
-    for path, keys, (tol, min_frac, max_mean) in (
-            ("raster", ("final", "lit", "shadow"), FRAME_TOL),
-            ("gi", ("final", "lit", "diffuse_gi", "ssao"), GI_FRAME_TOL),
-            ("default", ("final", "lit", "diffuse_gi", "ssao",
-                         "reflections", "taa"), GI_FRAME_TOL)):
-        cfg = slice_cfg(w, h, path, small_ircache=True)
+    for path, tols in (("raster", FRAME_TOL), ("gi", GI_FRAME_TOL),
+                       ("default", GI_FRAME_TOL), ("options", GI_FRAME_TOL),
+                       ("refpt", PT_FRAME_TOL)):
+        tol, min_frac, max_mean = tols
+        n = {"raster": 3, "refpt": 2}.get(path, 4)
         for name, (make, eye, fwd, step) in SCENES.items():
             if name == "city":
                 make = lambda p: p.city(n=4, subdiv=8)      # noqa: E731
                 eye, fwd = (0.0, 8.0, 14.0), (0.0, -0.45, -1.0)
             outs = {}
             for d in (dev, torch.device("cpu")):
-                r = Renderer(make(procedural), cfg, device=d)
-                n = 3 if path == "raster" else 4
-                for v in views(eye, fwd, step, n, w, h, d,
-                               jitter=path == "default"):
-                    o = draw_checked(r, v, name)
+                run = PathRun(path, make, d, w, h, ibl=ibl,
+                              small_ircache=True)
+                for v in run.views(eye, fwd, step, n, d):
+                    o = run.step(v)
                 outs[d.type] = o
-            same = float((outs["cuda"]["gbuffer"]["hit"].cpu()
-                          == outs["cpu"]["gbuffer"]["hit"]).float().mean())
-            if same < HIT_AGREE:
-                failed.append(f"{path}/{name}: GPU vs CPU hit masks agree "
-                              f"on {same}")
-            for k in keys:
+            if path != "refpt":
+                same = float((outs["cuda"]["gbuffer"]["hit"].cpu()
+                              == outs["cpu"]["gbuffer"]["hit"]
+                              ).float().mean())
+                if same < HIT_AGREE:
+                    failed.append(f"{path}/{name}: GPU vs CPU hit masks "
+                                  f"agree on {same}")
+            for k in FRAME_KEYS[path]:
+                if k == "shadow" and path != "raster":
+                    continue
                 a, b = outs["cuda"][k].cpu(), outs["cpu"][k]
                 diff = (a - b).abs()
                 frac = float((diff <= tol).float().mean())
@@ -656,51 +796,58 @@ def expected_launches(path, name, n_frames):
     validation of both passes' reservoirs as one batch + its sun-NEE every
     third frame), and adds the irradiance cache's entry wavefront + its
     sun-NEE and light-NEE batches, and on cornell (emissive triangles) the
-    2 shadow batches of the mesh-light specular. W: prev depth + shadow
+    2 shadow batches of the mesh-light specular. The options path is the
+    default path with traced primaries (one trace, as the raster's one)
+    and the world radiance cache's probe rays + their sun-NEE batch (no
+    light NEE there). The path tracer traces 3 wavefronts a bounce (closest
+    hit, sun NEE, light NEE; the city's light-NEE wavefront is all dead
+    lanes, and still launched) for 16 bounces. W: prev depth + shadow
     moments; on the GI path also the SSAO history, the ReSTIR temporal
     fetch, the occlusion march of spatial pass 1 (4 taps x 2 samples) and
     the GI history; the default path adds the RTR reservoir fetch and
     history, TAA's packed history fetch (its other fetches are resizes,
     which do not run at temporal_upsampling 1) and the 8 motion-blur taps.
-    S: the 7 + 4 taps of the two ReSTIR spatial passes."""
-    gi = path in ("gi", "default")
+    S: the 7 + 4 taps of the two ReSTIR spatial passes. The path tracer
+    launches neither W nor S."""
+    if path == "refpt":
+        traces = 3 * PT_BOUNCES * n_frames
+        return {"woop_brute": traces if name == "cornell" else 0,
+                "woop_culled": traces if name == "city" else 0,
+                "warp": 0, "tile_shift": 0}
+    gi = path in ("gi", "default", "options")
     validations = len(range(0, n_frames, 3)) if gi else 0
-    per_frame = {"raster": 2, "gi": 5,
-                 "default": 8 + (2 if name == "cornell" else 0)}[path]
+    per_frame = {"raster": 2, "gi": 5, "default": 8,
+                 "options": 10}[path]
+    if path in ("default", "options") and name == "cornell":
+        per_frame += 2
     traces = per_frame * n_frames + 2 * validations
     return {"woop_brute": traces if name == "cornell" else 0,
             "woop_culled": traces if name == "city" else 0,
-            "warp": {"raster": 2, "gi": 13, "default": 24}[path] * n_frames,
+            "warp": {"raster": 2, "gi": 13, "default": 24,
+                     "options": 24}[path] * n_frames,
             "tile_shift": 11 * n_frames if gi else 0}
 
 
-def frame_phase(dev, path):
-    """Frames at 1920x1080 per scene through Renderer.draw on one ported
-    path, counters set to 0 just before and read just after each scene's
-    frames, and the host syncs of each frame counted (those of the last
-    frame per source line)."""
-    from kajiya_tpu_torch.frame import Renderer
+def frame_phase(dev, path, ibl):
+    """Frames at 1920x1080 per scene on one ported path, counters set to 0
+    just before and read just after each scene's frames, and the host syncs
+    of each frame counted (those of the last frame per source line)."""
     from kajiya_tpu_torch.ops import _native
-    from kajiya_tpu_torch.scene import procedural
 
-    cfg = slice_cfg(WIDTH, HEIGHT, path)
     n_frames = N_FRAMES[path]
-    keys = ("final", "lit", "shadow") + (
-        ("diffuse_gi", "ssao") if path != "raster" else ()) + (
-        ("reflections", "taa") if path == "default" else ())
     result = {}
     for name, (make, eye, fwd, step) in SCENES.items():
         t0 = time.perf_counter()
-        r = Renderer(make(procedural), cfg, device=dev)
+        run = PathRun(path, make, dev, WIDTH, HEIGHT, ibl=ibl)
+        r = run.r
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
-        vs = views(eye, fwd, step, n_frames, WIDTH, HEIGHT, dev,
-                   jitter=path == "default")
+        vs = run.views(eye, fwd, step, n_frames, dev)
         _native.reset_launches()
         times, syncs = [], []
         for v in vs:
             t0 = time.perf_counter()
-            out, sync_sites = draw_counting_syncs(r, v, name)
+            out, sync_sites = counting_syncs(lambda: run.step(v))
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             syncs.append(sum(sync_sites.values()))
@@ -708,14 +855,14 @@ def frame_phase(dev, path):
         final = out["final"]
         if tuple(final.shape) != (HEIGHT, WIDTH, 3):
             raise AssertionError(f"{name}: final shape {tuple(final.shape)}")
-        for k in keys:
+        for k in FRAME_KEYS[path]:
             if not bool(torch.isfinite(out[k]).all()):
                 raise AssertionError(f"{path}/{name}: non-finite {k}")
         mean = float(final.mean())
         if mean <= 0.01:
             raise AssertionError(f"{path}/{name}: final mean {mean}")
         extra = {}
-        if path != "raster":
+        if path not in ("raster", "refpt"):
             gi_mean = float(out["diffuse_gi"].mean())
             m_max = float(r.state["gi_res_M"].max())
             if gi_mean <= 1e-3 or float(out["diffuse_gi"].min()) < 0.0:
@@ -725,7 +872,7 @@ def frame_phase(dev, path):
                                      f"(max M {m_max})")
             extra = dict(gi_mean=gi_mean, reservoir_m_max=m_max,
                          ssao_mean=float(out["ssao"].mean()))
-        if path == "default":
+        if path in ("default", "options"):
             refl = out["reflections"]
             if float(refl.min()) < 0.0:
                 raise AssertionError(f"{name}: negative reflections")
@@ -734,13 +881,26 @@ def frame_phase(dev, path):
             if n_live <= 0:
                 raise AssertionError(f"{name}: the irradiance cache is empty")
             sh_abs = float(r.state["ircache_sh"][live].abs().sum())
-            if sh_abs <= 0.0:
+            if path == "default" and sh_abs <= 0.0:
                 raise AssertionError(f"{name}: the live cache entries' SH is "
                                      f"all zero after {n_frames} frames")
             extra.update(reflections_mean=float(refl.mean()),
                          ircache_live=n_live, ircache_sh_abs_sum=sh_abs,
                          rtr_res_m_max=float(r.state["rtr_res_M"].max()),
                          pre_mult=float(r.state["pre_mult"]))
+        if path == "options":
+            atlas = r.state["wrc_atlas"]
+            if float(atlas.max()) <= 0.0:
+                raise AssertionError(f"{name}: the radiance cache is dark")
+            extra.update(wrc_atlas_mean=float(atlas.mean()),
+                         primary_hit_frac=float(
+                             out["gbuffer"]["hit"].float().mean()))
+        if path == "refpt":
+            samples = float(run.ref_state["refpt_samples"])
+            if samples != n_frames:
+                raise AssertionError(f"{name}: {samples} PT samples")
+            extra.update(lit_mean=float(out["lit"].mean()),
+                         refpt_samples=samples)
         want = expected_launches(path, name, n_frames)
         if counts != want:
             raise AssertionError(f"{path}/{name}: launches {counts}, "
@@ -750,13 +910,58 @@ def frame_phase(dev, path):
                             last_frame_sync_sites=dict(sync_sites),
                             final_mean=mean,
                             tris=int(r.gpu.num_triangles), setup_s=setup_s,
-                            hit_frac=float(out["gbuffer"]["hit"].float().mean()),
                             **extra)
+        if path != "refpt":
+            result[name]["hit_frac"] = float(
+                out["gbuffer"]["hit"].float().mean())
         log(f"frame {path}/{name}: {int(r.gpu.num_triangles)} tris, setup "
             f"{setup_s:.1f} s, frame ms {[round(t, 2) for t in times]}, "
             f"launches {counts}, host syncs per frame {syncs}, final mean "
             f"{mean:.4f} {extra}")
     return result
+
+
+def oracle_phase(dev):
+    """The oracle datum on the card: the port's hybrid frame (16 frames)
+    against the port's path tracer (48 progressive frames, 5 bounces, no
+    pixel filter) on cornell at 64x48, as `tests/test_oracle.py` renders
+    the pair, held to that test's bounds (tests/test_torch_oracle.py)."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from test_torch_oracle import BOUNDS, converged_pair, oracle_metrics
+
+    t0 = time.perf_counter()
+    metrics = oracle_metrics(*converged_pair(dev))
+    metrics["seconds"] = time.perf_counter() - t0
+    log("oracle datum (hybrid vs path tracer, cornell 64x48):", metrics)
+    for name, (lo, hi) in BOUNDS.items():
+        if not lo < metrics[name] < hi:
+            raise AssertionError(f"oracle {name} {metrics[name]} outside "
+                                 f"({lo}, {hi})")
+    return metrics
+
+
+def viewer_phase(tmp):
+    """One run of the headless viewer in its own process, as a user starts
+    it; the PNG it writes must carry the asked size in its header."""
+    from kajiya_tpu_torch.apps.view import read_png_header
+
+    out = os.path.join(tmp, "pt.png")
+    cmd = [sys.executable, "-m", "kajiya_tpu_torch.apps.view", "--mode",
+           "reference", "--spp", "2", "--width", "320", "--height", "180",
+           "-o", out]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"viewer exited {proc.returncode}: "
+                           f"{proc.stderr[-2000:]}")
+    header = read_png_header(out)
+    if header != (320, 180, 8, 2):
+        raise AssertionError(f"viewer PNG header {header}")
+    log(f"viewer: {proc.stdout.strip()} ({seconds:.1f} s with start-up)")
+    return {"seconds": seconds, "png": list(header),
+            "stdout": proc.stdout.strip()}
 
 
 def kernel_entry(name, source, replaces, cases, launches, library):
@@ -796,12 +1001,15 @@ def main():
     _native.library()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
 
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    ibl = os.path.join(tmp, "sky.hdr")
+    write_panorama(ibl)
     brute = brute_phase(dev)
     culled = culled_phase(dev)
     warp = warp_phase(dev)
     tileshift = tileshift_phase(dev)
-    reference_phase(dev)
-    frames = {path: frame_phase(dev, path) for path in N_FRAMES}
+    reference_phase(dev, ibl)
+    frames = {path: frame_phase(dev, path, ibl) for path in N_FRAMES}
     # the default frame's passes wait for the card nowhere the GI frame's
     # do not: the same frame indices make the same number of host syncs
     # (from frame 1: a path's first frame also copies the constants it
@@ -812,6 +1020,15 @@ def main():
         if got != want:
             raise AssertionError(f"default/{sc}: host syncs per frame {got}, "
                                  f"the GI frame's {want}")
+        # the path tracer's frame (16 bounces of trace, shade, NEE) waits
+        # for the card only where the default frame's post chain does
+        pt = frames["refpt"][sc]["last_frame_sync_sites"]
+        own = set(pt) - set(frames["default"][sc]["last_frame_sync_sites"])
+        if own:
+            raise AssertionError(f"refpt/{sc}: host syncs at {sorted(own)}")
+    oracle = oracle_phase(dev)
+    viewer = viewer_phase(tmp)
+    shutil.rmtree(tmp, ignore_errors=True)
 
     def launched(kernel):
         n = sum(frames[p][sc]["launches"][kernel]
@@ -839,14 +1056,15 @@ def main():
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "wall_s": wall_s, "kernels": kernels,
-                   "frames": frames}, f, indent=1)
+                   "frames": frames, "oracle": oracle, "viewer": viewer},
+                  f, indent=1)
     print(json.dumps({"frames": {
         path: {k: {"median_ms": v["median_ms"], "frame_ms": v["frame_ms"],
                    "tris": v["tris"], "launches": v["launches"],
                    "host_syncs": v["host_syncs"]}
                for k, v in per_scene.items()}
-        for path, per_scene in frames.items()}, "wall_s": wall_s}),
-        flush=True)
+        for path, per_scene in frames.items()}, "oracle": oracle,
+        "wall_s": wall_s}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 """Layered GGX + Lambert BRDF (port of the parts of `kajiya_tpu/brdf/ggx.py`
-the ported passes use): eval, VNDF sampling and its pdf, split-sum energy
+the ported passes use): eval, VNDF sampling and its pdf, the layered
+mixture's sampling and pdf (the reference path tracer), split-sum energy
 compensation through a polynomial fit of the integrated FG table,
 metalness lobes."""
 from __future__ import annotations
@@ -12,7 +13,7 @@ import torch
 from ..device import const_tensor
 from ..ops.smallvec import cross, matmul_small
 from ..ops.smallvec import dot3 as _dot
-from .sampling import orthonormal_basis
+from .sampling import cosine_hemisphere, orthonormal_basis, to_world
 
 MIN_ROUGHNESS = 1e-3
 
@@ -113,7 +114,7 @@ def pdf_vndf(roughness, n, wo, wi):
 
 _FG_RES = 64
 _POLY_DEG = 5
-_FG_POLY = None     # (n_feats, 2) float32 numpy, fitted once
+_FG_POLY_ROWS = None    # (n_feats, 2) float32 values as tuples, fitted once
 
 
 def _compute_fg_lut():
@@ -176,10 +177,10 @@ def _poly_features(r, v):
 
 def env_brdf_approx(roughness, ndotv):
     """(scale, bias) of the split-sum env BRDF via the polynomial fit."""
-    global _FG_POLY
-    if _FG_POLY is None:
-        _FG_POLY = _fit_fg_poly()
-    c = torch.as_tensor(_FG_POLY, device=roughness.device)
+    global _FG_POLY_ROWS
+    if _FG_POLY_ROWS is None:
+        _FG_POLY_ROWS = tuple(tuple(r) for r in _fit_fg_poly().tolist())
+    c = const_tensor(_FG_POLY_ROWS, roughness.device)
     feats = _poly_features(torch.clamp(roughness, 0.0, 1.0),
                            torch.clamp(ndotv, 0.0, 1.0))
     out = matmul_small(feats, c)
@@ -211,3 +212,34 @@ def eval_layered(base_color, metallic, roughness, n, wo, wi):
     diff = albedo * kd / math.pi
     valid = ((ndotl > 0.0) & (ndotv > 0.0))[..., None]
     return torch.where(valid, spec + diff, 0.0)
+
+
+def pdf_layered(base_color, metallic, roughness, n, wo, wi):
+    """Mixture pdf matching `sample_layered`'s lobe selection."""
+    albedo, f0 = derive_lobes(base_color, metallic)
+    p_spec = _lobe_spec_prob(albedo, f0)
+    ndotl = torch.clamp(_dot(n, wi), 0.0, 1.0)
+    _, pdf_s = specular_brdf(f0, roughness, n, wo, wi)
+    pdf_d = ndotl / math.pi
+    return p_spec * pdf_s + (1.0 - p_spec) * pdf_d
+
+
+def _lobe_spec_prob(albedo, f0):
+    ls = torch.mean(f0, dim=-1)
+    ld = torch.mean(albedo, dim=-1)
+    return torch.clamp(ls / torch.clamp(ls + ld, min=1e-6), 0.05, 0.95)
+
+
+def sample_layered(base_color, metallic, roughness, n, wo, u_lobe, u1, u2):
+    """Sample the layered BRDF. Returns (wi, pdf, brdf_value); samples
+    below the horizon get pdf 0 and value 0."""
+    albedo, f0 = derive_lobes(base_color, metallic)
+    p_spec = _lobe_spec_prob(albedo, f0)
+    wi_spec = sample_vndf(roughness, n, wo, u1, u2)
+    wi_diff = to_world(n, cosine_hemisphere(u1, u2))
+    take_spec = (u_lobe < p_spec)[..., None]
+    wi = _normalize(torch.where(take_spec, wi_spec, wi_diff))
+    pdf = pdf_layered(base_color, metallic, roughness, n, wo, wi)
+    val = eval_layered(base_color, metallic, roughness, n, wo, wi)
+    ok = _dot(n, wi) > 1e-5
+    return wi, torch.where(ok, pdf, 0.0), torch.where(ok[..., None], val, 0.0)

@@ -12,7 +12,7 @@ from dataclasses import dataclass, fields
 
 import torch
 
-from ..device import resolve_device
+from ..device import const_tensor, resolve_device
 from ..ops.smallvec import cross, transform_dirs, transform_h
 
 
@@ -142,11 +142,16 @@ def uv_to_clip(uv):
                        dim=-1)
 
 
-def camera_rays(view: ViewConstants, width: int, height: int):
+def camera_rays(view: ViewConstants, width: int, height: int,
+                jitter_px=None):
     """Primary ray origins/directions for every pixel: (org, dir), each
-    (H, W, 3)."""
+    (H, W, 3). `jitter_px` ((H, W, 2), pixels) adds per-pixel sub-pixel
+    offsets on top of the TAA jitter (the path tracer's pixel filter)."""
     uv = pixel_centers_uv(width, height, view.sample_offset_pixels,
                           view.device)
+    if jitter_px is not None:
+        uv = uv + jitter_px / const_tensor((float(width), float(height)),
+                                           uv.device)
     cs = uv_to_clip(uv)
     ones = torch.ones_like(cs[..., :1])
     clip = torch.cat([cs, ones, ones], dim=-1)

@@ -8,7 +8,10 @@ range. The frame's ranges: `sky_env`, `gbuffer`, `reprojection`, `ssao`,
 and `shade` inside, and `attrs`, `sun_nee`, `light_nee`, `ambient`,
 `screen_reuse` inside each hit-lighting call), `rtdgi` (with `restir` >
 `spatial0` / `spatial1`, `resolve`, `temporal` inside), `sky_ambient`,
-`sky_refl`, `sky_bg`, `deferred`, `post`; `tools/torch_frame_profile.py`
+`sky_refl`, `sky_bg`, `deferred`, `wrc`, `dof`, `post`; the path tracer's
+frame: `refpt` (with `trace`, `sun_nee`, `light_nee` per bounce) and `post`.
+Inside any trace, `ray_sort` (a sorted wavefront's key sort) and `cull` (the
+culled tracer's host-side beam cull). `tools/torch_frame_profile.py`
 reports them.
 """
 from __future__ import annotations

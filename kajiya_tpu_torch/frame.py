@@ -2,21 +2,25 @@
 
     state', outputs = render_frame(trace_scene, state, view, cfg)
 
-The port renders the default frame: raster gbuffer -> reprojection ->
-irradiance cache (allocate, trace, value grid) -> SSAO -> sun shadow trace +
-denoise -> the shared secondary-ray wavefront (every-third-frame validation
+The frame: sky (the atmosphere, or an IBL env map) -> gbuffer (raster, or
+traced camera rays) -> reprojection -> irradiance cache (allocate, trace,
+value grid) -> SSAO -> sun shadow trace + denoise -> world radiance cache
+(opt-in) -> the shared secondary-ray wavefront (every-third-frame validation
 of the GI and reflection reservoirs, then the GI candidate and reflection
 rays traced and shaded together) -> diffuse GI (ReSTIR temporal + spatial,
 resolve, temporal filter) -> reflections (mesh-light specular, ReSTIR
 temporal, lobe resolve, temporal filter) -> deferred lighting -> the
-pre-exposure split -> TAA -> motion blur -> exposure + post. The world
-radiance cache, depth of field, IBL skies and the raytraced gbuffer are not
-ported yet: `render_frame` raises NotImplementedError when the config asks
-for them, naming the ROADMAP step that brings them.
+pre-exposure split -> TAA -> motion blur -> depth of field (opt-in) ->
+exposure + post. Every option of the JAX `RenderConfig` is ported.
 
-PyTorch runs eagerly; there is no jit and no hot reload. The frame reads its
-frame index on the host once (the validation branch); everything else that
-depends on it stays on the device.
+    state', outputs = render_frame_reference(trace_scene, state, view, cfg)
+
+is the reference path tracer's progressive frame (the oracle).
+
+PyTorch runs eagerly; there is no jit and no hot reload. The hybrid frame
+reads its frame index on the host once (the validation branch); everything
+else that depends on it stays on the device, and the path tracer's frame
+reads nothing back.
 """
 from __future__ import annotations
 
@@ -33,22 +37,14 @@ from .core.profiling import pass_scope
 from .device import resolve_device
 from .renderers import (deferred, gbuffer, ircache, post, reprojection,
                         restir_gi, rtdgi, rtr, shadows, ssgi, taa)
+from .renderers import wrc as wrc_mod
 from .renderers.hit_lighting import hit_radiance
 from .renderers.ircache import IrcacheConfig
+from .renderers.wrc import WrcConfig
 from .rt.trace import scene_trace_closest
 from .sky import env as sky_env_mod
 from .sky.atmosphere import sky_radiance
 from .world import build_trace_scene, refresh_trace_scene
-
-
-@dataclass(frozen=True)
-class WrcConfig:
-    """World radiance cache shapes (mirror of `kajiya_tpu/renderers/wrc.py`
-    WrcConfig; the pass itself is ROADMAP section 1, step 10)."""
-    grid: tuple = (8, 3, 8)
-    probe_res: int = 32
-    grid_spacing: float = 2.0
-    grid_origin: tuple = (-8.0, 0.5, -8.0)
 
 
 @dataclass(frozen=True)
@@ -97,20 +93,8 @@ class RenderConfig:
 
 
 def check_supported(cfg: RenderConfig, ibl_env=None):
-    """Raise NotImplementedError for any pass the port does not have yet."""
-    missing = [
-        (cfg.use_wrc, "use_wrc (world radiance cache, ROADMAP section 1, "
-                      "step 10)"),
-        (cfg.use_dof, "use_dof (depth of field, ROADMAP section 1, step 10)"),
-        (ibl_env is not None, "ibl_env (IBL sky, ROADMAP section 1, step 10)"),
-        (cfg.primary != "raster",
-         f"primary={cfg.primary!r} (raytraced gbuffer, ROADMAP section 1, "
-         "step 3)"),
-    ]
-    asked = [msg for on, msg in missing if on]
-    if asked:
-        raise NotImplementedError(
-            "not ported to kajiya_tpu_torch yet: " + "; ".join(asked))
+    """Every `RenderConfig` option of the JAX frame and its `ibl_env` are
+    ported: there is nothing to refuse."""
 
 
 @lru_cache(maxsize=1)
@@ -150,9 +134,7 @@ def init_frame_state(cfg: RenderConfig, device=None):
     if cfg.use_rtdgi and cfg.use_restir_gi:
         state.update(restir_gi.init_state(h, w, device=dev))
     if cfg.use_wrc:
-        n = cfg.wrc.grid[0] * cfg.wrc.grid[1] * cfg.wrc.grid[2]
-        r = cfg.wrc.probe_res
-        state["wrc_atlas"] = z(n, r, r, 3)
+        state.update(wrc_mod.init_state(cfg.wrc, device=dev))
     return state
 
 
@@ -191,26 +173,35 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
     """One frame. Returns (new_state, outputs). `ircache_lookup`, when
     given, replaces the frame's own irradiance cache (which is then left
     as it is)."""
-    check_supported(cfg, ibl_env)
     h, w = cfg.height, cfg.width
     mts = cfg.max_trace_steps
     frame_idx = state["frame_idx"]
     if levels is not None:
         ts = refresh_trace_scene(ts.gpu)
 
-    # sky: the background is the analytic atmosphere; ambient and reflected
-    # sky come from SH9 of a small octahedral env map
-    sun_dir = ts.gpu.sun_direction
-    sky_env_bg = lambda d: sky_radiance(d, sun_dir)         # noqa: E731
-    with pass_scope("sky_env"):
-        sky_sh = sky_env_mod.project_sh9(
-            sky_env_mod.build_sky_env(sun_dir, res=32))
-    sky_env = sky_env_mod.sh9_radiance_fn(sky_sh)
-    diffuse_env = sky_env_mod.sh9_irradiance_fn(sky_sh)
+    # sky: an IBL env map replaces the atmosphere when given (background and
+    # secondary rays sample the map; ambient is its SH9 irradiance).
+    # Otherwise the background is the analytic atmosphere, and ambient and
+    # reflected sky come from SH9 of a small octahedral env map
+    if ibl_env is not None:
+        sky_env = sky_env_bg = ibl_env
+        with pass_scope("sky_env"):
+            diffuse_env = sky_env_mod.sh9_irradiance_fn(
+                sky_env_mod.project_sh9(ibl_env))
+    else:
+        sun_dir = ts.gpu.sun_direction
+        sky_env_bg = lambda d: sky_radiance(d, sun_dir)     # noqa: E731
+        with pass_scope("sky_env"):
+            sky_sh = sky_env_mod.project_sh9(
+                sky_env_mod.build_sky_env(sun_dir, res=32))
+        sky_env = sky_env_mod.sh9_radiance_fn(sky_sh)
+        diffuse_env = sky_env_mod.sh9_irradiance_fn(sky_sh)
 
     with pass_scope("gbuffer"):
-        gb = gbuffer.raster_gbuffer(ts, view, w, h,
-                                    no_normal_maps=cfg.no_normal_maps)
+        primary = (gbuffer.raster_gbuffer if cfg.primary == "raster"
+                   else gbuffer.raytrace_gbuffer)
+        gb = primary(ts, view, w, h, max_trace_steps=mts,
+                     no_normal_maps=cfg.no_normal_maps)
     if cfg.force_face_normals:
         gb = dict(gb, normal=gb["geo_normal"])
     if cfg.no_metal:
@@ -287,6 +278,20 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
     rtr_half = None
     use_gi_restir = cfg.use_rtdgi and cfg.use_restir_gi
     use_rtr_restir = cfg.use_rtr
+
+    # --- world radiance cache (opt-in): trace the probes, expose the lookup
+    # to the secondary hit lighting
+    wrc_state = {}
+    wrc_lookup = None
+    if cfg.use_wrc:
+        with pass_scope("wrc"):
+            wrc_state = wrc_mod.trace_wrc(
+                {"wrc_atlas": state["wrc_atlas"]}, ts, sky_env, diffuse_env,
+                frame_idx, cfg.wrc, max_trace_steps=mts)
+
+        def wrc_lookup(p, d, _st=wrc_state, _c=cfg.wrc):
+            return wrc_mod.lookup(_st, _c, p, d)
+
     if cfg.use_rtdgi or cfg.use_rtr:
         # screen-space radiance reuse reads a decimated copy of last
         # frame's lit image: halve only while the source stays >= ~480 px
@@ -298,7 +303,8 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
         shade_kw = dict(prev_lit=prev_lit_q, prev_depth=prev_depth_q,
                         view=view, ircache_lookup=ircache_lookup,
                         max_trace_steps=mts,
-                        full_shading=cfg.secondary_full_shading)
+                        full_shading=cfg.secondary_full_shading,
+                        wrc_lookup=wrc_lookup)
         gb_h = rtdgi.half_gbuffer(gb)
 
         # ---- batched validation of both passes' stored reservoir rays,
@@ -458,6 +464,18 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
             aa = mb.motion_blur(aa, vel_out, depth_for_mb,
                                 frame_fraction=cfg.motion_blur_scale)
 
+    # --- depth of field (opt-in): CoC + gather after motion blur
+    if cfg.use_dof:
+        from .renderers import dof as dof_mod
+
+        depth_for_dof = gb["depth"]
+        if aa.shape[:2] != depth_for_dof.shape:
+            depth_for_dof = im.upsample_bilinear(depth_for_dof, aa.shape[0],
+                                                 aa.shape[1])
+        with pass_scope("dof"):
+            aa = dof_mod.dof_gather(aa, depth_for_dof, cfg.dof_focus_dist,
+                                    cfg.dof_aperture, near=cfg.near)
+
     # --- post: exposure + glare + tonemap; `aa` is pre-exposed, so post
     # applies only the remainder
     with pass_scope("post"):
@@ -472,7 +490,7 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
         "prev_lit": lit,
         "pre_mult": pre_mult,
         **shadow_state, **ssgi_state, **rtdgi_state, **rtr_state,
-        **taa_state, **exp_state, **ir_state, **restir_state,
+        **taa_state, **exp_state, **ir_state, **restir_state, **wrc_state,
     }
     outputs = {
         "final": final, "lit": lit, "gbuffer": gb, "shadow": shadow,
@@ -480,6 +498,60 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
         "reproj": reproj, "exposure": exposure, "taa": aa,
     }
     return new_state, outputs
+
+
+# ----------------------------------------------------------------------------
+# Reference path-tracing mode (the oracle)
+# ----------------------------------------------------------------------------
+
+def init_reference_state(cfg: RenderConfig, device=None):
+    """The progressive accumulator, its sample count and the exposure."""
+    dev = resolve_device(device)
+    return {
+        "refpt_accum": torch.zeros((cfg.height, cfg.width, 3),
+                                   dtype=torch.float32, device=dev),
+        "refpt_samples": torch.zeros((), dtype=torch.float32, device=dev),
+        "smoothed_ev": torch.zeros((), dtype=torch.float32, device=dev),
+    }
+
+
+def render_frame_reference(ts, state, view: ViewConstants, cfg: RenderConfig,
+                           levels=None, num_bounces: int = 16,
+                           spp_per_frame: int = 1, max_spp: float = 1000.0,
+                           pixel_filter: bool = True):
+    """One progressive reference-PT frame: trace spp_per_frame paths a
+    pixel, blend them into the accumulator (up to max_spp, the reference's
+    1000-spp cap), then run the post chain. Returns (new_state, outputs).
+    The sample count that seeds the hashes stays on the device."""
+    from .renderers import reference as refpt
+
+    if levels is not None:
+        ts = refresh_trace_scene(ts.gpu)
+
+    # PT ray cone: the reference shrinks the pixel cone to 0.3x for its
+    # path tracer
+    pt_spread = 0.3 * 2.0 / (view.view_to_clip[1, 1] * cfg.height)
+    with pass_scope("refpt"):
+        frame_radiance = refpt.render_sample(
+            ts, view, cfg.width, cfg.height,
+            frame_idx=state["refpt_samples"].to(torch.int32),
+            spp_chunk=spp_per_frame, num_bounces=num_bounces,
+            max_trace_steps=cfg.max_trace_steps, pixel_filter=pixel_filter,
+            cone_spread=pt_spread)
+
+    n = torch.clamp(state["refpt_samples"], max=max_spp)
+    accum = (state["refpt_accum"]
+             + (frame_radiance - state["refpt_accum"]) / (n + 1.0))
+
+    with pass_scope("post"):
+        exposure, exp_state = post.update_exposure(
+            {"smoothed_ev": state["smoothed_ev"]}, accum, dt=cfg.dt,
+            ev_shift=cfg.ev_shift)
+        final = post.post_combine(accum, exposure)
+
+    new_state = {"refpt_accum": accum, "refpt_samples": n + 1.0,
+                 **exp_state}
+    return new_state, {"final": final, "lit": accum, "exposure": exposure}
 
 
 class Renderer:
@@ -490,17 +562,22 @@ class Renderer:
     error once and returns the last good outputs; on the first frame the
     error (a kernel launch error included) propagates."""
 
-    def __init__(self, scene, cfg: RenderConfig = RenderConfig(), device=None):
+    def __init__(self, scene, cfg: RenderConfig = RenderConfig(), device=None,
+                 ibl: str | None = None):
         from .scene.scene import build_gpu_scene
 
         self.device = resolve_device(device)
-        check_supported(cfg)
         self.gpu = build_gpu_scene(scene, device=self.device)
         if int(self.gpu.num_lights) > 0 and cfg.use_rtr:
             cfg = replace(cfg, use_mesh_light_specular=True)
         self.cfg = cfg
         self.ts, _ = build_trace_scene(self.gpu, device=self.device)
         self.state = init_frame_state(cfg, device=self.device)
+        self.ibl_env = None
+        if ibl is not None:
+            from .sky.ibl import load_ibl_env
+
+            self.ibl_env = load_ibl_env(ibl, device=self.device)
         self._transforms_changed = False
         self._last_good = None
         self._last_error = None
@@ -512,7 +589,8 @@ class Renderer:
                 self.ts = refresh_trace_scene(self.ts.gpu)
                 self._transforms_changed = False
             self.state, outputs = render_frame(
-                self.ts, self.state, view.to(self.device), self.cfg)
+                self.ts, self.state, view.to(self.device), self.cfg,
+                ibl_env=self.ibl_env)
             self._last_good = outputs
             self._last_error = None
             return outputs

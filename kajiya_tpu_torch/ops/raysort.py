@@ -18,6 +18,8 @@ import numbers
 
 import torch
 
+from ..core.profiling import pass_scope
+
 _OBITS = 5
 _DBITS = 3
 
@@ -84,7 +86,8 @@ def sorted_trace(trace_fn, woop, org, d, t_max=None, obits: int = SORT_OBITS,
     """Run `trace_fn(org, d, t_max) -> tuple of (R,) tensors` on a key-sorted
     permutation of the rays and scatter the results back."""
     r = org.shape[0]
-    perm = sort_permutation(woop, org, d, obits, dbits)
+    with pass_scope("ray_sort"):
+        perm = sort_permutation(woop, org, d, obits, dbits)
     tm = None
     if isinstance(t_max, numbers.Real):    # filled on the device, no copy
         tm = torch.full((r,), float(t_max), dtype=torch.float32,

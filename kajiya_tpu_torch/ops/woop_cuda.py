@@ -31,6 +31,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..core.profiling import pass_scope
 from . import _native
 
 INF = float(np.float32(1e30))
@@ -505,8 +506,9 @@ def intersect_culled_cuda(woop, org, d, t_min=1e-4, t_max=None,
     """Kernel C wrapper (port of `intersect_culled_pallas`): (t, tri, u, v)
     for the unpadded rays. `block_lists` (blist, bdist, count) replaces the
     beam cull (the rasterizer's exact screen-rect lists)."""
-    b = prepare_culled(woop, org, d, t_max=t_max, block_lists=block_lists,
-                       rb=rb)
+    with pass_scope("cull"):
+        b = prepare_culled(woop, org, d, t_max=t_max,
+                           block_lists=block_lists, rb=rb)
     return tuple(x[:b.n_rays] for x in run_culled(b, t_min, any_hit,
                                                   early_stop))
 

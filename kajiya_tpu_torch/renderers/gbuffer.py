@@ -1,18 +1,43 @@
 """G-buffer from primary visibility (port of
-`kajiya_tpu/renderers/gbuffer.py`, the raster path). Outputs are planar
-(H, W[, C]) float32 planes plus the `hit` mask."""
+`kajiya_tpu/renderers/gbuffer.py`): the raster path and the traced one
+(camera rays through the same intersector). Outputs are planar (H, W[, C])
+float32 planes plus the `hit` mask."""
 from __future__ import annotations
 
 import torch
 
 from ..core.camera import ViewConstants, camera_rays
 from ..ops.smallvec import matvec
+from ..ops.tiling import tile_order, untile_order
+from ..rt.trace import scene_trace_closest
 from ..world import TraceScene, hit_attributes
 
 
 def _project(m, p):
     """(4,4) @ (..., 3) homogeneous -> clip (..., 4)."""
     return matvec(m[:, :3], p) + m[:, 3]
+
+
+def raytrace_gbuffer(ts: TraceScene, view: ViewConstants, width: int,
+                     height: int, max_trace_steps=None,
+                     no_normal_maps: bool = False):
+    """Trace one camera ray per pixel -> gbuffer planes. Where the scene has
+    cluster tables the rays go out in 64x128 screen tiles (compact chunks,
+    narrow frustums, tight culling) and the hits come back in pixel order."""
+    org, d = camera_rays(view, width, height)
+    tiled = ts.woop is not None and "cmin" in ts.woop
+    if tiled:
+        orgf = tile_order(org).reshape(-1, 3)
+        df = tile_order(d).reshape(-1, 3)
+    else:
+        orgf = org.reshape(-1, 3)
+        df = d.reshape(-1, 3)
+    hit = scene_trace_closest(ts, orgf, df, max_steps=max_trace_steps)
+    if tiled:
+        hit = hit.map(lambda x: untile_order(x, height, width).reshape(-1))
+        df = d.reshape(-1, 3)
+    return gbuffer_from_hit(ts, view, hit, df, width, height,
+                            no_normal_maps=no_normal_maps)
 
 
 def raster_gbuffer(ts: TraceScene, view: ViewConstants, width: int,

@@ -4,7 +4,8 @@ of `kajiya_tpu/renderers/hit_lighting.py`).
 At each secondary hit: emissive + sun NEE (one shadow ray) + emissive
 triangle NEE + ambient (the irradiance cache where the frame runs one, else
 the convolved sky) + screen-space reuse of last frame's lit image when the hit point is on
-screen (the temporal feedback that makes GI multi-bounce). On a miss: the
+screen (the temporal feedback that makes GI multi-bounce), and the world
+radiance cache for far-field hits when the frame traces one. On a miss: the
 sky.
 """
 from __future__ import annotations
@@ -49,11 +50,8 @@ def hit_radiance(ts, hit, ray_dir, sky_env, diffuse_env,
     triangles + its shadow ray is added. full_shading interpolates vertex
     attributes at the hit; False takes the face normal.
     `ircache_lookup(pos, normal) -> E/pi` supplies the ambient term;
-    `wrc_lookup` belongs to a pass that is not ported yet and raises."""
-    if wrc_lookup is not None:
-        raise NotImplementedError(
-            "wrc_lookup (world radiance cache, ROADMAP section 1, step 10) "
-            "is not ported to kajiya_tpu_torch yet")
+    `wrc_lookup(pos, dir) -> radiance` (the world radiance cache) replaces
+    the shade of hits farther than `wrc_min_t`."""
     m = hit.hit_mask
     # secondary ray cone: width at the hit = width at the origin + spread * t
     cw = cone_spread * torch.where(m, hit.t, 1.0)
@@ -120,6 +118,13 @@ def hit_radiance(ts, hit, ray_dir, sky_env, diffuse_env,
                          - 1.0) < 0.05
         use = (inb & same & m & (pd > 0))[:, None]
         radiance = torch.where(use, reused, radiance)
+
+    # --- world radiance cache for far-field hits: beyond `wrc_min_t` the
+    # probe grid's radiance replaces the full shade
+    if wrc_lookup is not None:
+        far = m & (hit.t > wrc_min_t)
+        radiance = torch.where(far[:, None], wrc_lookup(pos, ray_dir),
+                               radiance)
 
     # --- miss: sky
     sky = sample_env(sky_env, ray_dir)

@@ -7,6 +7,7 @@ import math
 
 import torch
 
+from ..device import const_tensor
 from ..ops.smallvec import dot3
 
 EARTH_RADIUS = 6_360e3
@@ -21,7 +22,7 @@ SUN_INTENSITY = 20.0
 
 
 def _vec(x, ref):
-    return torch.tensor(x, dtype=torch.float32, device=ref.device)
+    return const_tensor(x, ref.device)
 
 
 def _ray_sphere_exit(origin_h, mu):

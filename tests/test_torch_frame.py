@@ -155,18 +155,19 @@ def test_renderer_draw_and_unported_flags():
     assert out["final"].shape == (H, W, 3)
     assert torch.isfinite(out["final"]).all()
     assert int(r.state["frame_idx"]) == 1
-    for flag in ("use_wrc", "use_dof"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            check_supported(CfgT(**{**SLICE, flag: True}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_supported(CfgT(**{**SLICE, "primary": "trace"}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_supported(CfgT(**SLICE), ibl_env=object())
+    # every option is ported now: nothing is refused, and the last four
+    # render (their parity: test_torch_frame_options*.py)
     for flag in ("use_ssao", "use_rtdgi", "use_taa", "use_ircache", "use_rtr",
-                 "use_motion_blur"):
+                 "use_motion_blur", "use_wrc", "use_dof"):
         check_supported(CfgT(**{**SLICE, flag: True}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_t(r.ts, r.state, v, CfgT(**{**SLICE, "use_wrc": True}))
+    check_supported(CfgT(**{**SLICE, "primary": "trace"}))
+    check_supported(CfgT(**SLICE), ibl_env=object())
+    cfg2 = CfgT(**{**SLICE, "use_wrc": True, "use_dof": True,
+                   "primary": "trace"})
+    st2, out2 = render_t(r.ts, init_t(cfg2, device="cpu"), v, cfg2,
+                         ibl_env=torch.full((16, 16, 3), 0.5))
+    assert torch.isfinite(out2["final"]).all()
+    assert "wrc_atlas" in st2
 
 
 def test_renderer_set_transforms_matches_jax_refresh():

@@ -197,8 +197,8 @@ def test_default_config_is_supported():
     check_supported(CfgT())
     check_supported(CfgT(temporal_upsampling=2.0))
     for flag in ("use_wrc", "use_dof"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            check_supported(CfgT(**{flag: True}))
+        check_supported(CfgT(**{flag: True}))
+    check_supported(CfgT(primary="trace"), ibl_env=object())
 
 
 @pytest.mark.parametrize("frame", range(N_FRAMES))

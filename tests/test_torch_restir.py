@@ -134,7 +134,8 @@ def stages():
         ts_j=ts_jx, ts_t=ts_tx, frame_idx=int(frame_idx),
         view_t=convert.view_from_numpy(convert.to_numpy_dict(v1),
                                        device="cpu"),
-        envs_t=envs_t, state=state, gb=gb, reproj=reproj, ao=ao,
+        envs_j=envs_j, shade_kw_j=shade_kw, envs_t=envs_t, state=state,
+        gb=gb, reproj=reproj, ao=ao,
         ssao_state=ssao_state, ssao_new=ssao_new, gb_h=gb_h,
         restir_state=restir_state, org_v=org_v, d_v=d_v, ctx=ctx,
         hit_v=hit_v, fresh=fresh, valid_state=valid_state,
@@ -199,11 +200,31 @@ def test_hit_radiance(stages, batch):
 
 
 def test_hit_radiance_refuses_unported_lookups(stages):
+    """No lookup is refused any more: the world radiance cache's lookup
+    replaces the shade of hits beyond `wrc_min_t`. From JAX's candidate
+    hits, with a direction-dependent stand-in lookup and wrc_min_t = 1 (the
+    box is ~2 units deep, so both branches occur): 1e-5 on >= 99.5% of the
+    rays, as test_hit_radiance, and the far hits carry the lookup's value."""
     s = stages
-    for kw in ("wrc_lookup",):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            hl_t.hit_radiance(s.ts_t, _hit_t(s.hit_v), _t(s.d_v), *s.envs_t,
-                              **{kw: lambda p, n: p})
+
+    def wrc_j(p, d):
+        return 0.25 + 0.5 * jnp.abs(d) + 0.0 * p
+
+    def wrc_t(p, d):
+        return 0.25 + 0.5 * torch.abs(d) + 0.0 * p
+
+    ref = hl_j.hit_radiance(s.ts_j, s.hit_c, s.wi_c, *s.envs_j,
+                            wrc_lookup=wrc_j, wrc_min_t=1.0,
+                            **s.shade_kw_j)
+    got = hl_t.hit_radiance(s.ts_t, _hit_t(s.hit_c), _t(s.wi_c), *s.envs_t,
+                            wrc_lookup=wrc_t, wrc_min_t=1.0,
+                            **_shade_kw_t(s))
+    assert_frac(got, ref, 1e-5, 0.995, "radiance with wrc")
+    far = np.asarray(s.hit_c.hit_mask) & (np.asarray(s.hit_c.t) > 1.0)
+    assert far.any() and (~far).any()
+    np.testing.assert_allclose(
+        _n(got)[far], 0.25 + 0.5 * np.abs(np.asarray(s.wi_c))[far],
+        atol=1e-6)
 
 
 def test_finish_candidates(stages):

@@ -1,0 +1,130 @@
+"""The port's view-app layer: the numpy-only sequencer, sun controller and
+camera rig (copies of `kajiya_tpu/apps/`, held to
+`tests/test_view_layer.py`'s expectations and to the JAX package's own
+classes), the PNG writer, and `python -m kajiya_tpu_torch.apps.view` on the
+CPU at 32x24 in both modes."""
+import struct
+import zlib
+
+import numpy as np
+import pytest
+
+from kajiya_tpu.apps.camera_rig import CameraRig as CameraRigJ
+from kajiya_tpu.apps.sequence import Sequence as SequenceJ
+from kajiya_tpu_torch.apps import view as view_app
+from kajiya_tpu_torch.apps.camera_rig import CameraRig
+from kajiya_tpu_torch.apps.sequence import Sequence, SunController
+
+
+def test_sequence_interpolates_through_keys():
+    s = (Sequence()
+         .add(0.0, (0, 0, 0), (0, 0, -1))
+         .add(1.0, (1, 0, 0), (0, 0, -1))
+         .add(2.0, (1, 1, 0), (1, 0, 0)))
+    assert np.allclose(s.sample(0.0).cam_pos, (0, 0, 0))
+    assert np.allclose(s.sample(2.0).cam_pos, (1, 1, 0))
+    mid = s.sample(0.5)
+    assert 0.0 < mid.cam_pos[0] < 1.0
+    assert abs(np.linalg.norm(mid.cam_dir) - 1.0) < 1e-5
+    ref = (SequenceJ().add(0.0, (0, 0, 0), (0, 0, -1))
+           .add(1.0, (1, 0, 0), (0, 0, -1)).add(2.0, (1, 1, 0), (1, 0, 0)))
+    for t in (0.3, 1.2, 1.9):
+        np.testing.assert_array_equal(s.sample(t).cam_pos,
+                                      ref.sample(t).cam_pos)
+
+
+def test_sequence_roundtrip_dict():
+    s = Sequence().add(0, (0, 0, 0), (0, 0, -1), (0, 1, 0)).add(
+        1, (1, 0, 0), (0, 0, -1), (1, 1, 0))
+    s2 = Sequence.from_dict(s.to_dict())
+    assert np.allclose(s2.sample(0.7).cam_pos, s.sample(0.7).cam_pos)
+    assert np.allclose(s2.sample(0.7).sun_dir, s.sample(0.7).sun_dir)
+
+
+def test_sun_controller():
+    c = SunController()
+    d0 = c.direction.copy()
+    d1 = c.rotate(0.3, 0.1)
+    assert abs(np.linalg.norm(d1) - 1.0) < 1e-5
+    assert not np.allclose(d0, d1)
+    for _ in range(100):
+        c.rotate(0.0, 0.3)
+    assert c.direction[1] < 1.0
+
+
+def test_camera_rig_smooth_approach_and_pitch_clamp():
+    rig, ref = CameraRig(position=(0, 0, 0)), CameraRigJ(position=(0, 0, 0))
+    rig.translate(0, 0, -5.0)
+    ref.translate(0, 0, -5.0)
+    for _ in range(100):
+        pos, fwd = rig.update(1 / 60)
+        pos_j, fwd_j = ref.update(1 / 60)
+    assert np.allclose(pos, rig.target_pos, atol=1e-2)
+    assert abs(np.linalg.norm(fwd) - 1.0) < 1e-5
+    np.testing.assert_array_equal(pos, pos_j)
+    rig.look(0.0, 10.0)
+    assert rig.target_pitch < np.pi / 2
+
+
+def _decode_rgb_png(path):
+    """(H, W, 3) uint8 from an 8-bit RGB PNG of unfiltered rows (what
+    save_png writes)."""
+    data = open(path, "rb").read()
+    w, h, depth, color = view_app.read_png_header(path)
+    assert (depth, color) == (8, 2)
+    pos, idat = 8, b""
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        chunk = data[pos + 8:pos + 8 + n]
+        assert zlib.crc32(kind + chunk) & 0xFFFFFFFF == struct.unpack(
+            ">I", data[pos + 8 + n:pos + 12 + n])[0]
+        if kind == b"IDAT":
+            idat += chunk
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
+    assert (rows[:, 0] == 0).all()
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def test_save_png(tmp_path):
+    """save_png writes clip(img, 0, 1) * 255, truncated, as 8-bit RGB; the
+    header reader gives its size and refuses a file that is not a PNG."""
+    img = np.random.default_rng(1).uniform(-0.2, 1.2, (5, 7, 3))
+    p = str(tmp_path / "sub" / "x.png")
+    view_app.save_png(p, img)
+    assert view_app.read_png_header(p) == (7, 5, 8, 2)
+    np.testing.assert_array_equal(
+        _decode_rgb_png(p), (np.clip(img.astype(np.float32), 0, 1) * 255
+                             ).astype(np.uint8))
+    q = tmp_path / "y.png"
+    q.write_bytes(b"GIF89a" + b"\0" * 40)
+    with pytest.raises(ValueError):
+        view_app.read_png_header(str(q))
+
+
+@pytest.mark.parametrize("mode", ["standard", "reference"])
+def test_view_main_on_cpu(tmp_path, mode):
+    out = tmp_path / f"{mode}.png"
+    view_app.main(["--device", "cpu", "--width", "32", "--height", "24",
+                   "--mode", mode, "--frames", "2", "--spp", "2",
+                   "--dump-every", "1", "-o", str(out)])
+    assert view_app.read_png_header(str(out))[:2] == (32, 24)
+    img = _decode_rgb_png(str(out))
+    assert img.max() > 8                       # not a black frame
+    assert (tmp_path / f"{mode}_0001.png").exists()
+
+
+def test_view_animated_on_cpu(tmp_path):
+    out = tmp_path / "anim.png"
+    view_app.main(["--device", "cpu", "--width", "32", "--height", "24",
+                   "--animate", "3", "-o", str(out)])
+    assert _decode_rgb_png(str(out)).max() > 8
+
+
+@pytest.mark.parametrize("argv", [["--scene", "scene.ron"],
+                                  ["--scene", "mesh.gltf"], ["--watch"]])
+def test_view_refuses_unported_inputs(tmp_path, argv):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        view_app.main(argv + ["--device", "cpu", "--width", "8",
+                              "--height", "8", "-o",
+                              str(tmp_path / "x.png")])

@@ -1,12 +1,16 @@
 """Where a 1080p frame of the PyTorch port spends its time, per scene.
 
-    python3 tools/torch_frame_profile.py [--frames 3] [--path raster|gi|default]
+    python3 tools/torch_frame_profile.py [--frames 3]
+        [--path raster|gi|default|options|refpt]
 
 Renders one ported path of `kajiya_tpu_torch` at 1920x1080 ("raster": the
 raster + sun-shadow frame; "gi": that plus SSAO, RTDGI and ReSTIR GI;
 "default": the default `RenderConfig`, which adds the irradiance cache, RTR,
-TAA with the jitter and motion blur) on the scenes of `chip_smoke.py`
-(cornell, city), three warm-up frames and then `--frames` frames under
+TAA with the jitter and motion blur; "options": that plus the traced
+g-buffer, the world radiance cache, depth of field and an IBL sky;
+"refpt": progressive frames of the reference path tracer, 16 bounces, 1
+spp) on the scenes of `chip_smoke.py` (cornell, city) through
+`chip_smoke.PathRun`, three warm-up frames and then `--frames` frames under
 `torch.profiler` (CPU + CUDA activity; with the default 3 frames from frame
 index 3 on, one of them validates the reservoirs). Prints per
 scene: wall ms per frame, the device busy share (summed kernel, copy and set
@@ -20,7 +24,9 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import sys
+import tempfile
 import time
 
 import torch
@@ -28,37 +34,34 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PASSES = ("sky_env", "gbuffer", "reprojection", "ircache", "ssao",
           "shadow_trace", "shadow_denoise", "gi_validate", "gi_trace",
-          "rtdgi", "rtr", "sky_ambient", "sky_refl", "sky_bg", "deferred",
-          "taa", "motion_blur", "post")
+          "wrc", "rtdgi", "rtr", "sky_ambient", "sky_refl", "sky_bg",
+          "deferred", "taa", "motion_blur", "dof", "refpt", "post")
 # ranges nested inside the passes above (reported, not summed with them)
 SUB_PASSES = ("ircache_alloc", "ircache_trace", "ircache_value_grid", "trace",
               "shade", "attrs", "sun_nee", "light_nee", "ambient",
               "screen_reuse", "restir", "spatial0", "spatial1", "resolve",
               "temporal", "rtr_restir", "rtr_resolve", "rtr_temporal",
               "filter_input", "closest_vel", "warp9", "filter_history",
-              "input_prob", "unjitter", "tiles", "taps")
+              "input_prob", "unjitter", "tiles", "taps", "ray_sort", "cull")
 WARMUP = 3
 
 
-def profile_scene(name, frames, path):
-    from chip_smoke import HEIGHT, SCENES, WIDTH, slice_cfg, views
-    from kajiya_tpu_torch.frame import Renderer
-    from kajiya_tpu_torch.scene import procedural
+def profile_scene(name, frames, path, ibl):
+    from chip_smoke import HEIGHT, SCENES, WIDTH, PathRun
 
     make, eye, fwd, step = SCENES[name]
     dev = torch.device("cuda", 0)
-    r = Renderer(make(procedural), slice_cfg(WIDTH, HEIGHT, path), device=dev)
-    vs = views(eye, fwd, step, frames + WARMUP, WIDTH, HEIGHT, dev,
-               jitter=path == "default")
+    run = PathRun(path, make, dev, WIDTH, HEIGHT, ibl=ibl)
+    vs = run.views(eye, fwd, step, frames + WARMUP, dev)
     for v in vs[:WARMUP]:
-        r.draw(v)
+        run.step(v)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for v in vs[WARMUP:]:
-            r.draw(v)
+            run.step(v)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / frames
     cuda = torch.autograd.DeviceType.CUDA
@@ -94,8 +97,8 @@ def profile_scene(name, frames, path):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=3)
-    ap.add_argument("--path", choices=("raster", "gi", "default"),
-                    default="default")
+    ap.add_argument("--path", choices=("raster", "gi", "default", "options",
+                                       "refpt"), default="default")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_frame_profile: no CUDA device", file=sys.stderr)
@@ -106,9 +109,14 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
+    from chip_smoke import write_panorama
+
     report = {"card": card, "frames": args.frames, "path": args.path}
+    tmp = tempfile.mkdtemp(prefix="torch_frame_profile_")
+    ibl = os.path.join(tmp, "sky.hdr")
+    write_panorama(ibl)
     for name in ("cornell", "city"):
-        rep = profile_scene(name, args.frames, args.path)
+        rep = profile_scene(name, args.frames, args.path, ibl)
         report[name] = rep
         print(f"{name}: wall {rep['wall_ms_per_frame']:.2f} ms/frame, device "
               f"busy {rep['device_busy_ms_per_frame']:.2f} ms "
@@ -124,6 +132,7 @@ def main():
             print(f"  {k['device_ms']:8.3f} ms x{k['count_per_frame']:.0f} "
                   f"{k['name'][:90]}")
     print(card)
+    shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     out = os.path.join(REPO, "chiprun_out",
                        f"torch_frame_profile_{args.path}.json")
