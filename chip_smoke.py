@@ -76,6 +76,7 @@ PT_FRAME_TOL = (5e-3, 0.97, 1e-2)
 # cores and HBM3 bandwidth
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+L2_BYTES = 50 * 2 ** 20
 OPS_PER_VISIT = 30    # fp32 ops per ray x triangle Woop test
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -107,6 +108,35 @@ def time_ms(fn, reps, graph=False):
         run()
     stop.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def time_cold_ms(make_call, nbytes, reps=20):
+    """Mean device time of a launch whose inputs are not in the L2:
+    `make_call()` returns a call closed over its own copy of the inputs
+    (`nbytes` read and written a call). Enough copies are made to span twice
+    the card's L2, the launches cycle through them inside one CUDA graph and
+    every launch's output is kept, so no launch finds what an earlier one
+    left in the L2."""
+    copies = max(2, -(-2 * L2_BYTES // nbytes))
+    calls = [make_call() for _ in range(copies)]
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    outs = []
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for k in range(reps):
+            outs.append(calls[k % copies]())
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del outs
     return start.elapsed_time(stop) / reps
 
 
@@ -156,7 +186,22 @@ SCENES = {
                 (0.01, 0.005, 0.0)),
     "city": (lambda p: p.city(n=16, subdiv=8), (0.0, 14.0, 28.0),
              (0.0, -0.45, -1.0), (0.05, 0.0, -0.05)),
+    # the largest scene the brute route serves: 9 x 768 + 2 = 6,914
+    # triangles (BRUTE_FORCE_MAX_TRIS is 8,192), no cluster tables, so every
+    # trace goes to kernel B; from 9 units out and 4 up, looking slightly
+    # down the middle street, the nine buildings fill most of the screen
+    # (camera rays at 64x48: 87% hit a building, 5% the ground, 8% miss)
+    "city3": (lambda p: p.city(n=3, subdiv=8), (0.0, 4.0, 9.0),
+              (0.0, -0.15, -1.0), (0.02, 0.0, -0.02)),
 }
+# the scenes each path renders at 1080p, and a cap on the frames of a scene
+# (city3 shows kernel B at the brute route's limit on the two paths that
+# trace the most through it)
+PATH_SCENES = {"raster": ("cornell", "city"), "gi": ("cornell", "city"),
+               "default": ("cornell", "city", "city3"),
+               "refpt": ("cornell", "city", "city3"),
+               "options": ("cornell", "city")}
+FRAME_CAP = {"city3": 2}
 
 
 def views(eye, fwd, step, n, width, height, device, jitter=False):
@@ -248,13 +293,34 @@ def pt_wavefront(ts, view, bounce):
     return org.contiguous(), d.contiguous(), tmax.contiguous()
 
 
-def brute_phase(dev):
-    """Kernel B: cornell, 1080p camera rays (closest), the sun shadow rays
-    (any-hit), the half-res GI candidate rays (closest, divergent), the
-    default frame's shared wavefront (GI candidates + reflection rays,
-    closest), the irradiance cache's entry wavefront (closest) and the
-    path tracer's bounce-2 wavefront (closest; ended paths are dead
-    lanes)."""
+def compare_exact(name, k_out, p_out, any_hit):
+    """Kernel B against its plain version: the same bits in t, tri, u and v
+    for every ray (closest hit), the same occlusion mask (any-hit, whose
+    contract is tri >= 0 only). Returns the largest |t|, |u|, |v|
+    difference where both hit the same triangle: 0.0 when it passes."""
+    occ_k, occ_p = k_out[1] >= 0, p_out[1] >= 0
+    mismatch = int((occ_k != occ_p).sum())
+    if mismatch:
+        raise AssertionError(f"{name}: {mismatch} hit/miss mismatches")
+    if any_hit:
+        return 0.0
+    same = (k_out[1] == p_out[1]) & occ_p
+    err = 0.0
+    if bool(same.any()):
+        err = max(float((k_out[i][same] - p_out[i][same]).abs().max())
+                  for i in (0, 2, 3))
+    bad = [k for k, a, b in zip("t tri u v".split(), k_out, p_out)
+           if not torch.equal(a, b)]
+    if bad:
+        n_ids = int((k_out[1] != p_out[1]).sum())
+        raise AssertionError(f"{name}: {', '.join(bad)} differ from the plain "
+                             f"version ({n_ids} ids, max error {err})")
+    return err
+
+
+def brute_inputs(dev, name):
+    """Kernel B's six wavefronts of a 1080p frame on one scene, as case ->
+    (org, dir, tmax, t_min, any_hit), and the scene's trace tables."""
     from kajiya_tpu_torch.core.camera import camera_rays
     from kajiya_tpu_torch.ops import woop_cuda as wc
     from kajiya_tpu_torch.renderers import gbuffer, rtdgi, rtr, shadows
@@ -262,61 +328,119 @@ def brute_phase(dev):
     from kajiya_tpu_torch.scene.scene import build_gpu_scene
     from kajiya_tpu_torch.world import build_trace_scene
 
-    make, eye, fwd, _ = SCENES["cornell"]
+    make, eye, fwd, _ = SCENES[name]
     ts, _ = build_trace_scene(build_gpu_scene(make(procedural), device=dev),
                               device=dev)
+    if ts.woop.get("cmin") is not None:
+        raise AssertionError(f"{name}: has cluster tables, not routed to B")
     view = views(eye, fwd, (0, 0, 0), 1, WIDTH, HEIGHT, dev)[0]
-    coef = ts.woop["coef_rows"]
-    n_tris = coef.shape[0]
     org, d = (x.reshape(-1, 3).contiguous()
               for x in camera_rays(view, WIDTH, HEIGHT))
-    tmax = wc.ray_tmax(org, None)
     gb = gbuffer.raster_gbuffer(ts, view, WIDTH, HEIGHT)
     sorg, sdir, _need = shadows.sun_shadow_rays(ts, gb, 0)
-    sorg, sdir = sorg.contiguous(), sdir.contiguous()
-    stmax = wc.ray_tmax(sorg, None)
     corg, cdir, _rng = rtdgi.candidate_rays(rtdgi.half_gbuffer(gb), 0)
-    corg, cdir = corg.contiguous(), cdir.contiguous()
-    ctmax = wc.ray_tmax(corg, None)
     rorg, rdir, _pdf, _rng = rtr.reflection_rays(gb, 0)
-    worg = torch.cat([corg, rorg]).contiguous()
-    wdir = torch.cat([cdir, rdir]).contiguous()
+    worg, wdir = torch.cat([corg, rorg]), torch.cat([cdir, rdir])
     iorg, idir = ircache_rays(gb, view.eye_position, dev)
     porg, pdir, ptmax = pt_wavefront(ts, view, 2)
+
+    def rays(o, dd, tm=None):
+        o, dd = o.contiguous(), dd.contiguous()
+        return o, dd, wc.ray_tmax(o, None) if tm is None else tm
+
+    cases = {"primary_closest": (*rays(org, d), 1e-4, False),
+             "shadow_any_hit": (*rays(sorg, sdir), shadows.RAY_EPS, True),
+             "gi_candidates_closest": (*rays(corg, cdir), 1e-4, False),
+             "gi_rtr_closest": (*rays(worg, wdir), 1e-4, False),
+             "ircache_closest": (*rays(iorg, idir), 1e-4, False),
+             "pt_bounce2_closest": (*rays(porg, pdir, ptmax), 1e-4, False)}
+    return ts, cases
+
+
+def brute_phase(dev):
+    """Kernel B on the scenes the brute route serves, cornell (32 triangles,
+    one shared-memory tile) and city3 (6,914, the route's limit): 1080p
+    camera rays (closest), the sun shadow rays (any-hit), the half-res GI
+    candidate rays (closest, divergent), the default frame's shared
+    wavefront (GI candidates + reflection rays, closest), the irradiance
+    cache's entry wavefront (closest) and the path tracer's bounce-2
+    wavefront (closest; ended paths are dead lanes). Each must equal the
+    plain version bit for bit (any-hit: the occlusion mask). On city3 the
+    plain version is timed once, on the call that is compared."""
+    from kajiya_tpu_torch.ops import woop_cuda as wc
+
     cases = []
-    for case, (o, dd, tm, t_min, any_hit) in {
-            "primary_closest": (org, d, tmax, 1e-4, False),
-            "shadow_any_hit": (sorg, sdir, stmax, shadows.RAY_EPS, True),
-            "gi_candidates_closest": (corg, cdir, ctmax, 1e-4, False),
-            "gi_rtr_closest": (worg, wdir, wc.ray_tmax(worg, None), 1e-4,
-                               False),
-            "ircache_closest": (iorg, idir, wc.ray_tmax(iorg, None), 1e-4,
-                                False),
-            "pt_bounce2_closest": (porg, pdir, ptmax, 1e-4, False)}.items():
-        k_out = wc.brute_launch(coef, o, dd, tm, t_min, any_hit)
-        p_out = wc.brute_plain(coef, o, dd, tm, t_min)
-        torch.cuda.synchronize()
-        err = compare_hits(f"woop_brute/{case}", k_out, p_out, any_hit)
-        ms = time_ms(lambda: wc.brute_launch(coef, o, dd, tm, t_min, any_hit),
-                     20)
-        plain_ms = time_ms(lambda: wc.brute_plain(coef, o, dd, tm, t_min), 3)
-        r = o.shape[0]
-        # dead lanes (tmax <= t_min) test nothing; a live any-hit thread
-        # stops at its first hit in index order
-        if any_hit:
-            visits = torch.where(k_out[1] >= 0, k_out[1].long() + 1, n_tris)
-        else:
-            visits = torch.full_like(tm, n_tris, dtype=torch.int64)
-        visits = torch.where(tm > t_min, visits, 0).sum()
-        ops = OPS_PER_VISIT * float(visits)
-        bytes_moved = r * (24 + 4 + 16) + coef.numel() * 4
-        b_ms, b_by = bound(bytes_moved, ops)
-        cases.append(dict(case=case, rays=r, tris=n_tris, max_abs_err=err,
-                          live_rays=int((tm > t_min).sum()),
-                          ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by, visits=float(visits)))
-        log(f"woop_brute/{case}: err {err} kernel {ms:.4f} ms plain "
-            f"{plain_ms:.3f} ms bound {b_ms:.5f} ms ({b_by})")
+    for name in ("cornell", "city3"):
+        ts, inputs = brute_inputs(dev, name)
+        rows, rows24 = ts.woop["coef_rows"], ts.woop["coef_rows24"]
+        # the bound counts the scene's triangles; the table's zero rows that
+        # pad it to whole blocks are tested too, and can never be hit
+        n_tris = int(ts.gpu.num_triangles)
+        plain_reps = 3 if n_tris <= 256 else 0
+        for case, (o, dd, tm, t_min, any_hit) in inputs.items():
+            k_out = wc.brute_launch(rows24, o, dd, tm, t_min, any_hit)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            p_out = wc.brute_plain(rows, o, dd, tm, t_min)
+            stop.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(stop)
+            err = compare_exact(f"woop_brute/{name}/{case}", k_out, p_out,
+                                any_hit)
+            # a checking launch: the pairs visited, kept by the rejects and
+            # tested exactly (warp-wide); it must return the same bits
+            counts = torch.zeros((3,), dtype=torch.int64, device=dev)
+            c_out = wc.brute_launch(rows24, o, dd, tm, t_min, any_hit,
+                                    counts=counts)
+            if not all(torch.equal(a, b) for a, b in zip(c_out, k_out)):
+                raise AssertionError(f"woop_brute/{name}/{case}: the checking "
+                                     "launch differs")
+            visited, kept, exact = (int(x) for x in counts.tolist())
+            ms = time_ms(lambda: wc.brute_launch(rows24, o, dd, tm, t_min,
+                                                 any_hit), 20, graph=True)
+            if plain_reps:
+                plain_ms = time_ms(lambda: wc.brute_plain(rows, o, dd, tm,
+                                                          t_min), plain_reps)
+            r = o.shape[0]
+            live = tm > t_min
+            # the tests this run needs: dead lanes (tmax <= t_min) none, a
+            # live closest-hit ray every triangle, a live any-hit ray the
+            # triangles up to its first hit in index order (the plain
+            # version gives the closest; the kernel's tri is that first hit)
+            if any_hit:
+                visits = torch.where(k_out[1] >= 0, k_out[1].long() + 1,
+                                     n_tris)
+            else:
+                visits = torch.full_like(tm, n_tris, dtype=torch.int64)
+            visits = float(torch.where(live, visits, 0).sum())
+            # the kernel's own count walks the table's padded rows as well
+            rows_walked = torch.where(
+                k_out[1] >= 0, k_out[1].long() + 1, rows.shape[0]) \
+                if any_hit else torch.full_like(tm, rows.shape[0],
+                                                dtype=torch.int64)
+            want = int(torch.where(live, rows_walked, 0).sum())
+            if visited != want:
+                raise AssertionError(f"woop_brute/{name}/{case}: the kernel "
+                                     f"visited {visited} pairs, expected "
+                                     f"{want}")
+            bytes_moved = r * (24 + 4 + 16) + n_tris * wc.N_COEF * 4
+            b_ms, b_by = bound(bytes_moved, OPS_PER_VISIT * visits)
+            cases.append(dict(
+                case=f"{name}/{case}", scene=name, rays=r, tris=n_tris,
+                table_rows=rows.shape[0],
+                live_rays=int(live.sum()), max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                visits=visits, ps_per_test=ms * 1e9 / max(visits, 1.0),
+                kept_share=kept / max(visited, 1),
+                exact_share=exact / max(visited, 1)))
+            log(f"woop_brute/{name}/{case}: err {err} kernel {ms:.4f} ms "
+                f"plain {plain_ms:.3f} ms bound {b_ms:.5f} ms ({b_by}); "
+                f"{cases[-1]['live_rays']} live of {r}, "
+                f"{cases[-1]['ps_per_test']:.3f} ps a test; rejects kept "
+                f"{cases[-1]['kept_share']:.4f} of the visited pairs, the "
+                f"warps tested {cases[-1]['exact_share']:.4f} exactly")
     return cases
 
 
@@ -573,29 +697,42 @@ def warp_phase(dev):
         err = float((k_out - p_out).abs().max())
         if not err <= WARP_TOL:
             raise AssertionError(f"warp/{case}: max error {err}")
-        ms = time_ms(lambda: warp_cuda.warp_launch(img, uv, bilinear), 50,
-                     graph=True)
-        eager_ms = time_ms(lambda: warp_cuda.warp_launch(img, uv, bilinear),
-                           50)
-        plain_ms = time_ms(lambda: warp_cuda.warp_plain(img, uv, bilinear), 10)
-        # yardstick only: one PyTorch call computing the same sampling
-        # (border padding = clamp addressing); the port never calls it
-        src = (img[None, None] if c == 1 else img.permute(2, 0, 1)[None]
-               ).contiguous()
-        grid = (uv * 2.0 - 1.0)[None]
-        mode = "bilinear" if bilinear else "nearest"
-        lib_ms = time_ms(lambda: F.grid_sample(
-            src, grid, mode=mode, padding_mode="border", align_corners=False),
-            50, graph=True)
         n = h * w
         bytes_moved = n * 8 + 2 * n * c * 4       # uv + output + image once
+
+        def kernel(img=img, uv=uv, bilinear=bilinear):
+            img, uv = img.clone(), uv.clone()
+            return lambda: warp_cuda.warp_launch(img, uv, bilinear)
+
+        # yardstick only: one PyTorch call computing the same sampling
+        # (border padding = clamp addressing); the port never calls it
+        def library(img=img, uv=uv, c=c, bilinear=bilinear):
+            src = (img[None, None] if c == 1 else img.permute(2, 0, 1)[None]
+                   ).clone(memory_format=torch.contiguous_format)
+            grid = (uv * 2.0 - 1.0)[None].contiguous()
+            mode = "bilinear" if bilinear else "nearest"
+            return lambda: F.grid_sample(src, grid, mode=mode,
+                                         padding_mode="border",
+                                         align_corners=False)
+
+        # L2-cold (rotated input copies): the number the row reports; the
+        # frame's passes stream several such planes between two calls
+        ms = time_cold_ms(kernel, bytes_moved)
+        lib_ms = time_cold_ms(library, bytes_moved)
+        hot_ms = time_ms(kernel(), 50, graph=True)
+        lib_hot_ms = time_ms(library(), 50, graph=True)
+        eager_ms = time_ms(kernel(), 50)
+        plain_ms = time_ms(lambda: warp_cuda.warp_plain(img, uv, bilinear), 10)
         b_ms, b_by = bound(bytes_moved, 0.0)
         cases.append(dict(case=case, pixels=n, channels=c, max_abs_err=err,
-                          ms=ms, eager_loop_ms=eager_ms, plain_ms=plain_ms,
-                          library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
-        log(f"warp/{case}: err {err} kernel {ms:.4f} ms (eager loop "
-            f"{eager_ms:.4f}) plain {plain_ms:.3f} ms grid_sample "
-            f"{lib_ms:.4f} ms bound {b_ms:.5f} ms")
+                          ms=ms, l2_hot_ms=hot_ms, eager_loop_ms=eager_ms,
+                          plain_ms=plain_ms, library_ms=lib_ms,
+                          library_l2_hot_ms=lib_hot_ms, bound_ms=b_ms,
+                          bound_by=b_by))
+        log(f"warp/{case}: err {err} kernel {ms:.4f} ms L2-cold, "
+            f"{hot_ms:.4f} hot (eager loop {eager_ms:.4f}) plain "
+            f"{plain_ms:.3f} ms grid_sample {lib_ms:.4f} cold, "
+            f"{lib_hot_ms:.4f} hot; bound {b_ms:.5f} ms")
     return cases
 
 
@@ -630,17 +767,35 @@ def tileshift_phase(dev):
             continue        # the small shapes are checks, not frame calls
         if int(dy.abs().max()) == 0 and int(dx.abs().max()) == 0:
             raise AssertionError("tile_shift: the frame's offsets are all 0")
-        ms = time_ms(lambda: tsc.tile_shift_launch(img, dy, dx), 50,
-                     graph=True)
-        eager_ms = time_ms(lambda: tsc.tile_shift_launch(img, dy, dx), 50)
+        bytes_moved = 2 * img.numel() * 4 + 2 * dy.numel() * 4
+
+        def kernel(img=img, dy=dy, dx=dx):
+            img = img.clone()
+            return lambda: tsc.tile_shift_launch(img, dy, dx)
+
+        # yardstick only: the plain version's last line, one advanced-index
+        # gather, with its clamped indices built beforehand
+        def library(img=img, dy=dy, dx=dx):
+            img = img.clone()
+            iy, ix = tsc.shift_indices(img, dy, dx)
+            return lambda: img[iy, ix]
+
+        ms = time_cold_ms(kernel, bytes_moved)
+        lib_ms = time_cold_ms(library, bytes_moved)
+        hot_ms = time_ms(kernel(), 50, graph=True)
+        lib_hot_ms = time_ms(library(), 50, graph=True)
+        eager_ms = time_ms(kernel(), 50)
         plain_ms = time_ms(lambda: tsc.tile_shift_plain(img, dy, dx), 10)
-        b_ms, b_by = bound(2 * img.numel() * 4 + 2 * dy.numel() * 4, 0.0)
+        b_ms, b_by = bound(bytes_moved, 0.0)
         cases.append(dict(case=case, shape=list(shape), max_abs_err=err,
-                          ms=ms, eager_loop_ms=eager_ms, plain_ms=plain_ms,
-                          bound_ms=b_ms, bound_by=b_by))
-        log(f"tile_shift/{case}: err {err} kernel {ms:.4f} ms (eager loop "
-            f"{eager_ms:.4f}) plain "
-            f"{plain_ms:.3f} ms bound {b_ms:.5f} ms ({b_by})")
+                          ms=ms, l2_hot_ms=hot_ms, eager_loop_ms=eager_ms,
+                          plain_ms=plain_ms, library_ms=lib_ms,
+                          library_l2_hot_ms=lib_hot_ms, bound_ms=b_ms,
+                          bound_by=b_by))
+        log(f"tile_shift/{case}: err {err} kernel {ms:.4f} ms L2-cold, "
+            f"{hot_ms:.4f} hot (eager loop {eager_ms:.4f}) plain "
+            f"{plain_ms:.3f} ms gather {lib_ms:.4f} cold, {lib_hot_ms:.4f} "
+            f"hot; bound {b_ms:.5f} ms ({b_by})")
     return cases
 
 
@@ -749,7 +904,8 @@ def reference_phase(dev, ibl):
                        ("refpt", PT_FRAME_TOL)):
         tol, min_frac, max_mean = tols
         n = {"raster": 3, "refpt": 2}.get(path, 4)
-        for name, (make, eye, fwd, step) in SCENES.items():
+        for name in ("cornell", "city"):
+            make, eye, fwd, step = SCENES[name]
             if name == "city":
                 make = lambda p: p.city(n=4, subdiv=8)      # noqa: E731
                 eye, fwd = (0.0, 8.0, 14.0), (0.0, -0.45, -1.0)
@@ -786,22 +942,24 @@ def reference_phase(dev, ibl):
     return worst
 
 
-def expected_launches(path, name, n_frames):
+def expected_launches(path, clustered, emissive, n_frames):
     """Kernel launches of `n_frames` frames from a fresh state (frame index
-    0 onwards). Per frame, the traces go through B (cornell) or C (city):
+    0 onwards) on a scene with or without cluster tables (`clustered`: the
+    route sends its traces to C, else to B) and with or without emissive
+    triangles. Per frame, the traces go through B or C:
     primaries + sun shadows; on the GI path also the candidate rays, their
     sun-NEE and light-NEE shadow rays and, on every third frame, the
     validation rays + their sun-NEE. The default path traces the candidate
     and reflection rays as one wavefront (+ its two NEE batches, + the
     validation of both passes' reservoirs as one batch + its sun-NEE every
     third frame), and adds the irradiance cache's entry wavefront + its
-    sun-NEE and light-NEE batches, and on cornell (emissive triangles) the
-    2 shadow batches of the mesh-light specular. The options path is the
+    sun-NEE and light-NEE batches, and where the scene has emissive
+    triangles the 2 shadow batches of the mesh-light specular. The options path is the
     default path with traced primaries (one trace, as the raster's one)
     and the world radiance cache's probe rays + their sun-NEE batch (no
     light NEE there). The path tracer traces 3 wavefronts a bounce (closest
-    hit, sun NEE, light NEE; the city's light-NEE wavefront is all dead
-    lanes, and still launched) for 16 bounces. W: prev depth + shadow
+    hit, sun NEE, light NEE; without emissive triangles the light-NEE
+    wavefront is all dead lanes, and still launched) for 16 bounces. W: prev depth + shadow
     moments; on the GI path also the SSAO history, the ReSTIR temporal
     fetch, the occlusion march of spatial pass 1 (4 taps x 2 samples) and
     the GI history; the default path adds the RTR reservoir fetch and
@@ -811,32 +969,34 @@ def expected_launches(path, name, n_frames):
     launches neither W nor S."""
     if path == "refpt":
         traces = 3 * PT_BOUNCES * n_frames
-        return {"woop_brute": traces if name == "cornell" else 0,
-                "woop_culled": traces if name == "city" else 0,
+        return {"woop_brute": 0 if clustered else traces,
+                "woop_culled": traces if clustered else 0,
                 "warp": 0, "tile_shift": 0}
     gi = path in ("gi", "default", "options")
     validations = len(range(0, n_frames, 3)) if gi else 0
     per_frame = {"raster": 2, "gi": 5, "default": 8,
                  "options": 10}[path]
-    if path in ("default", "options") and name == "cornell":
+    if path in ("default", "options") and emissive:
         per_frame += 2
     traces = per_frame * n_frames + 2 * validations
-    return {"woop_brute": traces if name == "cornell" else 0,
-            "woop_culled": traces if name == "city" else 0,
+    return {"woop_brute": 0 if clustered else traces,
+            "woop_culled": traces if clustered else 0,
             "warp": {"raster": 2, "gi": 13, "default": 24,
                      "options": 24}[path] * n_frames,
             "tile_shift": 11 * n_frames if gi else 0}
 
 
 def frame_phase(dev, path, ibl):
-    """Frames at 1920x1080 per scene on one ported path, counters set to 0
-    just before and read just after each scene's frames, and the host syncs
-    of each frame counted (those of the last frame per source line)."""
+    """Frames at 1920x1080 on one ported path, per scene of PATH_SCENES,
+    counters set to 0 just before and read just after each scene's frames,
+    and the host syncs of each frame counted (those of the last frame per
+    source line)."""
     from kajiya_tpu_torch.ops import _native
 
-    n_frames = N_FRAMES[path]
     result = {}
-    for name, (make, eye, fwd, step) in SCENES.items():
+    for name in PATH_SCENES[path]:
+        make, eye, fwd, step = SCENES[name]
+        n_frames = min(N_FRAMES[path], FRAME_CAP.get(name, N_FRAMES[path]))
         t0 = time.perf_counter()
         run = PathRun(path, make, dev, WIDTH, HEIGHT, ibl=ibl)
         r = run.r
@@ -901,7 +1061,8 @@ def frame_phase(dev, path, ibl):
                 raise AssertionError(f"{name}: {samples} PT samples")
             extra.update(lit_mean=float(out["lit"].mean()),
                          refpt_samples=samples)
-        want = expected_launches(path, name, n_frames)
+        want = expected_launches(path, r.ts.woop.get("cmin") is not None,
+                                 int(r.gpu.num_lights) > 0, n_frames)
         if counts != want:
             raise AssertionError(f"{path}/{name}: launches {counts}, "
                                  f"expected {want}")
@@ -1014,12 +1175,13 @@ def main():
     # do not: the same frame indices make the same number of host syncs
     # (from frame 1: a path's first frame also copies the constants it
     # caches on the card, once)
-    for sc in SCENES:
-        got, want = (frames[p][sc]["host_syncs"][1:] for p in ("default",
-                                                               "gi"))
-        if got != want:
-            raise AssertionError(f"default/{sc}: host syncs per frame {got}, "
-                                 f"the GI frame's {want}")
+    for sc in PATH_SCENES["default"]:
+        if sc in frames["gi"]:
+            got, want = (frames[p][sc]["host_syncs"][1:] for p in ("default",
+                                                                   "gi"))
+            if got != want:
+                raise AssertionError(f"default/{sc}: host syncs per frame "
+                                     f"{got}, the GI frame's {want}")
         # the path tracer's frame (16 bounces of trace, shade, NEE) waits
         # for the card only where the default frame's post chain does
         pt = frames["refpt"][sc]["last_frame_sync_sites"]
@@ -1049,7 +1211,7 @@ def main():
                      launched("warp"), True),
         kernel_entry("tile_shift", "kajiya_tpu_torch/csrc/tileshift.cu",
                      "kajiya_tpu/ops/tileshift_pallas.py:41", tileshift,
-                     launched("tile_shift"), False),
+                     launched("tile_shift"), True),
     ]
     wall_s = time.perf_counter() - t_start
     log(f"chip_smoke wall time {wall_s:.1f} s")

@@ -35,7 +35,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "kt_woop_brute": [_P, _P, _P, _P, _I, _I, _F, _I, _P, _P, _P, _P, _P],
+    "kt_woop_brute": [_P, _P, _P, _P, _I, _I, _F, _I, _P, _P, _P, _P, _P,
+                      _P],
     "kt_woop_culled": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _I, _I,
                        _P, _P, _P, _P, _P, _P],
     "kt_warp": [_P, _I, _I, _I, _P, ctypes.c_longlong, _I, _P, _P],

@@ -38,8 +38,9 @@ def _check_offsets(img, dy, dx):
     return nty, ntx
 
 
-def tile_shift_plain(img, dy, dx):
-    """Plain version of kernel S: the same fetch as an index gather."""
+def shift_indices(img, dy, dx):
+    """The (H, W) int64 row and column each output pixel fetches: the
+    per-tile offsets clipped, added and clamped at the image edges."""
     h, w = img.shape[0], img.shape[1]
     nty, ntx = _check_offsets(img, dy, dx)
 
@@ -50,7 +51,13 @@ def tile_shift_plain(img, dy, dx):
     dev = img.device
     iy = torch.arange(h, device=dev)[:, None] + full(dy, MAX_DY)
     ix = torch.arange(w, device=dev)[None, :] + full(dx, MAX_DX)
-    return img[iy.clamp(0, h - 1), ix.clamp(0, w - 1)]
+    return iy.clamp(0, h - 1), ix.clamp(0, w - 1)
+
+
+def tile_shift_plain(img, dy, dx):
+    """Plain version of kernel S: the same fetch as an index gather."""
+    iy, ix = shift_indices(img, dy, dx)
+    return img[iy, ix]
 
 
 def tile_shift_launch(img, dy, dx):

@@ -19,9 +19,14 @@ C  `intersect_culled_cuda`: per 512-ray chunk, a front-to-back list of
    not cross); `culled_plain(ray_skip=True)` is that walk in plain PyTorch,
    and returns the chunk-level walk's bits.
 
-The tables the kernels read ((T, 21) rows for B; (T / 128, 21, 128) slabs and
-(T / 128, 8) padded block boxes for C) are built once per scene refresh by
-`attach_coef_tables` and travel in the `woop` dictionary.
+B's kernel rejects most pairs before the division, by tests that only drop
+pairs the exact test drops too (`brute_reject_plain` is their plain model);
+the plain version makes no such test and returns the same bits.
+
+The tables the kernels read ((T, 21) rows for the plain versions and, padded
+to (T, 24), for B; (T / 128, 21, 128) slabs and (T / 128, 8) padded block
+boxes for C) are built once per scene refresh by `attach_coef_tables` and
+travel in the `woop` dictionary.
 """
 from __future__ import annotations
 
@@ -38,12 +43,16 @@ INF = float(np.float32(1e30))
 CULL_TB = 128            # triangles per culled block
 CULL_RAY_BLOCK = 512     # rays per chunk (one block list; 16 warps of rays)
 N_COEF = 21              # 12 a_o + 9 a_d coefficients per triangle
+N_ROW = 24               # B's padded row: 6 float4
 
 _BEPS = float(np.float32(1e-5))
 _ONE_BEPS = float(np.float32(1.0 + 1e-5))
 _RW_EPS = float(np.float32(1e-12))
 _BOX_EPS = float(np.float32(1e-3))    # block box margin, of the scene size
 _RAY_PAD = float(np.float32(1e-5))    # per-ray box pad, of |org|_1 + tmax
+# B's limit reject: p = fl(fl(lim * (1 + 2^-20)) * |rw|), off below lim 1e-25
+_REJECT_GROW = 1.0 + 2.0 ** -20
+_LIM_FLOOR = float(np.float32(1e-25))
 
 
 def _f32(x) -> float:
@@ -61,6 +70,14 @@ def coef_rows(woop) -> torch.Tensor:
     ao = woop["a_o"].reshape(3, t, 4).permute(1, 0, 2).reshape(t, 12)
     ad = woop["a_d"].reshape(3, t, 3).permute(1, 0, 2).reshape(t, 9)
     return torch.cat([ao, ad], dim=1).contiguous()
+
+
+def coef_rows24(woop) -> torch.Tensor:
+    """(T, 24): `coef_rows` followed by three zeros, 16-byte rows that
+    kernel B reads as 6 float4."""
+    c = coef_rows(woop)
+    return torch.cat([c, c.new_zeros((c.shape[0], N_ROW - N_COEF))],
+                     dim=1).contiguous()
 
 
 def coef_blocks(woop) -> torch.Tensor:
@@ -85,11 +102,12 @@ def block_bounds(woop) -> torch.Tensor:
 
 
 def attach_coef_tables(woop):
-    """Store the kernels' tables in the `woop` dictionary: "coef_rows" and,
-    where the scene has cluster tables, "coef_blocks" and "block_bounds".
-    Called where the dictionary is built, so the tables live exactly as long
-    as the a_o / a_d they derive from."""
+    """Store the kernels' tables in the `woop` dictionary: "coef_rows",
+    "coef_rows24" and, where the scene has cluster tables, "coef_blocks" and
+    "block_bounds". Called where the dictionary is built, so the tables live
+    exactly as long as the a_o / a_d they derive from."""
     woop["coef_rows"] = coef_rows(woop)
+    woop["coef_rows24"] = coef_rows24(woop)
     if woop.get("cmin64") is not None:
         woop["coef_blocks"] = coef_blocks(woop)
         woop["block_bounds"] = block_bounds(woop)
@@ -178,21 +196,59 @@ def brute_plain(coef, org, d, tmax, t_min):
     return t_out, tri_out, u_out, v_out
 
 
-def brute_launch(coef, org, d, tmax, t_min, any_hit):
-    """Launch kernel B on CUDA tensors."""
-    _native.check_cuda(coef, org, d, tmax)
-    r, n_tris = org.shape[0], coef.shape[0]
+def brute_reject_plain(coef, org, d, lim):
+    """Plain model of kernel B's rejects before the division: (R, T) bool,
+    True where the kernel drops ray r x triangle k without the exact test,
+    for rays whose limit is lim = min(t_best, tmax) (R,). A pair is kept
+    only if |rw| >= 1e-12, t = -qw / rw can be positive (qw and rw nonzero
+    and of opposite signs) and |qw| < fl(fl(lim (1 + 2^-20)) |rw|) (no limit
+    below lim 1e-25). The exact test drops every pair this drops, for any
+    t_min >= 0 (the proof is in csrc/woop.cu); lim = 0 drops every pair, as
+    the kernel's slots without a ray."""
+    c = coef[:, :N_COEF].T                              # (21, T)
+    o = [org[:, j:j + 1] for j in range(3)]
+    dd = [d[:, j:j + 1] for j in range(3)]
+    qw = ((c[8] * o[0] + c[9] * o[1]) + c[10] * o[2]) + c[11]
+    rw = (c[18] * dd[0] + c[19] * dd[1]) + c[20] * dd[2]
+    lim = lim.to(torch.float32)
+    limg = torch.where(lim >= _LIM_FLOOR, lim * _REJECT_GROW,
+                       torch.full_like(lim, float("inf")))
+    limg = torch.where(lim == 0.0, 0.0, limg)[:, None]
+    y = torch.where(torch.signbit(rw), -qw, qw)         # qw * sign(rw)
+    keep = (rw.abs() >= _RW_EPS) & (y < 0.0) & (-y < limg * rw.abs())
+    return ~keep
+
+
+def check_t_min(t_min):
+    """Kernel B's rejects rest on t_min >= 0 (every caller passes 1e-4)."""
+    if not _f32(t_min) >= 0.0:
+        raise ValueError(f"kernel B needs t_min >= 0, got {t_min}")
+
+
+def brute_launch(rows, org, d, tmax, t_min, any_hit, counts=None):
+    """Launch kernel B on CUDA tensors; `rows` is the (T, 24) table.
+    `counts`, a zeroed int64 CUDA tensor of 3 elements, makes this a
+    checking launch: the kernel adds the ray x row pairs its live rays
+    visited, those its rejects kept, and those whose exact test a warp
+    executed (a warp runs it for all its lanes when one needs it)."""
+    check_t_min(t_min)
+    _native.check_cuda(rows, org, d, tmax)
+    r, n_tris = org.shape[0], rows.shape[0]
     _check(org, (r, 3))
     _check(d, (r, 3))
     _check(tmax, (r,))
-    _check(coef, (n_tris, N_COEF))
+    _check(rows, (n_tris, N_ROW))
+    if counts is not None:
+        _native.check_cuda(counts)
+        _check(counts, (3,), torch.int64)
     outs = _empty_hits(r, org.device)
     if r == 0:
         return outs
     lib = _native.library()
     status = lib.kt_woop_brute(
-        org.data_ptr(), d.data_ptr(), tmax.data_ptr(), coef.data_ptr(), r,
+        org.data_ptr(), d.data_ptr(), tmax.data_ptr(), rows.data_ptr(), r,
         n_tris, _f32(t_min), int(any_hit), *(x.data_ptr() for x in outs),
+        None if counts is None else counts.data_ptr(),
         _native.stream_ptr(org))
     _native.check_status("woop_brute", status)
     _native.launches["woop_brute"] += 1
@@ -203,12 +259,13 @@ def intersect_brute_cuda(woop, org, d, t_min=1e-4, t_max=None,
                          any_hit: bool = False):
     """Kernel B wrapper (port of `intersect_brute_pallas`): (t, tri, u, v),
     tri int32 with -1 on a miss."""
-    coef = stored_table(woop, "coef_rows", coef_rows)
     tmax = ray_tmax(org, t_max)
     org, d = org.contiguous(), d.contiguous()
     if org.device.type == "cpu":
-        return brute_plain(coef, org, d, tmax, t_min)
-    return brute_launch(coef, org, d, tmax, t_min, any_hit)
+        return brute_plain(stored_table(woop, "coef_rows", coef_rows), org, d,
+                           tmax, t_min)
+    return brute_launch(stored_table(woop, "coef_rows24", coef_rows24), org,
+                        d, tmax, t_min, any_hit)
 
 
 # ----------------------------------------------------------------------------

@@ -96,7 +96,7 @@ def test_trace_scene_tables(scene):
               "tri_attrs", "vert_attrs"):
         _close(getattr(ts_j, f), getattr(ts_t, f), f)
     # the port's dictionary also carries the tables its kernels read
-    extra = {"coef_rows"} | ({"coef_blocks", "block_bounds"}
+    extra = {"coef_rows", "coef_rows24"} | ({"coef_blocks", "block_bounds"}
                              if name == "city4" else set())
     assert set(ts_t.woop) == set(ts_j.woop) | extra
     assert ("cmin64" in ts_t.woop) == (name == "city4")

@@ -1,20 +1,32 @@
 """Build the port's CUDA kernels and run chosen kernel phases of chip_smoke.py.
 
     python3 tools/torch_kernel_check.py [--phases culled,warp] [--ptxas]
+        [--sass] [--against TREE]
+    python3 tools/torch_kernel_check.py --count-sass chiprun_out/woop.sass
 
 The short call to make after a kernel changes: with `--ptxas` every source
 under `kajiya_tpu_torch/csrc/` is first compiled with `-Xptxas -v`, which
-prints each kernel's registers, shared memory and spills; then the chosen
-phases of `chip_smoke.py` (brute, culled, warp, tileshift; none for "") hold
-the kernels against their plain versions at the 1080p frame's shapes and time
-them. The cases go to `chiprun_out/torch_kernel_check.json`. Needs a CUDA
-device.
+prints each kernel's registers, shared memory and spills; with `--sass` the
+SASS of csrc/woop.cu (`cuobjdump -sass`) goes to `chiprun_out/woop.sass`
+and kernel B's innermost loops are counted (`sass_loops`; `--count-sass`
+counts a saved listing, without a device);
+then the chosen phases of `chip_smoke.py` (brute, culled, warp, tileshift;
+none for "") hold the kernels against their plain versions at the 1080p
+frame's shapes and time them. The cases go to
+`chiprun_out/torch_kernel_check.json`. Needs a CUDA device.
+
+Kernel B can be timed beside another build of itself on the brute phase's
+inputs, in the same process, each checked against the plain version:
+`--against TREE` builds TREE's csrc/woop.cu (a checkout from before the
+(T, 24) table, whose B reads the (T, 21) rows) and times it before and after
+this tree's B.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -24,22 +36,196 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def ptxas_report():
+    """Each source compiled with -Xptxas -v: the whole report goes to
+    chiprun_out/ptxas.txt; each kernel's registers, shared memory and
+    spills are printed."""
     from kajiya_tpu_torch.ops import _native
 
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    report = []
     for name in _native.SOURCES:
         out = subprocess.run(
             [_native._nvcc(), *_native.NVCC_FLAGS, "-Xptxas", "-v", "-c",
              os.path.join(_native.CSRC, name), "-o", os.devnull],
             capture_output=True, text=True)
-        print(f"--- {name} (nvcc exit {out.returncode})")
-        print(out.stdout + out.stderr, flush=True)
+        text = out.stdout + out.stderr
+        report.append(f"--- {name} (nvcc exit {out.returncode})\n{text}")
+        print(f"--- {name} (nvcc exit {out.returncode})", flush=True)
+        if out.returncode:
+            print(text, flush=True)
+        kernel = None
+        for line in text.splitlines():
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1]
+            elif kernel and ("registers" in line or "spill" in line):
+                print(f"{kernel[-60:]}: {line.strip()}", flush=True)
+    with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
+        f.write("\n".join(report))
+
+
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_BRA = re.compile(r"^(?:@!?U?P\w+\s+)?BRA(?:\.\w+)*\s+(?:!?U?P\w+,\s*)?"
+                  r"(0x[0-9a-f]+)")
+
+
+def sass_loops(sass, kernel="woop_brute"):
+    """The innermost loops of every function of a `cuobjdump -sass` listing
+    whose name holds `kernel`: per loop its address range, instructions and
+    divisions (MUFU.RCP: one per ray x triangle test of the Woop kernels).
+    A loop with one division and no branch around it issues its
+    instructions once a test (the first kernel B: 90); where the exact test
+    sits behind branches, read the listing for the length of each path."""
+    out = []
+    for chunk in sass.split("Function : ")[1:]:
+        name = chunk.split()[0]
+        if kernel not in name:
+            continue
+        insns = [(int(a, 16), t) for a, t in _INSN.findall(chunk)
+                 if not t.startswith("NOP")]
+        loops = []
+        for addr, text in insns:
+            m = _BRA.match(text)
+            if m and int(m.group(1), 16) <= addr:
+                loops.append((int(m.group(1), 16), addr))
+        inner = [(lo, hi) for lo, hi in loops
+                 if not any(lo <= a and b <= hi and (a, b) != (lo, hi)
+                            for a, b in loops)]
+        for lo, hi in inner:
+            body = [t for a, t in insns if lo <= a <= hi]
+            out.append(dict(function=name, start=hex(lo), end=hex(hi),
+                            instructions=len(body),
+                            divisions=sum(t.startswith("MUFU.RCP")
+                                          for t in body)))
+    return out
+
+
+def sass_dump():
+    """cuobjdump -sass of csrc/woop.cu, written to chiprun_out/woop.sass."""
+    from kajiya_tpu_torch.ops import _native
+
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    cubin = os.path.join(out_dir, "woop.cubin")
+    subprocess.run([_native._nvcc(), *_native.NVCC_FLAGS, "-cubin",
+                    os.path.join(_native.CSRC, "woop.cu"), "-o", cubin],
+                   check=True)
+    tool = os.path.join(os.path.dirname(_native._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", cubin], capture_output=True,
+                          text=True, check=True).stdout
+    with open(os.path.join(out_dir, "woop.sass"), "w") as f:
+        f.write(sass)
+    os.remove(cubin)
+    print(f"--- woop.sass: {len(sass.splitlines())} lines", flush=True)
+    for loop in sass_loops(sass):
+        print(f"--- loop {loop}", flush=True)
+
+
+def build_brutes(specs):
+    """Each (source, tag, counts_arg) built alone into a library, all nvcc
+    processes at once; returns the ctypes handles with kt_woop_brute bound
+    (without the counts argument for a tree from before it: counts_arg
+    False)."""
+    import ctypes
+    import hashlib
+
+    from kajiya_tpu_torch.ops import _native
+
+    os.makedirs(_native.BUILD_DIR, exist_ok=True)
+    jobs = []
+    for source, tag, _ in specs:
+        with open(source, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()[:12]
+        so = os.path.join(_native.BUILD_DIR, f"brute_{tag}_{digest}.so")
+        jobs.append((so, subprocess.Popen(
+            [_native._nvcc(), *_native.NVCC_FLAGS, "-shared", source, "-o",
+             so])))
+    libs = []
+    for (so, proc), (source, _, counts_arg) in zip(jobs, specs):
+        if proc.wait() != 0:
+            raise RuntimeError(f"nvcc failed for {source}")
+        lib = ctypes.CDLL(so)
+        argtypes = list(_native._SIGNATURES["kt_woop_brute"])
+        if not counts_arg:
+            del argtypes[-2]
+        lib.kt_woop_brute.argtypes = argtypes
+        lib.kt_woop_brute.restype = ctypes.c_int
+        lib.counts_arg = counts_arg
+        libs.append(lib)
+    return libs
+
+
+def time_brute_build(dev, lib, table_key, label, inputs):
+    """One build of kernel B on the brute phase's inputs: bits against the
+    plain version (any-hit: the mask), then its time over 20 launches."""
+    import chip_smoke
+    from kajiya_tpu_torch.ops import _native
+    from kajiya_tpu_torch.ops import woop_cuda as wc
+
+    cases = []
+    for name, (ts, rays, plain) in inputs.items():
+        table = ts.woop[table_key]
+
+        def launch(o, dd, tm, t_min, any_hit):
+            outs = wc._empty_hits(o.shape[0], o.device)
+            status = lib.kt_woop_brute(
+                o.data_ptr(), dd.data_ptr(), tm.data_ptr(), table.data_ptr(),
+                o.shape[0], table.shape[0], float(t_min), int(any_hit),
+                *(x.data_ptr() for x in outs),
+                *([None] if lib.counts_arg else []), _native.stream_ptr(o))
+            _native.check_status(f"woop_brute ({label})", status)
+            return outs
+
+        for case, (o, dd, tm, t_min, any_hit) in rays.items():
+            chip_smoke.compare_exact(f"{label}/{name}/{case}",
+                                     launch(o, dd, tm, t_min, any_hit),
+                                     plain[case], any_hit)
+            ms = chip_smoke.time_ms(
+                lambda: launch(o, dd, tm, t_min, any_hit), 20, graph=True)
+            cases.append(dict(build=label, case=f"{name}/{case}", ms=ms))
+            print(f"woop_brute [{label}] {name}/{case}: {ms:.4f} ms",
+                  flush=True)
+    return cases
+
+
+def brute_builds(dev, against):
+    """Kernel B of another tree before, then after this tree's B, on the
+    brute phase's inputs."""
+    import chip_smoke
+    from kajiya_tpu_torch.ops import woop_cuda as wc
+
+    inputs = {}
+    for name in ("cornell", "city3"):
+        ts, rays = chip_smoke.brute_inputs(dev, name)
+        plain = {case: wc.brute_plain(ts.woop["coef_rows"], o, dd, tm, t_min)
+                 for case, (o, dd, tm, t_min, _a) in rays.items()}
+        inputs[name] = (ts, rays, plain)
+    here = os.path.join(REPO, "kajiya_tpu_torch", "csrc", "woop.cu")
+    this, other = build_brutes([
+        (here, "this", True),
+        (os.path.join(against, "kajiya_tpu_torch", "csrc", "woop.cu"),
+         "against", False)])
+    runs = time_brute_build(dev, other, "coef_rows", "against", inputs)
+    runs += time_brute_build(dev, this, "coef_rows24", "this", inputs)
+    runs += time_brute_build(dev, other, "coef_rows", "against", inputs)
+    return runs
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="culled,warp")
     ap.add_argument("--ptxas", action="store_true")
+    ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--against", default=None)
+    ap.add_argument("--count-sass", default=None, metavar="FILE",
+                    help="print the brute kernel's loops of a saved "
+                         "cuobjdump -sass listing and exit (no device)")
     args = ap.parse_args()
+    if args.count_sass:
+        with open(args.count_sass) as f:
+            for loop in sass_loops(f.read()):
+                print(json.dumps(loop))
+        return 0
     if not torch.cuda.is_available():
         print("torch_kernel_check: no CUDA device", file=sys.stderr)
         return 1
@@ -52,10 +238,14 @@ def main():
     print(card, flush=True)
     if args.ptxas:
         ptxas_report()
+    if args.sass:
+        sass_dump()
     dev = torch.device("cuda", 0)
     report = {"card": card}
     for phase in filter(None, args.phases.split(",")):
         report[phase] = getattr(chip_smoke, f"{phase}_phase")(dev)
+    if args.against:
+        report["brute_builds"] = brute_builds(dev, args.against)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "torch_kernel_check.json"),
               "w") as f:
