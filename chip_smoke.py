@@ -19,12 +19,21 @@ on small frames of every path, then renders at 1920x1080, on the cornell box
   (`render_frame_reference`: 16 bounces, 1 spp, the gaussian pixel filter);
 - 2 frames of the default frame with the last four options on (traced
   g-buffer, world radiance cache, depth of field, an IBL sky from an .hdr
-  panorama the script writes),
+  panorama the script writes);
+- the textured path, the default frame on textured scenes: 4 frames of the
+  textured cornell (a 32x32 checker Lanczos-resized to 128) and 2 of the
+  textured city, an asset scene the script writes (three building glTFs with
+  2048^2 base colour, metallic-roughness and normal maps, one with a 1024^2
+  emissive map, a ground GLB with a 4096x2048 RGBA data-URI PNG, and a .ron
+  placing them as the procedural city does: 196,610 triangles) and loads
+  with `apps.view.build_scene`, its bake timed,
 with the launch counters set to 0 just before each path and read just after,
-and the host syncs of each frame counted. Then the oracle datum (the port's
-hybrid frame against its path tracer on cornell at 64x48, held to
-tests/test_oracle.py's bounds) and one run of the headless viewer in a
-subprocess. Prints one JSON line of per-kernel numbers; the last line is
+and the host syncs of each frame counted (the textured frames may make no
+more than the untextured default frames of the same geometry). Then the
+oracle datum (the port's hybrid frame against its path tracer on cornell at
+64x48, held to tests/test_oracle.py's bounds) and two runs of the headless
+viewer in a subprocess (the path tracer on cornell; one building glTF of
+the textured city through the bake cache). Prints one JSON line of per-kernel numbers; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Any failed check raises, so the exit code is not 0 and no result is printed.
 Needs a CUDA device; imports nothing of JAX.
@@ -48,7 +57,7 @@ import torch
 
 WIDTH, HEIGHT = 1920, 1080
 N_FRAMES = {"raster": 2, "gi": 4, "default": 4,   # frames per scene of each
-            "refpt": 2, "options": 2}               # path
+            "refpt": 2, "options": 2, "textured": 4}  # path
 PT_BOUNCES = 16
 T_TOL = 2e-5          # t agreement where the kernel and plain ids agree
 ID_AGREE = 0.999      # fraction of rays whose triangle ids agree
@@ -156,15 +165,16 @@ SMALL_WRC = dict(grid=(4, 2, 4), probe_res=8)
 def slice_cfg(width, height, path="raster", small_ircache=False):
     """The configuration of a ported path: "raster" (raster + sun shadows),
     "gi" (that plus SSAO, RTDGI and ReSTIR GI), "default" (the default
-    `RenderConfig`, every default flag on), "options" (that plus the traced
-    g-buffer, the world radiance cache and depth of field; the IBL sky is
-    the Renderer's) or "refpt" (the default config, which the path
-    tracer's frame reads for its size and exposure)."""
+    `RenderConfig`, every default flag on; "textured" is the same frame on
+    textured scenes), "options" (that plus the traced g-buffer, the world
+    radiance cache and depth of field; the IBL sky is the Renderer's) or
+    "refpt" (the default config, which the path tracer's frame reads for its
+    size and exposure)."""
     from kajiya_tpu_torch.frame import RenderConfig
     from kajiya_tpu_torch.renderers.ircache import IrcacheConfig
     from kajiya_tpu_torch.renderers.wrc import WrcConfig
 
-    if path in ("default", "options", "refpt"):
+    if path in ("default", "textured", "options", "refpt"):
         kw = ({"ircache": IrcacheConfig(**SMALL_IRCACHE)} if small_ircache
               else {})
         if path == "options":
@@ -193,6 +203,11 @@ SCENES = {
     # (camera rays at 64x48: 87% hit a building, 5% the ground, 8% miss)
     "city3": (lambda p: p.city(n=3, subdiv=8), (0.0, 4.0, 9.0),
               (0.0, -0.15, -1.0), (0.02, 0.0, -0.02)),
+    # the textured cornell: a checker on the floor; every trace goes to B
+    "tcornell": (lambda p: p.textured_cornell_box(), (0.0, 0.0, 2.4),
+                 (0.0, 0.0, -1.0), (0.01, 0.005, 0.0)),
+    # "tcity" (the textured asset city, n=16) and "tcity4" (n=4, the small
+    # frames' version) are added by main once `asset_scenes` wrote them
 }
 # the scenes each path renders at 1080p, and a cap on the frames of a scene
 # (city3 shows kernel B at the brute route's limit on the two paths that
@@ -200,8 +215,61 @@ SCENES = {
 PATH_SCENES = {"raster": ("cornell", "city"), "gi": ("cornell", "city"),
                "default": ("cornell", "city", "city3"),
                "refpt": ("cornell", "city", "city3"),
-               "options": ("cornell", "city")}
-FRAME_CAP = {"city3": 2}
+               "options": ("cornell", "city"),
+               "textured": ("tcornell", "tcity")}
+FRAME_CAP = {"city3": 2, "tcity": 2}
+# the untextured scene of the same geometry, whose default frames the
+# textured frames' host syncs are held to
+UNTEXTURED = {"tcornell": "cornell", "tcity": "city"}
+
+
+def asset_scenes(root):
+    """Write the textured city's assets under `root` (scene/assets.py) and
+    return the SCENES entries "tcity" (n=16, 196,610 triangles, seen as the
+    city is) and "tcity4" (n=4, the small frames' scene), each loaded
+    through the viewer's `build_scene` from its .ron."""
+    from kajiya_tpu_torch.apps.view import build_scene
+    from kajiya_tpu_torch.scene import assets
+
+    t0 = time.perf_counter()
+    assets.write_city_assets(root)
+    rons = {n: assets.write_city_ron(root, n=n, name=f"city{n}")
+            for n in (16, 4)}
+    log(f"textured city assets written in {time.perf_counter() - t0:.1f} s "
+        f"under {root}")
+    _, eye, fwd, step = SCENES["city"]
+    return {"tcity": (lambda p: build_scene(rons[16]), eye, fwd, step),
+            "tcity4": (lambda p: build_scene(rons[4]), (0.0, 8.0, 14.0),
+                       fwd, step)}
+
+
+class Stopwatch:
+    """Seconds spent in named module functions while active: each is
+    wrapped for the duration and restored after (as pt_wavefront records
+    the path tracer's traces)."""
+
+    def __init__(self, **targets):
+        self.targets = targets           # label -> (module, function name)
+        self.seconds = dict.fromkeys(targets, 0.0)
+
+    def __enter__(self):
+        self.saved = {}
+        for label, (mod, name) in self.targets.items():
+            fn = getattr(mod, name)
+            self.saved[label] = fn
+
+            def timed(*a, _fn=fn, _label=label, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    self.seconds[_label] += time.perf_counter() - t0
+            setattr(mod, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for label, (mod, name) in self.targets.items():
+            setattr(mod, name, self.saved[label])
 
 
 def views(eye, fwd, step, n, width, height, device, jitter=False):
@@ -874,7 +942,7 @@ class PathRun:
         if self.path == "refpt":
             return views(eye, fwd, (0.0, 0.0, 0.0), n, w, h, dev)
         return views(eye, fwd, step, n, w, h, dev,
-                     jitter=self.path in ("default", "options"))
+                     jitter=self.path in ("default", "options", "textured"))
 
 
 FRAME_KEYS = {
@@ -886,6 +954,9 @@ FRAME_KEYS = {
                 "reflections", "taa"),
     "refpt": ("final", "lit"),
 }
+FRAME_KEYS["textured"] = FRAME_KEYS["default"]
+# the scenes of each path's small GPU-vs-CPU frames ("city" is city(n=4))
+REF_SCENES = {"textured": ("tcornell", "tcity4")}
 
 
 def reference_phase(dev, ibl):
@@ -895,27 +966,34 @@ def reference_phase(dev, ibl):
     reservoirs and the cache's stored rays; two progressive frames of the
     path tracer) at 64x48 from the same views; the default and options
     paths with the small irradiance cache (and the options path with the
-    small world radiance cache). Every comparison is made and logged before
-    a failure is raised."""
+    small world radiance cache); the textured path on the textured cornell
+    and the textured asset city at n=4, whose texture pages on the card
+    must equal the CPU's byte for byte. Every comparison is made and logged
+    before a failure is raised."""
     w, h = 64, 48
     worst, failed = {}, []
     for path, tols in (("raster", FRAME_TOL), ("gi", GI_FRAME_TOL),
                        ("default", GI_FRAME_TOL), ("options", GI_FRAME_TOL),
-                       ("refpt", PT_FRAME_TOL)):
+                       ("refpt", PT_FRAME_TOL), ("textured", GI_FRAME_TOL)):
         tol, min_frac, max_mean = tols
         n = {"raster": 3, "refpt": 2}.get(path, 4)
-        for name in ("cornell", "city"):
+        for name in REF_SCENES.get(path, ("cornell", "city")):
             make, eye, fwd, step = SCENES[name]
             if name == "city":
                 make = lambda p: p.city(n=4, subdiv=8)      # noqa: E731
                 eye, fwd = (0.0, 8.0, 14.0), (0.0, -0.45, -1.0)
-            outs = {}
+            outs, pages = {}, {}
             for d in (dev, torch.device("cpu")):
                 run = PathRun(path, make, d, w, h, ibl=ibl,
                               small_ircache=True)
                 for v in run.views(eye, fwd, step, n, d):
                     o = run.step(v)
                 outs[d.type] = o
+                pages[d.type] = run.r.gpu.tex_pages
+            if path == "textured" and not torch.equal(pages["cuda"].cpu(),
+                                                      pages["cpu"]):
+                failed.append(f"{path}/{name}: texture pages on the card "
+                              "differ from the CPU's")
             if path != "refpt":
                 same = float((outs["cuda"]["gbuffer"]["hit"].cpu()
                               == outs["cpu"]["gbuffer"]["hit"]
@@ -954,7 +1032,8 @@ def expected_launches(path, clustered, emissive, n_frames):
     validation of both passes' reservoirs as one batch + its sun-NEE every
     third frame), and adds the irradiance cache's entry wavefront + its
     sun-NEE and light-NEE batches, and where the scene has emissive
-    triangles the 2 shadow batches of the mesh-light specular. The options path is the
+    triangles the 2 shadow batches of the mesh-light specular (the textured
+    path is the default path on textured scenes). The options path is the
     default path with traced primaries (one trace, as the raster's one)
     and the world radiance cache's probe rays + their sun-NEE batch (no
     light NEE there). The path tracer traces 3 wavefronts a bounce (closest
@@ -972,6 +1051,8 @@ def expected_launches(path, clustered, emissive, n_frames):
         return {"woop_brute": 0 if clustered else traces,
                 "woop_culled": traces if clustered else 0,
                 "warp": 0, "tile_shift": 0}
+    if path == "textured":       # the default frame on textured scenes
+        path = "default"
     gi = path in ("gi", "default", "options")
     validations = len(range(0, n_frames, 3)) if gi else 0
     per_frame = {"raster": 2, "gi": 5, "default": 8,
@@ -990,18 +1071,39 @@ def frame_phase(dev, path, ibl):
     """Frames at 1920x1080 on one ported path, per scene of PATH_SCENES,
     counters set to 0 just before and read just after each scene's frames,
     and the host syncs of each frame counted (those of the last frame per
-    source line)."""
+    source line). On the textured path the scene's load and texture bake
+    are timed: the decode and resize of each image, the whole host bake
+    (decode, resize, pack, mips) and the upload."""
     from kajiya_tpu_torch.ops import _native
+    from kajiya_tpu_torch.scene import scene as scene_mod
+    from kajiya_tpu_torch.scene import textures
 
     result = {}
     for name in PATH_SCENES[path]:
         make, eye, fwd, step = SCENES[name]
         n_frames = min(N_FRAMES[path], FRAME_CAP.get(name, N_FRAMES[path]))
         t0 = time.perf_counter()
-        run = PathRun(path, make, dev, WIDTH, HEIGHT, ibl=ibl)
+        with Stopwatch(decode=(textures, "_decode_image"),
+                       resize=(textures, "_resize"),
+                       bake=(textures, "bake_texture_pages"),
+                       pages=(textures, "build_texture_pages"),
+                       gpu_scene=(scene_mod, "build_gpu_scene")) as watch:
+            run = PathRun(path, make, dev, WIDTH, HEIGHT, ibl=ibl)
+            torch.cuda.synchronize()
         r = run.r
-        torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
+        bake = None
+        if path == "textured":
+            sec = watch.seconds
+            bake = dict(decode_s=sec["decode"], resize_s=sec["resize"],
+                        pack_mips_s=sec["bake"] - sec["decode"]
+                        - sec["resize"],
+                        upload_s=sec["pages"] - sec["bake"],
+                        bake_s=sec["pages"], build_gpu_scene_s=sec["gpu_scene"],
+                        setup_s=setup_s,
+                        atlas_mib=r.gpu.tex_pages.numel() / 2 ** 20,
+                        textures=int(r.gpu.page_sub.shape[0]) - 1)
+            log(f"bake {path}/{name}: {bake}")
         vs = run.views(eye, fwd, step, n_frames, dev)
         _native.reset_launches()
         times, syncs = [], []
@@ -1032,7 +1134,7 @@ def frame_phase(dev, path, ibl):
                                      f"(max M {m_max})")
             extra = dict(gi_mean=gi_mean, reservoir_m_max=m_max,
                          ssao_mean=float(out["ssao"].mean()))
-        if path in ("default", "options"):
+        if path in ("default", "options", "textured"):
             refl = out["reflections"]
             if float(refl.min()) < 0.0:
                 raise AssertionError(f"{name}: negative reflections")
@@ -1041,7 +1143,7 @@ def frame_phase(dev, path, ibl):
             if n_live <= 0:
                 raise AssertionError(f"{name}: the irradiance cache is empty")
             sh_abs = float(r.state["ircache_sh"][live].abs().sum())
-            if path == "default" and sh_abs <= 0.0:
+            if path in ("default", "textured") and sh_abs <= 0.0:
                 raise AssertionError(f"{name}: the live cache entries' SH is "
                                      f"all zero after {n_frames} frames")
             extra.update(reflections_mean=float(refl.mean()),
@@ -1055,6 +1157,17 @@ def frame_phase(dev, path, ibl):
             extra.update(wrc_atlas_mean=float(atlas.mean()),
                          primary_hit_frac=float(
                              out["gbuffer"]["hit"].float().mean()))
+        if path == "textured":
+            # the textures reach the g-buffer: an untextured scene has one
+            # albedo per material, a textured one many more
+            gb = out["gbuffer"]
+            n_albedo = int(torch.unique(gb["albedo"][gb["hit"]].reshape(-1, 3),
+                                        dim=0).shape[0])
+            n_mat = int(r.gpu.mat_base_color.shape[0])
+            if n_albedo <= 4 * n_mat:
+                raise AssertionError(f"{name}: {n_albedo} distinct albedos "
+                                     f"for {n_mat} materials")
+            extra.update(distinct_albedo=n_albedo, bake=bake)
         if path == "refpt":
             samples = float(run.ref_state["refpt_samples"])
             if samples != n_frames:
@@ -1102,27 +1215,41 @@ def oracle_phase(dev):
 
 
 def viewer_phase(tmp):
-    """One run of the headless viewer in its own process, as a user starts
-    it; the PNG it writes must carry the asked size in its header."""
+    """Two runs of the headless viewer, each in its own process as a user
+    starts it: the path tracer on cornell, and the hybrid frame on one
+    building glTF of the textured city (four maps) through the bake cache,
+    kept in `tmp`. Each PNG must carry the asked size in its header, and
+    the second run must leave its mesh in the cache."""
     from kajiya_tpu_torch.apps.view import read_png_header
 
-    out = os.path.join(tmp, "pt.png")
-    cmd = [sys.executable, "-m", "kajiya_tpu_torch.apps.view", "--mode",
-           "reference", "--spp", "2", "--width", "320", "--height", "180",
-           "-o", out]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                          timeout=600)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"viewer exited {proc.returncode}: "
-                           f"{proc.stderr[-2000:]}")
-    header = read_png_header(out)
-    if header != (320, 180, 8, 2):
-        raise AssertionError(f"viewer PNG header {header}")
-    log(f"viewer: {proc.stdout.strip()} ({seconds:.1f} s with start-up)")
-    return {"seconds": seconds, "png": list(header),
-            "stdout": proc.stdout.strip()}
+    runs = {}
+    cache = os.path.join(tmp, "bake_cache")
+    for name, args in (
+            ("pt", ["--mode", "reference", "--spp", "2"]),
+            ("gltf", ["--scene", os.path.join(tmp, "meshes", "b1.gltf"),
+                      "--frames", "2", "--camera", "2.5", "1.5", "2.5",
+                      "-0.5", "-0.1", "-0.5"])):
+        out = os.path.join(tmp, f"{name}.png")
+        cmd = [sys.executable, "-m", "kajiya_tpu_torch.apps.view", *args,
+               "--width", "320", "--height", "180", "-o", out]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                              timeout=600,
+                              env={**os.environ, "KAJIYA_TPU_CACHE": cache})
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"viewer ({name}) exited {proc.returncode}: "
+                               f"{proc.stderr[-2000:]}")
+        header = read_png_header(out)
+        if header != (320, 180, 8, 2):
+            raise AssertionError(f"viewer ({name}) PNG header {header}")
+        log(f"viewer ({name}): {proc.stdout.strip()} ({seconds:.1f} s with "
+            "start-up)")
+        runs[name] = {"seconds": seconds, "png": list(header),
+                      "stdout": proc.stdout.strip()}
+    if not any(f.endswith(".mesh.npz") for f in os.listdir(cache)):
+        raise AssertionError("the viewer left no mesh in the bake cache")
+    return runs
 
 
 def kernel_entry(name, source, replaces, cases, launches, library):
@@ -1165,6 +1292,7 @@ def main():
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     ibl = os.path.join(tmp, "sky.hdr")
     write_panorama(ibl)
+    SCENES.update(asset_scenes(tmp))
     brute = brute_phase(dev)
     culled = culled_phase(dev)
     warp = warp_phase(dev)
@@ -1188,6 +1316,18 @@ def main():
         own = set(pt) - set(frames["default"][sc]["last_frame_sync_sites"])
         if own:
             raise AssertionError(f"refpt/{sc}: host syncs at {sorted(own)}")
+    # the texture fetch waits for the card nowhere: from frame 1 on, a
+    # textured frame makes no more host syncs than the untextured default
+    # frame of the same index on the same geometry
+    for sc, plain in UNTEXTURED.items():
+        got = frames["textured"][sc]["host_syncs"][1:]
+        want = frames["default"][plain]["host_syncs"][1:len(got) + 1]
+        if any(g > w_ for g, w_ in zip(got, want)):
+            raise AssertionError(f"textured/{sc}: host syncs per frame {got}, "
+                                 f"the untextured {plain} frame's {want}")
+    log("textured city frame ms", frames["textured"]["tcity"]["frame_ms"],
+        "beside the untextured city's default frame ms",
+        frames["default"]["city"]["frame_ms"], "(same call)")
     oracle = oracle_phase(dev)
     viewer = viewer_phase(tmp)
     shutil.rmtree(tmp, ignore_errors=True)
@@ -1226,6 +1366,8 @@ def main():
                    "host_syncs": v["host_syncs"]}
                for k, v in per_scene.items()}
         for path, per_scene in frames.items()}, "oracle": oracle,
+        "textured_bake": {sc: v["bake"]
+                          for sc, v in frames["textured"].items()},
         "wall_s": wall_s}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,2 +1,2 @@
-"""CLI apps of the port: `view` (the headless viewer) and its numpy-only
-camera rig and sequencer."""
+"""CLI apps of the port: `view` (the headless viewer) with its numpy-only
+camera rig and sequencer, and `bake` (glTF meshes into the bake cache)."""

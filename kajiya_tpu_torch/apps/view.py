@@ -3,12 +3,14 @@
 Port of `kajiya_tpu/apps/view.py`, with its flags plus `--device`: renders
 N frames of the hybrid pipeline (temporal passes converge over frames), an
 animated sequence, or the reference path tracer (one progressive frame per
-sample), and writes PNGs through a small writer of its own (zlib + struct;
-no imaging library is needed).
+sample) of a builtin procedural scene, a kajiya `.ron` scene or a
+`.gltf` / `.glb` mesh, and writes PNGs through the port's own encoder
+(`scene/png.py`; no imaging library is needed).
 
 Usage:
   python -m kajiya_tpu_torch.apps.view --scene cornell_box --width 640 --height 360
   python -m kajiya_tpu_torch.apps.view --scene city --frames 16 -o out/city.png
+  python -m kajiya_tpu_torch.apps.view --scene assets/scenes/x.ron -o out/x.png
   python -m kajiya_tpu_torch.apps.view --mode reference --spp 64 -o pt.png
   python -m kajiya_tpu_torch.apps.view --device cpu --width 32 --height 24
 """
@@ -22,25 +24,28 @@ import zlib
 
 import numpy as np
 
-PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+from ..scene.png import PNG_SIGNATURE, encode_png
 
 
-def build_scene(name: str):
+def build_scene(name_or_path: str):
+    """A builtin procedural scene by name, a `.ron` scene or a `.gltf` /
+    `.glb` mesh (through the bake cache)."""
     from ..scene import procedural
 
-    if hasattr(procedural, name):
-        return getattr(procedural, name)()
-    if name.endswith((".ron", ".gltf", ".glb")):
-        raise NotImplementedError(
-            f"{name}: the RON / glTF scene loaders are not ported to "
-            "kajiya_tpu_torch yet (ROADMAP section 1, step 10); use a "
-            "builtin procedural scene")
-    raise SystemExit(f"unknown scene: {name}")
+    if hasattr(procedural, name_or_path):
+        return getattr(procedural, name_or_path)()
+    if name_or_path.endswith(".ron"):
+        from ..scene.scene import load_ron_scene
 
+        return load_ron_scene(name_or_path)
+    if name_or_path.endswith((".gltf", ".glb")):
+        from ..scene.cache import load_mesh_cached
+        from ..scene.scene import Scene
 
-def _png_chunk(kind: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + kind + data
-            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+        scene = Scene()
+        scene.add_instance(scene.add_mesh(load_mesh_cached(name_or_path)))
+        return scene
+    raise SystemExit(f"unknown scene: {name_or_path}")
 
 
 def save_png(path: str, img: np.ndarray):
@@ -48,15 +53,8 @@ def save_png(path: str, img: np.ndarray):
     (`clip(img, 0, 1) * 255`, truncated)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     px = (np.clip(np.asarray(img, np.float32), 0, 1) * 255).astype(np.uint8)
-    h, w = px.shape[:2]
-    rows = np.concatenate([np.zeros((h, 1), np.uint8),
-                           px.reshape(h, w * 3)], axis=1)
     with open(path, "wb") as f:
-        f.write(PNG_SIGNATURE
-                + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2,
-                                                  0, 0, 0))
-                + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-                + _png_chunk(b"IEND", b""))
+        f.write(encode_png(px))
 
 
 def read_png_header(path: str):
@@ -77,7 +75,8 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--scene", default="cornell_box",
                    help="builtin procedural scene name (cornell_box, city, "
-                        "...); .ron / .gltf scenes are not ported yet")
+                        "textured_cornell_box, ...), .ron scene, or "
+                        ".gltf/.glb mesh")
     p.add_argument("--width", type=int, default=1280)
     p.add_argument("--height", type=int, default=720)
     p.add_argument("--temporal-upsampling", type=float, default=1.0)

@@ -22,6 +22,9 @@ from .scene.scene import GpuScene
 from .world import TraceScene
 
 _INT_GPU_FIELDS = {"tri_idx", "tri_mat", "tri_inst", "light_tri", "num_lights"}
+# the texture tables (None on an untextured scene): uint8 atlas, int32 slots
+_TEXTURE_FIELDS = {"tex_pages": torch.uint8, "mat_tex": torch.int32,
+                   "page_sub": torch.int32}
 
 
 def _t(x, dev, dtype=None):
@@ -52,10 +55,13 @@ def to_numpy_dict(obj):
 
 def gpu_scene_from_numpy(d: dict, device=None) -> GpuScene:
     dev = resolve_device(device)
-    if any(d.get(k) is not None for k in ("tex_pages", "mat_tex", "page_sub")):
-        raise NotImplementedError("textured scenes are not ported yet")
     kw = {}
     for name in GpuScene.__dataclass_fields__:
+        if name in _TEXTURE_FIELDS:
+            x = d.get(name)
+            kw[name] = None if x is None else _t(x, dev,
+                                                 _TEXTURE_FIELDS[name])
+            continue
         dtype = torch.int32 if name in _INT_GPU_FIELDS else torch.float32
         kw[name] = _t(d[name], dev, dtype)
     return GpuScene(**kw)

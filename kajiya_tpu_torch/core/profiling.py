@@ -6,7 +6,9 @@ kernels it launched. Outside a profiler it adds only a small host cost per
 range. The frame's ranges: `sky_env`, `gbuffer`, `reprojection`, `ssao`,
 `shadow_trace`, `shadow_denoise`, `gi_validate`, `gi_trace` (with `trace`
 and `shade` inside, and `attrs`, `sun_nee`, `light_nee`, `ambient`,
-`screen_reuse` inside each hit-lighting call), `rtdgi` (with `restir` >
+`screen_reuse` inside each hit-lighting call; on a textured scene
+`tex_fetch`, the four texture fetches of each attribute fetch, inside
+`gbuffer` and `attrs`), `rtdgi` (with `restir` >
 `spatial0` / `spatial1`, `resolve`, `temporal` inside), `sky_ambient`,
 `sky_refl`, `sky_bg`, `deferred`, `wrc`, `dof`, `post`; the path tracer's
 frame: `refpt` (with `trace`, `sun_nee`, `light_nee` per bounce) and `post`.

@@ -1,5 +1,4 @@
-"""Procedural test scenes (port of `kajiya_tpu/scene/procedural.py`, without
-the textured cornell box: textures wait).
+"""Procedural test scenes (port of `kajiya_tpu/scene/procedural.py`).
 
 The cornell box mirrors the classic CornellBox-Original the reference ships as
 a glTF (`assets/meshes/cornell_box/`), built from code so the test-suite is
@@ -91,6 +90,46 @@ def cornell_box(light_intensity: float = 20.0, box_metallic: float = 0.0,
     scene = Scene(sun_intensity=0.0)
     mid = scene.add_mesh(mesh)
     scene.add_instance(mid)
+    return scene
+
+
+def checker_data_uri(size: int = 32, cells: int = 4,
+                     c0=(255, 140, 30), c1=(30, 90, 255)) -> str:
+    """A saturated checkerboard PNG as a data URI (hermetic texture source),
+    written by the port's encoder."""
+    import base64
+
+    from .png import encode_png
+
+    y, x = np.mgrid[0:size, 0:size]
+    cell = size // cells
+    mask = ((x // cell + y // cell) % 2).astype(bool)
+    img = np.empty((size, size, 3), np.uint8)
+    img[mask] = np.array(c0, np.uint8)
+    img[~mask] = np.array(c1, np.uint8)
+    return ("data:image/png;base64,"
+            + base64.b64encode(encode_png(img)).decode())
+
+
+def textured_cornell_box(light_intensity: float = 20.0) -> Scene:
+    """Cornell box with a saturated checker albedo texture on the floor
+    (its own material, UVs on the floor quad): textured shading on the
+    primary hit and on secondary GI bounces, whose bounce light off the
+    floor carries the checker's colour."""
+    scene = cornell_box(light_intensity=light_intensity)
+    mesh = scene.meshes[0]
+    # floor quad is first: vertices 0..3 / triangles 0..1 get a dedicated
+    # textured material so the other white surfaces stay untextured
+    uv = np.zeros_like(mesh.uvs)
+    uv[0:4] = np.array([[0, 0], [2, 0], [2, 2], [0, 2]], np.float32)
+    mesh.uvs = uv
+    mesh.image_paths = [checker_data_uri()]
+    floor_mat = _mat((1.0, 1.0, 1.0))
+    floor_mat.base_color_texture = 0
+    mesh.materials.append(floor_mat)
+    mids = mesh.material_ids.copy()
+    mids[0:2] = len(mesh.materials) - 1
+    mesh.material_ids = mids
     return scene
 
 

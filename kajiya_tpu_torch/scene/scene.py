@@ -6,18 +6,20 @@ unique mesh in object space; only the per-triangle index tables replicate
 per instance. World-space corners are recomputed from the per-instance
 transforms (`GpuScene.triangle_corners`).
 
-Textures and the RON/glTF loaders are not ported yet: `build_gpu_scene`
-raises for a scene whose materials reference textures.
+Textured materials get texture pages (`textures.py`): image sources are
+deduplicated across meshes into one atlas, slot 0 white. `load_ron_scene`
+reads a kajiya `.ron` scene of glTF meshes.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field, fields
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from .mesh import PackedMesh
+from .mesh import PackedMesh, load_gltf_mesh
 
 
 @dataclass
@@ -81,6 +83,10 @@ class GpuScene:
     sun_direction: torch.Tensor   # (3,) f32, unit, towards the sun
     sun_radiance: torch.Tensor    # (3,) f32
     sun_angular_radius: torch.Tensor  # () f32
+    tex_pages: torch.Tensor | None = None  # (N, s, s + s//2, 4) uint8 atlas
+    mat_tex: torch.Tensor | None = None    # (M, 4) int32 slots [base, mr,
+    #                                        normal, emissive]
+    page_sub: torch.Tensor | None = None   # (P, 4) int32 [page, size, ox, oy]
 
     @property
     def num_triangles(self):
@@ -91,7 +97,10 @@ class GpuScene:
         return self.verts_obj.device
 
     def to(self, device):
-        return GpuScene(**{f.name: getattr(self, f.name).to(device)
+        def move(x):
+            return None if x is None else x.to(device)
+
+        return GpuScene(**{f.name: move(getattr(self, f.name))
                            for f in fields(self)})
 
     def triangle_corners(self, xforms=None):
@@ -118,34 +127,36 @@ class GpuScene:
         return r / n
 
 
-def _uses_textures(scene: Scene) -> bool:
-    for mesh in scene.meshes:
-        n = len(getattr(mesh, "image_paths", []))
-        for m in mesh.materials:
-            if any(0 <= ti < n for ti in (m.base_color_texture, m.mr_texture,
-                                          m.normal_texture,
-                                          m.emissive_texture)):
-                return True
-    return False
-
-
 def build_gpu_scene(scene: Scene, max_lights: int = 4096,
-                    device=None) -> GpuScene:
+                    with_textures: bool = True, device=None) -> GpuScene:
     """Flatten a host Scene into device tables on `device` (default CUDA;
-    raises without it)."""
+    raises without it). Texture pages are baked on the host and uploaded
+    once (`with_textures=False` leaves every material untextured)."""
     dev = resolve_device(device)
-    if _uses_textures(scene):
-        raise NotImplementedError(
-            "textured scenes are not ported yet (ROADMAP section 1, step 3: "
-            "texture sampling from scene/textures.py)")
     tri_idx, tri_mat, tri_inst = [], [], []
     materials, mesh_mat_offset, mesh_voff = [], [], []
     voff = 0
+    # global texture slot table: image sources deduplicated across meshes
+    img_src, img_slot, mat_tex_rows = [], {}, []
     for mesh in scene.meshes:
         mesh_mat_offset.append(len(materials))
         mesh_voff.append(voff)
         voff += mesh.num_vertices
         materials.extend(mesh.materials)
+        paths = getattr(mesh, "image_paths", [])
+        for m in mesh.materials:
+            row = []
+            for ti in (m.base_color_texture, m.mr_texture,
+                       m.normal_texture, m.emissive_texture):
+                if with_textures and 0 <= ti < len(paths):
+                    src = paths[ti]
+                    if src not in img_slot:
+                        img_slot[src] = len(img_src) + 1  # 0 = white page
+                        img_src.append(src)
+                    row.append(img_slot[src])
+                else:
+                    row.append(0)
+            mat_tex_rows.append(row)
 
     verts = np.concatenate([m.positions for m in scene.meshes])
     normals = np.concatenate([m.normals for m in scene.meshes])
@@ -180,6 +191,13 @@ def build_gpu_scene(scene: Scene, max_lights: int = 4096,
     def t(x, dtype=torch.float32):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
 
+    tex = {}
+    if with_textures and img_src:
+        from .textures import build_texture_pages
+
+        tex["tex_pages"], tex["page_sub"] = build_texture_pages(img_src,
+                                                                device=dev)
+        tex["mat_tex"] = t(np.asarray(mat_tex_rows, np.int32), torch.int32)
     return GpuScene(
         verts_obj=t(verts), normals_obj=t(normals), tangents_obj=t(tangents),
         uvs=t(uvs), tri_idx=t(tri_idx, torch.int32),
@@ -193,4 +211,37 @@ def build_gpu_scene(scene: Scene, max_lights: int = 4096,
         sun_direction=t(np.asarray(sun_dir, np.float32)),
         sun_radiance=t(np.asarray(scene.sun_color * scene.sun_intensity,
                                   np.float32)),
-        sun_angular_radius=t(scene.sun_angular_radius))
+        sun_angular_radius=t(scene.sun_angular_radius), **tex)
+
+
+# ----------------------------------------------------------------------------
+# RON scene loading (the `view` app's scenes)
+# ----------------------------------------------------------------------------
+
+def load_ron_scene(path: str, asset_root: str | None = None) -> Scene:
+    """Load a kajiya RON scene. Mesh paths like "/meshes/x/scene.gltf"
+    resolve against `asset_root` (default: two levels up from the .ron, the
+    assets/ directory)."""
+    from . import ron
+
+    doc = ron.load(path)
+    if asset_root is None:
+        asset_root = os.path.dirname(os.path.dirname(os.path.abspath(path)))
+    scene = Scene()
+    mesh_cache = {}
+    for inst in doc.get("instances", []):
+        full = os.path.join(asset_root, inst["mesh"].lstrip("/"))
+        if full not in mesh_cache:
+            mesh_cache[full] = scene.add_mesh(load_gltf_mesh(full))
+        rot = np.eye(3, dtype=np.float32)
+        if "rotation" in inst:
+            from .gltf import _quat_to_mat3
+
+            q = inst["rotation"]
+            rot = _quat_to_mat3(q[0], q[1], q[2], q[3])
+        scene.add_instance(
+            mesh_cache[full],
+            position=np.asarray(inst.get("position", (0, 0, 0)), np.float32),
+            rotation=rot,
+            scale=np.asarray(inst.get("scale", (1, 1, 1)), np.float32))
+    return scene

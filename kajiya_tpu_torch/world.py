@@ -15,6 +15,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from .core.profiling import pass_scope
 from .device import resolve_device
 from .ops.gather import interp3_rows
 from .ops.smallvec import cross, dot3, norm3
@@ -166,18 +167,28 @@ def refresh_trace_scene(gpu: GpuScene) -> TraceScene:
         vert_attrs=vert_attrs)
 
 
-def hit_attributes(ts: TraceScene, hit, ray_dir, no_normal_maps: bool = False,
-                   full_shading: bool = True, with_prev_pos: bool = False,
-                   cone_width=None):
+def hit_attributes(ts: TraceScene, hit, ray_dir, mip: int = 0,
+                   no_normal_maps: bool = False, full_shading: bool = True,
+                   with_prev_pos: bool = False, cone_width=None):
     """Shading attributes at hit points (the software `gbuffer.rchit`).
     Safe for missed rays (mask with hit.hit_mask). Returns (R, ...) tensors.
-    Material, instance and vertex ids come from the int32 tables; the
-    texture branch (and with it `cone_width`) waits for textures."""
+    Material, instance and vertex ids come from the int32 tables.
+
+    On a textured scene with `full_shading`, four texture fetches modulate
+    the material: base colour (bilinear, sRGB), metallic-roughness (G
+    roughness, B metallic), emissive (sRGB) and a tangent-space normal map,
+    each nearest but the first. `cone_width` (per-ray footprint at the hit)
+    picks each fetch's mip by the ray cone: tri constant + log2(cone_width)
+    - log2(|cos|) + log2(texture size); without it the static `mip`."""
     gpu = ts.gpu
     tri = torch.clamp(hit.tri, min=0).long()
     ta = ts.tri_attrs[tri]                                  # (R, 35)
     e1_t, e2_t, v0_t = ta[:, 0:3], ta[:, 3:6], ta[:, 6:9]
     u_l, v_l = hit.u[:, None], hit.v[:, None]
+    base_color = ta[:, 9:12]
+    metallic = ta[:, 12]
+    roughness = ta[:, 13]
+    emissive = ta[:, 14:17]
 
     geo_n = ta[:, 27:30]
     flip = torch.sign(-dot3(geo_n, ray_dir))
@@ -202,20 +213,64 @@ def hit_attributes(ts: TraceScene, hit, ray_dir, no_normal_maps: bool = False,
         nrm = nrm / torch.clamp(torch.sqrt(dot3(nrm, nrm)), min=1e-12)[:, None]
         normal = torch.where((dot3(nrm, geo_n) < 0.0)[:, None], -nrm, nrm)
         uv = va[:, 3:5]
+        tangent = rot3(va[:, 5:8])
+        tan_w = va[:, 8]
     else:
         normal = geo_n
         uv = torch.zeros((tri.shape[0], 2), dtype=torch.float32,
                          device=tri.device)
+
+    if gpu.tex_pages is not None and full_shading:
+        with pass_scope("tex_fetch"):
+            from .scene.textures import sample_pages
+
+            lod_base = None
+            if cone_width is not None:
+                cos_in = torch.abs(dot3(geo_n, ray_dir))
+                lod_base = (ta[:, 34]
+                            + torch.log2(torch.clamp(torch.abs(cone_width),
+                                                     min=1e-12))
+                            - torch.log2(torch.clamp(cos_in, 1e-2, 1.0)))
+            slots = gpu.mat_tex[gpu.tri_mat[tri].long()]    # (R, 4)
+
+            def fetch(slot, **kw):
+                return sample_pages(gpu.tex_pages, gpu.page_sub,
+                                    slots[:, slot], uv, mip=mip,
+                                    lod_base=lod_base, **kw)
+
+            # base colour and emissive are sRGB; metallic-roughness (G
+            # roughness, B metallic) and normal maps are linear
+            bc = fetch(0, srgb=True)
+            mr = fetch(1, nearest=True)
+            em = fetch(3, nearest=True, srgb=True)
+            base_color = base_color * bc[:, :3]
+            roughness = torch.clamp(roughness * mr[:, 1], 1e-3, 1.0)
+            metallic = torch.clamp(metallic * mr[:, 2], 0.0, 1.0)
+            emissive = emissive * em[:, :3]
+            # tangent-space normal mapping; lanes without a normal texture
+            # or a tangent keep the interpolated normal
+            nm = fetch(2, nearest=True)
+            tnorm = nm[:, :3] * 2.0 - 1.0
+            t_len = torch.sqrt(dot3(tangent, tangent))
+            t_ok = (t_len > 1e-4) & (slots[:, 2] > 0)
+            t = tangent / torch.clamp(t_len, min=1e-8)[:, None]
+            b = cross(normal, t) * tan_w[:, None]
+            n_mapped = (t * tnorm[:, 0:1] + b * tnorm[:, 1:2]
+                        + normal * tnorm[:, 2:3])
+            n_mapped = n_mapped / torch.clamp(
+                torch.sqrt(dot3(n_mapped, n_mapped)), min=1e-12)[:, None]
+            if not no_normal_maps:
+                normal = torch.where(t_ok[:, None], n_mapped, normal)
 
     out = dict(
         pos=v0_t + e1_t * u_l + e2_t * v_l,
         normal=normal,
         geo_normal=geo_n,
         uv=uv,
-        base_color=ta[:, 9:12],
-        metallic=ta[:, 12],
-        roughness=ta[:, 13],
-        emissive=ta[:, 14:17],
+        base_color=base_color,
+        metallic=metallic,
+        roughness=roughness,
+        emissive=emissive,
         material=gpu.tri_mat[tri],
     )
     if with_prev_pos:

@@ -54,7 +54,9 @@ def test_port_imports_no_jax():
                 "renderers/motion_blur.py", "renderers/reference.py",
                 "renderers/wrc.py", "renderers/dof.py", "sky/ibl.py",
                 "core/checkpoint.py", "apps/view.py", "apps/camera_rig.py",
-                "apps/sequence.py"):
+                "apps/sequence.py", "scene/png.py", "scene/textures.py",
+                "scene/ron.py", "scene/gltf.py", "scene/cache.py",
+                "scene/assets.py", "apps/bake.py"):
         assert os.path.join("kajiya_tpu_torch", new) in names, new
     assert "chip_smoke.py" in names
     for path in files:

@@ -1,0 +1,254 @@
+"""The port's PNG decoder and encoder (`kajiya_tpu_torch/scene/png.py`)
+against PIL, which the JAX package decodes textures with: every supported
+colour type and bit depth, each row filter and a mix of them, image data
+over several IDAT chunks, tRNS, and corrupt or unsupported files. Tolerance:
+byte for byte (PIL's `Image.open(...).convert("RGBA")`)."""
+import io
+import struct
+import zlib
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from kajiya_tpu_torch.scene import textures
+from kajiya_tpu_torch.scene.png import (PNG_SIGNATURE, PngError, decode_png,
+                                        encode_png)
+
+W, H = 13, 11          # odd sizes: partial bytes at depths 1, 2 and 4
+CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+FORMATS = [(0, 1), (0, 2), (0, 4), (0, 8), (2, 8), (3, 1), (3, 2), (3, 4),
+           (3, 8), (4, 8), (6, 8)]
+FILTERS = [0, 1, 2, 3, 4, "mixed"]
+
+
+def _chunk(kind, data):
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data)))
+
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    return a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+
+
+def _filter_row(row, prev, bpp, f):
+    """The PNG row filter `f` of one row of bytes, byte by byte."""
+    out = bytearray(len(row))
+    for x in range(len(row)):
+        a = row[x - bpp] if x >= bpp else 0
+        b = prev[x]
+        c = prev[x - bpp] if x >= bpp else 0
+        pred = (0, a, b, (a + b) // 2, _paeth(a, b, c))[f]
+        out[x] = (row[x] - pred) & 255
+    return bytes(out)
+
+
+def raw_png(samples, depth, ctype, filters=0, plte=None, trns=None,
+            idat_bytes=None, interlace=0):
+    """A PNG of (H, W, C) integer samples at any depth, written sample by
+    sample (independent of the port's encoder)."""
+    h, w, c = samples.shape
+    bits = c * depth
+    stride = (w * bits + 7) // 8
+    bpp = max(1, bits // 8)
+    rows, prev = [], bytes(stride)
+    for r in range(h):
+        flat = samples[r].reshape(-1).astype(np.int64)
+        if depth < 8:
+            acc = bytearray(stride)
+            for i, s in enumerate(flat):
+                acc[i * depth // 8] |= int(s) << (8 - depth - i * depth % 8)
+            row = bytes(acc)
+        elif depth == 8:
+            row = flat.astype(np.uint8).tobytes()
+        else:
+            row = flat.astype(">u2").tobytes()
+        f = filters[r % len(filters)] if isinstance(filters, tuple) \
+            else filters
+        rows.append(bytes([f]) + _filter_row(row, prev, bpp, f))
+        prev = row
+    z = zlib.compress(b"".join(rows), 9)
+    step = idat_bytes or len(z)
+    out = PNG_SIGNATURE + _chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
+    if plte is not None:
+        out += _chunk(b"PLTE", plte)
+    if trns is not None:
+        out += _chunk(b"tRNS", trns)
+    for i in range(0, len(z), step):
+        out += _chunk(b"IDAT", z[i:i + step])
+    return out + _chunk(b"IEND", b"")
+
+
+def _pil(data):
+    return np.asarray(Image.open(io.BytesIO(data)).convert("RGBA"))
+
+
+def _samples(rng, ctype, depth, n_pal=None):
+    hi = (n_pal or 256) if ctype == 3 else 1 << depth
+    return rng.integers(0, min(hi, 1 << depth),
+                        (H, W, CHANNELS[ctype]))
+
+
+@pytest.mark.parametrize("filt", FILTERS, ids=str)
+@pytest.mark.parametrize("ctype,depth", FORMATS)
+def test_decode_matches_pil(ctype, depth, filt):
+    rng = np.random.default_rng(ctype * 100 + depth)
+    plte = None
+    if ctype == 3:
+        plte = rng.integers(0, 256, 3 * (1 << depth), dtype=np.uint8).tobytes()
+    filters = (0, 1, 2, 3, 4) if filt == "mixed" else filt
+    data = raw_png(_samples(rng, ctype, depth), depth, ctype, filters,
+                   plte=plte, idat_bytes=23)
+    np.testing.assert_array_equal(decode_png(data), _pil(data))
+
+
+@pytest.mark.parametrize("ctype,depth,trns", [
+    (0, 8, struct.pack(">H", 77)),
+    (0, 1, struct.pack(">H", 1)),
+    (0, 1, struct.pack(">H", 0)),
+    (0, 2, struct.pack(">H", 0)),
+    (0, 2, struct.pack(">H", 2)),     # PIL compares with the scaled value
+    (0, 4, struct.pack(">H", 5)),
+    (2, 8, struct.pack(">HHH", 3, 1, 2)),
+    (3, 8, bytes([0, 128, 255, 7])),  # per-entry alpha, the rest opaque
+    (3, 4, bytes([255, 255, 0, 255])),  # one transparent entry
+    (3, 2, bytes([255, 255])),
+])
+def test_transparency_matches_pil(ctype, depth, trns):
+    rng = np.random.default_rng(7)
+    s = rng.integers(0, min(4, 1 << depth), (H, W, CHANNELS[ctype]))
+    if (ctype, depth) == (0, 8):
+        s[::2, ::3] = 77
+    plte = None
+    if ctype == 3:
+        plte = rng.integers(0, 256, 3 * (1 << depth),
+                            dtype=np.uint8).tobytes()
+    data = raw_png(s, depth, ctype, (0, 1, 2, 3, 4), plte=plte, trns=trns)
+    got = decode_png(data)
+    np.testing.assert_array_equal(got, _pil(data))
+
+
+@pytest.mark.parametrize("plte", [bytes(range(9)), None])
+def test_palette_index_past_plte_matches_pil(plte):
+    """Indices past the PLTE entries (all of them without a PLTE chunk)
+    read PIL's padding of the palette: black, opaque past tRNS."""
+    s = np.arange(H * W).reshape(H, W, 1) % 8
+    data = raw_png(s, 8, 3, 0, plte=plte, trns=bytes([9, 99]))
+    np.testing.assert_array_equal(decode_png(data), _pil(data))
+
+
+def test_idat_checksum_not_verified_as_pil():
+    """PIL reads the image data without its checksum; so does the port,
+    while a bad checksum before it fails both."""
+    rng = np.random.default_rng(1)
+    data = bytearray(raw_png(_samples(rng, 2, 8), 8, 2, 4))
+    i = data.index(b"IDAT")
+    n = struct.unpack(">I", data[i - 4:i])[0]
+    data[i + 4 + n] ^= 0xFF
+    np.testing.assert_array_equal(decode_png(bytes(data)), _pil(bytes(data)))
+    bad = bytearray(raw_png(_samples(rng, 2, 8), 8, 2, 4))
+    bad[29] ^= 0xFF                       # the IHDR checksum
+    with pytest.raises(PngError, match="checksum"):
+        decode_png(bytes(bad))
+    with pytest.raises(OSError):          # PIL: cannot identify image file
+        _pil(bytes(bad))
+
+
+@pytest.mark.parametrize("case", ["zlib", "truncated", "filter",
+                                  "signature", "no_idat"])
+def test_corrupt_data_raises(case):
+    rng = np.random.default_rng(2)
+    s = _samples(rng, 6, 8)
+    if case == "zlib":
+        # a zlib header whose check bits fail
+        data = (PNG_SIGNATURE + _chunk(b"IHDR", struct.pack(
+            ">IIBBBBB", W, H, 8, 6, 0, 0, 0))
+            + _chunk(b"IDAT", b"\x78\x00" + bytes(64))
+            + _chunk(b"IEND", b""))
+    elif case == "truncated":
+        z = zlib.compress(b"\0" * 10)
+        data = (PNG_SIGNATURE + _chunk(b"IHDR", struct.pack(
+            ">IIBBBBB", W, H, 8, 6, 0, 0, 0)) + _chunk(b"IDAT", z)
+            + _chunk(b"IEND", b""))
+    elif case == "filter":
+        rows = b"".join(b"\x07" + bytes(4 * W) for _ in range(H))
+        data = (PNG_SIGNATURE + _chunk(b"IHDR", struct.pack(
+            ">IIBBBBB", W, H, 8, 6, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(rows)) + _chunk(b"IEND", b""))
+    elif case == "signature":
+        data = b"\x89PNX" + raw_png(s, 8, 6, 0)[4:]
+    else:
+        data = PNG_SIGNATURE + _chunk(b"IHDR", struct.pack(
+            ">IIBBBBB", W, H, 8, 6, 0, 0, 0)) + _chunk(b"IEND", b"")
+    with pytest.raises(PngError):
+        decode_png(data)
+    with pytest.raises((OSError, SyntaxError, ValueError)):
+        _pil(data)
+
+
+@pytest.mark.parametrize("case", ["grey16", "rgb16", "rgba16", "interlaced"])
+def test_unported_png_raises(case):
+    """16-bit samples and Adam7 interlacing are not decoded: they raise
+    NotImplementedError (PIL decodes them), never a white texture."""
+    rng = np.random.default_rng(4)
+    ctype, depth, interlace = {"grey16": (0, 16, 0), "rgb16": (2, 16, 0),
+                               "rgba16": (6, 16, 0),
+                               "interlaced": (2, 8, 1)}[case]
+    data = raw_png(rng.integers(0, 1 << depth, (H, W, CHANNELS[ctype])),
+                   depth, ctype, 0, interlace=interlace)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        decode_png(data)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        textures.bake_texture_pages(
+            ["data:image/png;base64," + __import__("base64").b64encode(
+                data).decode()])
+
+
+@pytest.mark.parametrize("head", [b"\xff\xd8\xff\xe0\0\x10JFIF\0",
+                                  b"DDS |\0\0\0", b"GIF89a\x01\0",
+                                  b"BM\x36\0\0\0", b"RIFF\0\0\0\0WEBPVP8 ",
+                                  b"II*\0\x08\0\0\0"])
+def test_undecoded_formats_raise(tmp_path, head):
+    """JPEG, DDS, GIF, BMP, WebP and TIFF raise through the bake:
+    a missing decoder never passes as a white texture."""
+    p = tmp_path / "img.bin"
+    p.write_bytes(head + b"\0" * 64)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        textures.bake_texture_pages([str(p)])
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3, 4])
+@pytest.mark.parametrize("filt", FILTERS, ids=str)
+def test_encoder_roundtrip_through_pil(channels, filt):
+    rng = np.random.default_rng(channels)
+    img = rng.integers(0, 256, (H, W, channels), dtype=np.uint8)
+    filters = (0, 1, 2, 3, 4) if filt == "mixed" else filt
+    data = encode_png(img, filters=filters, idat_bytes=31)
+    assert data.count(b"IDAT") > 1
+    pil = np.asarray(Image.open(io.BytesIO(data)))
+    np.testing.assert_array_equal(pil.reshape(img.shape), img)
+    np.testing.assert_array_equal(decode_png(data), _pil(data))
+    raw = zlib.decompress(b"".join(
+        data[i + 4:i + 4 + struct.unpack(">I", data[i - 4:i])[0]]
+        for i in range(len(data)) if data[i:i + 4] == b"IDAT"))
+    got = np.frombuffer(raw, np.uint8).reshape(H, -1)[:, 0]
+    want = np.resize(np.atleast_1d(filters), H)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_decode_large_mixed_filters_is_fast():
+    """A 512^2 RGBA image with all five filters decodes exactly and in well
+    under a second a megapixel (the bake's budget)."""
+    import time
+
+    rng = np.random.default_rng(5)
+    img = rng.integers(0, 256, (512, 512, 4), dtype=np.uint8)
+    data = encode_png(img, filters=(0, 1, 2, 3, 4))
+    t0 = time.perf_counter()
+    out = decode_png(data)
+    dt = time.perf_counter() - t0
+    np.testing.assert_array_equal(out, img)
+    assert dt < 5.0, dt
