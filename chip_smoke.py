@@ -3,12 +3,18 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/, holds each kernel (B brute Woop,
-C culled Woop, W image warp, S per-tile shift) against its plain PyTorch
-version on the card at the shapes the 1080p frame and the path tracer give
-it (timing both with CUDA events), checks the GPU path against the CPU path
-on small frames of every path, then renders at 1920x1080, on the cornell box
-(32 triangles, brute kernel B) and on the 196,610-triangle procedural city
-(culled kernel C):
+C culled Woop, W image warp, S per-tile shift, and the BVH walk of scenes
+above 262,144 triangles) against its plain PyTorch version on the card at
+the shapes the 1080p frame and the path tracer give it (timing both with
+CUDA events; the walk on six wavefronts of the 1,228,802-triangle city40,
+bit for bit with its visit and test counts), checks the GPU path against the
+CPU path on small frames of every path (the default and path-tracer frames
+also forced through the BVH route), then renders at 1920x1080, on the cornell
+box (32 triangles, brute kernel B) and on the 196,610-triangle procedural
+city (culled kernel C), and on city40 (the BVH walk; 2 default and 2
+path-tracer frames, its set-up timed: scene tables, native BVH build, trace
+scene; every instance moved before the second default frame, which refits
+the BVH, its `tlas_refit` range timed and its launches counted):
 - 2 frames of the raster + sun-shadow path;
 - 4 frames of the diffuse-GI path (SSAO, sorted secondary-ray wavefront,
   ReSTIR temporal + spatial, resolve);
@@ -87,6 +93,13 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 L2_BYTES = 50 * 2 ** 20
 OPS_PER_VISIT = 30    # fp32 ops per ray x triangle Woop test
+# the BVH walk's own fp32 arithmetic (csrc/bvh.cu, compares not counted):
+# the slab test of a node visit, 6 subtractions, 6 multiplications and 10
+# min / max; a Moller-Trumbore triangle test, two crosses (9 each), four
+# dot products (5 each), 3 subtractions, 3 multiplications, 1 division and
+# the u + v addition
+OPS_PER_NODE = 22
+OPS_PER_MT_TEST = 46
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -203,6 +216,12 @@ SCENES = {
     # (camera rays at 64x48: 87% hit a building, 5% the ground, 8% miss)
     "city3": (lambda p: p.city(n=3, subdiv=8), (0.0, 4.0, 9.0),
               (0.0, -0.15, -1.0), (0.02, 0.0, -0.02)),
+    # the BVH route at the scale of the reference's battle.ron:
+    # city(n=40), 40 x 40 x 768 + 2 = 1,228,802 triangles (above
+    # CULLED_BRUTE_MAX_TRIS, so every trace goes to the BVH walk), seen as
+    # the city is, from 2.5 times as far and with 2.5 times its step
+    "city40": (lambda p: p.city(n=40, subdiv=8), (0.0, 36.0, 69.0),
+               (0.0, -0.45, -1.0), (0.125, 0.0, -0.125)),
     # the textured cornell: a checker on the floor; every trace goes to B
     "tcornell": (lambda p: p.textured_cornell_box(), (0.0, 0.0, 2.4),
                  (0.0, 0.0, -1.0), (0.01, 0.005, 0.0)),
@@ -213,14 +232,19 @@ SCENES = {
 # (city3 shows kernel B at the brute route's limit on the two paths that
 # trace the most through it)
 PATH_SCENES = {"raster": ("cornell", "city"), "gi": ("cornell", "city"),
-               "default": ("cornell", "city", "city3"),
-               "refpt": ("cornell", "city", "city3"),
+               "default": ("cornell", "city", "city3", "city40"),
+               "refpt": ("cornell", "city", "city3", "city40"),
                "options": ("cornell", "city"),
                "textured": ("tcornell", "tcity")}
-FRAME_CAP = {"city3": 2, "tcity": 2}
+FRAME_CAP = {"city3": 2, "tcity": 2, "city40": 2}
 # the untextured scene of the same geometry, whose default frames the
 # textured frames' host syncs are held to
 UNTEXTURED = {"tcornell": "cornell", "tcity": "city"}
+# the scenes whose frames on a path move every instance once, by MOVE,
+# before frame MOVE_FRAME (`Renderer.set_transforms`), so that a counted
+# frame refits the BVH inside its `tlas_refit` range
+MOVED = {"default": ("city40",)}
+MOVE, MOVE_FRAME = (0.05, 0.0, 0.0), 1
 
 
 def asset_scenes(root):
@@ -270,6 +294,85 @@ class Stopwatch:
     def __exit__(self, *exc):
         for label, (mod, name) in self.targets.items():
             setattr(mod, name, self.saved[label])
+
+
+class DeviceSpans:
+    """Device ms of each call of one module function while active, from
+    CUDA events recorded around it (no host wait; read with `ms()` after a
+    synchronize)."""
+
+    def __init__(self, mod, name):
+        self.mod, self.name, self.events = mod, name, []
+
+    def __enter__(self):
+        self.fn = getattr(self.mod, self.name)
+
+        def timed(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            try:
+                return self.fn(*a, **k)
+            finally:
+                stop.record()
+                self.events.append((start, stop))
+        setattr(self.mod, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.fn)
+
+    def ms(self):
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def move_instances(r, shift):
+    """Translate every instance of the Renderer `r`'s scene by `shift`
+    through `set_transforms`; the next draw refits."""
+    xf = r.ts.gpu.xforms.clone()
+    xf[:, :, 3] += torch.tensor(shift, dtype=xf.dtype, device=xf.device)
+    r.set_transforms(xf)
+
+
+def profiled_kernels(fn):
+    """fn() once under torch.profiler (CUDA activity): the count and the
+    summed device ms of the kernels, copies and sets it launched."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(ev), sum(e.time_range.elapsed_us() for e in ev) / 1e3
+
+
+def refit_record(r, frame_ms, root_before):
+    """The refit a moved frame made on the BVH route: the root box must be
+    the exact bounds of the moved triangles (min / max are exact) and must
+    have moved. One more refresh of the same trace scene, and one refit
+    alone, under torch.profiler give the launches and the kernel ms of the
+    frame's `tlas_refit` range and of `refit_bvh` in it."""
+    from kajiya_tpu_torch import frame as frame_mod
+    from kajiya_tpu_torch.rt.bvh import refit_bvh
+
+    ts = r.ts
+    v0, e1, e2 = ts.tris
+    pts = torch.cat([v0, v0 + e1, v0 + e2])
+    root = torch.stack([ts.bvh.node_min[0], ts.bvh.node_max[0]])
+    if not torch.equal(root, torch.stack([pts.amin(0), pts.amax(0)])):
+        raise AssertionError(f"refit: root {root.tolist()} is not the bounds "
+                             "of the moved triangles")
+    if torch.equal(root, root_before):
+        raise AssertionError("refit: the root box did not move")
+    n, k_ms = profiled_kernels(lambda: frame_mod.refresh_trace_scene(
+        ts.gpu, ts.bvh, r.levels))
+    n_refit, refit_ms = profiled_kernels(lambda: refit_bvh(
+        ts.bvh, r.levels["levels"], v0, e1, e2))
+    return dict(frame=MOVE_FRAME, move=MOVE, device_span_ms=frame_ms,
+                launches=n, kernel_ms=k_ms, refit_bvh_launches=n_refit,
+                refit_bvh_kernel_ms=refit_ms,
+                levels=len(r.levels["levels"]), nodes=ts.bvh.num_nodes)
 
 
 def views(eye, fwd, step, n, width, height, device, jitter=False):
@@ -867,6 +970,139 @@ def tileshift_phase(dev):
     return cases
 
 
+def bvh_inputs(dev):
+    """The BVH walk's six wavefronts on city40 at 1080p, as case -> (org,
+    dir, tmax, t_min, any_hit, max_steps), and the scene's trace scene:
+    camera rays (closest), sun shadows from the raster g-buffer's hits
+    (any-hit), the default frame's shared wavefront of half-res GI
+    candidates and reflection rays (closest), the path tracer's bounce-2
+    wavefront with its ended paths as dead lanes (closest), the camera rays
+    capped at 64 node visits, and the shared wavefront with seeded per-ray
+    limits in [0, 20)."""
+    from kajiya_tpu_torch.core.camera import camera_rays
+    from kajiya_tpu_torch.ops.woop_cuda import ray_tmax
+    from kajiya_tpu_torch.renderers import gbuffer, rtdgi, rtr, shadows
+    from kajiya_tpu_torch.scene import procedural
+    from kajiya_tpu_torch.scene.scene import build_gpu_scene
+    from kajiya_tpu_torch.world import build_trace_scene
+
+    make, eye, fwd, _ = SCENES["city40"]
+    ts, _ = build_trace_scene(build_gpu_scene(make(procedural), device=dev),
+                              device=dev)
+    if ts.woop is not None or ts.bvh is None:
+        raise AssertionError("city40: not routed to the BVH walk")
+    view = views(eye, fwd, (0, 0, 0), 1, WIDTH, HEIGHT, dev)[0]
+    org, d = (x.reshape(-1, 3).contiguous()
+              for x in camera_rays(view, WIDTH, HEIGHT))
+    gb = gbuffer.raster_gbuffer(ts, view, WIDTH, HEIGHT)
+    sorg, sdir, _need = shadows.sun_shadow_rays(ts, gb, 0)
+    corg, cdir, _rng = rtdgi.candidate_rays(rtdgi.half_gbuffer(gb), 0)
+    rorg, rdir, _pdf, _rng = rtr.reflection_rays(gb, 0)
+    worg, wdir = (torch.cat([corg, rorg]).contiguous(),
+                  torch.cat([cdir, rdir]).contiguous())
+    porg, pdir, ptmax = pt_wavefront(ts, view, 2)
+    g = torch.Generator(device=dev).manual_seed(3)
+    wtmax = torch.rand((worg.shape[0],), generator=g, device=dev) * 20.0
+
+    def inf(o):
+        return ray_tmax(o, None)
+
+    sorg, sdir = sorg.contiguous(), sdir.contiguous()
+    cases = {"camera_closest": (org, d, inf(org), 1e-4, False, None),
+             "sun_shadow_any_hit": (sorg, sdir, inf(sorg), shadows.RAY_EPS,
+                                    True, None),
+             "gi_rtr_closest": (worg, wdir, inf(worg), 1e-4, False, None),
+             "pt_bounce2_closest": (porg, pdir, ptmax, 1e-4, False, None),
+             "camera_closest_max_steps64": (org, d, inf(org), 1e-4, False,
+                                            64),
+             "gi_rtr_closest_per_ray_tmax": (worg, wdir, wtmax, 1e-4, False,
+                                             None)}
+    return ts, cases
+
+
+def bvh_phase(dev):
+    """The BVH walk kernel against `walk_plain` on city40's six wavefronts
+    (`bvh_inputs`), each on the whole wavefront: t, tri, u, v and the
+    per-ray node visits and triangle tests must be the same bits (a
+    checking launch returns the counts; the launch the frame makes, without
+    them, must return the same hits). Both are timed with CUDA events (the
+    plain version once, on the compared call). The bound counts this run's
+    work: OPS_PER_NODE fp32 operations a node visit and OPS_PER_MT_TEST a
+    triangle test (the counts summed over the rays) over the fp32 peak,
+    against the bytes of reading each input (rays, limits, nodes, triangle
+    order and triangles) and writing each output once. No PyTorch call
+    computes a BVH walk, so the library time is none. The capped and the
+    per-ray-limit cases are checks, not frame calls: the kernel line does
+    not sum them."""
+    from kajiya_tpu_torch.ops import bvh_cuda
+    from kajiya_tpu_torch.rt.trace import walk_plain
+
+    ts, inputs = bvh_inputs(dev)
+    bvh, tris = ts.bvh, ts.tris
+    n_nodes, n_order, n_tris = (bvh.num_nodes, bvh.tri_order.shape[0],
+                                tris[0].shape[0])
+    cases = []
+    for case, (o, dd, tm, t_min, any_hit, cap) in inputs.items():
+        k_out = bvh_cuda.walk_launch(bvh, tris, o, dd, t_min, tm, any_hit,
+                                     cap, counts=True)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        p_out = walk_plain(bvh, tris, o, dd, t_min, tm, any_hit, cap,
+                           counts=True)
+        stop.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(stop)
+        names = "t tri u v visits tests".split()
+        bad = [n for n, a, b in zip(names, k_out, p_out)
+               if not torch.equal(a, b)]
+        hit = k_out[1] >= 0
+        err = max(float((k_out[i] - p_out[i]).abs().max()) for i in (0, 2, 3))
+        if bad or err != 0.0:
+            raise AssertionError(
+                f"bvh_walk/{case}: {', '.join(bad)} differ from walk_plain "
+                f"({int((k_out[1] != p_out[1]).sum())} ids, max |t|,|u|,|v| "
+                f"error {err})")
+        f_out = bvh_cuda.walk_launch(bvh, tris, o, dd, t_min, tm, any_hit,
+                                     cap)
+        if not all(torch.equal(a, b) for a, b in zip(f_out, k_out)):
+            raise AssertionError(f"bvh_walk/{case}: the launch without "
+                                 "counts differs from the checking launch")
+        ms = time_ms(lambda: bvh_cuda.walk_launch(bvh, tris, o, dd, t_min,
+                                                  tm, any_hit, cap), 5)
+        visits, tests = k_out[4].long(), k_out[5].long()
+        n_visits, n_tests = int(visits.sum()), int(tests.sum())
+        r = o.shape[0]
+        live = tm > t_min
+        bytes_moved = (r * (28 + 16) + n_nodes * 36 + n_order * 4
+                       + n_tris * 36)
+        ops = float(OPS_PER_NODE * n_visits + OPS_PER_MT_TEST * n_tests)
+        b_ms, b_by = bound(bytes_moved, ops)
+        vq = torch.quantile(visits.float(), torch.tensor(
+            [0.5, 0.99], device=dev)).tolist()
+        cases.append(dict(
+            case=case, rays=r, live_rays=int(live.sum()),
+            frame_call=not case.startswith(("camera_closest_max",
+                                            "gi_rtr_closest_per")),
+            hit_share=float(hit.float().mean()), max_steps=cap,
+            nodes=n_nodes, tris=n_tris, visits=n_visits, tests=n_tests,
+            ops=ops,
+            mean_visits=n_visits / r, p50_visits=vq[0], p99_visits=vq[1],
+            max_visits=int(visits.max()), mean_tests=n_tests / r,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, ops_bound_ms=bound(0.0, ops)[0],
+            bytes_bound_ms=bound(bytes_moved, 0.0)[0], library_ms=None,
+            ps_per_visit=ms * 1e9 / max(n_visits + n_tests, 1)))
+        log(f"bvh_walk/{case}: err {err} kernel {ms:.4f} ms plain "
+            f"{plain_ms:.1f} ms bound {b_ms:.5f} ms ({b_by}); {r} rays "
+            f"({cases[-1]['live_rays']} live, {cases[-1]['hit_share']:.3f} "
+            f"hit), visits mean {n_visits / r:.1f} p50 {vq[0]:.0f} p99 "
+            f"{vq[1]:.0f} max {int(visits.max())}, tests mean "
+            f"{n_tests / r:.1f}")
+    return cases
+
+
 # ----------------------------------------------------------------------------
 # Frame phases
 # ----------------------------------------------------------------------------
@@ -910,14 +1146,20 @@ class PathRun:
     reference mode does), failing if the frame failed."""
 
     def __init__(self, path, make, dev, width, height, ibl=None,
-                 small_ircache=False):
+                 small_ircache=False, brute_max_tris=None):
         from kajiya_tpu_torch.frame import Renderer, init_reference_state
         from kajiya_tpu_torch.scene import procedural
+        from kajiya_tpu_torch.world import build_trace_scene
 
         self.path = path
         self.cfg = slice_cfg(width, height, path, small_ircache)
         self.r = Renderer(make(procedural), self.cfg, device=dev,
                           ibl=ibl if path == "options" else None)
+        if brute_max_tris is not None:
+            # the route forced where the trace scene is built, as a user
+            # of build_trace_scene forces it
+            self.r.ts, self.r.levels = build_trace_scene(
+                self.r.gpu, device=dev, brute_max_tris=brute_max_tris)
         self.ref_state = (init_reference_state(self.cfg, device=dev)
                           if path == "refpt" else None)
 
@@ -957,6 +1199,17 @@ FRAME_KEYS = {
 FRAME_KEYS["textured"] = FRAME_KEYS["default"]
 # the scenes of each path's small GPU-vs-CPU frames ("city" is city(n=4))
 REF_SCENES = {"textured": ("tcornell", "tcity4")}
+# the paths whose small frames are also rendered on the BVH route, forced
+# with brute_max_tris=0
+BVH_REF_PATHS = ("default", "refpt")
+
+
+def route_of(ts):
+    """The trace route of a trace scene: "bvh" (no Woop tables), "culled"
+    (cluster tables, kernel C) or "brute" (kernel B)."""
+    if ts.woop is None:
+        return "bvh"
+    return "culled" if ts.woop.get("cmin") is not None else "brute"
 
 
 def reference_phase(dev, ibl):
@@ -968,13 +1221,19 @@ def reference_phase(dev, ibl):
     paths with the small irradiance cache (and the options path with the
     small world radiance cache); the textured path on the textured cornell
     and the textured asset city at n=4, whose texture pages on the card
-    must equal the CPU's byte for byte. Every comparison is made and logged
+    must equal the CPU's byte for byte; the default and path-tracer frames
+    again on the BVH route (`brute_max_tris=0`; "+bvh" in the names), where
+    the CPU path runs `walk_plain`. Every comparison is made and logged
     before a failure is raised."""
     w, h = 64, 48
     worst, failed = {}, []
-    for path, tols in (("raster", FRAME_TOL), ("gi", GI_FRAME_TOL),
-                       ("default", GI_FRAME_TOL), ("options", GI_FRAME_TOL),
-                       ("refpt", PT_FRAME_TOL), ("textured", GI_FRAME_TOL)):
+    runs = [(path, tols, None) for path, tols in (
+        ("raster", FRAME_TOL), ("gi", GI_FRAME_TOL), ("default", GI_FRAME_TOL),
+        ("options", GI_FRAME_TOL), ("refpt", PT_FRAME_TOL),
+        ("textured", GI_FRAME_TOL))]
+    runs += [(path, GI_FRAME_TOL if path == "default" else PT_FRAME_TOL, 0)
+             for path in BVH_REF_PATHS]
+    for path, tols, brute_max in runs:
         tol, min_frac, max_mean = tols
         n = {"raster": 3, "refpt": 2}.get(path, 4)
         for name in REF_SCENES.get(path, ("cornell", "city")):
@@ -985,11 +1244,16 @@ def reference_phase(dev, ibl):
             outs, pages = {}, {}
             for d in (dev, torch.device("cpu")):
                 run = PathRun(path, make, d, w, h, ibl=ibl,
-                              small_ircache=True)
+                              small_ircache=True, brute_max_tris=brute_max)
+                if brute_max is not None and route_of(run.r.ts) != "bvh":
+                    raise AssertionError(f"{path}/{name}: not on the BVH "
+                                         "route")
                 for v in run.views(eye, fwd, step, n, d):
                     o = run.step(v)
                 outs[d.type] = o
                 pages[d.type] = run.r.gpu.tex_pages
+            if brute_max is not None:
+                name = f"{name}+bvh"
             if path == "textured" and not torch.equal(pages["cuda"].cpu(),
                                                       pages["cpu"]):
                 failed.append(f"{path}/{name}: texture pages on the card "
@@ -1020,11 +1284,12 @@ def reference_phase(dev, ibl):
     return worst
 
 
-def expected_launches(path, clustered, emissive, n_frames):
+def expected_launches(path, route, emissive, n_frames):
     """Kernel launches of `n_frames` frames from a fresh state (frame index
-    0 onwards) on a scene with or without cluster tables (`clustered`: the
-    route sends its traces to C, else to B) and with or without emissive
-    triangles. Per frame, the traces go through B or C:
+    0 onwards) on a scene of the trace route `route` (`route_of`: "brute"
+    sends every trace to B, "culled" to C, "bvh" to the BVH walk, one
+    launch a trace call as well) and with or without emissive triangles.
+    Per frame, the traces go through B, C or the walk:
     primaries + sun shadows; on the GI path also the candidate rays, their
     sun-NEE and light-NEE shadow rays and, on every third frame, the
     validation rays + their sun-NEE. The default path traces the candidate
@@ -1046,11 +1311,16 @@ def expected_launches(path, clustered, emissive, n_frames):
     which do not run at temporal_upsampling 1) and the 8 motion-blur taps.
     S: the 7 + 4 taps of the two ReSTIR spatial passes. The path tracer
     launches neither W nor S."""
+    kernel = {"brute": "woop_brute", "culled": "woop_culled",
+              "bvh": "bvh_walk"}[route]
+
+    def trace_counts(traces):
+        return {k: traces if k == kernel else 0
+                for k in ("woop_brute", "woop_culled", "bvh_walk")}
+
     if path == "refpt":
-        traces = 3 * PT_BOUNCES * n_frames
-        return {"woop_brute": 0 if clustered else traces,
-                "woop_culled": traces if clustered else 0,
-                "warp": 0, "tile_shift": 0}
+        return {**trace_counts(3 * PT_BOUNCES * n_frames), "warp": 0,
+                "tile_shift": 0}
     if path == "textured":       # the default frame on textured scenes
         path = "default"
     gi = path in ("gi", "default", "options")
@@ -1060,8 +1330,7 @@ def expected_launches(path, clustered, emissive, n_frames):
     if path in ("default", "options") and emissive:
         per_frame += 2
     traces = per_frame * n_frames + 2 * validations
-    return {"woop_brute": 0 if clustered else traces,
-            "woop_culled": traces if clustered else 0,
+    return {**trace_counts(traces),
             "warp": {"raster": 2, "gi": 13, "default": 24,
                      "options": 24}[path] * n_frames,
             "tile_shift": 11 * n_frames if gi else 0}
@@ -1074,7 +1343,9 @@ def frame_phase(dev, path, ibl):
     source line). On the textured path the scene's load and texture bake
     are timed: the decode and resize of each image, the whole host bake
     (decode, resize, pack, mips) and the upload."""
+    from kajiya_tpu_torch import frame as frame_mod
     from kajiya_tpu_torch.ops import _native
+    from kajiya_tpu_torch.rt import bvh as bvh_mod
     from kajiya_tpu_torch.scene import scene as scene_mod
     from kajiya_tpu_torch.scene import textures
 
@@ -1087,11 +1358,15 @@ def frame_phase(dev, path, ibl):
                        resize=(textures, "_resize"),
                        bake=(textures, "bake_texture_pages"),
                        pages=(textures, "build_texture_pages"),
-                       gpu_scene=(scene_mod, "build_gpu_scene")) as watch:
+                       gpu_scene=(scene_mod, "build_gpu_scene"),
+                       bvh_native=(bvh_mod, "build_bvh_native"),
+                       trace_scene=(frame_mod, "build_trace_scene")) as watch:
             run = PathRun(path, make, dev, WIDTH, HEIGHT, ibl=ibl)
             torch.cuda.synchronize()
         r = run.r
         setup_s = time.perf_counter() - t0
+        setup = {k: watch.seconds[k] for k in ("gpu_scene", "bvh_native",
+                                               "trace_scene")}
         bake = None
         if path == "textured":
             sec = watch.seconds
@@ -1105,15 +1380,25 @@ def frame_phase(dev, path, ibl):
                         textures=int(r.gpu.page_sub.shape[0]) - 1)
             log(f"bake {path}/{name}: {bake}")
         vs = run.views(eye, fwd, step, n_frames, dev)
+        moved = name in MOVED.get(path, ()) and n_frames > MOVE_FRAME
+        root_before = (torch.stack([r.ts.bvh.node_min[0],
+                                    r.ts.bvh.node_max[0]]).clone()
+                       if moved else None)
         _native.reset_launches()
         times, syncs = [], []
-        for v in vs:
-            t0 = time.perf_counter()
-            out, sync_sites = counting_syncs(lambda: run.step(v))
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-            syncs.append(sum(sync_sites.values()))
+        with DeviceSpans(frame_mod, "refresh_trace_scene") as refreshes:
+            for i, v in enumerate(vs):
+                if moved and i == MOVE_FRAME:
+                    move_instances(r, MOVE)
+                t0 = time.perf_counter()
+                out, sync_sites = counting_syncs(lambda: run.step(v))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                syncs.append(sum(sync_sites.values()))
         counts = dict(_native.launches)
+        if len(refreshes.events) != int(moved):
+            raise AssertionError(f"{path}/{name}: {len(refreshes.events)} "
+                                 "trace scene refreshes in the frames")
         final = out["final"]
         if tuple(final.shape) != (HEIGHT, WIDTH, 3):
             raise AssertionError(f"{name}: final shape {tuple(final.shape)}")
@@ -1168,13 +1453,19 @@ def frame_phase(dev, path, ibl):
                 raise AssertionError(f"{name}: {n_albedo} distinct albedos "
                                      f"for {n_mat} materials")
             extra.update(distinct_albedo=n_albedo, bake=bake)
+        if moved:
+            extra.update(tlas_refit=refit_record(
+                r, refreshes.ms()[0], root_before))
+            log(f"tlas_refit {path}/{name} (frame {MOVE_FRAME}, every "
+                f"instance moved by {MOVE}): {extra['tlas_refit']}, host "
+                f"syncs of that frame {syncs[MOVE_FRAME]}")
         if path == "refpt":
             samples = float(run.ref_state["refpt_samples"])
             if samples != n_frames:
                 raise AssertionError(f"{name}: {samples} PT samples")
             extra.update(lit_mean=float(out["lit"].mean()),
                          refpt_samples=samples)
-        want = expected_launches(path, r.ts.woop.get("cmin") is not None,
+        want = expected_launches(path, route_of(r.ts),
                                  int(r.gpu.num_lights) > 0, n_frames)
         if counts != want:
             raise AssertionError(f"{path}/{name}: launches {counts}, "
@@ -1182,14 +1473,18 @@ def frame_phase(dev, path, ibl):
         result[name] = dict(frame_ms=times, median_ms=statistics.median(times),
                             launches=counts, host_syncs=syncs,
                             last_frame_sync_sites=dict(sync_sites),
-                            final_mean=mean,
+                            final_mean=mean, route=route_of(r.ts),
                             tris=int(r.gpu.num_triangles), setup_s=setup_s,
-                            **extra)
+                            setup_parts_s=setup, **extra)
         if path != "refpt":
             result[name]["hit_frac"] = float(
                 out["gbuffer"]["hit"].float().mean())
-        log(f"frame {path}/{name}: {int(r.gpu.num_triangles)} tris, setup "
-            f"{setup_s:.1f} s, frame ms {[round(t, 2) for t in times]}, "
+        log(f"frame {path}/{name}: {int(r.gpu.num_triangles)} tris "
+            f"({route_of(r.ts)} route), setup {setup_s:.1f} s (scene tables "
+            f"{setup['gpu_scene']:.2f} s, trace scene "
+            f"{setup['trace_scene']:.2f} s, of which the native BVH build "
+            f"{setup['bvh_native']:.2f} s), frame ms "
+            f"{[round(t, 2) for t in times]}, "
             f"launches {counts}, host syncs per frame {syncs}, final mean "
             f"{mean:.4f} {extra}")
     return result
@@ -1297,6 +1592,7 @@ def main():
     culled = culled_phase(dev)
     warp = warp_phase(dev)
     tileshift = tileshift_phase(dev)
+    bvh = bvh_phase(dev)
     reference_phase(dev, ibl)
     frames = {path: frame_phase(dev, path, ibl) for path in N_FRAMES}
     # the default frame's passes wait for the card nowhere the GI frame's
@@ -1316,6 +1612,15 @@ def main():
         own = set(pt) - set(frames["default"][sc]["last_frame_sync_sites"])
         if own:
             raise AssertionError(f"refpt/{sc}: host syncs at {sorted(own)}")
+    # the BVH route waits for the card nowhere the culled route does not:
+    # from frame 1 on, a city40 default frame (frame MOVE_FRAME refits the
+    # BVH after its instances moved) makes no more host syncs than the
+    # city's default frame of the same index
+    got = frames["default"]["city40"]["host_syncs"][1:]
+    want = frames["default"]["city"]["host_syncs"][1:len(got) + 1]
+    if any(g > w_ for g, w_ in zip(got, want)):
+        raise AssertionError(f"default/city40: host syncs per frame {got}, "
+                             f"the city's {want}")
     # the texture fetch waits for the card nowhere: from frame 1 on, a
     # textured frame makes no more host syncs than the untextured default
     # frame of the same index on the same geometry
@@ -1352,6 +1657,9 @@ def main():
         kernel_entry("tile_shift", "kajiya_tpu_torch/csrc/tileshift.cu",
                      "kajiya_tpu/ops/tileshift_pallas.py:41", tileshift,
                      launched("tile_shift"), True),
+        kernel_entry("bvh_walk", "kajiya_tpu_torch/csrc/bvh.cu",
+                     "kajiya_tpu/rt/trace.py:78", bvh, launched("bvh_walk"),
+                     False),
     ]
     wall_s = time.perf_counter() - t_start
     log(f"chip_smoke wall time {wall_s:.1f} s")
@@ -1368,6 +1676,12 @@ def main():
         for path, per_scene in frames.items()}, "oracle": oracle,
         "textured_bake": {sc: v["bake"]
                           for sc, v in frames["textured"].items()},
+        "setup_s": {f"{p}/{sc}": v["setup_parts_s"]
+                    for p, per_scene in frames.items()
+                    for sc, v in per_scene.items() if sc == "city40"},
+        "tlas_refit": {f"{p}/{sc}": v["tlas_refit"]
+                       for p, per_scene in frames.items()
+                       for sc, v in per_scene.items() if "tlas_refit" in v},
         "wall_s": wall_s}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,12 @@ so this module needs neither JAX nor the JAX package. Field names are the
 JAX dataclasses' own:
 
 - `trace_scene_from_numpy`: the fields of a JAX `TraceScene` (`gpu` as a dict
-  of `GpuScene` fields, `woop` as its dict; `bvh` is ignored);
+  of `GpuScene` fields, `woop` as its dict, `bvh` as a dict of `Bvh` fields);
+  on the Woop route the port carries no BVH (it reads none), so `bvh` is
+  kept only where `woop` is None, the BVH route;
+- `bvh_from_numpy`: the fields of a JAX `Bvh`;
+- `levels_from_numpy`: the `levels` of a JAX `build_trace_scene`, the refit
+  schedule as index tensors on the device;
 - `frame_state_from_numpy`: an `init_frame_state`-shaped dict;
 - `view_from_numpy`: the fields of a JAX `ViewConstants`.
 """
@@ -18,6 +23,7 @@ import torch
 
 from .core.camera import ViewConstants
 from .device import resolve_device
+from .rt.bvh import Bvh, refit_schedule
 from .scene.scene import GpuScene
 from .world import TraceScene
 
@@ -67,14 +73,30 @@ def gpu_scene_from_numpy(d: dict, device=None) -> GpuScene:
     return GpuScene(**kw)
 
 
+def bvh_from_numpy(d: dict, device=None) -> Bvh:
+    return Bvh(**{name: d[name] for name in Bvh.__dataclass_fields__}).to(
+        resolve_device(device))
+
+
+def levels_from_numpy(d: dict, device=None) -> dict:
+    dev = resolve_device(device)
+    out = {"use_brute": bool(d["use_brute"])}
+    if not out["use_brute"]:
+        out["levels"] = refit_schedule(d["levels"], dev)
+    return out
+
+
 def trace_scene_from_numpy(d: dict, device=None) -> TraceScene:
     dev = resolve_device(device)
-    woop = None
+    woop = bvh = None
     if d.get("woop") is not None:
         woop = {k: _t(v, dev) for k, v in d["woop"].items() if v is not None}
+    else:
+        bvh = bvh_from_numpy(d["bvh"], dev)
     kw = {name: _t(d[name], dev) for name in TraceScene.__dataclass_fields__
-          if name not in ("gpu", "woop")}
-    return TraceScene(gpu=gpu_scene_from_numpy(d["gpu"], dev), woop=woop, **kw)
+          if name not in ("gpu", "woop", "bvh")}
+    return TraceScene(gpu=gpu_scene_from_numpy(d["gpu"], dev), woop=woop,
+                      bvh=bvh, **kw)
 
 
 def frame_state_from_numpy(d: dict, device=None) -> dict:

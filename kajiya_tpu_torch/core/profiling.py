@@ -3,7 +3,9 @@
 `pass_scope(name)` is `torch.profiler.record_function`: each pass shows up as
 a named range in a `torch.profiler` trace, with the device time of the
 kernels it launched. Outside a profiler it adds only a small host cost per
-range. The frame's ranges: `sky_env`, `gbuffer`, `reprojection`, `ssao`,
+range. The frame's ranges: `tlas_refit` (the trace scene's refresh and,
+on the BVH route, the refit, where a frame or `Renderer.draw` after a move
+makes one), `sky_env`, `gbuffer`, `reprojection`, `ssao`,
 `shadow_trace`, `shadow_denoise`, `gi_validate`, `gi_trace` (with `trace`
 and `shade` inside, and `attrs`, `sun_nee`, `light_nee`, `ambient`,
 `screen_reuse` inside each hit-lighting call; on a textured scene

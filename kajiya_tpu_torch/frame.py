@@ -177,7 +177,8 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
     mts = cfg.max_trace_steps
     frame_idx = state["frame_idx"]
     if levels is not None:
-        ts = refresh_trace_scene(ts.gpu)
+        with pass_scope("tlas_refit"):
+            ts = refresh_trace_scene(ts.gpu, ts.bvh, levels)
 
     # sky: an IBL env map replaces the atmosphere when given (background and
     # secondary rays sample the map; ambient is its SH9 irradiance).
@@ -526,7 +527,8 @@ def render_frame_reference(ts, state, view: ViewConstants, cfg: RenderConfig,
     from .renderers import reference as refpt
 
     if levels is not None:
-        ts = refresh_trace_scene(ts.gpu)
+        with pass_scope("tlas_refit"):
+            ts = refresh_trace_scene(ts.gpu, ts.bvh, levels)
 
     # PT ray cone: the reference shrinks the pixel cone to 0.3x for its
     # path tracer
@@ -560,7 +562,9 @@ class Renderer:
     `draw` keeps the last-good-frame behaviour of the JAX Renderer: after a
     first good frame, a failing frame leaves the state untouched, logs the
     error once and returns the last good outputs; on the first frame the
-    error (a kernel launch error included) propagates."""
+    error (a kernel launch error included) propagates. Scenes above
+    CULLED_BRUTE_MAX_TRIS triangles take the BVH route
+    (`build_trace_scene`); `levels` keeps its refit schedule."""
 
     def __init__(self, scene, cfg: RenderConfig = RenderConfig(), device=None,
                  ibl: str | None = None):
@@ -571,7 +575,8 @@ class Renderer:
         if int(self.gpu.num_lights) > 0 and cfg.use_rtr:
             cfg = replace(cfg, use_mesh_light_specular=True)
         self.cfg = cfg
-        self.ts, _ = build_trace_scene(self.gpu, device=self.device)
+        self.ts, self.levels = build_trace_scene(self.gpu,
+                                                 device=self.device)
         self.state = init_frame_state(cfg, device=self.device)
         self.ibl_env = None
         if ibl is not None:
@@ -586,7 +591,9 @@ class Renderer:
         """Render one frame, advancing the temporal state."""
         try:
             if self._transforms_changed:
-                self.ts = refresh_trace_scene(self.ts.gpu)
+                with pass_scope("tlas_refit"):
+                    self.ts = refresh_trace_scene(self.ts.gpu, self.ts.bvh,
+                                                  self.levels)
                 self._transforms_changed = False
             self.state, outputs = render_frame(
                 self.ts, self.state, view.to(self.device), self.cfg,
@@ -606,7 +613,7 @@ class Renderer:
 
     def set_transforms(self, xforms):
         """Update instance transforms (I, 3, 4); previous transforms roll.
-        The trace scene is rebuilt at the next draw."""
+        The trace scene is rebuilt (the BVH refit) at the next draw."""
         gpu = self.ts.gpu
         gpu.xforms_prev = gpu.xforms
         gpu.xforms = torch.as_tensor(xforms, dtype=torch.float32,

@@ -23,11 +23,12 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("woop.cu", "warp.cu", "tileshift.cu")
+SOURCES = ("woop.cu", "warp.cu", "tileshift.cu", "bvh.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
-launches = {"woop_brute": 0, "woop_culled": 0, "warp": 0, "tile_shift": 0}
+launches = {"woop_brute": 0, "woop_culled": 0, "warp": 0, "tile_shift": 0,
+            "bvh_walk": 0}
 
 _lib = None
 
@@ -41,6 +42,8 @@ _SIGNATURES = {
                        _P, _P, _P, _P, _P, _P],
     "kt_warp": [_P, _I, _I, _I, _P, ctypes.c_longlong, _I, _P, _P],
     "kt_tile_shift": [_P, _I, _I, _I, _P, _P, _I, _I, _P, _P],
+    "kt_bvh_walk": [_P, _P, _P, _F, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                    _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
 }
 
 

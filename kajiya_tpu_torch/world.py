@@ -1,11 +1,14 @@
 """Trace-ready scene bundle + hit attribute fetch (port of
 `kajiya_tpu/world.py`).
 
-Every scene up to CULLED_BRUTE_MAX_TRIS triangles takes the Woop path: the
-brute tables, plus two cluster granularities above BRUTE_FORCE_MAX_TRIS for
-the culled kernel, with the triangle tables Morton-sorted so consecutive
-blocks are spatially compact. Larger scenes need the BVH walk, which is not
-ported yet (build_trace_scene raises).
+Every scene up to `brute_max_tris` (default CULLED_BRUTE_MAX_TRIS) triangles
+takes the Woop route: the brute tables, plus two cluster granularities above
+BRUTE_FORCE_MAX_TRIS for the culled kernel, with the triangle tables
+Morton-sorted so consecutive blocks are spatially compact. Larger scenes take
+the BVH route: a skip-link BVH built once (rt/bvh.py), refit on each refresh,
+and no Woop tables (`woop` is None). The Woop route reads no BVH, so none is
+built there (`bvh` is None), unlike the JAX package, which always builds one;
+no output changes.
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ CULLED_BRUTE_MAX_TRIS = 262_144
 @dataclass
 class TraceScene:
     """Everything needed to trace + shade: scene tables, world-space
-    triangle SoA, Woop tables and the consolidated attribute tables."""
+    triangle SoA, Woop tables or the BVH, and the consolidated attribute
+    tables."""
 
     gpu: GpuScene
     v0: torch.Tensor
@@ -44,23 +48,29 @@ class TraceScene:
     woop: Any                     # dict from ops.woop.build_woop (+ clusters)
     tri_attrs: torch.Tensor       # (T, 35) per-triangle attributes
     vert_attrs: torch.Tensor      # (V, 9) object-space normal + uv + tangent
+    bvh: Any = None               # rt.bvh.Bvh on the BVH route (woop None)
 
     @property
     def tris(self):
         return (self.v0, self.e1, self.e2)
 
 
-def build_trace_scene(gpu: GpuScene, device=None,
+def build_trace_scene(gpu: GpuScene, device=None, leaf_size: int = 4,
                       brute_max_tris: int = CULLED_BRUTE_MAX_TRIS):
     """Build the trace bundle on `device` (default CUDA; raises without it).
-    Returns (TraceScene, levels) like the JAX function; `render_frame`
-    given `levels` rebuilds the trace scene every frame."""
+    Returns (TraceScene, levels) like the JAX function. Above
+    `brute_max_tris` triangles the BVH route: `levels` is {"levels": the
+    refit schedule as device index tensors, "use_brute": False}; otherwise
+    {"use_brute": True}. `render_frame` given `levels` refreshes the trace
+    scene every frame (and refits the BVH)."""
     dev = resolve_device(device)
     gpu = gpu.to(dev)
     if gpu.num_triangles > brute_max_tris:
-        raise NotImplementedError(
-            f"{gpu.num_triangles} triangles need the BVH walk (rt/bvh.py, "
-            "ROADMAP section 1, step 2); not ported yet")
+        from .rt.bvh import bvh_from_scene, refit_schedule
+
+        bvh, lv, _ = bvh_from_scene(gpu, leaf_size=leaf_size)
+        levels = {"levels": refit_schedule(lv, dev), "use_brute": False}
+        return refresh_trace_scene(gpu, bvh, levels), levels
     if gpu.num_triangles > BRUTE_FORCE_MAX_TRIS:
         # Morton-sort the triangle tables so consecutive blocks are compact
         from .rt.bvh import morton3d
@@ -111,23 +121,31 @@ def _pad_tris(n: int) -> int:
     return -(-n // TRI_BLOCK) * TRI_BLOCK
 
 
-def refresh_trace_scene(gpu: GpuScene) -> TraceScene:
-    """Recompute world geometry, Woop/cluster tables and the attribute
-    tables for the current transforms."""
+def refresh_trace_scene(gpu: GpuScene, bvh=None, levels=None) -> TraceScene:
+    """Recompute the world geometry and the attribute tables for the current
+    transforms, and the tables of the scene's route: with `bvh` (the BVH
+    route) its bounds are refit by the schedule in `levels` (the dictionary
+    build_trace_scene returns); without, the Woop and cluster tables are
+    built."""
     from .ops.woop import build_clusters, build_woop
     from .ops.woop_cuda import CULL_TB, attach_coef_tables
 
     n = gpu.num_triangles
-    if n > CULLED_BRUTE_MAX_TRIS:
-        raise NotImplementedError("the BVH walk is not ported yet")
     v0, e1, e2 = gpu.triangle_corners()
-    pad = _pad_tris(n)
-    woop = build_woop(v0, e1, e2, pad_to=pad)
-    if n > BRUTE_FORCE_MAX_TRIS:
-        woop["cmin"], woop["cmax"] = build_clusters(v0, e1, e2, pad_to=pad)
-        woop["cmin64"], woop["cmax64"] = build_clusters(
-            v0, e1, e2, pad_to=pad, tri_block=CULL_TB)
-    attach_coef_tables(woop)     # the tables kernels B and C read
+    woop = None
+    if bvh is not None:
+        from .rt.bvh import refit_bvh
+
+        bvh = refit_bvh(bvh, levels["levels"], v0, e1, e2)
+    else:
+        pad = _pad_tris(n)
+        woop = build_woop(v0, e1, e2, pad_to=pad)
+        if n > BRUTE_FORCE_MAX_TRIS:
+            woop["cmin"], woop["cmax"] = build_clusters(v0, e1, e2,
+                                                        pad_to=pad)
+            woop["cmin64"], woop["cmax64"] = build_clusters(
+                v0, e1, e2, pad_to=pad, tri_block=CULL_TB)
+        attach_coef_tables(woop)     # the tables kernels B and C read
 
     mt = gpu.tri_mat.long()
     v0p, e1p, e2p = gpu.triangle_corners(gpu.xforms_prev)
@@ -164,7 +182,7 @@ def refresh_trace_scene(gpu: GpuScene) -> TraceScene:
         light_area=torch.where(live[:, 0], 0.5 * l_len, 0.0),
         light_emission=torch.where(live, emission, 0.0),
         light_normal=l_normal, woop=woop, tri_attrs=tri_attrs,
-        vert_attrs=vert_attrs)
+        vert_attrs=vert_attrs, bvh=bvh)
 
 
 def hit_attributes(ts: TraceScene, hit, ray_dir, mip: int = 0,

@@ -13,6 +13,7 @@ from kajiya_tpu_torch.core import camera
 from kajiya_tpu_torch.frame import RenderConfig, Renderer
 from kajiya_tpu_torch.ops import (_native, tileshift_cuda, warp_cuda,
                                   woop_cuda)
+from kajiya_tpu_torch.rt import bvh, trace
 from kajiya_tpu_torch.scene import procedural, scene
 from kajiya_tpu_torch import world
 
@@ -56,7 +57,8 @@ def test_port_imports_no_jax():
                 "core/checkpoint.py", "apps/view.py", "apps/camera_rig.py",
                 "apps/sequence.py", "scene/png.py", "scene/textures.py",
                 "scene/ron.py", "scene/gltf.py", "scene/cache.py",
-                "scene/assets.py", "apps/bake.py"):
+                "scene/assets.py", "apps/bake.py", "rt/bvh.py",
+                "rt/trace.py", "ops/bvh_cuda.py"):
         assert os.path.join("kajiya_tpu_torch", new) in names, new
     assert "chip_smoke.py" in names
     for path in files:
@@ -109,15 +111,17 @@ def test_native_sources_name_every_kernel_file():
     on_disk = sorted(n for n in os.listdir(_native.CSRC) if n.endswith(".cu"))
     assert sorted(_native.SOURCES) == on_disk
     assert set(_native.launches) == {"woop_brute", "woop_culled", "warp",
-                                     "tile_shift"}
+                                     "tile_shift", "bvh_walk"}
     assert set(_native._SIGNATURES) == {"kt_woop_brute", "kt_woop_culled",
-                                        "kt_warp", "kt_tile_shift"}
+                                        "kt_warp", "kt_tile_shift",
+                                        "kt_bvh_walk"}
     for name in _native._SIGNATURES:
         assert any(name in open(os.path.join(_native.CSRC, f)).read()
                    for f in on_disk), name
 
 
-@pytest.mark.parametrize("kernel", ["brute", "culled", "warp", "tile_shift"])
+@pytest.mark.parametrize("kernel", ["brute", "culled", "warp", "tile_shift",
+                                    "bvh_closest", "bvh_shadow"])
 def test_kernel_wrappers_raise_on_cuda_request(kernel, monkeypatch):
     """CUDA-typed tensors (fake tensors: no card here) must go to the
     kernel path and raise, never to the plain version."""
@@ -127,6 +131,7 @@ def test_kernel_wrappers_raise_on_cuda_request(kernel, monkeypatch):
     monkeypatch.setattr(woop_cuda, "culled_plain", _fail_plain)
     monkeypatch.setattr(warp_cuda, "warp_plain", _fail_plain)
     monkeypatch.setattr(tileshift_cuda, "tile_shift_plain", _fail_plain)
+    monkeypatch.setattr(trace, "walk_plain", _fail_plain)
     with FakeTensorMode():
         dev = torch.device("cuda")
         org = torch.zeros((512, 3), device=dev)
@@ -146,5 +151,35 @@ def test_kernel_wrappers_raise_on_cuda_request(kernel, monkeypatch):
                 off = torch.zeros((6,), dtype=torch.int32, device=dev)
                 tileshift_cuda.tile_shift(
                     torch.zeros((48, 64, 20), device=dev), off, off)
+            elif kernel.startswith("bvh"):
+                i32 = dict(dtype=torch.int32, device=dev)
+                b = bvh.Bvh(torch.zeros((3, 3), device=dev),
+                            torch.ones((3, 3), device=dev),
+                            torch.zeros((3,), **i32), torch.ones((3,), **i32),
+                            torch.full((3,), 3, **i32),
+                            torch.zeros((4,), **i32))
+                tris = tuple(torch.zeros((1, 3), device=dev)
+                             for _ in range(3))
+                fn = (trace.trace_closest if kernel == "bvh_closest"
+                      else trace.trace_shadow)
+                fn(b, tris, org, d, max_steps=8)
             else:
                 woop_cuda.intersect_scene(woop, org, d)
+
+
+def test_only_the_route_aware_modules_read_woop():
+    """On the BVH route `ts.woop` is None: only the modules that branch on
+    it (the dispatch, the raster primaries, the traced g-buffer, the sun
+    shadows) and those that build or carry it read it; every other pass
+    traces through `scene_trace_closest` / `scene_trace_shadow`."""
+    readers = set()
+    for path in _port_files():
+        if path.endswith("chip_smoke.py"):
+            continue
+        tree = ast.parse(open(path).read(), filename=path)
+        if any(isinstance(n, ast.Attribute) and n.attr == "woop"
+               for n in ast.walk(tree)):
+            readers.add(os.path.relpath(path, os.path.join(ROOT,
+                                                           "kajiya_tpu_torch")))
+    assert readers == {"rt/trace.py", "renderers/raster.py",
+                       "renderers/gbuffer.py", "renderers/shadows.py"}

@@ -2,6 +2,7 @@
 
     python3 tools/torch_frame_profile.py [--frames 3]
         [--path raster|gi|default|options|refpt|textured]
+        [--scenes cornell,city]
 
 Renders one ported path of `kajiya_tpu_torch` at 1920x1080 ("raster": the
 raster + sun-shadow frame; "gi": that plus SSAO, RTDGI and ReSTIR GI;
@@ -12,7 +13,9 @@ g-buffer, the world radiance cache, depth of field and an IBL sky;
 spp; "textured": the default frame on the textured cornell and the textured
 asset city, which the tool writes as `chip_smoke.py` does, with the device
 time of the four texture fetches of one 1080p g-buffer and the bake time)
-on the scenes of `chip_smoke.py` (cornell, city) through
+on the scenes of `chip_smoke.py` (`--scenes`, default cornell,city; city40
+is the 1,228,802-triangle city of the BVH route, whose traces are the BVH
+walk kernel's launches) through
 `chip_smoke.PathRun`, three warm-up frames and then `--frames` frames under
 `torch.profiler` (CPU + CUDA activity; with the default 3 frames from frame
 index 3 on, one of them validates the reservoirs). Prints per
@@ -36,7 +39,7 @@ import time
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PASSES = ("sky_env", "gbuffer", "reprojection", "ircache", "ssao",
+PASSES = ("tlas_refit", "sky_env", "gbuffer", "reprojection", "ircache", "ssao",
           "shadow_trace", "shadow_denoise", "gi_validate", "gi_trace",
           "wrc", "rtdgi", "rtr", "sky_ambient", "sky_refl", "sky_bg",
           "deferred", "taa", "motion_blur", "dof", "refpt", "post")
@@ -152,6 +155,9 @@ def main():
     ap.add_argument("--path", choices=("raster", "gi", "default", "options",
                                        "refpt", "textured"),
                     default="default")
+    ap.add_argument("--scenes", default="cornell,city",
+                    help="comma-separated chip_smoke.SCENES names "
+                         "(textured: its own two)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_frame_profile: no CUDA device", file=sys.stderr)
@@ -168,7 +174,7 @@ def main():
     tmp = tempfile.mkdtemp(prefix="torch_frame_profile_")
     ibl = os.path.join(tmp, "sky.hdr")
     write_panorama(ibl)
-    names = ("cornell", "city")
+    names = tuple(filter(None, args.scenes.split(",")))
     if args.path == "textured":
         SCENES.update(asset_scenes(tmp))
         names = PATH_SCENES["textured"]

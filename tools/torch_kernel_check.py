@@ -1,6 +1,6 @@
 """Build the port's CUDA kernels and run chosen kernel phases of chip_smoke.py.
 
-    python3 tools/torch_kernel_check.py [--phases culled,warp] [--ptxas]
+    python3 tools/torch_kernel_check.py [--phases culled,warp,bvh] [--ptxas]
         [--sass] [--against TREE]
     python3 tools/torch_kernel_check.py --count-sass chiprun_out/woop.sass
 
@@ -10,9 +10,10 @@ prints each kernel's registers, shared memory and spills; with `--sass` the
 SASS of csrc/woop.cu (`cuobjdump -sass`) goes to `chiprun_out/woop.sass`
 and kernel B's innermost loops are counted (`sass_loops`; `--count-sass`
 counts a saved listing, without a device);
-then the chosen phases of `chip_smoke.py` (brute, culled, warp, tileshift;
-none for "") hold the kernels against their plain versions at the 1080p
-frame's shapes and time them. The cases go to
+then the chosen phases of `chip_smoke.py` (brute, culled, warp, tileshift,
+bvh; none for "") hold the kernels against their plain versions at the
+1080p frame's shapes and time them (`--phases bvh`: the BVH walk on the six
+wavefronts of the 1,228,802-triangle city40). The cases go to
 `chiprun_out/torch_kernel_check.json`. Needs a CUDA device.
 
 Kernel B can be timed beside another build of itself on the brute phase's
