@@ -7,7 +7,8 @@ C culled Woop, W image warp, S per-tile shift, and the BVH walk of scenes
 above 262,144 triangles) against its plain PyTorch version on the card at
 the shapes the 1080p frame and the path tracer give it (timing both with
 CUDA events; the walk on six wavefronts of the 1,228,802-triangle city40,
-bit for bit with its visit and test counts), checks the GPU path against the
+bit for bit with its visit and test counts, its front-to-back closest hits
+also held against the skip-link walk's), checks the GPU path against the
 CPU path on small frames of every path (the default and path-tracer frames
 also forced through the BVH route), then renders at 1920x1080, on the cornell
 box (32 triangles, brute kernel B) and on the 196,610-triangle procedural
@@ -100,6 +101,13 @@ OPS_PER_VISIT = 30    # fp32 ops per ray x triangle Woop test
 # the u + v addition
 OPS_PER_NODE = 22
 OPS_PER_MT_TEST = 46
+# the front-to-back walk against the skip-link walk: at most 1 ray in
+# 100,000 may pick another triangle, each a valid hit of its ray within
+# ORDER_T_TOL max(1, |t|) of the other (rays with two hits within rounding
+# of each other, where a box test's rounding hides one at one t_best and
+# not at another)
+ORDER_DIFF_SHARE = 1e-5
+ORDER_T_TOL = 1e-5
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -350,9 +358,10 @@ def profiled_kernels(fn):
 def refit_record(r, frame_ms, root_before):
     """The refit a moved frame made on the BVH route: the root box must be
     the exact bounds of the moved triangles (min / max are exact) and must
-    have moved. One more refresh of the same trace scene, and one refit
-    alone, under torch.profiler give the launches and the kernel ms of the
-    frame's `tlas_refit` range and of `refit_bvh` in it."""
+    have moved, and the walk kernel's tables must be a pack of it. One more
+    refresh of the same trace scene, and one refit alone, under
+    torch.profiler give the launches and the kernel ms of the frame's
+    `tlas_refit` range and of `refit_bvh` in it."""
     from kajiya_tpu_torch import frame as frame_mod
     from kajiya_tpu_torch.rt.bvh import refit_bvh
 
@@ -365,6 +374,19 @@ def refit_record(r, frame_ms, root_before):
                              "of the moved triangles")
     if torch.equal(root, root_before):
         raise AssertionError("refit: the root box did not move")
+    # the walk kernel's tables after the move == a pack from scratch of a
+    # fresh refit to the moved triangles (a tree from before the packed
+    # tables, which tools/torch_frame_ab.sh may drive, has none)
+    if getattr(ts, "walk_tables", None) is not None:
+        from kajiya_tpu_torch.rt.bvh import pack_walk_tables
+
+        fresh = pack_walk_tables(refit_bvh(ts.bvh, r.levels["levels"], v0,
+                                           e1, e2), ts.tris)
+        # compared as int32 bits: the int words are NaN patterns as floats
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(ts.walk_tables, fresh)):
+            raise AssertionError("refit: the packed walk tables differ from "
+                                 "a pack of a fresh refit")
     n, k_ms = profiled_kernels(lambda: frame_mod.refresh_trace_scene(
         ts.gpu, ts.bvh, r.levels))
     n_refit, refit_ms = profiled_kernels(lambda: refit_bvh(
@@ -1020,37 +1042,94 @@ def bvh_inputs(dev):
     return ts, cases
 
 
+def ordered_differences(case, o_out, s_out, org, d, tris, t_min, tmax):
+    """The front-to-back walk (`o_out`) against the skip-link walk
+    (`s_out`) on one closest-hit wavefront. The two may pick different
+    triangles only where a ray has two hits within rounding of each other:
+    at most ORDER_DIFF_SHARE of the rays may differ in tri, and on each
+    such ray both answers must be valid hits of it (Moller-Trumbore valid,
+    t_min < t < t_max, the returned t) with |t_o - t_s| <= ORDER_T_TOL
+    max(1, |t|). Returns (rays that differ, largest |t_o - t_s|)."""
+    from kajiya_tpu_torch.rt.trace import _tri_intersect
+
+    diff = o_out[1] != s_out[1]
+    n_diff = int(diff.sum())
+    if n_diff == 0:
+        return 0, 0.0
+    idx = diff.nonzero()[:, 0]
+    o, dd, tm = org[idx], d[idx], tmax[idx]
+    v0, e1, e2 = tris
+    for label, out in (("front-to-back", o_out), ("skip-link", s_out)):
+        tri, t_got = out[1][idx], out[0][idx]
+        safe = torch.clamp(tri, min=0).long()
+        t, _u, _v, ok = _tri_intersect(o, dd, v0[safe], e1[safe], e2[safe])
+        good = (tri >= 0) & ok & (t > t_min) & (t < tm) & (t == t_got)
+        if not bool(good.all()):
+            raise AssertionError(
+                f"bvh_walk/{case}: {int((~good).sum())} of the {n_diff} rays "
+                f"on which the walks differ have no valid {label} hit")
+    t_o, t_s = o_out[0][idx], s_out[0][idx]
+    dt = (t_o - t_s).abs()
+    worst = float(dt.max())
+    if not bool((dt <= ORDER_T_TOL * torch.clamp(t_s.abs(), min=1.0)).all()):
+        raise AssertionError(f"bvh_walk/{case}: the walks' t differ by up to "
+                             f"{worst} where their triangles differ")
+    if n_diff > ORDER_DIFF_SHARE * org.shape[0]:
+        raise AssertionError(f"bvh_walk/{case}: {n_diff} of {org.shape[0]} "
+                             "rays differ between the front-to-back and the "
+                             "skip-link walk")
+    return n_diff, worst
+
+
 def bvh_phase(dev):
-    """The BVH walk kernel against `walk_plain` on city40's six wavefronts
-    (`bvh_inputs`), each on the whole wavefront: t, tri, u, v and the
-    per-ray node visits and triangle tests must be the same bits (a
+    """The BVH walk kernel against its plain version on city40's six
+    wavefronts (`bvh_inputs`), each on the whole wavefront: t, tri, u, v and
+    the per-ray node visits and triangle tests must be the same bits (a
     checking launch returns the counts; the launch the frame makes, without
-    them, must return the same hits). Both are timed with CUDA events (the
-    plain version once, on the compared call). The bound counts this run's
-    work: OPS_PER_NODE fp32 operations a node visit and OPS_PER_MT_TEST a
-    triangle test (the counts summed over the rays) over the fp32 peak,
-    against the bytes of reading each input (rays, limits, nodes, triangle
-    order and triangles) and writing each output once. No PyTorch call
+    them, must return the same hits). The plain version is
+    `walk_ordered_plain` for the four closest-hit cases without a cap, which
+    the kernel walks front to back, and `walk_plain` for the any-hit and the
+    capped case (the skip-link walk). The front-to-back result is also held
+    against `walk_plain`'s (`ordered_differences`). Both are timed with CUDA
+    events (the plain version once, on the compared call). The bound is
+    the kernel's own work: OPS_PER_NODE fp32 operations a box test and
+    OPS_PER_MT_TEST a triangle test, summed over its counts of the rays,
+    over the fp32 peak, against the bytes of reading each input once (rays,
+    limits, and the packed tables that walk reads: the node records for the
+    skip-link walk; the root's node record and the pair records for the
+    front-to-back walk; the leaf records for both) and writing each output
+    once. The skip-link yardstick, `walk_plain`'s visits and tests on the
+    same rays at the same rates (what the walk did before it went front to
+    back), stays beside it as `yardstick_ops_bound_ms`. No PyTorch call
     computes a BVH walk, so the library time is none. The capped and the
     per-ray-limit cases are checks, not frame calls: the kernel line does
     not sum them."""
     from kajiya_tpu_torch.ops import bvh_cuda
-    from kajiya_tpu_torch.rt.trace import walk_plain
+    from kajiya_tpu_torch.rt.trace import walk_ordered_plain, walk_plain
 
     ts, inputs = bvh_inputs(dev)
     bvh, tris = ts.bvh, ts.tris
-    n_nodes, n_order, n_tris = (bvh.num_nodes, bvh.tri_order.shape[0],
-                                tris[0].shape[0])
+    nodes, leaves, pairs = ts.walk_tables
     cases = []
     for case, (o, dd, tm, t_min, any_hit, cap) in inputs.items():
-        k_out = bvh_cuda.walk_launch(bvh, tris, o, dd, t_min, tm, any_hit,
-                                     cap, counts=True)
+        ordered = not any_hit and cap is None
+
+        def launch(counts=False):
+            return bvh_cuda.walk_launch(bvh, tris, ts.walk_tables, o, dd,
+                                        t_min, tm, any_hit, cap,
+                                        counts=counts)
+
+        def skip_link():
+            return walk_plain(bvh, tris, o, dd, t_min, tm, any_hit, cap,
+                              counts=True)
+
+        k_out = launch(counts=True)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        p_out = walk_plain(bvh, tris, o, dd, t_min, tm, any_hit, cap,
-                           counts=True)
+        p_out = (walk_ordered_plain(bvh, tris, o, dd, t_min, tm, counts=True)
+                 if ordered else skip_link())
         stop.record()
         torch.cuda.synchronize()
         plain_ms = start.elapsed_time(stop)
@@ -1061,23 +1140,28 @@ def bvh_phase(dev):
         err = max(float((k_out[i] - p_out[i]).abs().max()) for i in (0, 2, 3))
         if bad or err != 0.0:
             raise AssertionError(
-                f"bvh_walk/{case}: {', '.join(bad)} differ from walk_plain "
-                f"({int((k_out[1] != p_out[1]).sum())} ids, max |t|,|u|,|v| "
-                f"error {err})")
-        f_out = bvh_cuda.walk_launch(bvh, tris, o, dd, t_min, tm, any_hit,
-                                     cap)
+                f"bvh_walk/{case}: {', '.join(bad)} differ from the plain "
+                f"version ({int((k_out[1] != p_out[1]).sum())} ids, max "
+                f"|t|,|u|,|v| error {err})")
+        f_out = launch()
         if not all(torch.equal(a, b) for a, b in zip(f_out, k_out)):
             raise AssertionError(f"bvh_walk/{case}: the launch without "
                                  "counts differs from the checking launch")
-        ms = time_ms(lambda: bvh_cuda.walk_launch(bvh, tris, o, dd, t_min,
-                                                  tm, any_hit, cap), 5)
+        ms = time_ms(launch, 5)
+        s_out = skip_link() if ordered else p_out
+        n_diff, diff_t = (ordered_differences(case, k_out, s_out, o, dd,
+                                              tris, t_min, tm)
+                          if ordered else (0, 0.0))
         visits, tests = k_out[4].long(), k_out[5].long()
         n_visits, n_tests = int(visits.sum()), int(tests.sum())
+        y_visits, y_tests = int(s_out[4].sum()), int(s_out[5].sum())
         r = o.shape[0]
         live = tm > t_min
-        bytes_moved = (r * (28 + 16) + n_nodes * 36 + n_order * 4
-                       + n_tris * 36)
+        read = ((nodes[:1], pairs, leaves) if ordered
+                else (nodes, leaves))
+        bytes_moved = r * (28 + 16) + sum(x.numel() * 4 for x in read)
         ops = float(OPS_PER_NODE * n_visits + OPS_PER_MT_TEST * n_tests)
+        yardstick = float(OPS_PER_NODE * y_visits + OPS_PER_MT_TEST * y_tests)
         b_ms, b_by = bound(bytes_moved, ops)
         vq = torch.quantile(visits.float(), torch.tensor(
             [0.5, 0.99], device=dev)).tolist()
@@ -1085,21 +1169,35 @@ def bvh_phase(dev):
             case=case, rays=r, live_rays=int(live.sum()),
             frame_call=not case.startswith(("camera_closest_max",
                                             "gi_rtr_closest_per")),
+            walk="front-to-back" if ordered else "skip-link",
             hit_share=float(hit.float().mean()), max_steps=cap,
-            nodes=n_nodes, tris=n_tris, visits=n_visits, tests=n_tests,
-            ops=ops,
+            nodes=bvh.num_nodes, tris=tris[0].shape[0], visits=n_visits,
+            tests=n_tests, skip_link_visits=y_visits,
+            skip_link_tests=y_tests, ops=ops, yardstick_ops=yardstick,
             mean_visits=n_visits / r, p50_visits=vq[0], p99_visits=vq[1],
             max_visits=int(visits.max()), mean_tests=n_tests / r,
+            skip_link_mean_visits=y_visits / r,
+            skip_link_mean_tests=y_tests / r,
+            rays_differing_from_skip_link=n_diff,
+            max_t_diff_from_skip_link=diff_t,
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, ops_bound_ms=bound(0.0, ops)[0],
+            yardstick_ops_bound_ms=bound(0.0, yardstick)[0],
             bytes_bound_ms=bound(bytes_moved, 0.0)[0], library_ms=None,
-            ps_per_visit=ms * 1e9 / max(n_visits + n_tests, 1)))
-        log(f"bvh_walk/{case}: err {err} kernel {ms:.4f} ms plain "
-            f"{plain_ms:.1f} ms bound {b_ms:.5f} ms ({b_by}); {r} rays "
-            f"({cases[-1]['live_rays']} live, {cases[-1]['hit_share']:.3f} "
-            f"hit), visits mean {n_visits / r:.1f} p50 {vq[0]:.0f} p99 "
-            f"{vq[1]:.0f} max {int(visits.max())}, tests mean "
-            f"{n_tests / r:.1f}")
+            ps_per_step=ms * 1e9 / max(n_visits + n_tests, 1),
+            ps_per_yardstick_step=ms * 1e9 / max(y_visits + y_tests, 1)))
+        c = cases[-1]
+        log(f"bvh_walk/{case} ({c['walk']}): err {err} kernel "
+            f"{ms:.4f} ms plain {plain_ms:.1f} ms bound {b_ms:.5f} ms "
+            f"({b_by}; skip-link yardstick "
+            f"{c['yardstick_ops_bound_ms']:.5f} ms); "
+            f"{r} rays ({c['live_rays']} live, "
+            f"{c['hit_share']:.3f} hit), visits mean "
+            f"{n_visits / r:.1f} p50 {vq[0]:.0f} p99 {vq[1]:.0f} max "
+            f"{int(visits.max())}, tests mean {n_tests / r:.1f}; skip-link "
+            f"visits {y_visits / r:.1f} tests {y_tests / r:.1f}; "
+            f"{n_diff} rays differ from the skip-link walk (|dt| <= "
+            f"{diff_t})")
     return cases
 
 

@@ -7,7 +7,8 @@ JAX dataclasses' own:
 - `trace_scene_from_numpy`: the fields of a JAX `TraceScene` (`gpu` as a dict
   of `GpuScene` fields, `woop` as its dict, `bvh` as a dict of `Bvh` fields);
   on the Woop route the port carries no BVH (it reads none), so `bvh` is
-  kept only where `woop` is None, the BVH route;
+  kept only where `woop` is None, the BVH route, with the walk kernel's
+  tables packed from it;
 - `bvh_from_numpy`: the fields of a JAX `Bvh`;
 - `levels_from_numpy`: the `levels` of a JAX `build_trace_scene`, the refit
   schedule as index tensors on the device;
@@ -23,7 +24,7 @@ import torch
 
 from .core.camera import ViewConstants
 from .device import resolve_device
-from .rt.bvh import Bvh, refit_schedule
+from .rt.bvh import Bvh, pack_walk_tables, refit_schedule
 from .scene.scene import GpuScene
 from .world import TraceScene
 
@@ -88,15 +89,16 @@ def levels_from_numpy(d: dict, device=None) -> dict:
 
 def trace_scene_from_numpy(d: dict, device=None) -> TraceScene:
     dev = resolve_device(device)
-    woop = bvh = None
+    woop = bvh = tables = None
+    kw = {name: _t(d[name], dev) for name in TraceScene.__dataclass_fields__
+          if name not in ("gpu", "woop", "bvh", "walk_tables")}
     if d.get("woop") is not None:
         woop = {k: _t(v, dev) for k, v in d["woop"].items() if v is not None}
     else:
         bvh = bvh_from_numpy(d["bvh"], dev)
-    kw = {name: _t(d[name], dev) for name in TraceScene.__dataclass_fields__
-          if name not in ("gpu", "woop", "bvh")}
+        tables = pack_walk_tables(bvh, (kw["v0"], kw["e1"], kw["e2"]))
     return TraceScene(gpu=gpu_scene_from_numpy(d["gpu"], dev), woop=woop,
-                      bvh=bvh, **kw)
+                      bvh=bvh, walk_tables=tables, **kw)
 
 
 def frame_state_from_numpy(d: dict, device=None) -> dict:

@@ -42,8 +42,8 @@ _SIGNATURES = {
                        _P, _P, _P, _P, _P, _P],
     "kt_warp": [_P, _I, _I, _I, _P, ctypes.c_longlong, _I, _P, _P],
     "kt_tile_shift": [_P, _I, _I, _I, _P, _P, _I, _I, _P, _P],
-    "kt_bvh_walk": [_P, _P, _P, _F, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
-                    _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "kt_bvh_walk": [_P, _P, _P, _F, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,
+                    _P, _P, _P, _P, _P, _P, _P],
 }
 
 

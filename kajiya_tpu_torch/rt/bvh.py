@@ -21,6 +21,11 @@ it raises with the compiler's output. This differs from the JAX package,
 which falls back to the Python builder there; both give the same output, so
 only a missing compiler shows.
 
+`pack_walk_tables` lays the BVH and the triangles out as the walk kernel
+reads them: a 32-byte record and a 64-byte record of its children a node,
+and a 48-byte record a `tri_order` slot, repacked after every build and
+refit.
+
 `morton3d` also orders the triangle tables of Woop-route scenes above 8,192
 triangles so consecutive 128-triangle blocks are compact.
 """
@@ -312,6 +317,55 @@ def refit_bvh(bvh: Bvh, levels, v0, e1, e2) -> Bvh:
                node_first=bvh.node_first, node_count=bvh.node_count,
                node_skip=bvh.node_skip, tri_order=bvh.tri_order,
                leaf_size=lsz)
+
+
+def pack_walk_tables(bvh: Bvh, tris):
+    """The walk kernel's tables (csrc/bvh.cu), the same bits as the `Bvh`
+    arrays and the (v0, e1, e2) world SoA, on their device:
+
+    nodes  (N, 8) f32, 32 bytes a node, read as two aligned float4:
+           min.xyz, skip | max.xyz, link. `skip` is `node_skip`; `link` is
+           the right child `node_skip[i + 1]` of an internal node (its left
+           child is i + 1) and -1 - `node_first` of a leaf. Both words are
+           int32 bits.
+    leaves (P, 12) f32, 48 bytes a `tri_order` slot, in leaf order:
+           v0.xyz, id | e1.xyz, 0 | e2.xyz, 0, with `id` the triangle id as
+           int32 bits. A leaf's run of `leaf_size` slots is contiguous; its
+           triangles come first and its padding slots carry id -1 (zeros
+           elsewhere), so a leaf's count is the run's ids >= 0.
+    pairs  (N, 16) f32, 64 bytes a node, read as four aligned float4, for
+           the front-to-back walk: an internal node's two children's boxes
+           and codes, c0min.xyz, w0 | c0max.xyz, w1 | c1min.xyz, c1 |
+           c1max.xyz, 0, with c0 = i + 1, c1 its right child and w0 / w1
+           the children's links (a leaf child's -1 - first; an internal
+           child's own code is its index, c0 or c1); zeros for a leaf.
+
+    Every internal node of the builders has two children (a leaf holds at
+    least one triangle), so i + 1 < N there. Plain PyTorch, no host read."""
+    v0, e1, e2 = tris
+    n = bvh.num_nodes
+    f32 = torch.float32
+    skip = bvh.node_skip
+    c0 = torch.clamp(torch.arange(1, n + 1, device=skip.device), max=n - 1)
+    right = skip[c0]
+    link = torch.where(bvh.node_count > 0, -1 - bvh.node_first, right)
+    nodes = torch.cat([bvh.node_min, skip.view(f32)[:, None], bvh.node_max,
+                       link.view(f32)[:, None]], dim=1)
+    inner = (bvh.node_count == 0)[:, None]
+    c1 = torch.where(inner[:, 0], right, 0).long()
+    pairs = torch.where(inner, torch.cat([
+        bvh.node_min[c0], link[c0].view(f32)[:, None], bvh.node_max[c0],
+        link[c1].view(f32)[:, None], bvh.node_min[c1],
+        c1.to(torch.int32).view(f32)[:, None], bvh.node_max[c1],
+        torch.zeros((n, 1), dtype=f32, device=skip.device)], dim=1), 0.0)
+    t = bvh.tri_order
+    safe = torch.clamp(t, min=0).long()
+    live = (t >= 0)[:, None]
+    zero = torch.zeros((t.shape[0], 1), dtype=f32, device=t.device)
+    leaves = torch.cat([torch.where(live, v0[safe], 0.0), t.view(f32)[:, None],
+                        torch.where(live, e1[safe], 0.0), zero,
+                        torch.where(live, e2[safe], 0.0), zero], dim=1)
+    return nodes.contiguous(), leaves.contiguous(), pairs.contiguous()
 
 
 def bvh_from_scene(gpu_scene, leaf_size: int = 4):

@@ -49,6 +49,7 @@ class TraceScene:
     tri_attrs: torch.Tensor       # (T, 35) per-triangle attributes
     vert_attrs: torch.Tensor      # (V, 9) object-space normal + uv + tangent
     bvh: Any = None               # rt.bvh.Bvh on the BVH route (woop None)
+    walk_tables: Any = None       # rt.bvh.pack_walk_tables(bvh, tris)
 
     @property
     def tris(self):
@@ -125,18 +126,19 @@ def refresh_trace_scene(gpu: GpuScene, bvh=None, levels=None) -> TraceScene:
     """Recompute the world geometry and the attribute tables for the current
     transforms, and the tables of the scene's route: with `bvh` (the BVH
     route) its bounds are refit by the schedule in `levels` (the dictionary
-    build_trace_scene returns); without, the Woop and cluster tables are
-    built."""
+    build_trace_scene returns) and the walk kernel's tables repacked;
+    without, the Woop and cluster tables are built."""
     from .ops.woop import build_clusters, build_woop
     from .ops.woop_cuda import CULL_TB, attach_coef_tables
 
     n = gpu.num_triangles
     v0, e1, e2 = gpu.triangle_corners()
-    woop = None
+    woop = walk_tables = None
     if bvh is not None:
-        from .rt.bvh import refit_bvh
+        from .rt.bvh import pack_walk_tables, refit_bvh
 
         bvh = refit_bvh(bvh, levels["levels"], v0, e1, e2)
+        walk_tables = pack_walk_tables(bvh, (v0, e1, e2))
     else:
         pad = _pad_tris(n)
         woop = build_woop(v0, e1, e2, pad_to=pad)
@@ -182,7 +184,7 @@ def refresh_trace_scene(gpu: GpuScene, bvh=None, levels=None) -> TraceScene:
         light_area=torch.where(live[:, 0], 0.5 * l_len, 0.0),
         light_emission=torch.where(live, emission, 0.0),
         light_normal=l_normal, woop=woop, tri_attrs=tri_attrs,
-        vert_attrs=vert_attrs, bvh=bvh)
+        vert_attrs=vert_attrs, bvh=bvh, walk_tables=walk_tables)
 
 
 def hit_attributes(ts: TraceScene, hit, ray_dir, mip: int = 0,

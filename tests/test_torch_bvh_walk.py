@@ -1,24 +1,31 @@
-"""Port parity, the skip-link BVH walk: `kajiya_tpu_torch.rt.trace`'s
-`trace_closest` / `trace_shadow` (on CPU tensors, `walk_plain`) against
-`kajiya_tpu.rt.trace`'s on the same BVH and rays, and the JAX package's own
-brute-force agreement check (tests/test_bvh.py) run against the port.
+"""Port parity, the BVH walk: `kajiya_tpu_torch.rt.trace`'s `trace_closest`
+/ `trace_shadow` (on CPU tensors `walk_ordered_plain`, the front-to-back
+walk, for closest-hit calls without a step cap, and `walk_plain`, the
+skip-link walk, for any-hit and capped calls) against
+`kajiya_tpu.rt.trace`'s on the same BVH and rays, the two plain walks
+against each other, and the JAX package's own brute-force agreement check
+(tests/test_bvh.py) run against the port.
 
 Tolerance: hit masks and triangle ids equal; t, u and v within
-1e-5 * max(1, |value|). The walks visit the same nodes and triangles in the
-same order, but XLA evaluates the test's dot products on the CPU in its own
-order (measured: t within 1.5 ulp, u and v, whose dot products cancel,
-within 5.5e-6); the kernel is held to `walk_plain` bit for bit on the card
+1e-5 * max(1, |value|). The skip-link walk visits JAX's nodes and triangles
+in JAX's order, but XLA evaluates the test's dot products on the CPU in its
+own order (measured: t within 1.5 ulp, u and v, whose dot products cancel,
+within 5.5e-6). The two plain walks give the same bits on these rays (the
+front-to-back walk's tie rule picks the skip-link walk's triangle wherever
+both test it). The kernel is held to the plain walks bit for bit on the card
 (chip_smoke.py)."""
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from kajiya_tpu.rt import bvh as bvh_j
 from kajiya_tpu.rt import trace as trace_j
 from kajiya_tpu.scene import procedural as proc_j
 from kajiya_tpu.scene.scene import build_gpu_scene as build_gpu_j
+from kajiya_tpu_torch.core import camera as cam_t
 from kajiya_tpu_torch.ops.woop_cuda import INF
 from kajiya_tpu_torch.rt import bvh as bvh_t
 from kajiya_tpu_torch.rt import trace as trace_t
@@ -190,3 +197,176 @@ def test_walk_counts():
     plain = trace_t.walk_plain(bvh, tris, org, d, 1e-4, tmax, False)
     for x, y in zip(plain, (t, tri, u, v)):
         assert torch.equal(x, y)
+
+
+# ----------------------------------------------------------------------------
+# The front-to-back walk, the tie rule and the dead-lane rule
+# ----------------------------------------------------------------------------
+
+def cornell_axis_rays():
+    org = np.zeros((6, 3), np.float32)
+    d = np.array([[0, 0, -1], [0, 0, 1], [0, 1, 0], [0, -1, 0], [1, 0, 0],
+                  [-1, 0, 0]], np.float32)
+    return org, d
+
+
+def city_camera_rays(width=96, height=64):
+    """city(n=2)'s camera rays from the BVH frame test's eye
+    (tests/test_torch_frame_bvh_city.py)."""
+    view = cam_t.make_view_constants((0.0, 3.0, 6.0), (0.0, -0.45, -1.0),
+                                     width=width, height=height,
+                                     device="cpu")
+    org, d = cam_t.camera_rays(view, width, height)
+    return (org.reshape(-1, 3).numpy().copy(),
+            d.reshape(-1, 3).numpy().copy())
+
+
+WAVEFRONTS = {
+    **{f"soup{n}": (lambda p, n=n: p.random_tri_soup(n, seed=n),
+                    lambda: random_rays(512, seed=1))
+       for n in (1, 7, 64, 500)},
+    "cornell_axis": (lambda p: p.cornell_box(), cornell_axis_rays),
+    "city2_camera": (lambda p: p.city(n=2, subdiv=8), city_camera_rays),
+}
+
+
+def plain_walks(st, org, d, tmax, t_min=1e-4):
+    bvh, tris = st
+    o, dd = torch.as_tensor(org), torch.as_tensor(d)
+    return (trace_t.walk_ordered_plain(bvh, tris, o, dd, t_min, tmax,
+                                       counts=True),
+            trace_t.walk_plain(bvh, tris, o, dd, t_min, tmax, False,
+                               counts=True))
+
+
+@pytest.mark.parametrize("name", sorted(WAVEFRONTS))
+def test_ordered_walk_matches_skip_link_and_jax(name):
+    """t, tri, u, v of the front-to-back walk equal the skip-link walk's bit
+    for bit and JAX's `_traverse` (ids exact, t / u / v within TOL) on every
+    ray; the front-to-back walk tests no more triangles in all."""
+    make, rays = WAVEFRONTS[name]
+    sj, st = scenes(make)
+    org, d = rays()
+    tmax = torch.full((org.shape[0],), INF)
+    o_out, s_out = plain_walks(st, org, d, tmax)
+    for a, b in zip(o_out[:4], s_out[:4]):
+        assert torch.equal(a, b)
+    hj = trace_j.trace_closest(*sj, jnp.asarray(org), jnp.asarray(d))
+    assert_hits(hj, trace_t.Hit(*o_out[:4]))
+    assert int(o_out[5].sum()) <= int(s_out[5].sum())
+    if name in ("soup500", "city2_camera", "cornell_axis"):
+        assert bool((o_out[1] >= 0).any())
+
+
+def test_ordered_walk_counts():
+    """Box tests: the root, then two a descent, so an odd count on every
+    live ray; a ray that misses the root tests one box and no triangle; at
+    most leaf_size triangle tests a leaf reached (a descent reaches at most
+    one); the counts change nothing else."""
+    _, (bvh, tris) = scenes(lambda p: p.random_tri_soup(500, seed=500))
+    org, d = (torch.as_tensor(x) for x in random_rays(512, seed=5))
+    tmax = torch.full((512,), INF)
+    t, tri, u, v, visits, tests = trace_t.walk_ordered_plain(
+        bvh, tris, org, d, 1e-4, tmax, counts=True)
+    assert visits.dtype == torch.int32 and tests.dtype == torch.int32
+    assert bool((visits % 2 == 1).all())
+    assert bool((tests <= bvh.leaf_size * (visits + 1) // 2).all())
+    far = torch.full((1, 3), 1e4)
+    miss = trace_t.walk_ordered_plain(bvh, tris, far, d[:1], 1e-4,
+                                      tmax[:1], counts=True)
+    assert int(miss[4][0]) == 1 and int(miss[5][0]) == 0
+    assert int(miss[1][0]) == -1
+    plain = trace_t.walk_ordered_plain(bvh, tris, org, d, 1e-4, tmax)
+    for x, y in zip(plain, (t, tri, u, v)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("n_tris", [64, 500])
+def test_dead_lanes_end_at_once(n_tris):
+    """Rays with t_max <= t_min (0, negative, t_min itself) come back as
+    (t_max, -1, 0, 0) with no visit and no test in both walks; the other
+    rays' hits are unchanged and every hit equals JAX's."""
+    sj, st = scenes(lambda p: p.random_tri_soup(n_tris, seed=n_tris))
+    org, d = random_rays(512, seed=9)
+    t_max = np.random.default_rng(10).uniform(0.5, 12.0, 512).astype(
+        np.float32)
+    dead = np.zeros(512, bool)
+    dead[::5] = True
+    t_max[::5] = np.resize(np.float32([0.0, -1.0, 1e-4]), dead.sum())
+    tmax = torch.as_tensor(t_max)
+    hj, ht, oj, ot = both(sj, st, org, d, t_max=t_max)
+    assert_hits(hj, ht)
+    np.testing.assert_array_equal(ot, oj)
+    live_only = torch.as_tensor(np.where(dead, INF, t_max))
+    for out, ref in zip(plain_walks(st, org, d, tmax),
+                        plain_walks(st, org, d, live_only)):
+        dl = torch.as_tensor(dead)
+        assert torch.equal(out[0][dl], tmax[dl])
+        assert bool((out[1][dl] == -1).all())
+        assert bool((out[2][dl] == 0).all() and (out[3][dl] == 0).all())
+        assert bool((out[4][dl] == 0).all() and (out[5][dl] == 0).all())
+        for a, b in zip(out, ref):
+            assert torch.equal(a[~dl], b[~dl])
+    if n_tris >= 500:
+        assert bool(ht.hit_mask.any())
+
+
+def test_tie_goes_to_the_lower_slot():
+    """Ten triangles stored twice under two ids: every ray aimed at one hits
+    both at the same t, and both walks, and JAX's, return the id of the
+    lower `tri_order` slot."""
+    rng = np.random.default_rng(3)
+    c = rng.uniform(-8, 8, (40, 1, 3)).astype(np.float32)
+    p = (c + rng.uniform(-0.5, 0.5, (40, 3, 3))).astype(np.float32)
+    p = np.concatenate([p, p[:10]])                 # ids 40..49 = 0..9
+    v0, e1, e2 = p[:, 0], p[:, 1] - p[:, 0], p[:, 2] - p[:, 0]
+    corners = np.stack([v0, v0 + e1, v0 + e2], axis=1)
+    tmin, tmax_b = corners.min(axis=1), corners.max(axis=1)
+    bt = bvh_t.build_bvh(tmin, tmax_b)[0].to("cpu")
+    bj = jax.tree_util.tree_map(jnp.asarray,
+                                bvh_j.build_bvh(tmin, tmax_b)[0])
+    tris_t = tuple(torch.as_tensor(x) for x in (v0, e1, e2))
+    tris_j = tuple(jnp.asarray(x) for x in (v0, e1, e2))
+    target = v0[:10] + (e1[:10] + e2[:10]) / 3.0
+    org = (target + np.float32([0.3, 9.0, 0.2])).astype(np.float32)
+    d = target - org
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    slot = {int(t): k for k, t in enumerate(bt.tri_order.tolist()) if t >= 0}
+    tmax = torch.full((10,), INF)
+    o_out, s_out = plain_walks((bt, tris_t), org, d, tmax)
+    hj = trace_j.trace_closest(bj, tris_j, jnp.asarray(org), jnp.asarray(d))
+    ties = 0
+    for i in range(10):
+        a, b = i, i + 40
+        want = a if slot[a] < slot[b] else b
+        got = {int(o_out[1][i]), int(s_out[1][i]), int(np.asarray(hj.tri)[i])}
+        # a nearer triangle of the soup may cover the target: then no tie
+        if got <= {a, b}:
+            assert got == {want}, (i, got, want)
+            ties += 1
+    assert ties >= 8
+    assert torch.equal(o_out[1], s_out[1])
+
+
+def test_capped_and_any_hit_calls_take_the_skip_link_walk(monkeypatch):
+    """Only uncapped closest-hit calls walk front to back: a capped call and
+    an any-hit call run the skip-link walk (the cap counts its steps)."""
+    _, st = scenes(lambda p: p.random_tri_soup(500, seed=500))
+    org, d = (torch.as_tensor(x) for x in random_rays(256, seed=2))
+    calls = []
+    ordered = trace_t.walk_ordered_plain
+
+    def spy(*a, **k):
+        calls.append(1)
+        return ordered(*a, **k)
+
+    monkeypatch.setattr(trace_t, "walk_ordered_plain", spy)
+    capped = trace_t.trace_closest(*st, org, d, max_steps=17)
+    trace_t.trace_shadow(*st, org, d)
+    assert not calls
+    want = trace_t.walk_plain(*st, org, d, 1e-4, torch.full((256,), INF),
+                              False, 17)
+    for a, b in zip((capped.t, capped.tri, capped.u, capped.v), want):
+        assert torch.equal(a, b)
+    trace_t.trace_closest(*st, org, d)
+    assert calls == [1]

@@ -121,7 +121,8 @@ def test_native_sources_name_every_kernel_file():
 
 
 @pytest.mark.parametrize("kernel", ["brute", "culled", "warp", "tile_shift",
-                                    "bvh_closest", "bvh_shadow"])
+                                    "bvh_closest", "bvh_shadow",
+                                    "bvh_ordered"])
 def test_kernel_wrappers_raise_on_cuda_request(kernel, monkeypatch):
     """CUDA-typed tensors (fake tensors: no card here) must go to the
     kernel path and raise, never to the plain version."""
@@ -132,6 +133,7 @@ def test_kernel_wrappers_raise_on_cuda_request(kernel, monkeypatch):
     monkeypatch.setattr(warp_cuda, "warp_plain", _fail_plain)
     monkeypatch.setattr(tileshift_cuda, "tile_shift_plain", _fail_plain)
     monkeypatch.setattr(trace, "walk_plain", _fail_plain)
+    monkeypatch.setattr(trace, "walk_ordered_plain", _fail_plain)
     with FakeTensorMode():
         dev = torch.device("cuda")
         org = torch.zeros((512, 3), device=dev)
@@ -160,9 +162,12 @@ def test_kernel_wrappers_raise_on_cuda_request(kernel, monkeypatch):
                             torch.zeros((4,), **i32))
                 tris = tuple(torch.zeros((1, 3), device=dev)
                              for _ in range(3))
-                fn = (trace.trace_closest if kernel == "bvh_closest"
-                      else trace.trace_shadow)
-                fn(b, tris, org, d, max_steps=8)
+                if kernel == "bvh_ordered":     # the front-to-back walk
+                    trace.trace_closest(b, tris, org, d)
+                else:
+                    fn = (trace.trace_closest if kernel == "bvh_closest"
+                          else trace.trace_shadow)
+                    fn(b, tris, org, d, max_steps=8)
             else:
                 woop_cuda.intersect_scene(woop, org, d)
 
