@@ -38,9 +38,15 @@ with the launch counters set to 0 just before each path and read just after,
 and the host syncs of each frame counted (the textured frames may make no
 more than the untextured default frames of the same geometry). Then the
 oracle datum (the port's hybrid frame against its path tracer on cornell at
-64x48, held to tests/test_oracle.py's bounds) and two runs of the headless
+64x48, held to tests/test_oracle.py's bounds), two runs of the headless
 viewer in a subprocess (the path tracer on cornell; one building glTF of
-the textured city through the bake cache). Prints one JSON line of per-kernel numbers; the last line is
+the textured city through the bake cache), and the apps a user starts: the
+live viewer (`apps.stream` on the city at 1920x1080: /snap, MJPEG parts of
+/stream, four /set requests with `last_error` null throughout, and the
+emissive multiplier on a cornell server), `apps.hello`, and hot reload
+(`core/reload.py` in a copy of the package: a pass module and kernel W's
+source edited, the kernel library rebuilt and W held to its plain
+version). Prints one JSON line of per-kernel numbers; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Any failed check raises, so the exit code is not 0 and no result is printed.
 Needs a CUDA device; imports nothing of JAX.
@@ -1645,6 +1651,329 @@ def viewer_phase(tmp):
     return runs
 
 
+# ----------------------------------------------------------------------------
+# The live viewer, hello and hot reload, each run as a user starts it
+# ----------------------------------------------------------------------------
+
+STREAM_REQUESTS = ("use_rtr=false", "show=ssao", "sun=30,40", "emissive=2")
+STREAM_PARTS = 8          # /stream parts read (and timed) at 1080p
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class StreamServer:
+    """`python -m kajiya_tpu_torch.apps.stream` in its own process on a free
+    localhost port, its output in `tmp`; stopped on exit."""
+
+    def __init__(self, tmp, name, args):
+        self.port = free_port()
+        self.log_path = os.path.join(tmp, f"stream_{name}.log")
+        self.cmd = [sys.executable, "-m", "kajiya_tpu_torch.apps.stream",
+                    *args, "--port", str(self.port)]
+        self.name = name
+
+    def __enter__(self):
+        self._log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(self.cmd, cwd=REPO, stdout=self._log,
+                                     stderr=subprocess.STDOUT)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self._log.close()
+
+    def get(self, path, timeout=60):
+        import urllib.request
+
+        with urllib.request.urlopen(f"http://127.0.0.1:{self.port}{path}",
+                                    timeout=timeout) as r:
+            return r.read()
+
+    def json(self, path):
+        return json.loads(self.get(path))
+
+    def wait(self, ready, timeout=600):
+        """Poll /status until `ready(status)`; fail if the server died, the
+        time ran out or a frame failed."""
+        import urllib.error
+
+        t_end = time.perf_counter() + timeout
+        while True:
+            if self.proc.poll() is not None:
+                with open(self.log_path) as f:
+                    tail = f.read()[-3000:]
+                raise RuntimeError(f"stream server ({self.name}) exited "
+                                   f"{self.proc.returncode}:\n{tail}")
+            try:
+                st = self.json("/status")
+                if st["last_error"] is not None:
+                    raise AssertionError(f"stream ({self.name}): frame "
+                                         f"failed: {st['last_error']}")
+                if ready(st):
+                    return st
+            except (urllib.error.URLError, ConnectionError):
+                pass
+            if time.perf_counter() > t_end:
+                raise TimeoutError(f"stream server ({self.name}) not ready "
+                                   f"in {timeout} s")
+            time.sleep(0.2)
+
+    def newer_frames(self, n=2):
+        """Wait until `n` more frames were presented: the second one began
+        after every request made before this call."""
+        n0 = self.json("/status")["frames"]
+        return self.wait(lambda s: s["frames"] >= n0 + n)
+
+    def stream_parts(self, n):
+        """Read `n` parts of /stream: [(arrival time, JPEG bytes, frames
+        presented by then)]."""
+        import urllib.request
+
+        parts = []
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{self.port}/stream", timeout=60) as r:
+            if "multipart/x-mixed-replace" not in r.headers["Content-Type"]:
+                raise AssertionError(f"/stream: {r.headers['Content-Type']}")
+            while len(parts) < n:
+                if r.readline() != b"--frame\r\n":
+                    raise AssertionError("/stream: no part boundary")
+                headers = {}
+                while (line := r.readline().strip()):
+                    k, v = line.decode().split(":", 1)
+                    headers[k.strip().lower()] = v.strip()
+                if headers.get("content-type") != "image/jpeg":
+                    raise AssertionError(f"/stream part headers {headers}")
+                body = r.read(int(headers["content-length"]))
+                r.readline()
+                parts.append((time.perf_counter(), body,
+                              self.json("/status")["frames"]))
+        return parts
+
+
+def stream_phase(tmp):
+    """The live viewer as a user starts it: `python -m
+    kajiya_tpu_torch.apps.stream --scene city --width 1920 --height 1080`
+    on the card. /snap must be a 1920x1080 PNG and each /stream part a
+    1920x1080 JFIF (the port's own SOF0 parse). Then the requests of
+    STREAM_REQUESTS in turn, each followed by newer frames with
+    `last_error` null (`use_rtr=false` rebuilds the frame). The city has no
+    emitter, so a second, short server on cornell (640x360), started after
+    the city's has stopped so that the city's numbers have the card to
+    themselves, shows that `/set?emissive=2` moves the frame: its emissive
+    g-buffer plane brightens.
+    Logged: frame ms (wall, the server's), JPEG encode ms and bytes of a
+    1080p part (the server's, and timed here on the /snap frame), /snap's
+    PNG encode ms, and /stream parts a second. Each server's kernel
+    launches (counted from 0 in its own process, read from /status before
+    it stops) must include every kernel of its route; they stay in this
+    phase's record and are not added to the kernels line."""
+    from kajiya_tpu_torch.apps.view import read_png_header
+    from kajiya_tpu_torch.scene.jpeg import encode_jpeg, read_jpeg_header
+    from kajiya_tpu_torch.scene.png import decode_png
+
+    t0 = time.perf_counter()
+    rec = {"requests": {}, "launches": {}}
+    with StreamServer(tmp, "city", ["--scene", "city", "--width", "1920",
+                                    "--height", "1080"]) as city:
+        st = city.wait(lambda s: s["frames"] >= 2)
+        rec["start_s"] = time.perf_counter() - t0
+        snap = city.get("/snap")
+        snap_path = os.path.join(tmp, "stream_snap.png")
+        with open(snap_path, "wb") as f:
+            f.write(snap)
+        if read_png_header(snap_path) != (WIDTH, HEIGHT, 8, 2):
+            raise AssertionError(f"/snap header {read_png_header(snap_path)}")
+        parts = city.stream_parts(STREAM_PARTS)
+        st = city.json("/status")
+        for _, body, _ in parts:
+            if read_jpeg_header(body) != (WIDTH, HEIGHT, 3):
+                raise AssertionError(f"/stream part {read_jpeg_header(body)}")
+        span = parts[-1][0] - parts[0][0]
+        rec.update(
+            parts=len(parts), parts_per_s=(len(parts) - 1) / span,
+            frames_per_s=(parts[-1][2] - parts[0][2]) / span,
+            jpeg_bytes=[len(b) for _, b, _ in parts],
+            server_encode=st["encode"], frame_ms_wall=st["frame_ms_wall"],
+            snap_png_bytes=len(snap))
+        rgb = decode_png(snap)[..., :3].copy()
+        enc = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            encode_jpeg(rgb)
+            enc.append((time.perf_counter() - t1) * 1e3)
+        rec["jpeg_encode_ms_here"] = enc
+        for q in STREAM_REQUESTS:
+            r = city.json(f"/set?{q}")
+            if "error" in r:
+                raise AssertionError(f"/set?{q}: {r}")
+            st = city.newer_frames()
+            rec["requests"][q] = {"reply": r,
+                                  "frame_ms_wall": st["frame_ms_wall"]}
+        if st["config"]["use_rtr"] is not False or st["show"] != "ssao":
+            raise AssertionError(f"/set not applied: {st}")
+        st = city.json("/status")
+        rec["server_encode_end"] = st["encode"]
+        rec["launches"]["city"] = st["launches"]
+    with StreamServer(tmp, "cornell", ["--scene", "cornell_box"]) as corn:
+        corn.wait(lambda s: s["frames"] >= 2)
+        corn.json("/set?show=gbuffer.emissive")
+        corn.newer_frames()
+        before = decode_png(corn.get("/snap"))[..., :3].astype(int)
+        corn.json("/set?emissive=2")
+        st_c = corn.newer_frames()
+        after = decode_png(corn.get("/snap"))[..., :3].astype(int)
+        brighter = int((after > before).any(-1).sum())
+        if brighter == 0 or (after < before).any():
+            raise AssertionError("cornell: /set?emissive=2 did not brighten "
+                                 "the emissive plane")
+        rec["cornell_emissive_pixels_brighter"] = brighter
+        rec["cornell_frame_ms_wall"] = st_c["frame_ms_wall"]
+        rec["launches"]["cornell"] = corn.json("/status")["launches"]
+    # each server counts from 0 in its own process: every kernel of its
+    # scene's route must have run in its frames
+    for sc, route in (("city", "woop_culled"), ("cornell", "woop_brute")):
+        got = rec["launches"][sc]
+        if min(got[k] for k in (route, "warp", "tile_shift")) <= 0:
+            raise AssertionError(f"stream ({sc}): launches {got}")
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"stream: city 1080p frame {rec['frame_ms_wall']} ms wall (server), "
+        f"{rec['frames_per_s']:.2f} frames/s; /stream "
+        f"{rec['parts_per_s']:.2f} parts/s, JPEG {rec['server_encode']}"
+        f" (server), {statistics.median(enc):.1f} ms here for "
+        f"{rec['jpeg_bytes'][-1]} bytes; requests {rec['requests']}; "
+        f"cornell emissive x2 brightened {brighter} px; "
+        f"{rec['seconds']:.1f} s")
+    return rec
+
+
+def hello_phase(tmp):
+    """`python -m kajiya_tpu_torch.apps.hello` in a fresh working directory:
+    out/hello.png must be a 640x360 RGB PNG."""
+    from kajiya_tpu_torch.apps.view import read_png_header
+
+    work = os.path.join(tmp, "hello")
+    os.makedirs(work)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p)}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "kajiya_tpu_torch.apps.hello"],
+                          cwd=work, env=env, capture_output=True, text=True,
+                          timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"hello exited {proc.returncode}: "
+                           f"{proc.stderr[-2000:]}")
+    header = read_png_header(os.path.join(work, "out", "hello.png"))
+    if header != (640, 360, 8, 2):
+        raise AssertionError(f"hello PNG header {header}")
+    log(f"hello: {proc.stdout.strip()} ({seconds:.1f} s with start-up)")
+    return {"seconds": seconds, "png": list(header)}
+
+
+# run in a copy of the package: hot reload of a pass module and of kernel W
+WATCH_SCRIPT = r"""
+import json, os, sys, time
+import torch
+import kajiya_tpu_torch
+root = os.path.dirname(os.path.abspath(kajiya_tpu_torch.__file__))
+assert root.startswith(os.getcwd()), root
+from kajiya_tpu_torch.core.reload import ModuleWatcher
+from kajiya_tpu_torch.ops import _native, warp_cuda
+import kajiya_tpu_torch.renderers.ssgi
+
+dev = torch.device("cuda", 0)
+g = torch.Generator(device=dev).manual_seed(0)
+img = torch.rand((540, 960, 13), generator=g, device=dev)
+uv = torch.rand((540, 960, 2), generator=g, device=dev) * 1.1 - 0.05
+
+def err():
+    k = warp_cuda.warp_launch(img, uv, True)
+    return float((k - warp_cuda.warp_plain(img, uv, True)).abs().max())
+
+err0 = err()
+path0 = _native.library_path()
+n0 = _native.launches["warp"]
+w = ModuleWatcher()
+for rel, line in (("csrc/warp.cu", "// hot reload check\n"),
+                  ("renderers/ssgi.py", "# hot reload check\n")):
+    p = os.path.join(root, rel)
+    with open(p, "a") as f:
+        f.write(line)
+    t = time.time() + 2
+    os.utime(p, (t, t))
+t0 = time.perf_counter()
+names = w.poll()
+poll_s = time.perf_counter() - t0
+n1 = _native.launches["warp"]
+err1 = err()
+print(json.dumps(dict(names=names, poll_s=poll_s, err0=err0, err1=err1,
+                      path0=path0, path1=_native.library_path(),
+                      build_dir=_native.BUILD_DIR, launches=[n0, n1,
+                      _native.launches["warp"]])))
+"""
+
+
+def watch_phase(tmp):
+    """Hot reload on the card, in a copy of the package in `tmp`: a
+    ModuleWatcher sees an appended comment in the copy's csrc/warp.cu and
+    in renderers/ssgi.py; `poll()` must report both, rebuild the kernel
+    library into the copy's `_build/` (one nvcc run of the four sources),
+    load it in place of the old one and keep the launch counts; kernel W
+    from the new library must equal its plain version; the repo's own
+    `_build/` must be left as it was."""
+    def listing(d):
+        return sorted((n, os.stat(os.path.join(d, n)).st_mtime_ns)
+                      for n in os.listdir(d)) if os.path.isdir(d) else []
+
+    work = os.path.join(tmp, "watch")
+    shutil.copytree(os.path.join(REPO, "kajiya_tpu_torch"),
+                    os.path.join(work, "kajiya_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    repo_build = os.path.join(REPO, "kajiya_tpu_torch", "_build")
+    before = listing(repo_build)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (work, os.environ.get("PYTHONPATH")) if p)}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", WATCH_SCRIPT], cwd=work,
+                          env=env, capture_output=True, text=True,
+                          timeout=900)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"watch script exited {proc.returncode}: "
+                           f"{proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    want = {"kajiya_tpu_torch.csrc.warp", "kajiya_tpu_torch.renderers.ssgi"}
+    if not want <= set(res["names"]):
+        raise AssertionError(f"watch: poll reported {res['names']}")
+    if res["path1"] == res["path0"] or not res["path1"].startswith(work):
+        raise AssertionError(f"watch: library {res['path0']} -> "
+                             f"{res['path1']}")
+    if not max(res["err0"], res["err1"]) <= WARP_TOL:
+        raise AssertionError(f"watch: warp errors {res['err0']}, "
+                             f"{res['err1']}")
+    n0, n1, n2 = res["launches"]
+    if not (n0 >= 1 and n1 == n0 and n2 == n1 + 1):
+        raise AssertionError(f"watch: launch counts {res['launches']}")
+    if listing(repo_build) != before:
+        raise AssertionError("watch: the repo's _build/ changed")
+    res["seconds"] = seconds
+    log(f"watch: poll reported {res['names']} in {res['poll_s']:.1f} s "
+        f"(nvcc of {len(want)} names), W err {res['err1']}, "
+        f"{seconds:.1f} s with start-up")
+    return res
+
+
 def kernel_entry(name, source, replaces, cases, launches, library):
     """One JSON entry per kernel: the sum over its cases (one launch at each
     shape the frame gives it; a case marked `frame_call=False` is listed but
@@ -1733,6 +2062,8 @@ def main():
         frames["default"]["city"]["frame_ms"], "(same call)")
     oracle = oracle_phase(dev)
     viewer = viewer_phase(tmp)
+    apps = {"stream": stream_phase(tmp), "hello": hello_phase(tmp),
+            "watch": watch_phase(tmp)}
     shutil.rmtree(tmp, ignore_errors=True)
 
     def launched(kernel):
@@ -1764,8 +2095,8 @@ def main():
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "wall_s": wall_s, "kernels": kernels,
-                   "frames": frames, "oracle": oracle, "viewer": viewer},
-                  f, indent=1)
+                   "frames": frames, "oracle": oracle, "viewer": viewer,
+                   "apps": apps}, f, indent=1)
     print(json.dumps({"frames": {
         path: {k: {"median_ms": v["median_ms"], "frame_ms": v["frame_ms"],
                    "tris": v["tris"], "launches": v["launches"],
@@ -1780,6 +2111,10 @@ def main():
         "tlas_refit": {f"{p}/{sc}": v["tlas_refit"]
                        for p, per_scene in frames.items()
                        for sc, v in per_scene.items() if "tlas_refit" in v},
+        "stream": {k: apps["stream"][k] for k in (
+            "frame_ms_wall", "frames_per_s", "parts_per_s", "server_encode",
+            "jpeg_encode_ms_here", "snap_png_bytes", "seconds")},
+        "watch_poll_s": apps["watch"]["poll_s"],
         "wall_s": wall_s}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

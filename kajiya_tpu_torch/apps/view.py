@@ -1,7 +1,8 @@
 """Headless viewer: render a scene to PNG frames (or a progressive PT image).
 
 Port of `kajiya_tpu/apps/view.py`, with its flags plus `--device`: renders
-N frames of the hybrid pipeline (temporal passes converge over frames), an
+N frames of the hybrid pipeline (temporal passes converge over frames; with
+`--watch`, edited modules and kernel sources are reloaded between them), an
 animated sequence, or the reference path tracer (one progressive frame per
 sample) of a builtin procedural scene, a kajiya `.ron` scene or a
 `.gltf` / `.glb` mesh, and writes PNGs through the port's own encoder
@@ -101,7 +102,10 @@ def main(argv=None):
     p.add_argument("--dump-every", type=int, default=0,
                    help="if >0, write every Nth frame")
     p.add_argument("--watch", action="store_true",
-                   help="hot reload (not ported: raises)")
+                   help="hot reload: rebuild the frame when kajiya_tpu_torch "
+                        "modules or CUDA kernel sources are edited (temporal "
+                        "state survives, failures keep the last good frame "
+                        "and the loaded kernels)")
     p.add_argument("--animate", type=int, default=0, metavar="N",
                    help="render an N-frame animated sequence: keyframed "
                         "orbit camera through the smoothed rig, a moving "
@@ -111,10 +115,6 @@ def main(argv=None):
                         "PyTorch versions of the kernels)")
     p.add_argument("-o", "--output", default="out/frame.png")
     args = p.parse_args(argv)
-    if args.watch:
-        raise NotImplementedError(
-            "--watch: hot reload (core/reload.py) is not ported to "
-            "kajiya_tpu_torch yet (ROADMAP section 1, step 10)")
 
     from ..core.camera import make_view_constants
     from ..frame import (RenderConfig, Renderer, init_reference_state,
@@ -150,8 +150,15 @@ def main(argv=None):
     elif args.animate:
         out = _run_animated(r, args)
     else:
+        watcher = None
+        if args.watch:
+            from ..core.reload import ModuleWatcher
+
+            watcher = ModuleWatcher()
         out = None
         for i in range(args.frames):
+            if watcher is not None and watcher.poll():
+                r.rebuild()        # JAX's re-trace; a no-op in the port
             view = make_view_constants(
                 cam_pos, cam_dir, fov_y_deg=args.fov,
                 width=args.width, height=args.height,

@@ -2,15 +2,16 @@
 the ported passes use): eval, VNDF sampling and its pdf, the layered
 mixture's sampling and pdf (the reference path tracer), split-sum energy
 compensation through a polynomial fit of the integrated FG table,
-metalness lobes."""
+metalness lobes, and the FG table itself (`fg_lut`)."""
 from __future__ import annotations
 
 import math
+from functools import lru_cache
 
 import numpy as np
 import torch
 
-from ..device import const_tensor
+from ..device import const_tensor, resolve_device
 from ..ops.smallvec import cross, matmul_small
 from ..ops.smallvec import dot3 as _dot
 from .sampling import cosine_hemisphere, orthonormal_basis, to_world
@@ -150,9 +151,20 @@ def _compute_fg_lut():
     return out
 
 
+@lru_cache(maxsize=1)
+def _fg_lut_host() -> np.ndarray:
+    return _compute_fg_lut()
+
+
+def fg_lut(device=None):
+    """The (64, 64, 2) split-sum table, computed once on the host and
+    returned on `device` (default CUDA)."""
+    return torch.as_tensor(_fg_lut_host(), device=resolve_device(device))
+
+
 def _fit_fg_poly():
     """Least-squares polynomial fit of the FG table over (roughness, ndotv)."""
-    lut = _compute_fg_lut()
+    lut = _fg_lut_host()
     res = lut.shape[0]
     r = (np.arange(res) + 0.5) / res
     rr, vv = np.meshgrid(r, r, indexing="ij")

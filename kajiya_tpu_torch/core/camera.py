@@ -161,3 +161,8 @@ def camera_rays(view: ViewConstants, width: int, height: int,
     wdir = wdir / torch.linalg.norm(wdir, dim=-1, keepdim=True)
     org = view.eye_position.expand(wdir.shape)
     return org, wdir
+
+
+def depth_to_view_z(depth, near: float = 0.01):
+    """Reversed-infinite-Z depth -> positive view-space distance along -Z."""
+    return near / torch.clamp(depth, min=1e-12)

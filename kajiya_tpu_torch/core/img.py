@@ -1,5 +1,5 @@
-"""Image-space utilities shared by the screen-space passes (port of the parts
-of `kajiya_tpu/core/img.py` the ported passes use).
+"""Image-space utilities shared by the screen-space passes (port of
+`kajiya_tpu/core/img.py`).
 
 Convention: images are (H, W) or (H, W, C); uv has its origin at the top-left
 with v pointing down. The JAX module writes resampling as one-hot matmuls to
@@ -51,6 +51,26 @@ def sample_bilinear(img, uv):
     top = c00 * (1.0 - fx) + c10 * fx
     bot = c01 * (1.0 - fx) + c11 * fx
     return top * (1.0 - fy) + bot * fy
+
+
+def bilinear_weights_and_indices(img_hw, uv):
+    """The four taps and weights of a bilinear footprint (for filters with
+    weights of their own). Returns (iy, ix, w), each (..., 4); the indices
+    are int32 and not clamped."""
+    h, w = img_hw
+    x = uv[..., 0] * w - 0.5
+    y = uv[..., 1] * h - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = x - x0
+    fy = y - y0
+    x0i = x0.to(torch.int32)
+    y0i = y0.to(torch.int32)
+    iy = torch.stack([y0i, y0i, y0i + 1, y0i + 1], dim=-1)
+    ix = torch.stack([x0i, x0i + 1, x0i, x0i + 1], dim=-1)
+    ww = torch.stack([(1 - fx) * (1 - fy), fx * (1 - fy), (1 - fx) * fy,
+                      fx * fy], dim=-1)
+    return iy, ix, ww
 
 
 def pixel_uv(h: int, w: int, device=None):
@@ -111,6 +131,13 @@ def phase_extract(img, py: int, px: int):
     """img[py::2, px::2] (even extent)."""
     h, w = img.shape[0] // 2 * 2, img.shape[1] // 2 * 2
     return img[py:h:2, px:w:2]
+
+
+def downsample_min(img):
+    """2x2 min reduce: the elementwise min of the four phase planes."""
+    a, b = phase_extract(img, 0, 0), phase_extract(img, 0, 1)
+    c, d = phase_extract(img, 1, 0), phase_extract(img, 1, 1)
+    return torch.minimum(torch.minimum(a, b), torch.minimum(c, d))
 
 
 def phase_split(x):
@@ -206,6 +233,52 @@ def upsample2x_bilinear(img):
     b = shift_stack(r, [(0, -1), (0, 0), (0, 1)])
     return interleave_cols(0.25 * b[0] + 0.75 * b[1],
                            0.75 * b[1] + 0.25 * b[2])
+
+
+def sample_const_offset(img, dx_px, dy_px):
+    """Bilinear sample of the whole image at one constant pixel offset in
+    [-1, 1] (a number or a 0-d tensor): 3x3 edge-clamped shifts blended
+    with offset-derived weights."""
+    dx = torch.as_tensor(dx_px, dtype=torch.float32, device=img.device)
+    dy = torch.as_tensor(dy_px, dtype=torch.float32, device=img.device)
+    fx = dx - torch.floor(dx)
+    fy = dy - torch.floor(dy)
+    neg_x = torch.floor(dx) < 0
+    neg_y = torch.floor(dy) < 0
+
+    def axis_blend(m1, z, p1, f, neg):
+        lo = torch.where(neg, m1, z)
+        hi = torch.where(neg, z, p1)
+        return lo * (1 - f) + hi * f
+
+    if img.ndim == 3:
+        fx, fy = fx[..., None], fy[..., None]
+    row = axis_blend(shift2d(img, 0, -1), img, shift2d(img, 0, 1), fx, neg_x)
+    return axis_blend(shift2d(row, -1, 0), row, shift2d(row, 1, 0), fy,
+                      neg_y)
+
+
+def half_to_full_taps(half):
+    """The four half-res taps of every full-res pixel's bilinear footprint
+    (x_h = X/2 - 0.25), as full-res images interleaved from static shifts:
+    the shift form of `bilinear_weights_and_indices` for an exact 2x
+    upsample. Returns (taps, weights): four (2h, 2w[, C]) tap images and
+    four (2h, 2w) weight images."""
+    hh, hw = half.shape[0], half.shape[1]
+
+    def tap(ky, kx):
+        r = interleave_rows(*(shift2d(half, ky - 1 + py, 0) for py in (0, 1)))
+        return interleave_cols(*(shift2d(r, 0, kx - 1 + px) for px in (0, 1)))
+
+    taps = [tap(0, 0), tap(0, 1), tap(1, 0), tap(1, 1)]
+    w2 = torch.tensor([0.25, 0.75], dtype=torch.float32, device=half.device)
+    wy0, wx0 = w2.repeat(hh), w2.repeat(hw)
+    wy = [wy0[:, None], (1.0 - wy0)[:, None]]
+    wx = [wx0[None, :], (1.0 - wx0)[None, :]]
+    weights = [(a * b).expand(2 * hh, 2 * hw)
+               for a, b in ((wy[0], wx[0]), (wy[0], wx[1]), (wy[1], wx[0]),
+                            (wy[1], wx[1]))]
+    return taps, weights
 
 
 OFF3X3 = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))

@@ -21,9 +21,13 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-@lru_cache(maxsize=256)
-def _const(values, dtype, device):
+def _new_const(values, dtype, device):
     return torch.tensor(values, dtype=dtype, device=device)
+
+
+# the cache lives on across an importlib.reload of this module
+# (core/reload.py): the tensors it handed out stay the ones it returns
+_const = globals().get("_const") or lru_cache(maxsize=256)(_new_const)
 
 
 def const_tensor(values, device, dtype=torch.float32) -> torch.Tensor:

@@ -17,7 +17,10 @@ exposure + post. Every option of the JAX `RenderConfig` is ported.
 
 is the reference path tracer's progressive frame (the oracle).
 
-PyTorch runs eagerly; there is no jit and no hot reload. The hybrid frame
+PyTorch runs eagerly; there is no jit (docs/port_eager.md). Hot reload
+(`core/reload.py`) swaps edited modules and kernels in; `draw` looks
+`render_frame` up in this module's globals, which a reload refills, so the
+next frame runs the fresh code. The hybrid frame
 reads its frame index on the host once (the validation branch); everything
 else that depends on it stays on the device, and the path tracer's frame
 reads nothing back.
@@ -564,7 +567,14 @@ class Renderer:
     error once and returns the last good outputs; on the first frame the
     error (a kernel launch error included) propagates. Scenes above
     CULLED_BRUTE_MAX_TRIS triangles take the BVH route
-    (`build_trace_scene`); `levels` keeps its refit schedule."""
+    (`build_trace_scene`); `levels` keeps its refit schedule.
+
+    The trace scene bakes the scene tables (`ts.gpu`) into its world
+    geometry, attribute rows and light list, so a change to them
+    (`set_transforms`, `set_emissive`) is counted and the next `draw`
+    refreshes it once; a change made while a refresh runs (the live
+    viewer's HTTP thread) is caught by the next draw. The JAX Renderer
+    refreshes it in every frame."""
 
     def __init__(self, scene, cfg: RenderConfig = RenderConfig(), device=None,
                  ibl: str | None = None):
@@ -583,18 +593,28 @@ class Renderer:
             from .sky.ibl import load_ibl_env
 
             self.ibl_env = load_ibl_env(ibl, device=self.device)
-        self._transforms_changed = False
+        self._scene_changes = 0       # changes made to the scene tables
+        self._ts_changes = 0          # ... that self.ts was built from
         self._last_good = None
         self._last_error = None
+
+    def rebuild(self):
+        """The JAX Renderer's re-trace after a hot reload or a config
+        change; a no-op here, kept for the callers (`apps/stream.py`,
+        `apps/view.py --watch`). Nothing is traced, and `draw` calls
+        `render_frame` through this module's globals, which
+        `importlib.reload` refills, so a reloaded frame module is live at
+        the next frame. The temporal state is kept."""
 
     def draw(self, view: ViewConstants):
         """Render one frame, advancing the temporal state."""
         try:
-            if self._transforms_changed:
+            changes = self._scene_changes
+            if changes != self._ts_changes:
                 with pass_scope("tlas_refit"):
                     self.ts = refresh_trace_scene(self.ts.gpu, self.ts.bvh,
                                                   self.levels)
-                self._transforms_changed = False
+                self._ts_changes = changes
             self.state, outputs = render_frame(
                 self.ts, self.state, view.to(self.device), self.cfg,
                 ibl_env=self.ibl_env)
@@ -618,7 +638,14 @@ class Renderer:
         gpu.xforms_prev = gpu.xforms
         gpu.xforms = torch.as_tensor(xforms, dtype=torch.float32,
                                      device=self.device)
-        self._transforms_changed = True
+        self._scene_changes += 1
+
+    def set_emissive(self, values):
+        """Replace the per-material emissive radiance (M, 3); the attribute
+        rows and the light list are rebuilt at the next draw."""
+        self.ts.gpu.mat_emissive = torch.as_tensor(
+            values, dtype=torch.float32, device=self.device)
+        self._scene_changes += 1
 
     def jitter(self, enabled: bool = True):
         return jitter_for_frame(self.state["frame_idx"], enabled)

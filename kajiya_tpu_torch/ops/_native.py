@@ -9,6 +9,12 @@ flags) and loaded with ctypes. Nothing is built when the module is imported.
 `launches` counts kernel launches per kernel: each wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that the main path
 went through the kernels.
+
+Hot reload (`core/reload.py`): `reload_library` builds the edited sources
+(a new digest, a new file) and loads that library in place of the loaded
+one; a failed build raises and leaves the loaded kernels running. The
+counts and the loaded library live on across an `importlib.reload` of this
+module.
 """
 from __future__ import annotations
 
@@ -27,10 +33,11 @@ SOURCES = ("woop.cu", "warp.cu", "tileshift.cu", "bvh.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
-launches = {"woop_brute": 0, "woop_culled": 0, "warp": 0, "tile_shift": 0,
-            "bvh_walk": 0}
+launches = globals().get("launches", {})
+for _name in ("woop_brute", "woop_culled", "warp", "tile_shift", "bvh_walk"):
+    launches.setdefault(_name, 0)
 
-_lib = None
+_lib = globals().get("_lib")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -96,6 +103,15 @@ def build_library() -> str:
     return so
 
 
+def _load(path: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(path)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def library():
     """The loaded kernel library; builds it on first use. Raises without a
     CUDA device or nvcc."""
@@ -105,13 +121,22 @@ def library():
     if not torch.cuda.is_available():
         raise RuntimeError("kajiya_tpu_torch: a CUDA kernel was requested "
                            "but no CUDA device is available")
-    lib = ctypes.CDLL(build_library())
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+    _lib = _load(build_library())
+    return _lib
+
+
+def reload_library() -> str:
+    """Build the library from the sources as they are now and load it in
+    place of the loaded one; returns its path. A failed build raises and
+    keeps the loaded library."""
+    global _lib
+    _lib = _load(build_library())
+    return _lib._name
+
+
+def library_path() -> str | None:
+    """The path of the loaded library (None before the first kernel)."""
+    return None if _lib is None else _lib._name
 
 
 def check_cuda(*tensors: torch.Tensor):

@@ -94,3 +94,9 @@ def gbuffer_from_hit(ts: TraceScene, view: ViewConstants, hit, df,
         "hit": r(m),
         "ray_dir": r(df),
     }
+
+
+def gbuffer_view_z(gb, near: float = 0.01):
+    """Positive view-space distance per pixel; 1e8 for sky."""
+    return torch.where(gb["hit"], near / torch.clamp(gb["depth"], min=1e-12),
+                       1e8)

@@ -15,11 +15,11 @@ of reordered triangle ids, padded with -1.
 
 `build_bvh` (Python) and `build_bvh_native` (csrc/bvh_builder.cpp, the port's
 copy of the JAX package's builder, compiled with g++ at first use into the
-gitignored `_build/`) give the same bytes. From NATIVE_BUILD_MIN_TRIS
-triangles on `bvh_from_scene` uses the native one; where it cannot be built
-it raises with the compiler's output. This differs from the JAX package,
-which falls back to the Python builder there; both give the same output, so
-only a missing compiler shows.
+gitignored `_build/` by `hostlib.load`) give the same bytes. From
+NATIVE_BUILD_MIN_TRIS triangles on `bvh_from_scene` uses the native one;
+where it cannot be built it raises with the compiler's output. This differs
+from the JAX package, which falls back to the Python builder there; both
+give the same output, so only a missing compiler shows.
 
 `pack_walk_tables` lays the BVH and the triangles out as the walk kernel
 reads them: a 32-byte record and a 64-byte record of its children a node,
@@ -32,15 +32,15 @@ triangles so consecutive 128-triangle blocks are compact.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
 import sys
 import threading
 from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
+
+from .. import hostlib
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILDER_SOURCE = os.path.join(_PKG, "csrc", "bvh_builder.cpp")
@@ -192,24 +192,6 @@ def build_bvh(tri_min: np.ndarray, tri_max: np.ndarray, leaf_size: int = 4):
     return bvh, levels
 
 
-def _compile_builder(out: str):
-    """g++ csrc/bvh_builder.cpp into `out` (through a file of this process,
-    renamed into place, so concurrent builders never load half a file).
-    Raises with the compiler's output when it fails."""
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [CXX, *CXX_FLAGS, BUILDER_SOURCE, "-o", tmp]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except OSError as e:
-        raise RuntimeError(f"the native BVH builder could not be built: "
-                           f"{' '.join(cmd)}: {e}") from e
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"the native BVH builder could not be built: {' '.join(cmd)} "
-            f"exited {proc.returncode}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-
-
 def builder_library() -> ctypes.CDLL:
     """The native builder, compiled at first use into BUILD_DIR (keyed by a
     hash of its source and flags) and loaded with ctypes."""
@@ -217,14 +199,8 @@ def builder_library() -> ctypes.CDLL:
     with _lock:
         if _builder is not None:
             return _builder
-        h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-        with open(BUILDER_SOURCE, "rb") as f:
-            h.update(f.read())
-        out = os.path.join(BUILD_DIR, f"libbvh_builder_{h.hexdigest()[:16]}.so")
-        if not os.path.exists(out):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            _compile_builder(out)
-        lib = ctypes.CDLL(out)
+        lib = hostlib.load(BUILDER_SOURCE, "bvh_builder", CXX, CXX_FLAGS,
+                           BUILD_DIR, "the native BVH builder")
         f32p = ctypes.POINTER(ctypes.c_float)
         i32p = ctypes.POINTER(ctypes.c_int)
         lib.build_bvh.argtypes = [f32p, f32p, ctypes.c_int, ctypes.c_int,

@@ -1,0 +1,90 @@
+"""Baseline JPEG (JFIF) encoding for the live viewer's MJPEG stream.
+
+The JAX package encodes its stream with PIL; the port may not import PIL, so
+it has its own encoder: `csrc/jpeg_encoder.cpp` (8-bit, 4:2:0, the Annex K
+quantisation tables at IJG quality 85, PIL's setting in the JAX viewer, the
+Annex K Huffman tables, libjpeg's colour conversion, chroma box filter and
+float DCT), compiled with g++ at first use into the gitignored `_build/`
+(`hostlib.load`) and called through ctypes, which releases the interpreter
+lock during the call, so encoding does not stall the render thread. Where the
+encoder cannot be built, `encode_jpeg` raises with the compiler's output:
+there is no encoder in Python to fall back to. It runs on the host, as PIL's
+libjpeg does for the JAX package.
+
+`read_jpeg_header` reads a JFIF's size and components from its SOF0 marker.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import struct
+import threading
+
+import numpy as np
+
+from .. import hostlib
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ENCODER_SOURCE = os.path.join(_PKG, "csrc", "jpeg_encoder.cpp")
+BUILD_DIR = os.path.join(_PKG, "_build")
+CXX = "g++"
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+
+_lock = threading.Lock()
+_encoder = None
+
+
+def encoder_library() -> ctypes.CDLL:
+    """The native encoder, compiled at first use into BUILD_DIR and loaded
+    with ctypes (`hostlib.load`)."""
+    global _encoder
+    with _lock:
+        if _encoder is not None:
+            return _encoder
+        lib = hostlib.load(ENCODER_SOURCE, "jpeg_encoder", CXX, CXX_FLAGS,
+                           BUILD_DIR, "the JPEG encoder")
+        lib.kt_jpeg_bound.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.kt_jpeg_bound.restype = ctypes.c_longlong
+        lib.kt_jpeg_encode.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_longlong]
+        lib.kt_jpeg_encode.restype = ctypes.c_longlong
+        _encoder = lib
+        return lib
+
+
+def encode_jpeg(img: np.ndarray) -> bytes:
+    """Encode an (H, W, 3) uint8 RGB image as a baseline 4:2:0 JFIF at
+    quality 85."""
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"encode_jpeg takes (H, W, 3) uint8, got "
+                         f"{img.dtype} {img.shape}")
+    lib = encoder_library()
+    h, w = img.shape[:2]
+    px = np.ascontiguousarray(img)
+    out = np.empty(lib.kt_jpeg_bound(w, h), np.uint8)
+    n = lib.kt_jpeg_encode(px.ctypes.data, w, h, out.ctypes.data, out.size)
+    if n < 0:
+        raise ValueError(f"the JPEG encoder refused a {w}x{h} image "
+                         f"(status {n})")
+    return out[:n].tobytes()
+
+
+def read_jpeg_header(data: bytes):
+    """(width, height, components) from a JFIF's SOF0 marker; raises
+    ValueError for anything else (no SOI, or no baseline frame header)."""
+    if data[:2] != b"\xff\xd8":
+        raise ValueError("not a JPEG stream (no SOI)")
+    i = 2
+    while i + 4 <= len(data):
+        if data[i] != 0xFF:
+            raise ValueError(f"no marker at byte {i}")
+        marker = data[i + 1]
+        length = struct.unpack(">H", data[i + 2:i + 4])[0]
+        if marker == 0xC0:
+            _, h, w, nc = struct.unpack(">BHHB", data[i + 4:i + 10])
+            return w, h, nc
+        if marker == 0xDA:
+            break
+        i += 2 + length
+    raise ValueError("no baseline frame header (SOF0)")

@@ -1,0 +1,1 @@
+from .atmosphere import sky_radiance, atmosphere_sun_transmittance

@@ -100,3 +100,16 @@ def sky_radiance(direction, sun_direction, altitude: float = 200.0,
                                 + accum_m * beta_m * ph_m)
     below = torch.clamp(-mu * 20.0, 0.0, 1.0)[..., None]
     return radiance * (1.0 - 0.9 * below)
+
+
+def atmosphere_sun_transmittance(sun_direction, altitude: float = 200.0):
+    """Transmittance of direct sunlight to the ground (tints the sun at
+    dusk): (..., 3) for sun directions (..., 3)."""
+    mu_s = torch.clamp(sun_direction[..., 1], -1.0, 1.0)
+    sr, sm = _optical_depth_to_sun(
+        torch.full_like(mu_s, EARTH_RADIUS + altitude), mu_s, steps=8)
+    tau = (_vec(BETA_RAYLEIGH, mu_s) * sr[..., None]
+           + (_vec(BETA_MIE, mu_s) + _vec(BETA_MIE_ABS, mu_s))
+           * sm[..., None])
+    return torch.exp(-tau) * torch.clamp(mu_s * 10.0 + 0.1, 0.0,
+                                         1.0)[..., None]

@@ -1,7 +1,7 @@
 """Sky environment as an octahedral map and its L2 spherical-harmonic
-reconstruction (port of the parts of `kajiya_tpu/sky/env.py` the frame
-uses: `build_sky_env`, `project_sh9`, `sh9_radiance_fn`,
-`sh9_irradiance_fn`, `sample_env`)."""
+reconstruction (port of `kajiya_tpu/sky/env.py`: `build_sky_env`,
+`convolve_diffuse`, `project_sh9`, `sh9_radiance_fn`, `sh9_irradiance_fn`,
+`sample_env`)."""
 from __future__ import annotations
 
 import math
@@ -14,6 +14,7 @@ from ..ops.smallvec import matmul_small
 from .atmosphere import sky_radiance
 
 SKY_RES = 64
+DIFFUSE_RES = 16
 
 
 def oct_encode(d):
@@ -54,6 +55,39 @@ def build_sky_env(sun_direction, res: int = SKY_RES):
     return sky_radiance(dirs.reshape(-1, 3), sun_direction).reshape(res, res, 3)
 
 
+def _oct_dirs_np(res: int) -> np.ndarray:
+    """(res, res, 3) unit directions of the oct texel centres (float64)."""
+    uv = (np.stack(np.meshgrid(np.arange(res), np.arange(res),
+                               indexing="xy"), -1) + 0.5) / res
+    f = uv * 2.0 - 1.0
+    x, y = f[..., 0], f[..., 1]
+    z = 1.0 - np.abs(x) - np.abs(y)
+    xf = np.where(z < 0, (1 - np.abs(y)) * np.sign(x + 1e-20), x)
+    yf = np.where(z < 0, (1 - np.abs(x)) * np.sign(y + 1e-20), y)
+    d = np.stack([xf, yf, z], -1)
+    return d / np.maximum(np.linalg.norm(d, axis=-1, keepdims=True), 1e-12)
+
+
+@lru_cache(maxsize=4)
+def _convolve_matrix(res_in: int, res_out: int) -> np.ndarray:
+    """(res_out^2, res_in^2) cosine-convolution weights over equal-area oct
+    texels (solid angle 4 pi / res_in^2 each), scaled to E(n) / pi."""
+    di = _oct_dirs_np(res_in).reshape(-1, 3)
+    do = _oct_dirs_np(res_out).reshape(-1, 3)
+    cosw = np.maximum(do @ di.T, 0.0)
+    d_omega = 4.0 * np.pi / (res_in * res_in)
+    return (cosw * (d_omega / np.pi)).astype(np.float32)
+
+
+def convolve_diffuse(env, res_out: int = DIFFUSE_RES):
+    """Cosine-convolve a (res, res, 3) sky map into a (res_out, res_out, 3)
+    irradiance / pi map: one float32 matrix product (TF32 stays off, as
+    the package sets it)."""
+    m = torch.as_tensor(_convolve_matrix(env.shape[0], res_out),
+                        device=env.device)
+    return torch.matmul(m, env.reshape(-1, 3)).reshape(res_out, res_out, 3)
+
+
 def sample_env(env, d):
     """Environment radiance along d: `env` is an octahedral map (bilinear)
     or a callable d -> radiance."""
@@ -83,15 +117,7 @@ def _sh9_basis(d):
 @lru_cache(maxsize=4)
 def _sh9_project_matrix(res: int):
     """(res^2, 9) SH projection weights over the equal-area oct texels."""
-    uv = (np.stack(np.meshgrid(np.arange(res), np.arange(res),
-                               indexing="xy"), -1) + 0.5) / res
-    f = uv * 2.0 - 1.0
-    x, y = f[..., 0], f[..., 1]
-    z = 1.0 - np.abs(x) - np.abs(y)
-    xf = np.where(z < 0, (1 - np.abs(y)) * np.sign(x + 1e-20), x)
-    yf = np.where(z < 0, (1 - np.abs(x)) * np.sign(y + 1e-20), y)
-    d = np.stack([xf, yf, z], -1).reshape(-1, 3)
-    d /= np.maximum(np.linalg.norm(d, axis=-1, keepdims=True), 1e-12)
+    d = _oct_dirs_np(res).reshape(-1, 3)
     x, y, z = d[:, 0], d[:, 1], d[:, 2]
     c = _SH_C
     b = np.stack([

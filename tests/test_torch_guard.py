@@ -58,7 +58,10 @@ def test_port_imports_no_jax():
                 "apps/sequence.py", "scene/png.py", "scene/textures.py",
                 "scene/ron.py", "scene/gltf.py", "scene/cache.py",
                 "scene/assets.py", "apps/bake.py", "rt/bvh.py",
-                "rt/trace.py", "ops/bvh_cuda.py"):
+                "rt/trace.py", "ops/bvh_cuda.py", "apps/stream.py",
+                "apps/hello.py", "apps/keymap.py", "apps/persisted.py",
+                "core/reload.py", "core/debugging.py", "core/logging.py",
+                "scene/jpeg.py", "hostlib.py"):
         assert os.path.join("kajiya_tpu_torch", new) in names, new
     assert "chip_smoke.py" in names
     for path in files:
@@ -118,6 +121,29 @@ def test_native_sources_name_every_kernel_file():
     for name in _native._SIGNATURES:
         assert any(name in open(os.path.join(_native.CSRC, f)).read()
                    for f in on_disk), name
+
+
+def test_host_sources_built_only_by_their_builder():
+    """The host C++ sources under csrc/ (compiled with g++, not nvcc) are
+    each named as a path by one module only, the one that builds it: the
+    BVH builder by rt/bvh.py, the JPEG encoder by scene/jpeg.py."""
+    builders = {"bvh_builder.cpp": "rt/bvh.py",
+                "jpeg_encoder.cpp": "scene/jpeg.py"}
+    on_disk = sorted(n for n in os.listdir(_native.CSRC)
+                     if not n.endswith(".cu"))
+    assert on_disk == sorted(builders)
+    for path in _port_files():
+        tree = ast.parse(open(path).read(), filename=path)
+        named = {n.value for n in ast.walk(tree)
+                 if isinstance(n, ast.Constant) and n.value in builders}
+        rel = os.path.relpath(path, os.path.join(ROOT, "kajiya_tpu_torch"))
+        for src in named:
+            assert builders[src] == rel, (src, rel)
+    from kajiya_tpu_torch.scene import jpeg
+
+    assert jpeg.ENCODER_SOURCE == os.path.join(_native.CSRC,
+                                               "jpeg_encoder.cpp")
+    assert jpeg.BUILD_DIR == _native.BUILD_DIR == bvh.BUILD_DIR
 
 
 @pytest.mark.parametrize("kernel", ["brute", "culled", "warp", "tile_shift",

@@ -146,14 +146,17 @@ def _scene_with_texture(tmp_path, name, head):
 
 
 @pytest.mark.parametrize("argv", [["--scene", "scene.ron"],
-                                  ["--scene", "mesh.gltf"], ["--watch"]])
+                                  ["--scene", "mesh.gltf"],
+                                  ["--scene", "anim.gltf"]])
 def test_view_refuses_unported_inputs(tmp_path, argv):
-    """What the viewer still refuses: a .ron scene whose texture is a JPEG
-    and a .gltf whose texture is a DDS (formats the port cannot decode yet:
-    they raise rather than turn white), and --watch."""
-    if argv[0] == "--scene":
-        head = b"\xff\xd8\xff\xe0" if argv[1].endswith(".ron") else b"DDS "
-        argv = ["--scene", _scene_with_texture(tmp_path, argv[1], head)]
+    """What the viewer still refuses: a .ron scene whose texture is a JPEG,
+    a .gltf whose texture is a DDS and one whose texture is a GIF (formats
+    the port cannot decode yet: they raise rather than turn white).
+    (`--watch`, refused here until hot reload was ported, is
+    test_view_watch_reloads.)"""
+    head = {"scene.ron": b"\xff\xd8\xff\xe0", "mesh.gltf": b"DDS ",
+            "anim.gltf": b"GIF89a"}[argv[1]]
+    argv = ["--scene", _scene_with_texture(tmp_path, argv[1], head)]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         view_app.main(argv + ["--device", "cpu", "--width", "8",
                               "--height", "8", "-o",
@@ -181,3 +184,37 @@ def test_view_renders_textured_assets(tmp_path, monkeypatch, name):
     assert px.max() > 8
     if name == "mesh.gltf":
         assert len(list((tmp_path / "cache").glob("*.mesh.npz"))) == 1
+
+
+def test_view_watch_reloads(tmp_path, monkeypatch):
+    """--watch polls a ModuleWatcher before every frame and rebuilds the
+    renderer's frame when it reports a reload."""
+    from kajiya_tpu_torch.core import reload
+    from kajiya_tpu_torch.frame import Renderer
+
+    polls, rebuilds = [], []
+
+    class Watcher:
+        def __init__(self, package="kajiya_tpu_torch"):
+            assert package == "kajiya_tpu_torch"
+
+        def poll(self):
+            polls.append(1)
+            return ["kajiya_tpu_torch.renderers.ssgi"] if len(polls) == 2 \
+                else []
+
+    real_rebuild = Renderer.rebuild
+
+    def rebuild(self):
+        rebuilds.append(1)
+        real_rebuild(self)
+
+    monkeypatch.setattr(reload, "ModuleWatcher", Watcher)
+    monkeypatch.setattr(Renderer, "rebuild", rebuild)
+    out = tmp_path / "w.png"
+    view_app.main(["--watch", "--device", "cpu", "--width", "32",
+                   "--height", "24", "--frames", "3", "--rtx-off", "-o",
+                   str(out)])
+    assert len(polls) == 3
+    assert len(rebuilds) == 1          # after the reload the poll reported
+    assert view_app.read_png_header(str(out)) == (32, 24, 8, 2)
