@@ -239,8 +239,10 @@ SCENES = {
     # the textured cornell: a checker on the floor; every trace goes to B
     "tcornell": (lambda p: p.textured_cornell_box(), (0.0, 0.0, 2.4),
                  (0.0, 0.0, -1.0), (0.01, 0.005, 0.0)),
-    # "tcity" (the textured asset city, n=16) and "tcity4" (n=4, the small
-    # frames' version) are added by main once `asset_scenes` wrote them
+    # "tcity" (the textured asset city, n=16), "tcity4" (n=4, the small
+    # frames' version) and "tcityfmt" (the mixed-format asset city, n=16:
+    # JPEG, BC5 / BC7 DDS and 16-bit PNG maps) are added by main once
+    # `asset_scenes` wrote them
 }
 # the scenes each path renders at 1080p, and a cap on the frames of a scene
 # (city3 shows kernel B at the brute route's limit on the two paths that
@@ -249,11 +251,14 @@ PATH_SCENES = {"raster": ("cornell", "city"), "gi": ("cornell", "city"),
                "default": ("cornell", "city", "city3", "city40"),
                "refpt": ("cornell", "city", "city3", "city40"),
                "options": ("cornell", "city"),
-               "textured": ("tcornell", "tcity")}
-FRAME_CAP = {"city3": 2, "tcity": 2, "city40": 2}
+               "textured": ("tcornell", "tcity", "tcityfmt")}
+FRAME_CAP = {"city3": 2, "tcity": 2, "tcityfmt": 2, "city40": 2}
 # the untextured scene of the same geometry, whose default frames the
 # textured frames' host syncs are held to
-UNTEXTURED = {"tcornell": "cornell", "tcity": "city"}
+UNTEXTURED = {"tcornell": "cornell", "tcity": "city", "tcityfmt": "city"}
+# the decoded JPEG maps of the mixed-format city against the arrays they
+# encode (quality 85, 4:2:0): format_phase reads 42.2-48.8 dB
+JPEG_PSNR_DB = 35.0
 # the scenes whose frames on a path move every instance once, by MOVE,
 # before frame MOVE_FRAME (`Renderer.set_transforms`), so that a counted
 # frame refits the BVH inside its `tlas_refit` range
@@ -265,7 +270,10 @@ def asset_scenes(root):
     """Write the textured city's assets under `root` (scene/assets.py) and
     return the SCENES entries "tcity" (n=16, 196,610 triangles, seen as the
     city is) and "tcity4" (n=4, the small frames' scene), each loaded
-    through the viewer's `build_scene` from its .ron."""
+    through the viewer's `build_scene` from its .ron, and "tcityfmt" (the
+    mixed-format city under `root/fmt`, n=16, seen as the city is), with
+    the mixed-format maps written: {file path: (map, RGBA its file decodes
+    to, or None for a JPEG)}."""
     from kajiya_tpu_torch.apps.view import build_scene
     from kajiya_tpu_torch.scene import assets
 
@@ -275,39 +283,99 @@ def asset_scenes(root):
             for n in (16, 4)}
     log(f"textured city assets written in {time.perf_counter() - t0:.1f} s "
         f"under {root}")
+    t0 = time.perf_counter()
+    fmt_root = os.path.join(root, "fmt")
+    written = assets.write_city_assets(fmt_root, formats="mixed")
+    fmt_ron = assets.write_city_ron(fmt_root, n=16, name="cityfmt")
+    maps = {os.path.join(fmt_root, "meshes", k): v
+            for k, v in written.items()}
+    log(f"mixed-format city assets written in "
+        f"{time.perf_counter() - t0:.1f} s under {fmt_root}")
     _, eye, fwd, step = SCENES["city"]
     return {"tcity": (lambda p: build_scene(rons[16]), eye, fwd, step),
             "tcity4": (lambda p: build_scene(rons[4]), (0.0, 8.0, 14.0),
-                       fwd, step)}
+                       fwd, step),
+            "tcityfmt": (lambda p: build_scene(fmt_ron), eye, fwd, step)}, \
+        maps
+
+
+def format_phase(maps):
+    """The mixed-format city's maps decoded on the host by the port's
+    decoders: each DDS map (BC5 normals, BC7 metallic-roughness) and the
+    16-bit PNG equal the texels their writer reports, bit for bit; each
+    JPEG base colour is within JPEG_PSNR_DB of the map it encodes. The
+    bytes themselves are held to PIL in the CPU tests (this host has no
+    PIL). Any failed decode raises."""
+    from kajiya_tpu_torch.scene import textures
+
+    out = {}
+    for path, (img, want) in sorted(maps.items()):
+        t0 = time.perf_counter()
+        got = textures._decode_image(path)
+        ms = (time.perf_counter() - t0) * 1e3
+        name = os.path.basename(path)
+        rec = dict(ms=ms, bytes=os.path.getsize(path),
+                   shape=list(got.shape))
+        if want is None:
+            mse = float(((got[..., :3].astype(np.float64) - img) ** 2).mean())
+            psnr = 10.0 * np.log10(255.0 ** 2 / max(mse, 1e-12))
+            if not psnr >= JPEG_PSNR_DB:
+                raise AssertionError(f"{name}: PSNR {psnr:.2f} dB < "
+                                     f"{JPEG_PSNR_DB}")
+            rec.update(psnr_db=float(psnr))
+        elif not np.array_equal(got, want):
+            bad = int((got != want).any(-1).sum())
+            raise AssertionError(f"{name}: {bad} texels differ from the "
+                                 "writer's")
+        else:
+            rec.update(exact=True)
+        out[name] = rec
+        log(f"format {name}: {rec}")
+    return out
+
+
+def _lookup(owner, name):
+    return owner[name] if isinstance(owner, dict) else getattr(owner, name)
+
+
+def _assign(owner, name, value):
+    if isinstance(owner, dict):
+        owner[name] = value
+    else:
+        setattr(owner, name, value)
 
 
 class Stopwatch:
-    """Seconds spent in named module functions while active: each is
-    wrapped for the duration and restored after (as pt_wavefront records
-    the path tracer's traces)."""
+    """Seconds spent in named functions while active: each, a module
+    attribute or a dict entry, is wrapped for the duration and restored
+    after (as pt_wavefront records the path tracer's traces)."""
 
     def __init__(self, **targets):
-        self.targets = targets           # label -> (module, function name)
+        self.targets = targets           # label -> (module or dict, name)
         self.seconds = dict.fromkeys(targets, 0.0)
+        self.errors = []                 # (label, exception) raised inside
 
     def __enter__(self):
         self.saved = {}
         for label, (mod, name) in self.targets.items():
-            fn = getattr(mod, name)
+            fn = _lookup(mod, name)
             self.saved[label] = fn
 
             def timed(*a, _fn=fn, _label=label, **k):
                 t0 = time.perf_counter()
                 try:
                     return _fn(*a, **k)
+                except Exception as e:
+                    self.errors.append((_label, repr(e)))
+                    raise
                 finally:
                     self.seconds[_label] += time.perf_counter() - t0
-            setattr(mod, name, timed)
+            _assign(mod, name, timed)
         return self
 
     def __exit__(self, *exc):
         for label, (mod, name) in self.targets.items():
-            setattr(mod, name, self.saved[label])
+            _assign(mod, name, self.saved[label])
 
 
 class DeviceSpans:
@@ -1459,6 +1527,9 @@ def frame_phase(dev, path, ibl):
         n_frames = min(N_FRAMES[path], FRAME_CAP.get(name, N_FRAMES[path]))
         t0 = time.perf_counter()
         with Stopwatch(decode=(textures, "_decode_image"),
+                       decode_jpeg=(textures._DECODERS, "JPEG"),
+                       decode_dds=(textures._DECODERS, "DDS"),
+                       decode_png=(textures._DECODERS, "PNG"),
                        resize=(textures, "_resize"),
                        bake=(textures, "bake_texture_pages"),
                        pages=(textures, "build_texture_pages"),
@@ -1474,7 +1545,16 @@ def frame_phase(dev, path, ibl):
         bake = None
         if path == "textured":
             sec = watch.seconds
-            bake = dict(decode_s=sec["decode"], resize_s=sec["resize"],
+            # the bake turns a source it cannot decode white: here every
+            # source is valid, so any decode that raised fails the run
+            if watch.errors:
+                raise AssertionError(f"{path}/{name}: decodes failed "
+                                     f"{watch.errors}")
+            bake = dict(decode_s=sec["decode"],
+                        decode_jpeg_s=sec["decode_jpeg"],
+                        decode_dds_s=sec["decode_dds"],
+                        decode_png_s=sec["decode_png"],
+                        resize_s=sec["resize"],
                         pack_mips_s=sec["bake"] - sec["decode"]
                         - sec["resize"],
                         upload_s=sec["pages"] - sec["bake"],
@@ -2014,7 +2094,9 @@ def main():
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     ibl = os.path.join(tmp, "sky.hdr")
     write_panorama(ibl)
-    SCENES.update(asset_scenes(tmp))
+    scenes, fmt_maps = asset_scenes(tmp)
+    SCENES.update(scenes)
+    formats = format_phase(fmt_maps)
     brute = brute_phase(dev)
     culled = culled_phase(dev)
     warp = warp_phase(dev)
@@ -2058,6 +2140,8 @@ def main():
             raise AssertionError(f"textured/{sc}: host syncs per frame {got}, "
                                  f"the untextured {plain} frame's {want}")
     log("textured city frame ms", frames["textured"]["tcity"]["frame_ms"],
+        "mixed-format city frame ms",
+        frames["textured"]["tcityfmt"]["frame_ms"],
         "beside the untextured city's default frame ms",
         frames["default"]["city"]["frame_ms"], "(same call)")
     oracle = oracle_phase(dev)
@@ -2096,7 +2180,7 @@ def main():
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "wall_s": wall_s, "kernels": kernels,
                    "frames": frames, "oracle": oracle, "viewer": viewer,
-                   "apps": apps}, f, indent=1)
+                   "apps": apps, "formats": formats}, f, indent=1)
     print(json.dumps({"frames": {
         path: {k: {"median_ms": v["median_ms"], "frame_ms": v["frame_ms"],
                    "tris": v["tris"], "launches": v["launches"],
@@ -2105,6 +2189,7 @@ def main():
         for path, per_scene in frames.items()}, "oracle": oracle,
         "textured_bake": {sc: v["bake"]
                           for sc, v in frames["textured"].items()},
+        "format_decode_ms": {k: v["ms"] for k, v in formats.items()},
         "setup_s": {f"{p}/{sc}": v["setup_parts_s"]
                     for p, per_scene in frames.items()
                     for sc, v in per_scene.items() if sc == "city40"},

@@ -11,6 +11,12 @@ data-URI PNG with varied alpha. `write_city_ron` writes a `.ron` that
 instances them as `procedural.city(n, subdiv, seed)` places its buildings.
 The PNGs cycle through all five row filters and split their image data
 over several IDAT chunks. Everything is made from a seed.
+
+`write_city_assets(..., formats="mixed")` writes the same maps in the
+formats a real asset carries (the mixed-format city): each base colour a
+baseline 4:2:0 JPEG from the port's encoder, each normal map BC5 and each
+metallic-roughness map BC7 (mode 6) in DX10 DDS files, b1's emissive map a
+16-bit RGB PNG; the ground stays an 8-bit PNG data URI.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import struct
 
 import numpy as np
 
+from .dds import bc5_blocks, bc7_mode6_blocks, dds_header
 from .png import encode_png
 from .procedural import _subdiv_box
 
@@ -135,13 +142,48 @@ def _png(img):
     return encode_png(img, filters=FILTERS, idat_bytes=IDAT_BYTES)
 
 
+# DXGI formats of the mixed-format city's maps
+DXGI_BC5_UNORM, DXGI_BC7_UNORM = 83, 98
+
+
+def _map_file(kind: str, img: np.ndarray, formats: str):
+    """(file suffix, bytes, the RGBA the decoders must give back or None
+    where the format is lossy) of one building map."""
+    if formats == "png":
+        return ".png", _png(img), None
+    if kind == "base":
+        from .jpeg import encode_jpeg
+
+        return ".jpg", encode_jpeg(img), None
+    h, w = img.shape[:2]
+    if kind == "normal":
+        data, texels = bc5_blocks(img[..., :2])
+        want = np.zeros((h, w, 4), np.uint8)
+        want[..., :2] = texels
+        want[..., 3] = 255
+        return ".dds", dds_header(w, h, DXGI_BC5_UNORM) + data, want
+    if kind == "mr":
+        rgba = np.concatenate([img, np.full((h, w, 1), 255, np.uint8)], -1)
+        data, texels = bc7_mode6_blocks(rgba)
+        return ".dds", dds_header(w, h, DXGI_BC7_UNORM) + data, texels
+    # the emissive map as 16-bit samples whose high bytes are the map
+    want = np.concatenate([img, np.full((h, w, 1), 255, np.uint8)], -1)
+    return ".png", _png(img.astype(np.uint16) * 257), want
+
+
 def write_city_assets(root: str, subdiv: int = 8, map_size: int = 2048,
                       emissive_size: int = 1024, ground_size=(2048, 4096),
-                      seed: int = 7) -> None:
+                      seed: int = 7, formats: str = "png") -> dict:
     """The meshes and maps of the textured city under `root/meshes/`:
-    b0.gltf, b1.gltf, b2.gltf (+ .bin and PNG maps at `map_size`^2 RGB, b1
+    b0.gltf, b1.gltf, b2.gltf (+ .bin and maps at `map_size`^2 RGB, b1
     also an `emissive_size`^2 emissive map) and ground.glb (a unit quad
-    whose base colour is a data-URI PNG of `ground_size` (H, W) RGBA)."""
+    whose base colour is a data-URI PNG of `ground_size` (H, W) RGBA).
+    `formats`: "png" (every map an 8-bit PNG) or "mixed" (JPEG base colour,
+    BC5 / BC7 DDS normal and metallic-roughness maps, a 16-bit PNG emissive
+    map). Returns {file name: (the RGB map written, the RGBA its file
+    decodes to, or None for a JPEG)} of the building maps."""
+    if formats not in ("png", "mixed"):
+        raise ValueError(f"formats {formats!r}: 'png' or 'mixed'")
     rng = np.random.default_rng(seed)
     mdir = os.path.join(root, "meshes")
     os.makedirs(mdir, exist_ok=True)
@@ -150,8 +192,9 @@ def write_city_assets(root: str, subdiv: int = 8, map_size: int = 2048,
     axis = np.abs(nrm).argmax(-1)
     uv = np.stack([v[np.arange(len(v)), (axis + 1) % 3],
                    v[np.arange(len(v)), (axis + 2) % 3]], -1) * UV_REPEAT
+    written = {}
     for k, (tint, metallic, rough) in enumerate(CITY_MATERIALS):
-        names = [f"b{k}_base.png", f"b{k}_mr.png", f"b{k}_normal.png"]
+        kinds = ["base", "mr", "normal"]
         maps = _facade_maps(rng, map_size, tint, metallic)
         mat = dict(base_color=(*tint, 1.0), metallic=metallic,
                    roughness=rough, base_color_texture=0, mr_texture=1,
@@ -164,12 +207,16 @@ def write_city_assets(root: str, subdiv: int = 8, map_size: int = 2048,
                    & (_noise(rng, (s, s), 16) > 0.6))
             em = np.zeros((s, s, 3), np.uint8)
             em[lit] = (255, 214, 150)
-            names.append("b1_emissive.png")
+            kinds.append("emissive")
             maps.append(em)
             mat.update(emissive=EMISSIVE_FACTOR, emissive_texture=3)
-        for name, img in zip(names, maps):
-            with open(os.path.join(mdir, name), "wb") as f:
-                f.write(_png(img))
+        names = []
+        for kind, img in zip(kinds, maps):
+            suffix, data, want = _map_file(kind, img, formats)
+            names.append(f"b{k}_{kind}{suffix}")
+            with open(os.path.join(mdir, names[-1]), "wb") as f:
+                f.write(data)
+            written[names[-1]] = (img, want)
         write_gltf(os.path.join(mdir, f"b{k}.gltf"), v, nrm, uv, idx, mat,
                    names)
 
@@ -194,6 +241,7 @@ def write_city_assets(root: str, subdiv: int = 8, map_size: int = 2048,
                np.array([[0, 2, 1], [0, 3, 2]], np.uint32),
                dict(base_color=(0.35, 0.35, 0.35, 1.0), metallic=0.0,
                     roughness=0.95, base_color_texture=0), [uri])
+    return written
 
 
 def write_city_ron(root: str, n: int = 16, seed: int = 7,

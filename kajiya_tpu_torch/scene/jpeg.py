@@ -1,4 +1,5 @@
-"""Baseline JPEG (JFIF) encoding for the live viewer's MJPEG stream.
+"""JPEG encoding for the live viewer's MJPEG stream, and JPEG decoding for
+texture sources.
 
 The JAX package encodes its stream with PIL; the port may not import PIL, so
 it has its own encoder: `csrc/jpeg_encoder.cpp` (8-bit, 4:2:0, the Annex K
@@ -10,6 +11,17 @@ lock during the call, so encoding does not stall the render thread. Where the
 encoder cannot be built, `encode_jpeg` raises with the compiler's output:
 there is no encoder in Python to fall back to. It runs on the host, as PIL's
 libjpeg does for the JAX package.
+
+`decode_jpeg` decodes a texture source to what PIL's
+`Image.open(f).convert("RGBA")` gives, byte for byte: `csrc/jpeg_decoder.cpp`
+follows libjpeg-turbo's default decompression as PIL drives it (baseline,
+extended and progressive Huffman frames; islow IDCT, fancy upsampling,
+jdcolor.c's tables; L, RGB and CMYK / YCCK as PIL reads them), built and
+loaded the same way. Corrupt data that makes PIL raise raises `JpegError`, a
+ValueError (the bake turns it white, as the JAX package's does); what the
+decoder does not cover (arithmetic coding, lossless, 12-bit, hierarchical,
+progressive files libjpeg would block-smooth, corrupt entropy data that
+libjpeg decodes with a warning) raises NotImplementedError.
 
 `read_jpeg_header` reads a JFIF's size and components from its SOF0 marker.
 """
@@ -26,12 +38,18 @@ from .. import hostlib
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENCODER_SOURCE = os.path.join(_PKG, "csrc", "jpeg_encoder.cpp")
+DECODER_SOURCE = os.path.join(_PKG, "csrc", "jpeg_decoder.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()
 _encoder = None
+_decoder = None
+
+
+class JpegError(ValueError):
+    """The bytes are not a JPEG that PIL would decode."""
 
 
 def encoder_library() -> ctypes.CDLL:
@@ -68,6 +86,55 @@ def encode_jpeg(img: np.ndarray) -> bytes:
         raise ValueError(f"the JPEG encoder refused a {w}x{h} image "
                          f"(status {n})")
     return out[:n].tobytes()
+
+
+def decoder_library() -> ctypes.CDLL:
+    """The native decoder, compiled at first use into BUILD_DIR."""
+    global _decoder
+    with _lock:
+        if _decoder is not None:
+            return _decoder
+        lib = hostlib.load(DECODER_SOURCE, "jpeg_decoder", CXX, CXX_FLAGS,
+                           BUILD_DIR, "the JPEG decoder")
+        lib.kt_jpeg_dims.argtypes = [
+            ctypes.c_char_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, ctypes.c_int]
+        lib.kt_jpeg_dims.restype = ctypes.c_int
+        lib.kt_jpeg_decode.argtypes = [
+            ctypes.c_char_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
+        lib.kt_jpeg_decode.restype = ctypes.c_int
+        _decoder = lib
+        return lib
+
+
+def _raise(status: int, msg: ctypes.Array) -> None:
+    text = msg.value.decode("ascii", "replace")
+    if status == 2:
+        raise NotImplementedError(
+            f"JPEG: {text} (ROADMAP.md section 1)")
+    raise JpegError(f"corrupt JPEG: {text}")
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """JPEG bytes -> (H, W, 4) uint8 RGBA, as PIL's `convert("RGBA")`."""
+    from .identify import check_pixels
+
+    lib = decoder_library()
+    data = bytes(data)
+    msg = ctypes.create_string_buffer(256)
+    w, h = ctypes.c_int(), ctypes.c_int()
+    st = lib.kt_jpeg_dims(data, len(data), ctypes.byref(w), ctypes.byref(h),
+                          msg, len(msg))
+    if st:
+        _raise(st, msg)
+    check_pixels(w.value, h.value)
+    out = np.empty((h.value, w.value, 4), np.uint8)
+    st = lib.kt_jpeg_decode(data, len(data), out.ctypes.data, w.value,
+                            h.value, msg, len(msg))
+    if st:
+        _raise(st, msg)
+    return out
 
 
 def read_jpeg_header(data: bytes):

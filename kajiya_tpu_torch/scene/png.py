@@ -6,18 +6,23 @@ byte for byte, for the formats textures use:
 
 - colour types 0 (grey), 2 (RGB), 3 (palette), 4 (grey + alpha) and
   6 (RGBA) at bit depth 8; grey and palette also at bit depths 1, 2 and 4;
+- 16-bit samples, as PIL reads them: colour types 2, 4 and 6 keep the high
+  byte (0x1234 -> 0x12), while 16-bit grey opens as I;16, which
+  `convert("RGBA")` clamps (0x1234 -> 255, 0x0080 -> 128);
+- Adam7 interlacing, at every colour type and depth (PIL reads any nonzero
+  interlace method as Adam7);
 - the five row filters, image data split over several IDAT chunks;
-- tRNS for grey, RGB and palette images, with PIL's reading of it: a grey
-  key is compared with the grey value after PIL scales 2- and 4-bit samples
-  to 8 bits, so only a key of 0 takes effect there;
+- tRNS for grey, RGB and palette images, with PIL's reading of it: the key's
+  low byte is compared with the 8-bit value after PIL's conversion (so a
+  2- or 4-bit grey key other than 0 never matches, and a 16-bit key is
+  compared with the clamped grey or the high bytes);
 - chunk checksums are verified up to the first IDAT chunk, as PIL verifies
   them (it reads the image data and what follows without its checksums).
 
-16-bit samples and Adam7 interlacing raise NotImplementedError (ROADMAP.md
-lists them). Corrupt data raises `PngError`, a ValueError.
+Corrupt data raises `PngError`, a ValueError.
 
-`encode_png` writes 8-bit grey, grey + alpha, RGB or RGBA PNGs with a chosen
-row filter per row, for the viewer's output and for test images.
+`encode_png` writes 8- or 16-bit grey, grey + alpha, RGB or RGBA PNGs with
+a chosen row filter per row, for the viewer's output and for test images.
 """
 from __future__ import annotations
 
@@ -130,66 +135,115 @@ def _unpack(rows: np.ndarray, width: int, depth: int) -> np.ndarray:
     return vals.reshape(rows.shape[0], -1)[:, :width]
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W, 4) uint8 RGBA, as PIL's `convert("RGBA")`."""
-    (width, height, depth, ctype, _comp, filt, interlace), plte, trns, z = \
-        _read_chunks(data)
-    if ctype not in _CHANNELS or depth not in _DEPTHS[ctype]:
-        raise PngError(f"bit depth {depth} with colour type {ctype}")
-    if depth == 16:
-        raise NotImplementedError(
-            "16-bit PNG decoding is not ported (ROADMAP.md section 1)")
-    if interlace:
-        raise NotImplementedError(
-            "interlaced (Adam7) PNG decoding is not ported (ROADMAP.md "
-            "section 1)")
-    if filt:
-        raise PngError("unknown filter method")
-    if width == 0 or height == 0:
-        raise PngError("empty image")
-    bits = _CHANNELS[ctype] * depth
+# Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _pixels(raw: np.ndarray, width: int, height: int, depth: int,
+            channels: int) -> np.ndarray:
+    """(height, 1 + stride) filtered rows -> (height, width, channels)
+    samples: uint16 at depth 16, else uint8 (sub-byte samples unpacked)."""
+    bits = channels * depth
     stride = (width * bits + 7) // 8
-    need = height * (stride + 1)
+    rows = _unfilter(raw.reshape(height, stride + 1), height, stride,
+                     max(1, bits // 8))
+    if depth == 16:
+        be = rows.reshape(height, width * channels, 2).astype(np.uint16)
+        return ((be[..., 0] << 8) | be[..., 1]).reshape(height, width,
+                                                        channels)
+    if depth == 8:
+        return rows.reshape(height, width, channels)
+    return _unpack(rows, width, depth)[..., None]
+
+
+def _image_samples(z: bytes, width: int, height: int, depth: int,
+                   channels: int, interlace: int) -> np.ndarray:
+    """Inflate and unfilter the image data, either one pass or the seven
+    Adam7 passes (each its own filtered rows, empty passes absent)."""
+    bits = channels * depth
+    if interlace:
+        passes = []
+        for x0, y0, dx, dy in _ADAM7:
+            pw = (width - x0 + dx - 1) // dx if width > x0 else 0
+            ph = (height - y0 + dy - 1) // dy if height > y0 else 0
+            if pw and ph:
+                passes.append((x0, y0, dx, dy, pw, ph))
+    else:
+        passes = [(0, 0, 1, 1, width, height)]
+    sizes = [ph * (1 + (pw * bits + 7) // 8) for *_, pw, ph in passes]
+    need = sum(sizes)
     try:
         raw = zlib.decompressobj().decompress(z, need)
     except zlib.error as e:
         raise PngError(f"corrupt image data: {e}") from None
     if len(raw) < need:
         raise PngError("truncated image data")
-    rows = _unfilter(np.frombuffer(raw, np.uint8).reshape(height, stride + 1),
-                     height, stride, max(1, bits // 8))
+    raw = np.frombuffer(raw, np.uint8)
+    if not interlace:
+        return _pixels(raw, width, height, depth, channels)
+    out = np.empty((height, width, channels),
+                   np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for (x0, y0, dx, dy, pw, ph), size in zip(passes, sizes):
+        out[y0::dy, x0::dx] = _pixels(raw[pos:pos + size], pw, ph, depth,
+                                      channels)
+        pos += size
+    return out
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W, 4) uint8 RGBA, as PIL's `convert("RGBA")`."""
+    (width, height, depth, ctype, _comp, filt, interlace), plte, trns, z = \
+        _read_chunks(data)
+    if ctype not in _CHANNELS or depth not in _DEPTHS[ctype]:
+        raise PngError(f"bit depth {depth} with colour type {ctype}")
+    if filt:
+        raise PngError("unknown filter method")
+    if width == 0 or height == 0:
+        raise PngError("empty image")
+    from .identify import check_pixels
+
+    check_pixels(width, height)
+    px = _image_samples(z, width, height, depth, _CHANNELS[ctype], interlace)
 
     out = np.empty((height, width, 4), np.uint8)
-    if ctype in (0, 3):
-        v = _unpack(rows, width, depth)
-        if ctype == 0:
-            g = v * np.uint8(_GREY_SCALE[depth])
-            out[..., :3] = g[..., None]
-            out[..., 3] = 255
-            if trns is not None and len(trns) >= 2:
-                key = struct.unpack(">H", trns[:2])[0]
-                if depth == 1:
-                    key = 255 if key else 0
-                out[..., 3] = np.where(g == key, 0, 255)
+    if ctype == 0:
+        v = px[..., 0]
+        if depth == 16:
+            # PIL opens I;16, and convert("RGBA") clamps it to 0..255
+            g = np.minimum(v, 255).astype(np.uint8)
         else:
-            # PIL's palette: entries past PLTE (all of them without one) are
-            # black, alpha past tRNS 255
-            plte = plte or b""
-            pal = np.frombuffer(plte[:len(plte) // 3 * 3], np.uint8)
-            lut = np.zeros((256, 4), np.uint8)
-            lut[:, 3] = 255
-            lut[:len(pal) // 3, :3] = pal.reshape(-1, 3)[:256]
-            if trns is not None:
-                alpha = np.frombuffer(trns[:256], np.uint8)
-                lut[:len(alpha), 3] = alpha
-            out[:] = lut[v]
+            g = v * np.uint8(_GREY_SCALE[depth])
+        out[..., :3] = g[..., None]
+        out[..., 3] = 255
+        if trns is not None and len(trns) >= 2:
+            key = struct.unpack(">H", trns[:2])[0]
+            if depth == 1:
+                key = 255 if key else 0
+            # PIL compares the 8-bit value with the key's low byte
+            out[..., 3] = np.where(g == (key & 255), 0, 255)
         return out
-    px = rows.reshape(height, width, _CHANNELS[ctype])
+    if ctype == 3:
+        # PIL's palette: entries past PLTE (all of them without one) are
+        # black, alpha past tRNS 255
+        plte = plte or b""
+        pal = np.frombuffer(plte[:len(plte) // 3 * 3], np.uint8)
+        lut = np.zeros((256, 4), np.uint8)
+        lut[:, 3] = 255
+        lut[:len(pal) // 3, :3] = pal.reshape(-1, 3)[:256]
+        if trns is not None:
+            alpha = np.frombuffer(trns[:256], np.uint8)
+            lut[:len(alpha), 3] = alpha
+        out[:] = lut[px[..., 0]]
+        return out
+    if depth == 16:
+        px = (px >> 8).astype(np.uint8)   # PIL keeps the high byte
     if ctype == 2:
         out[..., :3] = px
         out[..., 3] = 255
         if trns is not None and len(trns) >= 6:
-            key = np.array(struct.unpack(">HHH", trns[:6]))
+            key = np.array(struct.unpack(">HHH", trns[:6])) & 255
             out[..., 3] = np.where((px == key).all(-1), 0, 255)
     elif ctype == 4:
         out[..., :3] = px[..., :1]
@@ -213,18 +267,25 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 
 def encode_png(img: np.ndarray, filters=0,
                idat_bytes: int | None = None) -> bytes:
-    """(H, W) or (H, W, C) uint8, C in 1-4 -> 8-bit PNG bytes (grey, grey +
-    alpha, RGB or RGBA). `filters`: a row filter (0 None, 1 Sub, 2 Up,
-    3 Average, 4 Paeth) or a sequence cycled over the rows. `idat_bytes`
-    splits the compressed data into IDAT chunks of at most that size."""
+    """(H, W) or (H, W, C) uint8 or uint16, C in 1-4 -> 8- or 16-bit PNG
+    bytes (grey, grey + alpha, RGB or RGBA). `filters`: a row filter
+    (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth) or a sequence cycled over the
+    rows. `idat_bytes` splits the compressed data into IDAT chunks of at
+    most that size."""
     img = np.asarray(img)
-    if img.dtype != np.uint8:
-        raise TypeError(f"encode_png takes uint8, not {img.dtype}")
+    if img.dtype not in (np.uint8, np.uint16):
+        raise TypeError(f"encode_png takes uint8 or uint16, not {img.dtype}")
     if img.ndim == 2:
         img = img[..., None]
     h, w, c = img.shape
     if c not in _COLOR_TYPE:
         raise ValueError(f"{c} channels")
+    ctype = _COLOR_TYPE[c]
+    depth = 8
+    if img.dtype == np.uint16:
+        # big-endian sample bytes; a pixel of 2c bytes filters as one
+        img = img.astype(">u2").view(np.uint8).reshape(h, w, 2 * c)
+        depth, c = 16, 2 * c
     ftypes = np.resize(np.atleast_1d(np.asarray(filters, np.int64)), h)
     if ftypes.min() < 0 or ftypes.max() > 4:
         raise ValueError(f"row filters {filters}")
@@ -244,6 +305,6 @@ def encode_png(img: np.ndarray, filters=0,
     idat = b"".join(_chunk(b"IDAT", z[i:i + step])
                     for i in range(0, max(len(z), 1), step))
     return (PNG_SIGNATURE
-            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
-                                          _COLOR_TYPE[c], 0, 0, 0))
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0,
+                                          0, 0))
             + idat + _chunk(b"IEND", b""))

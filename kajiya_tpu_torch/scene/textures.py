@@ -1,21 +1,26 @@
 """Texture pages: decoded, mip-mapped material textures as dense tensors
 (port of `kajiya_tpu/scene/textures.py`).
 
-The bake runs on the host in numpy, as in the JAX package: each image is
-decoded to RGBA8, resized to a square size bucket (128 ... 2048) with a
+The bake runs on the host, as in the JAX package: each image is decoded to
+RGBA8, resized to a square size bucket (128 ... 2048) with a
 Lanczos filter, shelf-packed into square pages (slot 0 a white page), box
 mip-mapped and laid out as one (N, S, S + S/2, 4) uint8 atlas (mip 0 at
 x < S, mip m >= 1 in the right column at x = S, y = S - 2 (S >> m)), with a
 (P, 4) int32 `page_sub` table of [page, size, ox, oy] per slot. The atlas is
 then uploaded once. The JAX package decodes and resizes with PIL; the port
-has its own PNG decoder (`png.py`) and a Lanczos resize that gives PIL's
-`Image.resize(..., LANCZOS)` bytes, so the atlases are equal byte for byte.
+has its own decoders, each giving PIL's `convert("RGBA")` bytes (PNG in
+`png.py`, JPEG in `jpeg.py`, DDS in `dds.py`), and a Lanczos resize that
+gives PIL's `Image.resize(..., LANCZOS)` bytes, so the atlases are equal
+byte for byte.
 
-Decoding dispatches on the content, not on the file name. Formats the port
-cannot decode yet (JPEG, DDS, GIF, BMP, WebP, TIFF, 16-bit or interlaced
-PNG) raise NotImplementedError: a missing decoder never passes as a white
-texture. Bytes of no known format, a corrupt PNG and a missing file become
-a 4x4 white image, as in the JAX package.
+Decoding dispatches on the content, not on the file name, in PIL's plugin
+order (`identify.py`). Any other format PIL would open (GIF, BMP, TGA,
+TIFF, WebP, PPM, QOI, JPEG 2000 and the rest of `identify.FORMATS`) raises
+NotImplementedError naming it: a missing decoder never passes as a white
+texture. Bytes that no PIL plugin accepts, a missing file, and a PNG, JPEG
+or DDS source that PIL also refuses (corrupt or truncated data, a DXGI
+format PIL has no decoder for) become a 4x4 white image, as in the JAX
+package.
 
 `sample_pages` is the per-hit fetch: wrap addressing, bilinear or nearest,
 a static or per-ray mip (ray-cone LOD: lod_base + log2(size)), sRGB decode
@@ -30,17 +35,17 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .png import PNG_SIGNATURE, decode_png
+from .dds import decode_dds
+from .identify import candidates
+from .jpeg import decode_jpeg
+from .png import decode_png
 
 PAGE_SIZE = 512     # minimum page size; grows to the largest used bucket
 N_MIPS = 6          # 512 -> 16; scales with the page (mip floor stays 16)
 BUCKETS = (2048, 1024, 512, 256, 128)
 
-# signatures of image formats the port has no decoder for
-_UNDECODED = (
-    (b"\xff\xd8\xff", "JPEG"), (b"DDS ", "DDS"), (b"GIF87a", "GIF"),
-    (b"GIF89a", "GIF"), (b"BM", "BMP"), (b"RIFF", "RIFF (WebP)"),
-    (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
+# the formats the port decodes, by identify's name
+_DECODERS = {"PNG": decode_png, "JPEG": decode_jpeg, "DDS": decode_dds}
 
 
 def _read_source(path_or_data: str) -> bytes:
@@ -53,18 +58,19 @@ def _read_source(path_or_data: str) -> bytes:
 
 def _decode_image(path_or_data: str) -> np.ndarray:
     """A file path or data URI -> (H, W, 4) uint8, raw values (no colour
-    space conversion). Raises NotImplementedError for a format the port
-    cannot decode yet, OSError / ValueError for a missing or corrupt
-    source."""
+    space conversion). Raises NotImplementedError for a format PIL opens
+    that the port cannot decode yet, OSError / ValueError for a missing
+    source, bytes PIL does not identify, or a source PIL also refuses."""
     data = _read_source(path_or_data)
-    if data.startswith(PNG_SIGNATURE):
-        return decode_png(data)
-    for sig, name in _UNDECODED:
-        if data.startswith(sig):
-            raise NotImplementedError(
-                f"{name} texture decoding is not ported (ROADMAP.md section "
-                f"1): {path_or_data[:80]}")
-    raise ValueError(f"unknown image format: {path_or_data[:80]}")
+    found = candidates(data)
+    if not found:
+        raise ValueError(f"unknown image format: {path_or_data[:80]}")
+    fmt = found[0]
+    if fmt not in _DECODERS:
+        raise NotImplementedError(
+            f"{' or '.join(found)} texture decoding is not ported (ROADMAP.md "
+            f"section 1): {path_or_data[:80]}")
+    return _DECODERS[fmt](data)
 
 
 # ----------------------------------------------------------------------------

@@ -126,9 +126,12 @@ def test_native_sources_name_every_kernel_file():
 def test_host_sources_built_only_by_their_builder():
     """The host C++ sources under csrc/ (compiled with g++, not nvcc) are
     each named as a path by one module only, the one that builds it: the
-    BVH builder by rt/bvh.py, the JPEG encoder by scene/jpeg.py."""
+    BVH builder by rt/bvh.py, the JPEG encoder and decoder by
+    scene/jpeg.py, the BCn block decoder by scene/dds.py."""
     builders = {"bvh_builder.cpp": "rt/bvh.py",
-                "jpeg_encoder.cpp": "scene/jpeg.py"}
+                "jpeg_encoder.cpp": "scene/jpeg.py",
+                "jpeg_decoder.cpp": "scene/jpeg.py",
+                "bcn_decoder.cpp": "scene/dds.py"}
     on_disk = sorted(n for n in os.listdir(_native.CSRC)
                      if not n.endswith(".cu"))
     assert on_disk == sorted(builders)
@@ -139,11 +142,15 @@ def test_host_sources_built_only_by_their_builder():
         rel = os.path.relpath(path, os.path.join(ROOT, "kajiya_tpu_torch"))
         for src in named:
             assert builders[src] == rel, (src, rel)
-    from kajiya_tpu_torch.scene import jpeg
+    from kajiya_tpu_torch.scene import dds, jpeg
 
     assert jpeg.ENCODER_SOURCE == os.path.join(_native.CSRC,
                                                "jpeg_encoder.cpp")
-    assert jpeg.BUILD_DIR == _native.BUILD_DIR == bvh.BUILD_DIR
+    assert jpeg.DECODER_SOURCE == os.path.join(_native.CSRC,
+                                               "jpeg_decoder.cpp")
+    assert dds.BCN_SOURCE == os.path.join(_native.CSRC, "bcn_decoder.cpp")
+    assert (jpeg.BUILD_DIR == _native.BUILD_DIR == bvh.BUILD_DIR
+            == dds.BUILD_DIR)
 
 
 @pytest.mark.parametrize("kernel", ["brute", "culled", "warp", "tile_shift",

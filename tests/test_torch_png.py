@@ -1,8 +1,8 @@
 """The port's PNG decoder and encoder (`kajiya_tpu_torch/scene/png.py`)
 against PIL, which the JAX package decodes textures with: every supported
 colour type and bit depth, each row filter and a mix of them, image data
-over several IDAT chunks, tRNS, and corrupt or unsupported files. Tolerance:
-byte for byte (PIL's `Image.open(...).convert("RGBA")`)."""
+over several IDAT chunks, tRNS, 16-bit samples, Adam7 interlacing, and
+corrupt or unsupported files. Tolerance: byte for byte (PIL's `Image.open(...).convert("RGBA")`)."""
 import io
 import struct
 import zlib
@@ -191,20 +191,123 @@ def test_corrupt_data_raises(case):
 
 @pytest.mark.parametrize("case", ["grey16", "rgb16", "rgba16", "interlaced"])
 def test_unported_png_raises(case):
-    """16-bit samples and Adam7 interlacing are not decoded: they raise
-    NotImplementedError (PIL decodes them), never a white texture."""
+    """16-bit samples and Adam7 interlacing, which the decoder once refused,
+    now decode to PIL's bytes, directly and through the bake (never a
+    NotImplementedError, never a white texture)."""
     rng = np.random.default_rng(4)
     ctype, depth, interlace = {"grey16": (0, 16, 0), "rgb16": (2, 16, 0),
                                "rgba16": (6, 16, 0),
                                "interlaced": (2, 8, 1)}[case]
-    data = raw_png(rng.integers(0, 1 << depth, (H, W, CHANNELS[ctype])),
-                   depth, ctype, 0, interlace=interlace)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        decode_png(data)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        textures.bake_texture_pages(
-            ["data:image/png;base64," + __import__("base64").b64encode(
-                data).decode()])
+    samples = rng.integers(0, 1 << depth, (H, W, CHANNELS[ctype]))
+    data = (adam7_png(samples, depth, ctype) if interlace
+            else raw_png(samples, depth, ctype, 0))
+    np.testing.assert_array_equal(decode_png(data), _pil(data))
+    atlas, sub = textures.bake_texture_pages(
+        ["data:image/png;base64," + __import__("base64").b64encode(
+            data).decode()])
+    page, size, ox, oy = sub[1]
+    want = np.asarray(Image.fromarray(_pil(data)).resize((128, 128),
+                                                         Image.LANCZOS))
+    np.testing.assert_array_equal(atlas[page, oy:oy + size, ox:ox + size],
+                                  want)
+
+
+def adam7_png(samples, depth, ctype, plte=None, trns=None):
+    """An Adam7-interlaced PNG of (H, W, C) samples: each pass's sub-image
+    filtered and packed as raw_png packs a whole image (filters cycled per
+    row), the passes' rows concatenated into one zlib stream."""
+    h, w, _ = samples.shape
+    passes = []
+    for x0, y0, dx, dy in ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8),
+                           (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+                           (0, 1, 1, 2)):
+        sub = samples[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        one = raw_png(sub, depth, ctype, filters=(0, 1, 2, 3, 4))
+        i = one.index(b"IDAT")
+        n = struct.unpack(">I", one[i - 4:i])[0]
+        passes.append(zlib.decompress(one[i + 4:i + 4 + n]))
+    out = PNG_SIGNATURE + _chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, depth, ctype, 0, 0, 1))
+    if plte is not None:
+        out += _chunk(b"PLTE", plte)
+    if trns is not None:
+        out += _chunk(b"tRNS", trns)
+    return (out + _chunk(b"IDAT", zlib.compress(b"".join(passes)))
+            + _chunk(b"IEND", b""))
+
+
+ALL_FORMATS = [(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16),
+               (3, 1), (3, 2), (3, 4), (3, 8), (4, 8), (4, 16), (6, 8),
+               (6, 16)]
+
+
+@pytest.mark.parametrize("ctype,depth", ALL_FORMATS,
+                         ids=[f"c{c}d{d}" for c, d in ALL_FORMATS])
+@pytest.mark.parametrize("size", [(1, 1), (5, 3), (11, 13), (17, 9)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_adam7_matches_pil(ctype, depth, size):
+    """Adam7 at every colour type and depth, at sizes where some passes are
+    empty (1x1, 5x3) or partial: PIL's bytes."""
+    rng = np.random.default_rng(ctype * 100 + depth)
+    h, w = size
+    samples = rng.integers(0, 1 << depth, (h, w, CHANNELS[ctype]))
+    plte = (rng.integers(0, 256, 3 << depth, dtype=np.uint8).tobytes()
+            if ctype == 3 else None)
+    data = adam7_png(samples, depth, ctype, plte=plte)
+    np.testing.assert_array_equal(decode_png(data), _pil(data))
+    flat = raw_png(samples, depth, ctype, filters=(0, 1, 2, 3, 4), plte=plte)
+    np.testing.assert_array_equal(decode_png(data), decode_png(flat))
+
+
+@pytest.mark.parametrize("ctype", [0, 2, 4, 6])
+@pytest.mark.parametrize("filt", FILTERS, ids=str)
+def test_16bit_matches_pil(ctype, filt):
+    """16-bit samples as PIL reads them: colour types 2, 4 and 6 keep the
+    high byte; grey opens as I;16 and convert("RGBA") clamps it (0x1234 ->
+    255, 0x0080 -> 128). The samples hold values below 256 too, so the
+    clamp and the high byte both show."""
+    rng = np.random.default_rng(ctype + 40)
+    s = rng.integers(0, 1 << 16, (H, W, CHANNELS[ctype]))
+    s[::2] >>= 8                      # every other row below 256
+    filters = (0, 1, 2, 3, 4) if filt == "mixed" else filt
+    data = raw_png(s, 16, ctype, filters)
+    got = decode_png(data)
+    np.testing.assert_array_equal(got, _pil(data))
+    if ctype == 0:
+        np.testing.assert_array_equal(got[..., 0], np.minimum(s[..., 0], 255))
+    else:
+        np.testing.assert_array_equal(got[..., 0], s[..., 0] >> 8)
+
+
+@pytest.mark.parametrize("case", ["grey16_low", "grey16_clamped",
+                                  "grey16_high", "rgb16_high_bytes",
+                                  "rgb16_full_key", "rgb16_low_bytes",
+                                  "grey8_wide_key", "adam7_rgb"])
+def test_16bit_transparency_matches_pil(case):
+    """tRNS at 16 bits, as PIL reads it: the key's low byte against the
+    converted 8-bit value (the clamped grey, the RGB high bytes)."""
+    grey = np.array([[[0x1234], [0x0080], [0x00FF], [0x0100], [0x0034],
+                      [0xFFFF]]])
+    rgb = np.array([[[0x1234, 0x0012, 0x0056], [0x1200, 0x3400, 0x5600],
+                     [0x12, 0x34, 0x56], [0x1234, 0x3456, 0x5678]]])
+    ctype, depth, s, key = {
+        "grey16_low": (0, 16, grey, (0x0080,)),
+        "grey16_clamped": (0, 16, grey, (0x00FF,)),
+        "grey16_high": (0, 16, grey, (0x0034,)),
+        "rgb16_high_bytes": (2, 16, rgb, (0x12, 0x34, 0x56)),
+        "rgb16_full_key": (2, 16, rgb, (0x1234, 0x3456, 0x5678)),
+        "rgb16_low_bytes": (2, 16, rgb, (0x1200, 0x3400, 0x5600)),
+        "grey8_wide_key": (0, 8, np.array([[[0x12], [0x34]]]), (0x134,)),
+        "adam7_rgb": (2, 16, np.tile(rgb, (5, 3, 1)), (0x12, 0x34, 0x56)),
+    }[case]
+    trns = struct.pack(f">{len(key)}H", *key)
+    data = (adam7_png(s, depth, ctype, trns=trns) if case.startswith("adam7")
+            else raw_png(s, depth, ctype, trns=trns))
+    got = decode_png(data)
+    np.testing.assert_array_equal(got, _pil(data))
+    assert (got[..., 3] == 0).any() != (case == "rgb16_full_key")
 
 
 @pytest.mark.parametrize("head", [b"\xff\xd8\xff\xe0\0\x10JFIF\0",
@@ -212,10 +315,19 @@ def test_unported_png_raises(case):
                                   b"BM\x36\0\0\0", b"RIFF\0\0\0\0WEBPVP8 ",
                                   b"II*\0\x08\0\0\0"])
 def test_undecoded_formats_raise(tmp_path, head):
-    """JPEG, DDS, GIF, BMP, WebP and TIFF raise through the bake:
-    a missing decoder never passes as a white texture."""
+    """A JPEG and a DDS head followed by zeros are corrupt files PIL
+    refuses: the bake turns them white, as the JAX package's does. GIF,
+    BMP, WebP and TIFF, which PIL opens and the port does not decode, raise
+    through the bake: a missing decoder never passes as a white texture."""
     p = tmp_path / "img.bin"
     p.write_bytes(head + b"\0" * 64)
+    if head[:3] in (b"\xff\xd8\xff", b"DDS"):
+        with pytest.raises(Exception):
+            _pil(p.read_bytes())
+        atlas, sub = textures.bake_texture_pages([str(p)])
+        page, size, ox, oy = sub[1]
+        assert (atlas[page, oy:oy + size, ox:ox + size] == 255).all()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         textures.bake_texture_pages([str(p)])
 
@@ -237,6 +349,24 @@ def test_encoder_roundtrip_through_pil(channels, filt):
     got = np.frombuffer(raw, np.uint8).reshape(H, -1)[:, 0]
     want = np.resize(np.atleast_1d(filters), H)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3, 4])
+def test_encoder_16bit_roundtrip_through_pil(channels):
+    """uint16 images encode as 16-bit PNGs (the mixed-format city's
+    emissive map): PIL reads back the high bytes, the port's decoder gives
+    PIL's bytes, and the raw samples survive the row filters."""
+    rng = np.random.default_rng(channels + 20)
+    img = rng.integers(0, 1 << 16, (H, W, channels), dtype=np.uint16)
+    data = encode_png(img, filters=(0, 1, 2, 3, 4), idat_bytes=31)
+    assert data[24] == 16
+    np.testing.assert_array_equal(decode_png(data), _pil(data))
+    z = zlib.decompress(b"".join(
+        data[i + 4:i + 4 + struct.unpack(">I", data[i - 4:i])[0]]
+        for i in range(len(data)) if data[i:i + 4] == b"IDAT"))
+    assert len(z) == H * (1 + W * channels * 2)
+    if channels in (2, 4):          # alpha: the last sample's high byte
+        np.testing.assert_array_equal(_pil(data)[..., 3], img[..., -1] >> 8)
 
 
 def test_decode_large_mixed_filters_is_fast():

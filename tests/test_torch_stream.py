@@ -20,6 +20,7 @@ edge, and JAX's compiled frame differs there from its own eager frame
 (11 of the 768 pixels above 1e-3 in `shadow` and `final`), while the
 port's equals the eager one (0 pixels)."""
 import json
+import time
 import urllib.error
 import urllib.request
 from dataclasses import replace
@@ -98,7 +99,18 @@ def test_http_endpoints():
         return urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
                                       timeout=timeout).read()
 
+    def wait_for(cond, what, seconds=30.0):
+        """The render thread runs beside the server: poll until `cond`
+        holds (both viewers answer /snap with 503 before the first frame,
+        and apply /set between frames)."""
+        deadline = time.monotonic() + seconds
+        while not cond():
+            assert time.monotonic() < deadline, f"no {what} in {seconds} s"
+            time.sleep(0.01)
+
     try:
+        wait_for(lambda: json.loads(get("/status"))["frames"] >= 1,
+                 "first frame")
         snap = get("/snap")
         assert snap[:4] == b"\x89PNG"
         from kajiya_tpu_torch.scene.png import decode_png
@@ -150,6 +162,9 @@ def test_http_endpoints():
         st = json.loads(get("/status"))
         assert st["encode"]["jpeg"]["bytes"] > 0
         # the config change was applied between frames, with a rebuild
+        wait_for(lambda: (r.cfg.use_rtr, r.cfg.roughness_scale,
+                          r.cfg.ev_shift) == (False, 0.5, 1.5),
+                 "config applied after /set")
         assert r.rebuilds >= 1 and r.cfg.use_rtr is False
         assert r.cfg.roughness_scale == 0.5 and r.cfg.ev_shift == 1.5
     finally:

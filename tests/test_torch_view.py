@@ -149,18 +149,31 @@ def _scene_with_texture(tmp_path, name, head):
                                   ["--scene", "mesh.gltf"],
                                   ["--scene", "anim.gltf"]])
 def test_view_refuses_unported_inputs(tmp_path, argv):
-    """What the viewer still refuses: a .ron scene whose texture is a JPEG,
-    a .gltf whose texture is a DDS and one whose texture is a GIF (formats
-    the port cannot decode yet: they raise rather than turn white).
-    (`--watch`, refused here until hot reload was ported, is
+    """What the viewer refuses, and what it bakes white as JAX does: a .ron
+    scene whose texture is a JPEG head followed by zeros and a .gltf whose
+    texture is such a DDS head are corrupt files PIL refuses too, so they
+    render with a white texture; a .gltf whose texture is a GIF (a format
+    PIL opens and the port cannot decode yet) raises rather than turn
+    white. (`--watch`, refused here until hot reload was ported, is
     test_view_watch_reloads.)"""
+    import io
+
+    from PIL import Image
+
     head = {"scene.ron": b"\xff\xd8\xff\xe0", "mesh.gltf": b"DDS ",
             "anim.gltf": b"GIF89a"}[argv[1]]
+    out = tmp_path / "x.png"
     argv = ["--scene", _scene_with_texture(tmp_path, argv[1], head)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        view_app.main(argv + ["--device", "cpu", "--width", "8",
-                              "--height", "8", "-o",
-                              str(tmp_path / "x.png")])
+    run = argv + ["--device", "cpu", "--width", "8", "--height", "8", "-o",
+                  str(out)]
+    if head == b"GIF89a":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            view_app.main(run)
+        return
+    with pytest.raises(Exception):
+        Image.open(io.BytesIO(head + b"\0" * 64)).convert("RGBA")
+    view_app.main(run)
+    assert view_app.read_png_header(str(out))[:2] == (8, 8)
 
 
 @pytest.mark.parametrize("name", ["scene.ron", "mesh.gltf"])

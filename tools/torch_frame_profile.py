@@ -176,7 +176,7 @@ def main():
     write_panorama(ibl)
     names = tuple(filter(None, args.scenes.split(",")))
     if args.path == "textured":
-        SCENES.update(asset_scenes(tmp))
+        SCENES.update(asset_scenes(tmp)[0])
         names = PATH_SCENES["textured"]
     for name in names:
         rep = profile_scene(name, args.frames, args.path, ibl)
