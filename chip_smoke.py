@@ -46,8 +46,24 @@ live viewer (`apps.stream` on the city at 1920x1080: /snap, MJPEG parts of
 emissive multiplier on a cornell server), `apps.hello`, and hot reload
 (`core/reload.py` in a copy of the package: a pass module and kernel W's
 source edited, the kernel library rebuilt and W held to its plain
-version). Prints one JSON line of per-kernel numbers; the last line is
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
+version). Last, the sharded phase (kajiya_tpu_torch/parallel/): four ranks
+started with torch.multiprocessing share the card over gloo (NCCL refuses
+two ranks on one card; each rank's bands of CUDA tensors are staged through
+pinned host buffers), rank 0 builds each scene and `distribute_scene` sends
+it to the others (bit for bit, by digest), and they render 2 tile-sharded
+frames of the GI path at 1920x1080 on cornell (kernel B) and on the city
+(kernel C) in bands of 272, 272, 272 and 264 rows, each rank launching B or
+C, W and S; the gathered outputs and every state plane are held to the same
+frames on the whole card at GI_FRAME_TOL (state planes relative to
+max(1, |value|)), and the frames' collective log to
+`check_sharding_quality`; one (2, 2) multi-host frame of the city is held to
+the four-tile frame, and the city's 1080p camera rays through
+`shard_rays_pt` (16 bounces) to `path_trace`. A rank that fails fails the
+run with its traceback. Prints one JSON line of the sharded phase (backend,
+bands, frame ms per rank and on the whole card, collective counts and bytes
+per kind, inter-host bytes, wall time) and one of per-kernel numbers; the
+last line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
+"count": 1}}.
 Any failed check raises, so the exit code is not 0 and no result is printed.
 Needs a CUDA device; imports nothing of JAX.
 """
@@ -953,6 +969,18 @@ def warp_phase(dev):
                 raise AssertionError(f"warp/{case}: max error {err}")
             cases.append(dict(case=case, pixels=37 * 333, channels=c,
                               frame_call=False, max_abs_err=err))
+    # the sharded frame's calls: a band's uv (the second of four 1080p
+    # bands, 272 rows) into a gathered whole-frame source
+    uv = torch.rand((272, WIDTH, 2), generator=g, device=dev)
+    for c, bilinear in ((1, False), (4, True)):
+        img = torch.rand((HEIGHT, WIDTH, c), generator=g, device=dev)
+        case = f"band_{'bilinear' if bilinear else 'nearest'}_c{c}"
+        err = float((warp_cuda.warp_launch(img, uv, bilinear)
+                     - warp_cuda.warp_plain(img, uv, bilinear)).abs().max())
+        if not err <= WARP_TOL:
+            raise AssertionError(f"warp/{case}: max error {err}")
+        cases.append(dict(case=case, pixels=272 * WIDTH, channels=c,
+                          frame_call=False, max_abs_err=err))
     log("warp check-only cases: max error",
         max(x["max_abs_err"] for x in cases))
     for case, img, uv, bilinear in warp_inputs(dev):
@@ -1017,9 +1045,19 @@ def tileshift_phase(dev):
     nty, ntx = tsc.tile_grid(45, 200)
     wild = torch.randint(-200, 201, (2, nty * ntx), generator=g, device=dev,
                          dtype=torch.int32)
+    # the sharded frame's call: the second of four 1080p bands (half-res
+    # rows [136, 272)) with 12 halo rows each side and 4 zero rows above,
+    # which start the window on the tile grid (rows 120-284), and the
+    # offsets of its tiles
+    nty_f, ntx_f = tsc.tile_grid(hh, hw)
+    t0 = 120 // tsc.TH
+    win_tiles = slice(t0, t0 + tsc.tile_grid(164, hw)[0])
+    band_dy, band_dx = (o.reshape(-1, nty_f, ntx_f)[6, win_tiles].reshape(-1)
+                        .contiguous() for o in (dy_s, dx_s))
     cases = []
     for case, shape, dy, dx in (
             ("restir_plane_c20", (hh, hw, 20), dy_s[6], dx_s[6]),
+            ("restir_band_window_c20", (164, hw, 20), band_dy, band_dx),
             ("ragged_clipped_c20", (45, 200, 20), wild[0], wild[1]),
             ("ragged_2d", (45, 200), wild[1], wild[0])):
         img = torch.randn(shape, generator=g, device=dev)
@@ -1031,7 +1069,10 @@ def tileshift_phase(dev):
             raise AssertionError(f"tile_shift/{case}: differs from the plain "
                                  f"gather, max error {err}")
         if case != "restir_plane_c20":
-            continue        # the small shapes are checks, not frame calls
+            # the band window and the small shapes are checks only
+            cases.append(dict(case=case, shape=list(shape), max_abs_err=err,
+                              frame_call=False))
+            continue
         if int(dy.abs().max()) == 0 and int(dx.abs().max()) == 0:
             raise AssertionError("tile_shift: the frame's offsets are all 0")
         bytes_moved = 2 * img.numel() * 4 + 2 * dy.numel() * 4
@@ -2054,6 +2095,280 @@ def watch_phase(tmp):
     return res
 
 
+# ----------------------------------------------------------------------------
+# The sharded phase: the tile-sharded GI frame, the multi-host layout, the
+# sample-sharded path tracer and the scene distribution, on SHARDED_RANKS
+# ranks sharing the card over gloo
+# ----------------------------------------------------------------------------
+
+SHARDED_RANKS = 4
+SHARDED_FRAMES = 2
+SHARDED_SCENES = ("cornell", "city")
+SHARDED_BACKEND = "gloo"    # NCCL refuses two ranks on one card
+SHARDED_KEYS = FRAME_KEYS["gi"]
+
+
+def within(a, b, tols, relative=False):
+    """(fraction of elements within tols[0], mean abs difference, ok) of a
+    against b; `relative` scales the difference by max(1, |b|) (state
+    planes that hold world positions and reservoir weights)."""
+    tol, min_frac, max_mean = tols
+    d = (a.float() - b.float()).abs()
+    if relative:
+        d = d / torch.clamp(b.float().abs(), min=1.0)
+    frac = float((d <= tol).float().mean()) if d.numel() else 1.0
+    mean = float(d.mean()) if d.numel() else 0.0
+    ok = bool(torch.isfinite(a.float()).all()) and frac >= min_frac \
+        and mean <= max_mean
+    return frac, mean, ok
+
+
+def scene_digest(tree):
+    """sha256 over the bytes of every tensor of a scene tree, field order."""
+    import hashlib
+
+    from kajiya_tpu_torch.parallel.mesh import _skeleton
+
+    leaves = []
+    _skeleton(tree, leaves)
+    h = hashlib.sha256()
+    for t in leaves:
+        h.update(repr((tuple(t.shape), t.dtype)).encode())
+        if t.numel():
+            h.update(t.detach().cpu().contiguous().view(-1)
+                     .view(torch.uint8).numpy().tobytes())
+    return h.hexdigest(), len(leaves)
+
+
+def sharded_rank(mesh_args, out_dir, device="cuda", size=(WIDTH, HEIGHT)):
+    """One rank of the sharded phase (started by `parallel.launch.spawn`).
+    Per scene: rank 0 builds the scene and `distribute_scene` sends it to
+    the others (held bit for bit by digest); SHARDED_FRAMES tile-sharded
+    frames of the GI path (launch counters set to 0 just before, read just
+    after; each frame's collectives logged); the gathered outputs and state;
+    on the city one (2, 2) multi-host frame; rank 0 then renders the same
+    frames on the whole card and holds the gathered ones to them. Last, the
+    city's 1080p camera rays through `shard_rays_pt` (16 bounces), held by
+    rank 0 to `path_trace`. Each rank writes rank<r>.json to out_dir."""
+    import torch.distributed as dist
+
+    from kajiya_tpu_torch.core.camera import camera_rays
+    from kajiya_tpu_torch.frame import init_frame_state, render_frame
+    from kajiya_tpu_torch.ops import _native
+    from kajiya_tpu_torch.parallel import (check_sharding_quality,
+                                           collective_summary,
+                                           distribute_scene, make_mesh,
+                                           make_multihost_mesh,
+                                           render_frame_multihost,
+                                           render_frame_sharded,
+                                           shard_rays_pt)
+    from kajiya_tpu_torch.parallel.mesh import gather_frame
+    from kajiya_tpu_torch.renderers.reference import path_trace
+    from kajiya_tpu_torch.scene import procedural
+    from kajiya_tpu_torch.scene.scene import build_gpu_scene
+    from kajiya_tpu_torch.world import build_trace_scene
+
+    rank = mesh_args[0]
+    dev = torch.device(device)
+    width, height = size
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    t_start = time.perf_counter()
+    if dev.type == "cuda":
+        _native.library()
+    mesh = make_mesh(device=dev)
+    multi = make_multihost_mesh(shape=(2, 2), device=dev)
+    band = mesh.band(height, width)
+    res = {"rank": rank, "backend": mesh.backend, "band_rows": band.rows,
+           "multihost_shape": multi.shape, "scenes": {}}
+    failed = []
+    cfg = slice_cfg(width, height, "gi")
+    ts_city = None
+    for name in SHARDED_SCENES:
+        make, eye, fwd, step = SCENES[name]
+        t0 = time.perf_counter()
+        ts0 = None
+        if rank == 0:
+            ts0 = build_trace_scene(build_gpu_scene(make(procedural),
+                                                    device=dev),
+                                    device=dev)[0]
+        ts = distribute_scene(ts0, mesh)
+        sync()
+        dist_s = time.perf_counter() - t0
+        digests = mesh.comm.gather_objects(scene_digest(ts))
+        if rank == 0 and digests != [scene_digest(ts0)] * mesh.size:
+            failed.append(f"{name}: distribute_scene digests {digests}")
+        vs = views(eye, fwd, step, SHARDED_FRAMES, width, height, dev)
+        st = init_frame_state(cfg, device=dev)
+        _native.reset_launches()
+        times, logs, first = [], [], None
+        for v in vs:
+            dist.barrier()
+            sync()
+            t0 = time.perf_counter()
+            with mesh.comm.recording() as log:
+                st, out = render_frame_sharded(ts, st, v, cfg, None, mesh)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+            logs.append(log)
+            if first is None:
+                first = {k: out[k] for k in SHARDED_KEYS}
+        launches = dict(_native.launches)
+        need = ("woop_brute" if route_of(ts) == "brute" else "woop_culled",
+                "warp", "tile_shift")
+        short = [k for k in need if launches[k] <= 0 and dev.type == "cuda"]
+        if short:
+            failed.append(f"{name}: rank {rank} never launched {short}")
+        merged = [e for part in mesh.comm.gather_objects(
+            [e for log in logs for e in log]) for e in part]
+        summary, problems = check_sharding_quality(merged, height, width)
+        if problems or "halo" not in summary:
+            failed.append(f"{name}: sharding quality {problems} {summary}")
+        whole = gather_frame({"out": {k: out[k] for k in SHARDED_KEYS},
+                              "state": st, "first": first}, mesh, height,
+                             width)
+        entry = dict(frame_ms=times, median_ms=statistics.median(times),
+                     launches=launches, distribute_s=dist_s,
+                     tensors=digests[0][1],
+                     collectives=collective_summary(merged),
+                     collectives_per_frame=len(merged) // len(logs))
+        if name == "city":
+            ts_city = ts
+            with multi.comm.recording() as mlog:
+                _st, mout = render_frame_multihost(
+                    ts, init_frame_state(cfg, device=dev), vs[0], cfg, None,
+                    multi)
+            mfinal = gather_frame(mout["final"], multi, height, width)
+            merged_m = [e for part in multi.comm.gather_objects(list(mlog))
+                        for e in part]
+            entry["multihost"] = dict(
+                collectives=collective_summary(merged_m),
+                inter_host_bytes=sum(e.inter_host_bytes for e in merged_m))
+            if rank == 0:
+                frac, mean, ok = within(mfinal, whole["first"]["final"],
+                                        GI_FRAME_TOL)
+                entry["multihost"].update(
+                    bit_exact=bool(torch.equal(mfinal,
+                                               whole["first"]["final"])),
+                    frac=frac, mean=mean)
+                if not ok:
+                    failed.append(f"{name}: multi-host frame vs 4 tiles frac "
+                                  f"{frac} mean {mean}")
+        if rank == 0:
+            # the same frames on the whole card, timed, held to the bands
+            st1 = init_frame_state(cfg, device=dev)
+            single_ms = []
+            for v in vs:
+                sync()
+                t0 = time.perf_counter()
+                st1, out1 = render_frame(ts, st1, v, cfg)
+                sync()
+                single_ms.append((time.perf_counter() - t0) * 1e3)
+            cmp, exact = {}, 0
+            pairs = [(f"out/{k}", whole["out"][k], out1[k], False)
+                     for k in SHARDED_KEYS]
+            pairs += [(f"state/{k}", whole["state"][k], st1[k], True)
+                      for k in st1]
+            for key, a, b, rel in pairs:
+                if tuple(a.shape) != tuple(b.shape):
+                    failed.append(f"{name}/{key}: shape {tuple(a.shape)} vs "
+                                  f"{tuple(b.shape)}")
+                    continue
+                exact += int(torch.equal(a, b))
+                frac, mean, ok = within(a, b, GI_FRAME_TOL, relative=rel)
+                cmp[key] = (frac, mean)
+                if not ok:
+                    failed.append(f"{name}/{key}: sharded vs whole card frac "
+                                  f"{frac} mean {mean}")
+            entry.update(single_frame_ms=single_ms,
+                         single_median_ms=statistics.median(single_ms),
+                         planes_bit_exact=exact, planes=len(pairs),
+                         worst=min(cmp.items(), key=lambda kv: kv[1][0]))
+        dist.barrier()
+        res["scenes"][name] = entry
+        del ts, ts0, st, whole
+    # the sample-sharded path tracer on the city's 1080p camera rays
+    v = views(*SCENES["city"][1:], 1, width, height, dev)[0]
+    org, d = camera_rays(v, width, height)
+    org, d = org.reshape(-1, 3), d.reshape(-1, 3)
+    seed = torch.arange(org.shape[0], dtype=torch.int64, device=dev)
+    dist.barrier()
+    sync()
+    t0 = time.perf_counter()
+    rad = shard_rays_pt(ts_city, org, d, seed, mesh, num_bounces=PT_BOUNCES)
+    sync()
+    pt = {"sharded_ms": (time.perf_counter() - t0) * 1e3}
+    if rank == 0:
+        sync()
+        t0 = time.perf_counter()
+        ref = path_trace(ts_city, org, d, seed, num_bounces=PT_BOUNCES)
+        sync()
+        frac, mean, ok = within(rad, ref, PT_FRAME_TOL)
+        pt.update(single_ms=(time.perf_counter() - t0) * 1e3,
+                  bit_exact=bool(torch.equal(rad, ref)),
+                  rays_differing=int((rad != ref).any(dim=-1).sum()),
+                  frac=frac, mean=mean)
+        if not ok:
+            failed.append(f"shard_rays_pt vs path_trace frac {frac} "
+                          f"mean {mean}")
+    res["pt"] = pt
+    res["wall_s"] = time.perf_counter() - t_start
+    res["failed"] = failed
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
+def sharded_phase():
+    """SHARDED_RANKS ranks of `sharded_rank` on the one card, started with
+    `parallel.launch.spawn` over gloo; a rank that fails fails the phase
+    with its traceback."""
+    from kajiya_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    launch.spawn(sharded_rank, SHARDED_RANKS, args=(out_dir,),
+                 backend=SHARDED_BACKEND, timeout_s=600)
+    ranks = []
+    for r in range(SHARDED_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    r0 = ranks[0]
+    result = {
+        "backend": r0["backend"], "ranks": SHARDED_RANKS,
+        "band_rows": r0["band_rows"], "wall_s": time.perf_counter() - t0,
+        "scenes": {name: {
+            "median_frame_ms_per_rank": [r["scenes"][name]["median_ms"]
+                                         for r in ranks],
+            "frame_ms_per_rank": [r["scenes"][name]["frame_ms"]
+                                  for r in ranks],
+            "launches_per_rank": [r["scenes"][name]["launches"]
+                                  for r in ranks],
+            **{k: r0["scenes"][name][k] for k in (
+                "collectives", "collectives_per_frame", "single_frame_ms",
+                "single_median_ms", "planes_bit_exact", "planes", "worst",
+                "distribute_s", "tensors")},
+            **({"multihost": r0["scenes"][name]["multihost"]}
+               if "multihost" in r0["scenes"][name] else {})}
+            for name in SHARDED_SCENES},
+        "pt": {**r0["pt"], "sharded_ms_per_rank": [r["pt"]["sharded_ms"]
+                                                   for r in ranks]},
+    }
+    for name in SHARDED_SCENES:
+        s = result["scenes"][name]
+        log(f"sharded/{name}: backend {result['backend']}, bands "
+            f"{result['band_rows']}, median frame ms per rank "
+            f"{s['median_frame_ms_per_rank']} (whole card "
+            f"{s['single_median_ms']:.1f}), {s['planes_bit_exact']} of "
+            f"{s['planes']} planes bit for bit, worst {s['worst']}, "
+            f"collectives {s['collectives']}")
+    log(f"sharded/pt: {result['pt']}")
+    log(f"sharded phase wall {result['wall_s']:.1f} s")
+    return result
+
+
 def kernel_entry(name, source, replaces, cases, launches, library):
     """One JSON entry per kernel: the sum over its cases (one launch at each
     shape the frame gives it; a case marked `frame_call=False` is listed but
@@ -2149,10 +2464,13 @@ def main():
     apps = {"stream": stream_phase(tmp), "hello": hello_phase(tmp),
             "watch": watch_phase(tmp)}
     shutil.rmtree(tmp, ignore_errors=True)
+    sharded = sharded_phase()
 
     def launched(kernel):
         n = sum(frames[p][sc]["launches"][kernel]
                 for p in frames for sc in frames[p])
+        n += sum(per_rank[kernel] for sc in sharded["scenes"].values()
+                 for per_rank in sc["launches_per_rank"])
         if n <= 0:
             raise AssertionError(f"{kernel} was never launched by a frame")
         return n
@@ -2180,7 +2498,8 @@ def main():
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "wall_s": wall_s, "kernels": kernels,
                    "frames": frames, "oracle": oracle, "viewer": viewer,
-                   "apps": apps, "formats": formats}, f, indent=1)
+                   "apps": apps, "formats": formats, "sharded": sharded}, f,
+                  indent=1)
     print(json.dumps({"frames": {
         path: {k: {"median_ms": v["median_ms"], "frame_ms": v["frame_ms"],
                    "tris": v["tris"], "launches": v["launches"],
@@ -2201,6 +2520,7 @@ def main():
             "jpeg_encode_ms_here", "snap_png_bytes", "seconds")},
         "watch_poll_s": apps["watch"]["poll_s"],
         "wall_s": wall_s}), flush=True)
+    print(json.dumps({"sharded": sharded}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

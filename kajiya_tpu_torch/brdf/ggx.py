@@ -199,10 +199,24 @@ def env_brdf_approx(roughness, ndotv):
     return out[..., 0], out[..., 1]
 
 
-def preintegrated_specular(f0, roughness, ndotv):
-    """Split-sum specular reflectance E[f_spec] for (f0, roughness, ndotv)."""
-    scale, bias = env_brdf_approx(roughness, ndotv)
-    return f0 * scale[..., None] + bias[..., None]
+def preintegrated_specular(f0, roughness, ndotv, use_lut: bool = False):
+    """Split-sum specular reflectance E[f_spec] for (f0, roughness, ndotv):
+    the polynomial fit by default, or with `use_lut` a bilinear lookup in
+    the integrated table (`fg_lut`) that the fit approximates."""
+    if not use_lut:
+        scale, bias = env_brdf_approx(roughness, ndotv)
+        return f0 * scale[..., None] + bias[..., None]
+    lut = fg_lut(roughness.device)
+    ri = torch.clamp(roughness * _FG_RES - 0.5, 0, _FG_RES - 1)
+    vi = torch.clamp(ndotv * _FG_RES - 0.5, 0, _FG_RES - 1)
+    r0 = torch.floor(ri).to(torch.int64)
+    v0 = torch.floor(vi).to(torch.int64)
+    r1 = torch.clamp(r0 + 1, max=_FG_RES - 1)
+    v1 = torch.clamp(v0 + 1, max=_FG_RES - 1)
+    fr, fv = (ri - r0)[..., None], (vi - v0)[..., None]
+    sb = (lut[r0, v0] * (1 - fr) * (1 - fv) + lut[r1, v0] * fr * (1 - fv)
+          + lut[r0, v1] * (1 - fr) * fv + lut[r1, v1] * fr * fv)
+    return f0 * sb[..., 0:1] + sb[..., 1:2]
 
 
 def derive_lobes(base_color, metallic):

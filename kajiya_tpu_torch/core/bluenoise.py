@@ -99,9 +99,10 @@ def _mask_on(k: int, device: torch.device) -> torch.Tensor:
 
 
 def blue_noise_plane(h: int, w: int, frame_idx, stream: int = 0,
-                     device=None):
+                     device=None, y0: int = 0):
     """(h, w) float32 in (0, 1): the blue-noise mask tiled over the screen,
-    shifted by the frame's R2 offset. `stream` decorrelates consumers."""
+    shifted by the frame's R2 offset. `stream` decorrelates consumers. `y0`
+    is the screen row of the plane's first row (a row band's)."""
     bn = _mask_on(stream % _N_MASKS, torch.device(device or "cpu"))
     if stream >= _N_MASKS:
         k = stream // _N_MASKS
@@ -113,12 +114,13 @@ def blue_noise_plane(h: int, w: int, frame_idx, stream: int = 0,
     oy = (off[0] * BN_SIZE).to(torch.int64)
     ox = (off[1] * BN_SIZE).to(torch.int64)
     # roll by (-oy, -ox) then tile: out[i, j] = bn[(i+oy) % N, (j+ox) % N]
-    rows = (torch.arange(h, device=device) + oy) % BN_SIZE
+    rows = (torch.arange(y0, y0 + h, device=device) + oy) % BN_SIZE
     cols = (torch.arange(w, device=device) + ox) % BN_SIZE
     return bn[rows[:, None], cols[None, :]]
 
 
-def blue_noise_pair(h: int, w: int, frame_idx, stream: int = 0, device=None):
+def blue_noise_pair(h: int, w: int, frame_idx, stream: int = 0, device=None,
+                    y0: int = 0):
     """Two decorrelated (h, w) planes: the (u1, u2) of a 2D sample."""
-    return (blue_noise_plane(h, w, frame_idx, 2 * stream, device),
-            blue_noise_plane(h, w, frame_idx, 2 * stream + 1, device))
+    return (blue_noise_plane(h, w, frame_idx, 2 * stream, device, y0),
+            blue_noise_plane(h, w, frame_idx, 2 * stream + 1, device, y0))

@@ -127,14 +127,15 @@ def make_view_constants(position, forward, fov_y_deg: float = 52.0,
         eye_position=_f32(position, dev))
 
 
-def pixel_centers_uv(width: int, height: int, jitter, device):
-    """(H, W, 2) uv in [0,1): pixel centers plus sub-pixel jitter."""
+def pixel_centers_uv(width: int, height: int, jitter, device, band=None):
+    """(H, W, 2) uv in [0,1): pixel centers plus sub-pixel jitter; with
+    `band` (parallel/comm.py), its rows only."""
+    y0, n = (0, height) if band is None else (band.y0, band.n)
     xs = torch.arange(width, dtype=torch.float32, device=device) + 0.5
-    ys = torch.arange(height, dtype=torch.float32, device=device) + 0.5
+    ys = torch.arange(y0, y0 + n, dtype=torch.float32, device=device) + 0.5
     u = (xs[None, :] + jitter[0]) / width
     v = (ys[:, None] + jitter[1]) / height
-    return torch.stack([u.expand(height, width), v.expand(height, width)],
-                       dim=-1)
+    return torch.stack([u.expand(n, width), v.expand(n, width)], dim=-1)
 
 
 def uv_to_clip(uv):
@@ -143,12 +144,13 @@ def uv_to_clip(uv):
 
 
 def camera_rays(view: ViewConstants, width: int, height: int,
-                jitter_px=None):
+                jitter_px=None, band=None):
     """Primary ray origins/directions for every pixel: (org, dir), each
     (H, W, 3). `jitter_px` ((H, W, 2), pixels) adds per-pixel sub-pixel
-    offsets on top of the TAA jitter (the path tracer's pixel filter)."""
+    offsets on top of the TAA jitter (the path tracer's pixel filter).
+    With `band`, the rays of its rows."""
     uv = pixel_centers_uv(width, height, view.sample_offset_pixels,
-                          view.device)
+                          view.device, band)
     if jitter_px is not None:
         uv = uv + jitter_px / const_tensor((float(width), float(height)),
                                            uv.device)

@@ -7,6 +7,14 @@ avoid TPU gathers; on the GPU they are plain strided slices and index
 selects, with the same summation order so float results agree.
 `warp_bilinear` / `warp_nearest` dispatch to the warp kernel
 (ops/warp_cuda.py) for CUDA tensors.
+
+Row bands (parallel/): the stencil helpers and the pixel lattice take an
+optional `band` (parallel/comm.py `Band`, at the image's resolution), the
+image then being that band's rows of the frame's plane. A stencil fetches
+the neighbouring bands' rows it reads (`Band.halo`), runs on that window
+and keeps the band's rows: at the frame's edges the window ends where the
+frame does, so the clamp is the whole frame's. A warp at arbitrary uv
+all-gathers its source. `band=None` is the whole frame, as before.
 """
 from __future__ import annotations
 
@@ -73,27 +81,35 @@ def bilinear_weights_and_indices(img_hw, uv):
     return iy, ix, ww
 
 
-def pixel_uv(h: int, w: int, device=None):
-    """(H, W, 2) pixel-center uv lattice."""
+def pixel_uv(h: int, w: int, device=None, band=None):
+    """(H, W, 2) pixel-center uv lattice of an (h, w) image; with `band`,
+    its rows [band.y0, band.y1)."""
+    y0, n = (0, h) if band is None else (band.y0, band.n)
     u = (torch.arange(w, dtype=torch.float32, device=device) + 0.5) / w
-    v = (torch.arange(h, dtype=torch.float32, device=device) + 0.5) / h
-    return torch.stack([u[None, :].expand(h, w), v[:, None].expand(h, w)],
+    v = (torch.arange(y0, y0 + n, dtype=torch.float32, device=device)
+         + 0.5) / h
+    return torch.stack([u[None, :].expand(n, w), v[:, None].expand(n, w)],
                        dim=-1)
 
 
-def warp_bilinear(img, uv):
+def warp_bilinear(img, uv, band=None):
     """Bilinear sample for local warps (reprojection / temporal fetches):
-    the warp kernel on CUDA, `sample_bilinear` on the CPU."""
+    the warp kernel on CUDA, `sample_bilinear` on the CPU. With `band`, img
+    is the band of the source plane: the whole source is gathered first."""
     from ..ops.warp_cuda import warp2d
 
+    if band is not None:
+        img = band.gather(img, label="warp source")
     return warp2d(img, uv, bilinear=True)
 
 
-def warp_nearest(img, uv, window_rows=None):
+def warp_nearest(img, uv, window_rows=None, band=None):
     """Nearest-sample twin of `warp_bilinear`. `window_rows` (the height of
     the TPU kernel's source window) is accepted and has no meaning here."""
     from ..ops.warp_cuda import warp2d
 
+    if band is not None:
+        img = band.gather(img, label="warp source")
     return warp2d(img, uv, bilinear=False)
 
 
@@ -182,9 +198,15 @@ def upsample_bilinear(img, out_h: int, out_w: int):
     return out[..., 0] if squeeze else out
 
 
-def shift_stack(img, offsets):
+def shift_stack(img, offsets, band=None):
     """All static shifts of `img`, edge-clamped, stacked: (N, H, W[, C]).
-    Tap k is out[k][i, j] = img[clamp(i + dy), clamp(j + dx)]."""
+    Tap k is out[k][i, j] = img[clamp(i + dy), clamp(j + dx)]. With `band`,
+    the rows clamp at the frame's edges (halo rows fetched)."""
+    if band is not None:
+        top = max(0, -min(dy for dy, _ in offsets))
+        bottom = max(0, max(dy for dy, _ in offsets))
+        win, above = band.halo(img, top, bottom)
+        return shift_stack(win, offsets)[:, above:above + img.shape[0]]
     h, w = img.shape[0], img.shape[1]
     dev = img.device
     ys = torch.arange(h, device=dev)
@@ -201,14 +223,14 @@ def shift2d(img, dy: int, dx: int):
     return shift_stack(img, [(dy, dx)])[0]
 
 
-def separable_blur(img, taps):
+def separable_blur(img, taps, band=None):
     """Separable odd-length blur with static weights."""
     r = len(taps) // 2
     wt = const_tensor(tuple(taps), img.device, img.dtype).reshape(
         (-1,) + (1,) * img.ndim)
     sx = shift_stack(img, [(0, i - r) for i in range(len(taps))])
     acc = torch.sum(sx * wt, dim=0)
-    sy = shift_stack(acc, [(i - r, 0) for i in range(len(taps))])
+    sy = shift_stack(acc, [(i - r, 0) for i in range(len(taps))], band)
     return torch.sum(sy * wt, dim=0)
 
 
@@ -226,9 +248,10 @@ def interleave_cols(a, b):
         (a.shape[0], 2 * a.shape[1]) + tuple(a.shape[2:]))
 
 
-def upsample2x_bilinear(img):
-    """Exact 2x bilinear upsample: per-axis phase blend + interleave."""
-    a = shift_stack(img, [(-1, 0), (0, 0), (1, 0)])
+def upsample2x_bilinear(img, band=None):
+    """Exact 2x bilinear upsample: per-axis phase blend + interleave. With
+    `band` (img's), the result is the band's rows of the upsampled plane."""
+    a = shift_stack(img, [(-1, 0), (0, 0), (1, 0)], band)
     r = interleave_rows(0.25 * a[0] + 0.75 * a[1], 0.75 * a[1] + 0.25 * a[2])
     b = shift_stack(r, [(0, -1), (0, 0), (0, 1)])
     return interleave_cols(0.25 * b[0] + 0.75 * b[1],
@@ -284,14 +307,14 @@ def half_to_full_taps(half):
 OFF3X3 = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
 
 
-def local_moments_3x3(img):
+def local_moments_3x3(img, band=None):
     """Per-pixel mean and variance over the 3x3 neighborhood."""
-    s = shift_stack(img, OFF3X3)
+    s = shift_stack(img, OFF3X3, band)
     m1 = s.mean(dim=0)
     m2 = (s * s).mean(dim=0)
     return m1, torch.clamp(m2 - m1 * m1, min=0.0)
 
 
-def minmax_3x3(img):
-    s = shift_stack(img, OFF3X3)
+def minmax_3x3(img, band=None):
+    s = shift_stack(img, OFF3X3, band)
     return s.amin(dim=0), s.amax(dim=0)

@@ -17,6 +17,14 @@ exposure + post. Every option of the JAX `RenderConfig` is ported.
 
 is the reference path tracer's progressive frame (the oracle).
 
+    state', outputs = render_frame(..., band=band)
+
+renders one rank's row band of the frame (parallel/: `band` is a
+`parallel.comm.Band`, the state and outputs are the band's planes); the
+passes fetch what they read outside the band through the band's
+collectives. `check_supported(cfg, sharded=True)` names the options the
+banded frame does not run yet.
+
 PyTorch runs eagerly; there is no jit (docs/port_eager.md). Hot reload
 (`core/reload.py`) swaps edited modules and kernels in; `draw` looks
 `render_frame` up in this module's globals, which a reload refills, so the
@@ -95,9 +103,34 @@ class RenderConfig:
         return int(round(self.height * self.temporal_upsampling))
 
 
-def check_supported(cfg: RenderConfig, ibl_env=None):
+# the options a row-banded frame (parallel/) does not run yet, each with
+# its place in the queue (ROADMAP.md section 1, item 4)
+SHARDED_TODO = (
+    ("use_ircache", "the irradiance cache"),
+    ("use_rtr", "RTR"),
+    ("use_taa", "TAA"),
+    ("use_motion_blur", "motion blur"),
+    ("use_wrc", "the world radiance cache"),
+    ("use_dof", "depth of field"),
+)
+
+
+def check_supported(cfg: RenderConfig, ibl_env=None, sharded: bool = False):
     """Every `RenderConfig` option of the JAX frame and its `ibl_env` are
-    ported: there is nothing to refuse."""
+    ported. The row-banded frame (`sharded`) runs the raster + shadow and
+    diffuse-GI paths; each other option raises NotImplementedError naming
+    its ROADMAP item."""
+    if not sharded:
+        return
+    todo = [what for flag, what in SHARDED_TODO if getattr(cfg, flag)]
+    if cfg.primary != "raster":
+        todo.append("the traced g-buffer")
+    if ibl_env is not None:
+        todo.append("the IBL sky")
+    if todo:
+        raise NotImplementedError(
+            "the sharded frame does not run " + ", ".join(todo) + " yet "
+            "(ROADMAP.md section 1, item 4)")
 
 
 @lru_cache(maxsize=1)
@@ -172,11 +205,14 @@ def pre_exposure(pre_prev, smoothed_ev, use_taa: bool):
 
 
 def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
-                 levels=None, ircache_lookup=None, ibl_env=None):
+                 levels=None, ircache_lookup=None, ibl_env=None, band=None):
     """One frame. Returns (new_state, outputs). `ircache_lookup`, when
     given, replaces the frame's own irradiance cache (which is then left
-    as it is)."""
+    as it is). `band`: render this row band of the frame (parallel/)."""
     h, w = cfg.height, cfg.width
+    if band is not None:
+        check_supported(cfg, ibl_env, sharded=True)
+    rows = h if band is None else band.n        # this frame's rows
     mts = cfg.max_trace_steps
     frame_idx = state["frame_idx"]
     if levels is not None:
@@ -204,8 +240,9 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
     with pass_scope("gbuffer"):
         primary = (gbuffer.raster_gbuffer if cfg.primary == "raster"
                    else gbuffer.raytrace_gbuffer)
+        kw = {} if band is None else {"band": band}
         gb = primary(ts, view, w, h, max_trace_steps=mts,
-                     no_normal_maps=cfg.no_normal_maps)
+                     no_normal_maps=cfg.no_normal_maps, **kw)
     if cfg.force_face_normals:
         gb = dict(gb, normal=gb["geo_normal"])
     if cfg.no_metal:
@@ -216,7 +253,7 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
 
     with pass_scope("reprojection"):
         reproj = reprojection.calculate_reprojection_map(
-            gb, state["prev_depth"], view, near=cfg.near)
+            gb, state["prev_depth"], view, near=cfg.near, band=band)
 
     # --- irradiance cache: allocate from quarter-res (or coarser) surface
     # query points, trace per-entry rays, expose the lookup to every
@@ -252,20 +289,21 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
             ao, ssgi_state = ssgi.ssao_pipeline(
                 gb, view, frame_idx,
                 {"ssao_history": state["ssao_history"]}, reproj,
-                near=cfg.near)
+                near=cfg.near, band=band)
     else:
-        ao = torch.ones((h, w), dtype=torch.float32,
+        ao = torch.ones((rows, w), dtype=torch.float32,
                         device=gb["depth"].device)
         ssgi_state = {"ssao_history": state["ssao_history"]}
 
     if cfg.sun_soft_shadows:
         with pass_scope("shadow_trace"):
-            mask = shadows.trace_sun_shadow_mask(ts, gb, frame_idx)
+            mask = shadows.trace_sun_shadow_mask(ts, gb, frame_idx,
+                                                 band=band)
         with pass_scope("shadow_denoise"):
             shadow, shadow_state = shadows.denoise(
                 mask, {"moments": state["moments"],
                        "history_len": state["history_len"]},
-                reproj, gb, near=cfg.near)
+                reproj, gb, near=cfg.near, band=band)
     else:
         shadow = torch.ones_like(ao)
         shadow_state = {"moments": state["moments"],
@@ -304,6 +342,14 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
         while prev_lit_q.shape[1] >= 960:
             prev_lit_q = im.downsample_2x(prev_lit_q)
             prev_depth_q = im.downsample_nearest(prev_depth_q)
+        if band is not None:
+            # a secondary hit projects anywhere on screen: the reuse source
+            # is gathered whole (one packed plane, at its own resolution)
+            k = w // prev_lit_q.shape[1]
+            src = band.scaled(k).gather(
+                torch.cat([prev_lit_q, prev_depth_q[..., None]], dim=-1),
+                label="screen reuse source")
+            prev_lit_q, prev_depth_q = src[..., :3], src[..., 3]
         shade_kw = dict(prev_lit=prev_lit_q, prev_depth=prev_depth_q,
                         view=view, ircache_lookup=ircache_lookup,
                         max_trace_steps=mts,
@@ -347,7 +393,8 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
         with pass_scope("gi_trace"):
             orgs, dirs, rngs = [], [], []
             if cfg.use_rtdgi:
-                org_c, wi_c, rng_c = rtdgi.candidate_rays(gb_h, frame_idx)
+                org_c, wi_c, rng_c = rtdgi.candidate_rays(
+                    gb_h, frame_idx, None if band is None else band.half())
                 orgs.append(org_c)
                 dirs.append(wi_c)
                 rngs.append(rng_c)
@@ -390,13 +437,13 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
                     restir_state=restir_state if cfg.use_restir_gi else None,
                     secondary_full_shading=cfg.secondary_full_shading,
                     candidates=rtdgi_candidates, invalidity=gi_invalidity,
-                    validated=True)
+                    validated=True, band=band)
             restir_state = restir_state or {}
     else:
         with pass_scope("sky_ambient"):
             dgi = sky_env_mod.sample_env(
                 diffuse_env, gb["normal"].reshape(-1, 3)
-            ).reshape(h, w, 3) * ao[..., None]
+            ).reshape(rows, w, 3) * ao[..., None]
         rtdgi_state = {"rtdgi_history": state["rtdgi_history"],
                        "rtdgi_hist_len": state["rtdgi_hist_len"]}
 
@@ -417,20 +464,25 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
         with pass_scope("sky_refl"):
             refl = sky_env_mod.sample_env(
                 sky_env, _reflect(gb["ray_dir"], gb["normal"]).reshape(-1, 3)
-            ).reshape(h, w, 3)
+            ).reshape(rows, w, 3)
         rtr_state = {k: state[k] for k in rtr.KEYS}
 
     # background sky at quarter res, upsampled (it is smooth)
     with pass_scope("sky_bg"):
         if h % 4 == 0 and w % 4 == 0:
+            dirs_q = im.decimate2(im.decimate2(gb["ray_dir"]))
             sky_q = sky_env_mod.sample_env(
-                sky_env_bg,
-                im.decimate2(im.decimate2(gb["ray_dir"])).reshape(-1, 3)
-            ).reshape(h // 4, w // 4, 3)
-            sky_bg = im.upsample2x_bilinear(im.upsample2x_bilinear(sky_q))
+                sky_env_bg, dirs_q.reshape(-1, 3)
+            ).reshape(dirs_q.shape[0], w // 4, 3)
+            if band is None:
+                sky_bg = im.upsample2x_bilinear(im.upsample2x_bilinear(sky_q))
+            else:
+                sky_bg = im.upsample2x_bilinear(
+                    im.upsample2x_bilinear(sky_q, band.scaled(4)),
+                    band.scaled(2))
         else:
             sky_bg = sky_env_mod.sample_env(
-                sky_env_bg, gb["ray_dir"].reshape(-1, 3)).reshape(h, w, 3)
+                sky_env_bg, gb["ray_dir"].reshape(-1, 3)).reshape(rows, w, 3)
     with pass_scope("deferred"):
         lit = deferred.light_gbuffer(
             gb, shadow, dgi, refl, sky_bg, ts.gpu.sun_radiance,
@@ -485,8 +537,8 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
     with pass_scope("post"):
         exposure, exp_state = post.update_exposure(
             {"smoothed_ev": state["smoothed_ev"]}, lit, dt=cfg.dt,
-            ev_shift=cfg.ev_shift)
-        final = post.post_combine(aa, exposure / pre_mult)
+            ev_shift=cfg.ev_shift, band=band)
+        final = post.post_combine(aa, exposure / pre_mult, band=band)
 
     new_state = {
         "frame_idx": frame_idx + 1,

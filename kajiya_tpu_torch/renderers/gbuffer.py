@@ -42,19 +42,24 @@ def raytrace_gbuffer(ts: TraceScene, view: ViewConstants, width: int,
 
 def raster_gbuffer(ts: TraceScene, view: ViewConstants, width: int,
                    height: int, max_trace_steps=None,
-                   no_normal_maps: bool = False):
-    """Rasterized primary visibility feeding the gbuffer planes."""
+                   no_normal_maps: bool = False, band=None):
+    """Rasterized primary visibility feeding the gbuffer planes (of
+    `band`'s rows of the frame when one is given, parallel/)."""
     from .raster import raster_hit
 
-    _, d = camera_rays(view, width, height)
-    hit = raster_hit(ts, view, width, height, max_trace_steps=max_trace_steps)
+    _, d = camera_rays(view, width, height, band=band)
+    hit = raster_hit(ts, view, width, height, max_trace_steps=max_trace_steps,
+                     band=band)
     return gbuffer_from_hit(ts, view, hit, d.reshape(-1, 3), width, height,
-                            no_normal_maps=no_normal_maps)
+                            no_normal_maps=no_normal_maps,
+                            rows=None if band is None else band.n)
 
 
 def gbuffer_from_hit(ts: TraceScene, view: ViewConstants, hit, df,
-                     width: int, height: int, no_normal_maps: bool = False):
-    """Per-pixel Hit -> gbuffer dict; hit/df flat row-major over pixels."""
+                     width: int, height: int, no_normal_maps: bool = False,
+                     rows: int | None = None):
+    """Per-pixel Hit -> gbuffer dict; hit/df flat row-major over pixels
+    (`rows` of the (height, width) frame, default all)."""
     spread = 0.3 * 2.0 / (view.view_to_clip[1, 1] * height)
     cone_w = spread * torch.where(hit.hit_mask, hit.t, 0.0)
     attrs = hit_attributes(ts, hit, df, no_normal_maps=no_normal_maps,
@@ -79,7 +84,8 @@ def gbuffer_from_hit(ts: TraceScene, view: ViewConstants, hit, df,
     velocity = torch.where(mc, uv_prev - uv_cur, 0.0)
 
     def r(x):
-        return x.reshape((height, width) + tuple(x.shape[1:]))
+        return x.reshape((height if rows is None else rows, width)
+                         + tuple(x.shape[1:]))
 
     return {
         "depth": r(depth),

@@ -1,5 +1,11 @@
 """Post-processing: histogram exposure, glare pyramid, display transform,
-Bezold-Bruecke shift, CAS (port of `kajiya_tpu/renderers/post.py`)."""
+Bezold-Bruecke shift, CAS (port of `kajiya_tpu/renderers/post.py`).
+
+With a row `band` (parallel/), the histogram's counts are summed over the
+ranks (all-reduce: integers below 2^24, exact in float32), the glare
+pyramid's fine levels stay banded while every band halves onto its own rows
+and its coarse levels are gathered whole, and the stencils fetch their halo
+rows."""
 from __future__ import annotations
 
 import math
@@ -15,7 +21,7 @@ HIST_BINS = 256
 EV_MIN, EV_MAX = -16.0, 16.0
 
 
-def luminance_histogram(rgb):
+def luminance_histogram(rgb, band=None):
     """(HIST_BINS,) normalized log2-luminance histogram, metered on an
     8x8-decimated image; cumulative counts via bin-edge comparisons."""
     small = im.decimate2(im.decimate2(im.decimate2(rgb)))
@@ -26,6 +32,8 @@ def luminance_histogram(rgb):
     edges = torch.arange(1, HIST_BINS + 1, dtype=torch.float32,
                          device=rgb.device)
     cum = (q[None, :] < edges[:, None]).sum(dim=1).to(torch.float32)
+    if band is not None:
+        cum = band.all_reduce(cum, label="exposure histogram")
     hist = torch.diff(cum, prepend=cum.new_zeros(1))
     return hist / torch.clamp(hist.sum(), min=1.0)
 
@@ -49,18 +57,20 @@ def init_exposure_state(device=None):
 
 
 def update_exposure(state, lit, dt: float = 1.0 / 60.0, speed: float = 2.5,
-                    ev_shift: float = 0.0):
+                    ev_shift: float = 0.0, band=None):
     """Smoothed dynamic exposure. Returns (exposure_multiplier, new_state)."""
-    target = exposure_from_histogram(luminance_histogram(lit),
+    target = exposure_from_histogram(luminance_histogram(lit, band),
                                      ev_shift=ev_shift)
     t = float(_np.float32(1.0) - _np.exp(_np.float32(-speed * dt)))
     ev = state["smoothed_ev"] + (target - state["smoothed_ev"]) * t
     return torch.exp2(ev), {"smoothed_ev": ev}
 
 
-def glare_pyramid(lit, levels: int = 6):
+def glare_pyramid(lit, levels: int = 6, band=None):
     """Downsample chain with a gaussian prefilter, then reverse accumulate;
     in bfloat16 like the JAX module."""
+    if band is not None:
+        return _glare_pyramid_banded(lit, levels, band)
     x = lit.to(torch.bfloat16)
     mips = [x]
     for _ in range(levels):
@@ -79,8 +89,43 @@ def glare_pyramid(lit, levels: int = 6):
     return acc.to(torch.float32)
 
 
-def _blur3(img):
-    return im.separable_blur(img, (0.25, 0.5, 0.25))
+def _glare_pyramid_banded(lit, levels: int, band):
+    """`glare_pyramid` of a row band: a level stays banded while every
+    band's 2x reduce is that band of the next level (`Band.halvable`);
+    below that the level is gathered whole and the rest of the chain runs
+    on every rank. On the way up a banded accumulator is upsampled on its
+    band where the step is an exact 2x, otherwise gathered."""
+    x, xb = lit.to(torch.bfloat16), band
+    h, w = band.height, band.width
+    mips = [(x, xb, h, w)]
+    for _ in range(levels):
+        if min(h, w) < 4:
+            break
+        if xb is not None and not xb.halvable():
+            x, xb = xb.gather(x, label="glare level"), None
+        x = im.downsample_2x(_blur3(x, xb))
+        xb = None if xb is None else xb.half()
+        h, w = h // 2, w // 2
+        mips.append((x, xb, h, w))
+    acc, acc_b, ah, aw = mips[-1]
+    w6, w4 = (torch.tensor(c, dtype=torch.bfloat16, device=lit.device)
+              for c in (0.6, 0.4))
+    for m, mb, mh, mw in reversed(mips[:-1]):
+        if acc_b is not None and mh == 2 * ah and mw == 2 * aw:
+            up = im.upsample2x_bilinear(acc, acc_b)
+        else:
+            whole = acc if acc_b is None else acc_b.gather(
+                acc, label="glare level")
+            up = im.upsample_bilinear(whole, mh, mw)
+            if mb is not None:
+                up = mb.rows_of(up)
+        acc = _blur3(up.to(torch.bfloat16), mb) * w6 + m * w4
+        acc_b, ah, aw = mb, mh, mw
+    return acc.to(torch.float32)
+
+
+def _blur3(img, band=None):
+    return im.separable_blur(img, (0.25, 0.5, 0.25), band)
 
 
 _OKLAB_M1 = _np.array([[0.4122214708, 0.5363325363, 0.0514459929],
@@ -140,9 +185,9 @@ def tonemap_filmic(x):
     return torch.clamp(out, 0.0, 1.0)
 
 
-def cas_sharpen(img, amount: float = 0.4):
+def cas_sharpen(img, amount: float = 0.4, band=None):
     """Contrast-adaptive sharpening on the tonemapped image."""
-    taps = im.shift_stack(img, [(-1, 0), (1, 0), (0, -1), (0, 1)])
+    taps = im.shift_stack(img, [(-1, 0), (1, 0), (0, -1), (0, 1)], band)
     mn, mx = img, img
     for k in range(4):
         mn = torch.minimum(mn, taps[k])
@@ -215,10 +260,12 @@ def bezold_brucke_shift(rgb, amount):
 
 
 def post_combine(lit, exposure_mult, glare_amount: float = 0.07,
-                 contrast: float = 1.03):
+                 contrast: float = 1.03, glare=None, band=None):
     """Glare blend, exposure, B-B shift, tone map, contrast, CAS, sRGB.
-    Returns display-ready (H, W, 3) in [0,1]."""
-    glare = glare_pyramid(lit)
+    Returns display-ready (H, W, 3) in [0,1]. `glare`: a precomputed glare
+    plane (default: `glare_pyramid(lit)`)."""
+    if glare is None:
+        glare = glare_pyramid(lit, band=band)
     x = lit * (1.0 - glare_amount) + glare * glare_amount
     x = x * exposure_mult
     lum = luminance(x)
@@ -226,4 +273,4 @@ def post_combine(lit, exposure_mult, glare_amount: float = 0.07,
     t = tonemap_filmic(x)
     t = torch.clamp(0.18 * torch.pow(torch.clamp(t, min=1e-6) / 0.18,
                                      contrast), 0.0, 1.0)
-    return srgb_encode(cas_sharpen(t))
+    return srgb_encode(cas_sharpen(t, band=band))

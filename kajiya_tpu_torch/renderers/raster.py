@@ -55,9 +55,11 @@ def _block_screen_rects(bmin, bmax, view: ViewConstants, w: int, h: int):
     return torch.stack([x0, y0, x1, y1], dim=-1)
 
 
-def _chunk_rects(w: int, h: int, rows_per_chunk: int, device=None):
+def _chunk_rects(w: int, h: int, rows_per_chunk: int, device=None,
+                 row0: int = 0):
     """Pixel rect of every ray chunk in tile-major order:
-    (n_chunks, 4) [x0, y0, x1, y1]."""
+    (n_chunks, 4) [x0, y0, x1, y1]. `row0` is the screen row of the first
+    ray row (a row band's)."""
     ph, pw = pad_hw(h, w)
     nty, ntx = (h + ph) // TILE_H, (w + pw) // TILE_W
     per_tile = TILE_H // rows_per_chunk
@@ -65,7 +67,7 @@ def _chunk_rects(w: int, h: int, rows_per_chunk: int, device=None):
     tile = i // per_tile
     sub = i % per_tile
     ty, tx = tile // ntx, tile % ntx
-    y0 = (ty * TILE_H + sub * rows_per_chunk).to(torch.float32)
+    y0 = (ty * TILE_H + sub * rows_per_chunk + row0).to(torch.float32)
     x0 = (tx * TILE_W).to(torch.float32)
     return torch.stack([x0, y0, x0 + TILE_W, y0 + rows_per_chunk], dim=-1)
 
@@ -88,15 +90,17 @@ def _mask_to_lists(hit, bmin, bmax, eye):
     return sort_blocks_by_distance(hit, dlb[None, :].expand(hit.shape))
 
 
-def raster_batch(ts, view: ViewConstants, w: int, h: int):
+def raster_batch(ts, view: ViewConstants, w: int, h: int, band=None):
     """Kernel C's inputs for primary visibility of a scene with cluster
     tables: camera rays in screen-tile order and each chunk's exact
-    screen-rect block list, front to back."""
-    org, d = camera_rays(view, w, h)
+    screen-rect block list, front to back. With `band` (parallel/), the rays
+    of its rows, tiled from the band's first row."""
+    org, d = camera_rays(view, w, h, band=band)
     woop = ts.woop
     rects = _block_screen_rects(woop["cmin64"], woop["cmax64"], view, w, h)
-    mask = _overlap(_chunk_rects(w, h, CULL_RAY_BLOCK // TILE_W, org.device),
-                    rects)
+    rows, row0 = (h, 0) if band is None else (band.n, band.y0)
+    mask = _overlap(_chunk_rects(w, rows, CULL_RAY_BLOCK // TILE_W,
+                                 org.device, row0), rects)
     lists = _mask_to_lists(mask, woop["cmin64"], woop["cmax64"],
                            view.eye_position)
     return prepare_culled(woop, tile_order(org).reshape(-1, 3),
@@ -104,15 +108,16 @@ def raster_batch(ts, view: ViewConstants, w: int, h: int):
 
 
 def raster_hit(ts, view: ViewConstants, w: int, h: int,
-               max_trace_steps=None) -> Hit:
+               max_trace_steps=None, band=None) -> Hit:
     """Rasterized primary visibility -> per-pixel Hit, flat in row-major
-    pixel order."""
+    pixel order (of `band`'s rows when one is given)."""
     woop = ts.woop
     if woop is None or woop.get("cmin") is None:
-        org, d = camera_rays(view, w, h)
+        org, d = camera_rays(view, w, h, band=band)
         return scene_trace_closest(ts, org.reshape(-1, 3), d.reshape(-1, 3),
                                    max_steps=max_trace_steps)
-    b = raster_batch(ts, view, w, h)
+    b = raster_batch(ts, view, w, h, band)
     t, tri, u, v = run_culled(b, t_min=1e-4, any_hit=False)
     hit = Hit(t=t, tri=tri, u=u, v=v)
-    return hit.map(lambda x: untile_order(x[:b.n_rays], h, w).reshape(-1))
+    rows = h if band is None else band.n
+    return hit.map(lambda x: untile_order(x[:b.n_rays], rows, w).reshape(-1))

@@ -14,6 +14,11 @@ The spatial taps are golden-angle spiral offsets whose rotation is constant
 per (8, 128) pixel tile, so each tap fetches the whole packed reservoir plane
 with one per-tile shift (kernel S, ops/tileshift_cuda.py). The tile size is
 part of the algorithm: it fixes which neighbour every pixel reuses.
+
+With a row `band` (parallel/, half-res), each spatial pass fetches the
+halo rows its taps reach and runs kernel S on that window, whose first row
+is brought onto the tile grid with rows no tap reads; the temporal and
+occlusion fetches read gathered sources.
 """
 from __future__ import annotations
 
@@ -124,17 +129,20 @@ def _p_hat_at(payload, pos, normal):
         dot3(direction, normal), min=0.0)
 
 
-def _occluded(pos, hit, vz_h, view, near, samples, max_px: float = 8.0):
+def _occluded(pos, hit, vz_h, view, near, samples, max_px: float = 8.0,
+              band=None, vz_whole=None):
     """Screen-space occlusion raymarch along the receiver -> hit segment:
     depth-test a few interior points against the half-res z buffer; a
     surface in front of the segment (within a relative thickness window)
     marks the reused sample occluded. The march is clamped to `max_px`
     screen pixels from the receiver: the occluders that matter are local,
-    and every depth fetch stays a local warp (kernel W)."""
+    and every depth fetch stays a local warp (kernel W). With `band`, vz_h
+    is the band's and `vz_whole` the gathered plane the warps read."""
     from .hit_lighting import _project_to_uv
 
-    hh, hw = vz_h.shape
-    uv0 = im.pixel_uv(hh, hw, device=vz_h.device)
+    hh, hw = vz_h.shape if band is None else (band.height, band.width)
+    uv0 = im.pixel_uv(hh, hw, device=vz_h.device, band=band)
+    src = vz_h if vz_whole is None else vz_whole
     z0 = vz_h
     uv1, inb1 = _project_to_uv(view.world_to_clip, hit)
     wv = view.world_to_view
@@ -144,13 +152,13 @@ def _occluded(pos, hit, vz_h, view, near, samples, max_px: float = 8.0):
     px_len = torch.sqrt((delta[..., 0] * hw) ** 2 + (delta[..., 1] * hh) ** 2)
     scale = torch.clamp(max_px / torch.clamp(px_len, min=1e-6), max=1.0)
 
-    occ = torch.zeros((hh, hw), dtype=torch.bool, device=vz_h.device)
+    occ = torch.zeros(vz_h.shape, dtype=torch.bool, device=vz_h.device)
     for i in range(samples):
         s = (i + 1.0) / (samples + 1.0)
         uv = uv0 + delta * (scale * s)[..., None]
         # view-z approximately linear along the clamped screen segment
         z_e = z0 + (z1 - z0) * scale * s
-        z_s = im.warp_nearest(vz_h[..., None], torch.clamp(uv, 0.0, 1.0),
+        z_s = im.warp_nearest(src[..., None], torch.clamp(uv, 0.0, 1.0),
                               window_rows=40)[..., 0]
         rel = (z_e - z_s) / torch.clamp(z_s, min=1e-4)
         occ = occ | (inb1 & (rel > 0.05) & (rel < 0.6))
@@ -181,22 +189,48 @@ def spatial_offsets(hh: int, hw: int, frame_idx, pass_idx: int, device):
     return dy, dx
 
 
+def _tile_window(img, dy, dx, band, reach: int):
+    """Kernel S's input for a band: the band with `reach` halo rows each
+    side, preceded by as many zero rows as bring its first row onto the
+    (TH, TW) tile grid, and the per-tile offsets of the window's tiles.
+    Returns (window, rows above the band, dy, dx)."""
+    win, above = band.halo(img, reach, reach, label="restir spatial")
+    start = band.y0 - above
+    pad = start % tsc.TH
+    if pad:
+        win = torch.cat([win.new_zeros((pad,) + tuple(win.shape[1:])), win])
+    t0 = (start - pad) // tsc.TH
+    nty_w, ntx = tsc.tile_grid(win.shape[0], win.shape[1])
+    nty, _ = tsc.tile_grid(band.height, band.width)
+
+    def cut(o):
+        if t0 == 0 and nty_w == nty:
+            return o
+        return o.reshape(o.shape[0], nty, ntx)[:, t0:t0 + nty_w].reshape(
+            o.shape[0], -1)
+
+    return win, above + pad, cut(dy), cut(dx)
+
+
 def restir_diffuse(state, candidates, gb_h, reproj, frame_idx,
                    ssao_h=None, near: float = 0.01, view=None,
-                   occlusion_samples: int = 2):
+                   occlusion_samples: int = 2, band=None):
     """Temporal + 2 spatial reservoir passes at half res.
 
     candidates: dict from rtdgi.finish_candidates. Returns (reservoir dict
     for resolve, new flat state). view + occlusion_samples > 0 enable the
     final spatial pass's screen-space occlusion raymarch, which rejects
-    occluded taps and cuts the light leaks of bare reservoir reuse."""
+    occluded taps and cuts the light leaks of bare reservoir reuse. `band`:
+    gb_h's (half-res) row band."""
     hh, hw = gb_h["hit"].shape
+    y0, full_hh = (0, hh) if band is None else (band.y0, band.height)
     dev = gb_h["hit"].device
     n = gb_h["normal"]
     pos = gb_h["pos"]
     vz = near / torch.clamp(gb_h["depth"], min=1e-12)
 
-    px = torch.arange(hh * hw, dtype=torch.int64, device=dev).reshape(hh, hw)
+    px = torch.arange(y0 * hw, (y0 + hh) * hw, dtype=torch.int64,
+                      device=dev).reshape(hh, hw)
     rng = rng_mod.pixel_rng(px % hw, px // hw, frame_idx, stream=41)
 
     # ---- candidate reservoir (M=1)
@@ -217,7 +251,8 @@ def restir_diffuse(state, candidates, gb_h, reproj, frame_idx,
     # still re-derived from the current surface.
     prev_uv = im.decimate2(reproj["prev_uv"])
     validity = im.decimate2(reproj["validity"])
-    prev_f = _unres13(im.warp_nearest(_res13(_pack(state)), prev_uv))
+    prev_f = _unres13(im.warp_nearest(_res13(_pack(state)), prev_uv,
+                                      band=band))
     prev_f = rsv.clamp_m(prev_f, M_CLAMP_TEMPORAL)
     p_hat_t = _p_hat_at(prev_f["payload"], pos, n)
     u, rng = rng_mod.rand_u01(rng)
@@ -237,20 +272,29 @@ def restir_diffuse(state, candidates, gb_h, reproj, frame_idx,
     def unpack(p):
         return (_unres13(p), p[..., 13:16], p[..., 16], p[..., 17:20])
 
-    for pass_idx, (_radius, n_taps) in enumerate(SPATIAL_PASSES):
+    vz_whole = None
+    for pass_idx, (radius, n_taps) in enumerate(SPATIAL_PASSES):
         with pass_scope(f"spatial{pass_idx}"):
             packed = pack(cur).contiguous()
-            dy_s, dx_s = spatial_offsets(hh, hw, frame_idx, pass_idx, dev)
+            dy_s, dx_s = spatial_offsets(full_hh, hw, frame_idx, pass_idx,
+                                         dev)
+            above = 0
+            if band is not None:
+                packed, above, dy_s, dx_s = _tile_window(
+                    packed, dy_s, dx_s, band, math.ceil(radius))
             do_occl = (pass_idx == 1 and view is not None
                        and occlusion_samples > 0)
+            if do_occl and band is not None and vz_whole is None:
+                vz_whole = band.gather(vz, label="occlusion depth")
             for k in range(n_taps):
                 u, rng = rng_mod.rand_u01(rng)
                 nb, n_nb, vz_nb, pos_nb = unpack(
-                    tsc.tile_shift(packed, dy_s[k], dx_s[k]))
+                    tsc.tile_shift(packed, dy_s[k], dx_s[k])[above:above + hh])
                 ok = _geo_weight(vz, vz_nb, n, n_nb) & candidates["valid"]
                 if do_occl:
                     ok = ok & ~_occluded(pos, nb["payload"]["hit"], vz, view,
-                                         near, occlusion_samples)
+                                         near, occlusion_samples, band=band,
+                                         vz_whole=vz_whole)
                 # reconnection: the neighbour's hit sample evaluated from
                 # our surface; density moved by the jacobian
                 p_hat_nb = _p_hat_at(nb["payload"], pos, n)
@@ -394,7 +438,8 @@ def _smoothstep(lo, hi, x):
 NEAR_FIELD_RADIUS_PX = 80.0
 
 
-def resolve(reservoir, gb, candidates=None, ssao=None, near: float = 0.01):
+def resolve(reservoir, gb, candidates=None, ssao=None, near: float = 0.01,
+            band=None):
     """Half-res reservoirs -> full-res E/pi: 4-tap joint-bilateral footprint;
     each reservoir contributes its estimator L * cos(n_full, dir) * W, with
     the direction re-derived from the full-res surface point and the
@@ -408,8 +453,10 @@ def resolve(reservoir, gb, candidates=None, ssao=None, near: float = 0.01):
 
     Each of the 4 output phases is computed entirely at half res (every tap
     is a static +-1 shift of a half-res plane with a constant bilinear
-    weight) and the finished radiance is woven once at the end."""
-    full_h = gb["depth"].shape[0]
+    weight) and the finished radiance is woven once at the end. `band`:
+    gb's row band (parallel/)."""
+    full_h = gb["depth"].shape[0] if band is None else band.height
+    hb = None if band is None else band.half()
     vz_ph = im.phase_split(near / torch.clamp(gb["depth"], min=1e-12))
     n_ph = im.phase_split(gb["normal"])
     pos_ph = im.phase_split(gb["pos"])
@@ -447,7 +494,7 @@ def resolve(reservoir, gb, candidates=None, ssao=None, near: float = 0.01):
                                     * (0.75 if kx != px else 0.25)
                                     for ky in (0, 1) for kx in (0, 1)),
                               dev)[:, None, None]
-            s = im.shift_stack(packed_h, offs)        # (4, hh, hw, 17)
+            s = im.shift_stack(packed_h, offs, hb)    # (4, hh, hw, 17)
             zz, nn = s[..., 0], s[..., 1:4]
             owner_pos = s[..., 4:7]
             hits, hitns = s[..., 7:10], s[..., 10:13]

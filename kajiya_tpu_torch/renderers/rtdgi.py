@@ -6,6 +6,9 @@ Trace half-res cosine-hemisphere candidate rays, light the hits
 (restir_gi.py) or blur them, resolve to full resolution steered by depth and
 normal, and accumulate temporally. Output = incident diffuse irradiance / pi
 ("E/pi"), multiplied by the diffuse albedo in the deferred combine.
+With a row `band` (parallel/), the planes are the band's: the RNG and blue
+noise take screen rows, the stencils their halo rows and the temporal fetch
+a gathered history.
 """
 from __future__ import annotations
 
@@ -44,16 +47,17 @@ def half_gbuffer(gb):
     }
 
 
-def candidate_rays(gb_h, frame_idx):
+def candidate_rays(gb_h, frame_idx, band=None):
     """Half-res candidate ray batch: one blue-noise cosine ray per half-res
     pixel. Returns (org, wi, rng) flat; the frame batches these into the
-    shared secondary trace + shade wavefront."""
+    shared secondary trace + shade wavefront. `band`: gb_h's (half-res)."""
     hh, hw = gb_h["hit"].shape
     dev = gb_h["hit"].device
-    px = torch.arange(hh * hw, dtype=torch.int64, device=dev)
+    y0 = 0 if band is None else band.y0
+    px = torch.arange(y0 * hw, (y0 + hh) * hw, dtype=torch.int64, device=dev)
     rng = rng_mod.pixel_rng(px % hw, px // hw, frame_idx, stream=23)
     bu1, bu2 = bluenoise.blue_noise_pair(hh, hw, frame_idx, stream=1,
-                                         device=dev)
+                                         device=dev, y0=y0)
     u1 = bu1.reshape(-1)
     u2 = bu2.reshape(-1)
 
@@ -103,9 +107,11 @@ def trace_candidates(ts, gb_h, frame_idx, sky_env, diffuse_env,
     return finish_candidates(gb_h, org, wi, hit.hit_mask, hit.t, rad, aux)
 
 
-def _edge_aware_upsample(half_img, gb, near: float = 0.01):
+def _edge_aware_upsample(half_img, gb, near: float = 0.01, band=None):
     """Half -> full resolve steered by depth + normal: joint-bilateral over
-    the 4-tap footprint, phase by phase at half res, woven once at the end."""
+    the 4-tap footprint, phase by phase at half res, woven once at the end.
+    `band`: gb's (full-res)."""
+    hb = None if band is None else band.half()
     vz = near / torch.clamp(gb["depth"], min=1e-12)
     vz_h = near / torch.clamp(im.decimate2(gb["depth"]), min=1e-12)
     n_full = gb["normal"]
@@ -113,9 +119,9 @@ def _edge_aware_upsample(half_img, gb, near: float = 0.01):
 
     # all 9 half-res shifts once (ky-1+py, kx-1+px ranges over -1..1)
     offs = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
-    v_s = im.shift_stack(half_img, offs)
-    z_s = im.shift_stack(vz_h, offs)
-    n_s = im.shift_stack(n_h, offs)
+    v_s = im.shift_stack(half_img, offs, hb)
+    z_s = im.shift_stack(vz_h, offs, hb)
+    n_s = im.shift_stack(n_h, offs, hb)
 
     def idx(dy, dx):
         return (dy + 1) * 3 + (dx + 1)
@@ -149,14 +155,16 @@ def rtdgi_pipeline(ts, gb, view, frame_idx, state, reproj, sky_env,
                    use_restir: bool = True, restir_state=None,
                    secondary_full_shading: bool = False,
                    candidates=None, invalidity=None,
-                   validated: bool = False):
+                   validated: bool = False, band=None):
     """Full chain -> (diffuse E/pi (H, W, 3), new_state, new_restir_state,
     candidates).
 
     candidates / invalidity: precomputed by the frame's shared secondary-ray
     wavefront; when absent, traced / validated here standalone. `validated`
-    marks the reservoir state as already validated by the frame."""
+    marks the reservoir state as already validated by the frame. `band`:
+    gb's row band (parallel/); the frame passes the candidates then."""
     gb_h = half_gbuffer(gb)
+    hb = None if band is None else band.half()
     if candidates is None:
         candidates = trace_candidates(
             ts, gb_h, frame_idx, sky_env, diffuse_env, prev_lit=prev_lit,
@@ -185,27 +193,27 @@ def rtdgi_pipeline(ts, gb, view, frame_idx, state, reproj, sky_env,
             res, new_restir_state = restir_gi.restir_diffuse(
                 restir_state, candidates, gb_h, reproj, frame_idx,
                 ssao_h=None if ssao is None else im.decimate2(ssao),
-                view=view)
+                view=view, band=hb)
         # the near / far split is screen-space by construction (an 80 px
         # near-field window): below ~480 rows it would swallow whole test
         # scenes, so it engages only at real resolutions
-        split = gb["depth"].shape[0] >= 480
+        split = (gb["depth"].shape[0] if band is None else band.height) >= 480
         with pass_scope("resolve"):
             full = restir_gi.resolve(res, gb,
                                      candidates=candidates if split else None,
-                                     ssao=ssao if split else None)
+                                     ssao=ssao if split else None, band=band)
     else:
         new_restir_state = restir_state
         # spatial pre-filter at half res (the smoothing role of the ReSTIR
         # spatial passes for the plain path)
-        rad_h = im.separable_blur(candidates["radiance"], im.GAUSS5)
-        full = _edge_aware_upsample(rad_h, gb)
+        rad_h = im.separable_blur(candidates["radiance"], im.GAUSS5, hb)
+        full = _edge_aware_upsample(rad_h, gb, band=band)
 
     # temporal accumulation at full res
     with pass_scope("temporal"):
         fetched = reproject_planes(
             {"h": state["rtdgi_history"], "l": state["rtdgi_hist_len"]},
-            reproj)
+            reproj, band)
     hist = fetched["h"]
     hist_len = fetched["l"]
     hist_len = torch.clamp(hist_len * reproj["validity"] + 1.0, max=24.0)
@@ -221,10 +229,10 @@ def rtdgi_pipeline(ts, gb, view, frame_idx, state, reproj, sky_env,
     # variance clamp against the spatial neighbourhood to cut ghosting; the
     # band includes a relative term so that a frame whose neighbourhood
     # missed the rare bright samples does not clip the converged history
-    m1, var = im.local_moments_3x3(full)
+    m1, var = im.local_moments_3x3(full, band)
     sigma = torch.sqrt(torch.clamp(var, min=0.0))
-    band = sigma * 3.0 + 0.15 * m1 + 1e-3
-    out = torch.minimum(torch.maximum(out, m1 - band), m1 + band)
+    clip = sigma * 3.0 + 0.15 * m1 + 1e-3
+    out = torch.minimum(torch.maximum(out, m1 - clip), m1 + clip)
 
     new_state = {"rtdgi_history": out, "rtdgi_hist_len": hist_len}
     # candidates are also returned so that reflections can reuse the rays

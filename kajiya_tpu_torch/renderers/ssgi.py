@@ -5,7 +5,8 @@ Half-res AO from depth + normal, then spatial filter -> edge-aware upsample
 -> temporal filter. It does not darken final lighting; it steers GI kernel
 sizes and sample weighting. Horizon sampling runs along 4 directions with
 fixed step counts and 4 quantized kernel rotations picked per pixel by blue
-noise, so every tap is a static pixel shift.
+noise, so every tap is a static pixel shift. With a row `band`
+(parallel/), the taps' halo rows come from the neighbouring bands.
 """
 from __future__ import annotations
 
@@ -44,17 +45,20 @@ def _tap_offsets(hh: int, hw: int):
     return tuple(offs), tuple(duv)
 
 
-def ssao_half(gb, view: ViewConstants, frame_idx, near: float = 0.01):
+def ssao_half(gb, view: ViewConstants, frame_idx, near: float = 0.01,
+              band=None):
     """Half-res AO in [0,1]. Returns (h/2, w/2) f32."""
-    h, w = gb["depth"].shape
+    h, w = gb["depth"].shape if band is None else (band.height, band.width)
     hh, hw = h // 2, w // 2
+    hb = None if band is None else band.half()
     dev = gb["depth"].device
     depth_h = im.downsample_nearest(gb["depth"])
     normal_h = im.decimate2(gb["normal"])
     hit_h = im.decimate2(gb["hit"])
     vz = near / torch.clamp(depth_h, min=1e-12)
 
-    uv = im.pixel_uv(hh, hw, device=dev)
+    uv = im.pixel_uv(hh, hw, device=dev, band=hb)
+    rows = depth_h.shape[0]
     # view-space position of each half-res pixel
     ndc = torch.stack([uv[..., 0] * 2 - 1, 1 - uv[..., 1] * 2], dim=-1)
     c2v = view.clip_to_view
@@ -65,13 +69,14 @@ def ssao_half(gb, view: ViewConstants, frame_idx, near: float = 0.01):
     vpos = vdir * vz[..., None]
     vnorm = smv.transform_dirs(view.world_to_view, normal_h)
 
-    u_rot = bluenoise.blue_noise_plane(hh, hw, frame_idx, stream=6,
-                                       device=dev)
+    u_rot = bluenoise.blue_noise_plane(rows, hw, frame_idx, stream=6,
+                                       device=dev,
+                                       y0=0 if hb is None else hb.y0)
     rot_k = torch.clamp((u_rot * _N_ROT).to(torch.int32), max=_N_ROT - 1)
 
     offs, duv = _tap_offsets(hh, hw)
     D, S, K = _N_DIRS, _N_STEPS, _N_ROT
-    taps = im.shift_stack(depth_h, offs).reshape(D, S, K, hh, hw)
+    taps = im.shift_stack(depth_h, offs, hb).reshape(D, S, K, rows, hw)
     duv = const_tensor(duv, dev).reshape(D, S, K, 2)
 
     # per-pixel rotation select: collapse the K axis by rot_k
@@ -101,17 +106,20 @@ def init_state(h: int, w: int, device=None):
                                        device=device)}
 
 
-def ssao_pipeline(gb, view, frame_idx, state, reproj, near: float = 0.01):
+def ssao_pipeline(gb, view, frame_idx, state, reproj, near: float = 0.01,
+                  band=None):
     """ssao -> spatial (half) -> upsample -> temporal. Returns (ao (H, W),
     state)."""
     from .rtdgi import _edge_aware_upsample
 
-    ao_h = ssao_half(gb, view, frame_idx, near)
-    ao_h = im.separable_blur(ao_h, im.GAUSS5)
+    ao_h = ssao_half(gb, view, frame_idx, near, band)
+    ao_h = im.separable_blur(ao_h, im.GAUSS5,
+                             None if band is None else band.half())
     # depth / normal-aware upsample: plain bilinear halos AO across depth
     # edges, which then misleads the GI filters
-    ao = _edge_aware_upsample(ao_h[..., None], gb)[..., 0]
-    prev = reproject_image(state["ssao_history"], reproj, fallback=ao)
+    ao = _edge_aware_upsample(ao_h[..., None], gb, band=band)[..., 0]
+    prev = reproject_image(state["ssao_history"], reproj, fallback=ao,
+                           band=band)
     out = prev * 0.85 + ao * 0.15
     out = torch.where(gb["hit"], out, 1.0)
     return out, {"ssao_history": out}

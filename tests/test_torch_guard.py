@@ -61,7 +61,8 @@ def test_port_imports_no_jax():
                 "rt/trace.py", "ops/bvh_cuda.py", "apps/stream.py",
                 "apps/hello.py", "apps/keymap.py", "apps/persisted.py",
                 "core/reload.py", "core/debugging.py", "core/logging.py",
-                "scene/jpeg.py", "hostlib.py"):
+                "scene/jpeg.py", "hostlib.py", "parallel/__init__.py",
+                "parallel/mesh.py", "parallel/comm.py", "parallel/launch.py"):
         assert os.path.join("kajiya_tpu_torch", new) in names, new
     assert "chip_smoke.py" in names
     for path in files:
@@ -203,6 +204,38 @@ def test_kernel_wrappers_raise_on_cuda_request(kernel, monkeypatch):
                     fn(b, tris, org, d, max_steps=8)
             else:
                 woop_cuda.intersect_scene(woop, org, d)
+
+
+@pytest.mark.parametrize("entry", ["band_warp", "band_tile_shift"])
+def test_band_entry_points_raise_on_cuda_request(entry, monkeypatch):
+    """The sharded frame's band helpers (a temporal fetch from a gathered
+    source; kernel S on a band's halo window) hand CUDA tensors to the
+    kernels, never to the plain versions (fake tensors: no card here)."""
+    if _cuda_present():
+        pytest.skip("a CUDA device is present")
+    from kajiya_tpu_torch.parallel.comm import Band, Comm
+    from kajiya_tpu_torch.renderers import reprojection, restir_gi
+
+    monkeypatch.setattr(warp_cuda, "warp_plain", _fail_plain)
+    monkeypatch.setattr(tileshift_cuda, "tile_shift_plain", _fail_plain)
+    with FakeTensorMode():
+        dev = torch.device("cuda")
+        band = Band(Comm((0,), 0, "none", dev), ((0, 48),), 48, 64)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            if entry == "band_warp":
+                reprojection.reproject_planes(
+                    {"h": torch.zeros((48, 64, 3), device=dev)},
+                    {"prev_uv": torch.zeros((48, 64, 2), device=dev),
+                     "validity": torch.zeros((48, 64), device=dev)}, band)
+            else:
+                # (indexing a fake CUDA tensor needs a CUDA build: one
+                # tap's offsets are made apart)
+                off = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+                win, _above, _dy, _dx = restir_gi._tile_window(
+                    torch.zeros((24, 32, 20), device=dev), off, off,
+                    band.half(), 12)
+                tap = torch.zeros((3,), dtype=torch.int32, device=dev)
+                tileshift_cuda.tile_shift(win, tap, tap)
 
 
 def test_only_the_route_aware_modules_read_woop():
