@@ -50,18 +50,22 @@ version). Last, the sharded phase (kajiya_tpu_torch/parallel/): four ranks
 started with torch.multiprocessing share the card over gloo (NCCL refuses
 two ranks on one card; each rank's bands of CUDA tensors are staged through
 pinned host buffers), rank 0 builds each scene and `distribute_scene` sends
-it to the others (bit for bit, by digest), and they render 2 tile-sharded
-frames of the GI path at 1920x1080 on cornell (kernel B) and on the city
-(kernel C) in bands of 272, 272, 272 and 264 rows, each rank launching B or
-C, W and S; the gathered outputs and every state plane are held to the same
-frames on the whole card at GI_FRAME_TOL (state planes relative to
-max(1, |value|)), and the frames' collective log to
-`check_sharding_quality`; one (2, 2) multi-host frame of the city is held to
-the four-tile frame, and the city's 1080p camera rays through
-`shard_rays_pt` (16 bounces) to `path_trace`. A rank that fails fails the
-run with its traceback. Prints one JSON line of the sharded phase (backend,
-bands, frame ms per rank and on the whole card, collective counts and bytes
-per kind, inter-host bytes, wall time) and one of per-kernel numbers; the
+it to the others (bit for bit, by digest), and they render tile-sharded
+frames at 1920x1080 on cornell (kernel B) and on the city (kernel C) in
+bands of 272, 272, 272 and 264 rows, each rank launching B or C, W and S:
+2 of the GI path, held to the same frames on the whole card at GI_FRAME_TOL
+(state planes relative to max(1, |value|)), and 3 jittered frames of the
+default frame (as `Renderer` resolves it: mesh-light specular on cornell;
+the full irradiance cache, whose tables every rank holds whole), whose
+gathered outputs and every state plane must equal the whole card's bit for
+bit, as must every rank's irradiance-cache tables; every frame's collective
+log is held to `check_sharding_quality`; one (2, 2) multi-host GI frame of
+the city is held to the four-tile frame, and the city's 1080p camera rays
+through `shard_rays_pt` (16 bounces) to `path_trace`. A rank that fails
+fails the run with its traceback. Prints one JSON line of the sharded phase
+(backend, bands; per path and scene the frame ms, launches and collectives
+by kind per rank and frame, the whole card's frame ms, inter-host bytes;
+wall time) and one of per-kernel numbers; the
 last line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": 1}}.
 Any failed check raises, so the exit code is not 0 and no result is printed.
@@ -970,16 +974,22 @@ def warp_phase(dev):
             cases.append(dict(case=case, pixels=37 * 333, channels=c,
                               frame_call=False, max_abs_err=err))
     # the sharded frame's calls: a band's uv (the second of four 1080p
-    # bands, 272 rows) into a gathered whole-frame source
-    uv = torch.rand((272, WIDTH, 2), generator=g, device=dev)
-    for c, bilinear in ((1, False), (4, True)):
-        img = torch.rand((HEIGHT, WIDTH, c), generator=g, device=dev)
-        case = f"band_{'bilinear' if bilinear else 'nearest'}_c{c}"
+    # bands, 272 rows, at the plane's resolution) into a gathered
+    # whole-frame source: the reprojected depth, the GI / RTR history, TAA's
+    # packed history, RTR's packed half-res reservoirs and motion blur's
+    # quarter-res taps
+    for c, bilinear, k in ((1, False, 1), (4, True, 1), (9, True, 1),
+                           (11, False, 2), (4, False, 4)):
+        h, w = HEIGHT // k, WIDTH // k
+        uv = torch.rand((272 // k, w, 2), generator=g, device=dev)
+        img = torch.rand((h, w, c), generator=g, device=dev)
+        res = {1: "", 2: "_half", 4: "_quarter"}[k]
+        case = f"band_{'bilinear' if bilinear else 'nearest'}_c{c}{res}"
         err = float((warp_cuda.warp_launch(img, uv, bilinear)
                      - warp_cuda.warp_plain(img, uv, bilinear)).abs().max())
         if not err <= WARP_TOL:
             raise AssertionError(f"warp/{case}: max error {err}")
-        cases.append(dict(case=case, pixels=272 * WIDTH, channels=c,
+        cases.append(dict(case=case, pixels=uv.shape[0] * w, channels=c,
                           frame_call=False, max_abs_err=err))
     log("warp check-only cases: max error",
         max(x["max_abs_err"] for x in cases))
@@ -2096,16 +2106,19 @@ def watch_phase(tmp):
 
 
 # ----------------------------------------------------------------------------
-# The sharded phase: the tile-sharded GI frame, the multi-host layout, the
-# sample-sharded path tracer and the scene distribution, on SHARDED_RANKS
-# ranks sharing the card over gloo
+# The sharded phase: the tile-sharded GI and default frames, the multi-host
+# layout, the sample-sharded path tracer and the scene distribution, on
+# SHARDED_RANKS ranks sharing the card over gloo
 # ----------------------------------------------------------------------------
 
 SHARDED_RANKS = 4
-SHARDED_FRAMES = 2
+# the sharded paths, frames per scene of each (the default frame's first
+# validates the reservoirs and the cache, the others run TAA, RTR's
+# temporal reuse and motion blur on history) and the planes gathered of each
+SHARDED_FRAMES = {"gi": 2, "default": 3}
 SHARDED_SCENES = ("cornell", "city")
 SHARDED_BACKEND = "gloo"    # NCCL refuses two ranks on one card
-SHARDED_KEYS = FRAME_KEYS["gi"]
+SHARDED_KEYS = {path: FRAME_KEYS[path] for path in SHARDED_FRAMES}
 
 
 def within(a, b, tols, relative=False):
@@ -2140,27 +2153,156 @@ def scene_digest(tree):
     return h.hexdigest(), len(leaves)
 
 
-def sharded_rank(mesh_args, out_dir, device="cuda", size=(WIDTH, HEIGHT)):
-    """One rank of the sharded phase (started by `parallel.launch.spawn`).
-    Per scene: rank 0 builds the scene and `distribute_scene` sends it to
-    the others (held bit for bit by digest); SHARDED_FRAMES tile-sharded
-    frames of the GI path (launch counters set to 0 just before, read just
-    after; each frame's collectives logged); the gathered outputs and state;
-    on the city one (2, 2) multi-host frame; rank 0 then renders the same
-    frames on the whole card and holds the gathered ones to them. Last, the
-    city's 1080p camera rays through `shard_rays_pt` (16 bounces), held by
-    rank 0 to `path_trace`. Each rank writes rank<r>.json to out_dir."""
+def ircache_digest(state):
+    """sha256 over the bytes of a state's irradiance-cache tables."""
+    return scene_digest({k: v for k, v in sorted(state.items())
+                         if k.startswith("ircache_")})[0]
+
+
+def sharded_cfg(path, ts, width, height):
+    """The sharded path's configuration on a scene: the default frame as
+    `Renderer` resolves it (mesh-light specular where the scene has
+    emissive triangles), with the full-size irradiance cache."""
+    from dataclasses import replace
+
+    cfg = slice_cfg(width, height, path)
+    if path == "default" and int(ts.gpu.num_lights) > 0:
+        cfg = replace(cfg, use_mesh_light_specular=True)
+    return cfg
+
+
+def sharded_path(name, path, ts, mesh, width, height, dev, sync):
+    """SHARDED_FRAMES[path] tile-sharded frames of `path` on this rank
+    (launch counters set to 0 just before, read just after; per frame its
+    ms, its launches and its collectives by kind); rank 0 then renders the
+    same frames on the whole card and holds the gathered outputs and every
+    state plane to them: the default frame bit for bit (and every rank's
+    irradiance-cache tables to the whole card's), the GI frame at
+    GI_FRAME_TOL. Returns (entry, failures, the first view, the
+    configuration, the gathered outputs of the first frame)."""
     import torch.distributed as dist
 
-    from kajiya_tpu_torch.core.camera import camera_rays
     from kajiya_tpu_torch.frame import init_frame_state, render_frame
     from kajiya_tpu_torch.ops import _native
     from kajiya_tpu_torch.parallel import (check_sharding_quality,
                                            collective_summary,
+                                           render_frame_sharded)
+    from kajiya_tpu_torch.parallel.mesh import gather_frame
+
+    _make, eye, fwd, step = SCENES[name]
+    keys = SHARDED_KEYS[path]
+    failed = []
+    cfg = sharded_cfg(path, ts, width, height)
+    vs = views(eye, fwd, step, SHARDED_FRAMES[path], width, height, dev,
+               jitter=path == "default")
+    st = init_frame_state(cfg, device=dev)
+    frames, logs, first, digests = [], [], None, []
+    _native.reset_launches()
+    for v in vs:
+        dist.barrier()
+        sync()
+        before = dict(_native.launches)
+        t0 = time.perf_counter()
+        with mesh.comm.recording() as log:
+            st, out = render_frame_sharded(ts, st, v, cfg, None, mesh)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        logs.append(log)
+        frames.append(dict(
+            ms=ms, launches={k: n - before.get(k, 0)
+                             for k, n in _native.launches.items()},
+            collectives=collective_summary(log)))
+        if first is None:
+            first = {k: out[k] for k in keys}
+        if cfg.use_ircache:
+            digests.append(ircache_digest(st))
+    launches = dict(_native.launches)
+    need = ("woop_brute" if route_of(ts) == "brute" else "woop_culled",
+            "warp", "tile_shift")
+    short = [k for k in need if launches[k] <= 0 and dev.type == "cuda"]
+    if short:
+        failed.append(f"{name}/{path}: rank {mesh.index} never launched "
+                      f"{short}")
+    merged = [e for part in mesh.comm.gather_objects(
+        [e for log in logs for e in log]) for e in part]
+    summary, problems = check_sharding_quality(merged, height, width)
+    if problems or "halo" not in summary:
+        failed.append(f"{name}/{path}: sharding quality {problems} "
+                      f"{summary}")
+    cache = [e for e in merged if e.ircache]
+    if cfg.use_ircache and not cache:
+        failed.append(f"{name}/{path}: no collective booked as the cache's")
+    all_digests = mesh.comm.gather_objects(digests)
+    whole = gather_frame({"out": {k: out[k] for k in keys}, "state": st,
+                          "first": first}, mesh, height, width)
+    times = [f["ms"] for f in frames]
+    entry = dict(frame_ms=times, median_ms=statistics.median(times),
+                 launches=launches, frames=frames,
+                 collectives=collective_summary(merged),
+                 ircache_collectives=collective_summary(cache),
+                 collectives_per_frame=len(merged) // len(logs))
+    if mesh.index == 0:
+        st1 = init_frame_state(cfg, device=dev)
+        single_ms, single_digests = [], []
+        for v in vs:
+            sync()
+            t0 = time.perf_counter()
+            st1, out1 = render_frame(ts, st1, v, cfg)
+            sync()
+            single_ms.append((time.perf_counter() - t0) * 1e3)
+            if cfg.use_ircache:
+                single_digests.append(ircache_digest(st1))
+        exact_required = path == "default"
+        if exact_required and any(d != single_digests for d in all_digests):
+            failed.append(f"{name}/{path}: ircache tables per rank "
+                          f"{all_digests}, whole card {single_digests}")
+        cmp, exact, differ = {}, 0, []
+        pairs = [(f"out/{k}", whole["out"][k], out1[k], False) for k in keys]
+        pairs += [(f"state/{k}", whole["state"][k], st1[k], True)
+                  for k in st1]
+        for key, a, b, rel in pairs:
+            if tuple(a.shape) != tuple(b.shape):
+                failed.append(f"{name}/{path}/{key}: shape {tuple(a.shape)} "
+                              f"vs {tuple(b.shape)}")
+                continue
+            same = bool(torch.equal(a, b))
+            exact += int(same)
+            frac, mean, ok = within(a, b, GI_FRAME_TOL, relative=rel)
+            cmp[key] = (frac, mean)
+            if not same:
+                differ.append(key)
+            if not ok or (exact_required and not same):
+                failed.append(f"{name}/{path}/{key}: sharded vs whole card "
+                              f"bit exact {same} frac {frac} mean {mean}")
+        entry.update(single_frame_ms=single_ms,
+                     single_median_ms=statistics.median(single_ms),
+                     planes_bit_exact=exact, planes=len(pairs),
+                     planes_differing=differ,
+                     ircache_digests_equal=all(d == single_digests
+                                               for d in all_digests),
+                     worst=min(cmp.items(), key=lambda kv: kv[1][0]))
+        del st1, out1
+    dist.barrier()
+    return entry, failed, vs[0], cfg, whole["first"]
+
+
+def sharded_rank(mesh_args, out_dir, device="cuda", size=(WIDTH, HEIGHT)):
+    """One rank of the sharded phase (started by `parallel.launch.spawn`).
+    Per scene: rank 0 builds the scene and `distribute_scene` sends it to
+    the others (held bit for bit by digest); then each path of
+    SHARDED_FRAMES (`sharded_path`); on the city one (2, 2) multi-host GI
+    frame, held to the four-tile frame. Last, the city's 1080p camera rays
+    through `shard_rays_pt` (16 bounces), held by rank 0 to `path_trace`.
+    Each rank writes rank<r>.json to out_dir."""
+    import torch.distributed as dist
+
+    from kajiya_tpu_torch.core.camera import camera_rays
+    from kajiya_tpu_torch.frame import init_frame_state
+    from kajiya_tpu_torch.ops import _native
+    from kajiya_tpu_torch.parallel import (collective_summary,
                                            distribute_scene, make_mesh,
                                            make_multihost_mesh,
                                            render_frame_multihost,
-                                           render_frame_sharded,
                                            shard_rays_pt)
     from kajiya_tpu_torch.parallel.mesh import gather_frame
     from kajiya_tpu_torch.renderers.reference import path_trace
@@ -2181,10 +2323,9 @@ def sharded_rank(mesh_args, out_dir, device="cuda", size=(WIDTH, HEIGHT)):
     res = {"rank": rank, "backend": mesh.backend, "band_rows": band.rows,
            "multihost_shape": multi.shape, "scenes": {}}
     failed = []
-    cfg = slice_cfg(width, height, "gi")
     ts_city = None
     for name in SHARDED_SCENES:
-        make, eye, fwd, step = SCENES[name]
+        make = SCENES[name][0]
         t0 = time.perf_counter()
         ts0 = None
         if rank == 0:
@@ -2197,95 +2338,39 @@ def sharded_rank(mesh_args, out_dir, device="cuda", size=(WIDTH, HEIGHT)):
         digests = mesh.comm.gather_objects(scene_digest(ts))
         if rank == 0 and digests != [scene_digest(ts0)] * mesh.size:
             failed.append(f"{name}: distribute_scene digests {digests}")
-        vs = views(eye, fwd, step, SHARDED_FRAMES, width, height, dev)
-        st = init_frame_state(cfg, device=dev)
-        _native.reset_launches()
-        times, logs, first = [], [], None
-        for v in vs:
-            dist.barrier()
-            sync()
-            t0 = time.perf_counter()
-            with mesh.comm.recording() as log:
-                st, out = render_frame_sharded(ts, st, v, cfg, None, mesh)
-            sync()
-            times.append((time.perf_counter() - t0) * 1e3)
-            logs.append(log)
-            if first is None:
-                first = {k: out[k] for k in SHARDED_KEYS}
-        launches = dict(_native.launches)
-        need = ("woop_brute" if route_of(ts) == "brute" else "woop_culled",
-                "warp", "tile_shift")
-        short = [k for k in need if launches[k] <= 0 and dev.type == "cuda"]
-        if short:
-            failed.append(f"{name}: rank {rank} never launched {short}")
-        merged = [e for part in mesh.comm.gather_objects(
-            [e for log in logs for e in log]) for e in part]
-        summary, problems = check_sharding_quality(merged, height, width)
-        if problems or "halo" not in summary:
-            failed.append(f"{name}: sharding quality {problems} {summary}")
-        whole = gather_frame({"out": {k: out[k] for k in SHARDED_KEYS},
-                              "state": st, "first": first}, mesh, height,
-                             width)
-        entry = dict(frame_ms=times, median_ms=statistics.median(times),
-                     launches=launches, distribute_s=dist_s,
-                     tensors=digests[0][1],
-                     collectives=collective_summary(merged),
-                     collectives_per_frame=len(merged) // len(logs))
-        if name == "city":
-            ts_city = ts
-            with multi.comm.recording() as mlog:
-                _st, mout = render_frame_multihost(
-                    ts, init_frame_state(cfg, device=dev), vs[0], cfg, None,
-                    multi)
-            mfinal = gather_frame(mout["final"], multi, height, width)
-            merged_m = [e for part in multi.comm.gather_objects(list(mlog))
-                        for e in part]
-            entry["multihost"] = dict(
-                collectives=collective_summary(merged_m),
-                inter_host_bytes=sum(e.inter_host_bytes for e in merged_m))
-            if rank == 0:
-                frac, mean, ok = within(mfinal, whole["first"]["final"],
-                                        GI_FRAME_TOL)
-                entry["multihost"].update(
-                    bit_exact=bool(torch.equal(mfinal,
-                                               whole["first"]["final"])),
-                    frac=frac, mean=mean)
-                if not ok:
-                    failed.append(f"{name}: multi-host frame vs 4 tiles frac "
-                                  f"{frac} mean {mean}")
-        if rank == 0:
-            # the same frames on the whole card, timed, held to the bands
-            st1 = init_frame_state(cfg, device=dev)
-            single_ms = []
-            for v in vs:
-                sync()
-                t0 = time.perf_counter()
-                st1, out1 = render_frame(ts, st1, v, cfg)
-                sync()
-                single_ms.append((time.perf_counter() - t0) * 1e3)
-            cmp, exact = {}, 0
-            pairs = [(f"out/{k}", whole["out"][k], out1[k], False)
-                     for k in SHARDED_KEYS]
-            pairs += [(f"state/{k}", whole["state"][k], st1[k], True)
-                      for k in st1]
-            for key, a, b, rel in pairs:
-                if tuple(a.shape) != tuple(b.shape):
-                    failed.append(f"{name}/{key}: shape {tuple(a.shape)} vs "
-                                  f"{tuple(b.shape)}")
-                    continue
-                exact += int(torch.equal(a, b))
-                frac, mean, ok = within(a, b, GI_FRAME_TOL, relative=rel)
-                cmp[key] = (frac, mean)
-                if not ok:
-                    failed.append(f"{name}/{key}: sharded vs whole card frac "
-                                  f"{frac} mean {mean}")
-            entry.update(single_frame_ms=single_ms,
-                         single_median_ms=statistics.median(single_ms),
-                         planes_bit_exact=exact, planes=len(pairs),
-                         worst=min(cmp.items(), key=lambda kv: kv[1][0]))
-        dist.barrier()
-        res["scenes"][name] = entry
-        del ts, ts0, st, whole
+        paths = {}
+        for path in SHARDED_FRAMES:
+            entry, bad, v0, cfg, first = sharded_path(
+                name, path, ts, mesh, width, height, dev, sync)
+            failed += bad
+            if name == "city" and path == "gi":
+                ts_city = ts
+                with multi.comm.recording() as mlog:
+                    _st, mout = render_frame_multihost(
+                        ts, init_frame_state(cfg, device=dev), v0, cfg,
+                        None, multi)
+                mfinal = gather_frame(mout["final"], multi, height, width)
+                merged_m = [e for part in multi.comm.gather_objects(
+                    list(mlog)) for e in part]
+                entry["multihost"] = dict(
+                    collectives=collective_summary(merged_m),
+                    inter_host_bytes=sum(e.inter_host_bytes
+                                         for e in merged_m))
+                if rank == 0:
+                    frac, mean, ok = within(mfinal, first["final"],
+                                            GI_FRAME_TOL)
+                    entry["multihost"].update(
+                        bit_exact=bool(torch.equal(mfinal, first["final"])),
+                        frac=frac, mean=mean)
+                    if not ok:
+                        failed.append(f"{name}: multi-host frame vs 4 tiles "
+                                      f"frac {frac} mean {mean}")
+                del mout, _st
+            paths[path] = entry
+            del first
+        res["scenes"][name] = dict(distribute_s=dist_s,
+                                   tensors=digests[0][1], paths=paths)
+        del ts, ts0
     # the sample-sharded path tracer on the city's 1080p camera rays
     v = views(*SCENES["city"][1:], 1, width, height, dev)[0]
     org, d = camera_rays(v, width, height)
@@ -2329,41 +2414,50 @@ def sharded_phase():
     t0 = time.perf_counter()
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
     launch.spawn(sharded_rank, SHARDED_RANKS, args=(out_dir,),
-                 backend=SHARDED_BACKEND, timeout_s=600)
+                 backend=SHARDED_BACKEND, timeout_s=900)
     ranks = []
     for r in range(SHARDED_RANKS):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
     shutil.rmtree(out_dir, ignore_errors=True)
     r0 = ranks[0]
+
+    def path_result(name, path):
+        per = [r["scenes"][name]["paths"][path] for r in ranks]
+        e0 = per[0]
+        return {
+            "median_frame_ms_per_rank": [e["median_ms"] for e in per],
+            "frame_ms_per_rank": [e["frame_ms"] for e in per],
+            "launches_per_rank": [e["launches"] for e in per],
+            "frames_per_rank": [e["frames"] for e in per],
+            **{k: e0[k] for k in (
+                "collectives", "ircache_collectives",
+                "collectives_per_frame", "single_frame_ms",
+                "single_median_ms", "planes_bit_exact", "planes",
+                "planes_differing", "ircache_digests_equal", "worst")},
+            **({"multihost": e0["multihost"]} if "multihost" in e0 else {})}
+
     result = {
         "backend": r0["backend"], "ranks": SHARDED_RANKS,
         "band_rows": r0["band_rows"], "wall_s": time.perf_counter() - t0,
         "scenes": {name: {
-            "median_frame_ms_per_rank": [r["scenes"][name]["median_ms"]
-                                         for r in ranks],
-            "frame_ms_per_rank": [r["scenes"][name]["frame_ms"]
-                                  for r in ranks],
-            "launches_per_rank": [r["scenes"][name]["launches"]
-                                  for r in ranks],
-            **{k: r0["scenes"][name][k] for k in (
-                "collectives", "collectives_per_frame", "single_frame_ms",
-                "single_median_ms", "planes_bit_exact", "planes", "worst",
-                "distribute_s", "tensors")},
-            **({"multihost": r0["scenes"][name]["multihost"]}
-               if "multihost" in r0["scenes"][name] else {})}
+            "distribute_s": r0["scenes"][name]["distribute_s"],
+            "tensors": r0["scenes"][name]["tensors"],
+            "paths": {path: path_result(name, path)
+                      for path in SHARDED_FRAMES}}
             for name in SHARDED_SCENES},
         "pt": {**r0["pt"], "sharded_ms_per_rank": [r["pt"]["sharded_ms"]
                                                    for r in ranks]},
     }
     for name in SHARDED_SCENES:
-        s = result["scenes"][name]
-        log(f"sharded/{name}: backend {result['backend']}, bands "
-            f"{result['band_rows']}, median frame ms per rank "
-            f"{s['median_frame_ms_per_rank']} (whole card "
-            f"{s['single_median_ms']:.1f}), {s['planes_bit_exact']} of "
-            f"{s['planes']} planes bit for bit, worst {s['worst']}, "
-            f"collectives {s['collectives']}")
+        for path in SHARDED_FRAMES:
+            s = result["scenes"][name]["paths"][path]
+            log(f"sharded/{name}/{path}: backend {result['backend']}, bands "
+                f"{result['band_rows']}, median frame ms per rank "
+                f"{s['median_frame_ms_per_rank']} (whole card "
+                f"{s['single_median_ms']:.1f}), {s['planes_bit_exact']} of "
+                f"{s['planes']} planes bit for bit, worst {s['worst']}, "
+                f"collectives {s['collectives']}")
     log(f"sharded/pt: {result['pt']}")
     log(f"sharded phase wall {result['wall_s']:.1f} s")
     return result
@@ -2470,7 +2564,8 @@ def main():
         n = sum(frames[p][sc]["launches"][kernel]
                 for p in frames for sc in frames[p])
         n += sum(per_rank[kernel] for sc in sharded["scenes"].values()
-                 for per_rank in sc["launches_per_rank"])
+                 for p in sc["paths"].values()
+                 for per_rank in p["launches_per_rank"])
         if n <= 0:
             raise AssertionError(f"{kernel} was never launched by a frame")
         return n

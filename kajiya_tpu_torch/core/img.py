@@ -173,9 +173,18 @@ def weave2x2(ph):
     return out
 
 
-def upsample_bilinear(img, out_h: int, out_w: int):
+def upsample_bilinear(img, out_h: int, out_w: int, band=None,
+                      out_band=None):
     """Bilinear resize with clamped hat-function weights, as separable
-    products; exact 2x takes `upsample2x_bilinear`."""
+    products; exact 2x takes `upsample2x_bilinear`. With `band` (img's) and
+    `out_band` (the result's, at out_h x out_w), img is a row band of the
+    source: the source is gathered (the resizes of the frame read small
+    planes) and the resize of the whole is cut to `out_band`'s rows. A
+    matmul's rounding may depend on its shape, so the band's rows come from
+    the same products as the whole frame's."""
+    if band is not None:
+        return out_band.rows_of(upsample_bilinear(
+            band.gather(img, label="resize source"), out_h, out_w))
     h, w = img.shape[0], img.shape[1]
     if out_h == h * 2 and out_w == w * 2:
         return upsample2x_bilinear(img)

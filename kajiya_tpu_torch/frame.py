@@ -22,7 +22,8 @@ is the reference path tracer's progressive frame (the oracle).
 renders one rank's row band of the frame (parallel/: `band` is a
 `parallel.comm.Band`, the state and outputs are the band's planes); the
 passes fetch what they read outside the band through the band's
-collectives. `check_supported(cfg, sharded=True)` names the options the
+collectives, and the irradiance cache's tables stay whole and the same on
+every rank. `check_supported(cfg, sharded=True)` names the options the
 banded frame does not run yet.
 
 PyTorch runs eagerly; there is no jit (docs/port_eager.md). Hot reload
@@ -106,10 +107,6 @@ class RenderConfig:
 # the options a row-banded frame (parallel/) does not run yet, each with
 # its place in the queue (ROADMAP.md section 1, item 4)
 SHARDED_TODO = (
-    ("use_ircache", "the irradiance cache"),
-    ("use_rtr", "RTR"),
-    ("use_taa", "TAA"),
-    ("use_motion_blur", "motion blur"),
     ("use_wrc", "the world radiance cache"),
     ("use_dof", "depth of field"),
 )
@@ -117,14 +114,17 @@ SHARDED_TODO = (
 
 def check_supported(cfg: RenderConfig, ibl_env=None, sharded: bool = False):
     """Every `RenderConfig` option of the JAX frame and its `ibl_env` are
-    ported. The row-banded frame (`sharded`) runs the raster + shadow and
-    diffuse-GI paths; each other option raises NotImplementedError naming
-    its ROADMAP item."""
+    ported. The row-banded frame (`sharded`) runs the default frame (the
+    irradiance cache, SSAO, ReSTIR GI, RTR with mesh-light specular, TAA
+    and motion blur) and every subset of it; each other option raises
+    NotImplementedError naming its ROADMAP item."""
     if not sharded:
         return
     todo = [what for flag, what in SHARDED_TODO if getattr(cfg, flag)]
     if cfg.primary != "raster":
         todo.append("the traced g-buffer")
+    if cfg.temporal_upsampling != 1.0:
+        todo.append("TAA's super-resolution (temporal_upsampling != 1)")
     if ibl_env is not None:
         todo.append("the IBL sky")
     if todo:
@@ -178,17 +178,29 @@ def _reflect(d, n):
     return d - 2.0 * torch.sum(d * n, dim=-1, keepdim=True) * n
 
 
-def ircache_queries(gb, h: int, w: int):
+def ircache_queries(gb, h: int, w: int, band=None):
     """The cache's query points: the gbuffer decimated by the smallest power
-    of two stride (at least 4) that keeps them within 32,768."""
-    sy = 4
-    while (h // sy) * (w // sy) > 32768:
-        sy *= 2
+    of two stride (at least 4) that keeps them within 32,768. With `band`
+    (gb's), the bands' points are all-gathered, in band order: the whole
+    frame's points in its row-major order, on every rank."""
+    stride = 4
+    while (h // stride) * (w // stride) > 32768:
+        stride *= 2
     q_pos, q_mask = gb["pos"], gb["hit"]
+    sy = stride
     while sy > 1:
         q_pos = im.decimate2(q_pos)
         q_mask = im.decimate2(q_mask)
         sy //= 2
+    if band is not None:
+        if any(a % stride for a, _b in band.rows):
+            raise NotImplementedError(
+                f"ircache query stride {stride} does not divide the band "
+                f"edges {band.rows}")
+        q = band.scaled(stride).gather(
+            torch.cat([q_pos, q_mask[..., None].to(q_pos.dtype)], dim=-1),
+            label="ircache queries", ircache=True)
+        q_pos, q_mask = q[..., :3], q[..., 3] > 0.5
     return q_pos.reshape(-1, 3), q_mask.reshape(-1)
 
 
@@ -261,7 +273,7 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
     ir_state = {k: v for k, v in state.items() if k.startswith("ircache_")}
     if cfg.use_ircache and ircache_lookup is None:
         eye = view.eye_position
-        q_pos, q_mask = ircache_queries(gb, h, w)
+        q_pos, q_mask = ircache_queries(gb, h, w, band)
         with pass_scope("ircache"):
             with pass_scope("ircache_alloc"):
                 grid0 = ircache.build_grid(ir_state, eye, cfg.ircache)
@@ -271,7 +283,8 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
                 ir_state = ircache.trace_update(
                     ir_state, ts, sky_env, diffuse_env, eye, frame_idx,
                     cfg.ircache, max_trace_steps=mts,
-                    secondary_full_shading=cfg.secondary_full_shading)
+                    secondary_full_shading=cfg.secondary_full_shading,
+                    band=band)
             with pass_scope("ircache_value_grid"):
                 ir_grid = ircache.build_value_grid(
                     ir_state, ircache.build_grid(ir_state, eye, cfg.ircache),
@@ -385,7 +398,8 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
                                 restir_state, ctx_a, hit.t[:na], fresh[:na])
                     if use_rtr_restir:
                         rtr_state_in = rtr.apply_validation(
-                            rtr_state_in, ctx_b, hit.t[na:], fresh[na:])
+                            rtr_state_in, ctx_b, hit.t[na:], fresh[na:],
+                            band)
                 elif use_gi_restir:
                     gi_invalidity = torch.zeros_like(gb_h["depth"])
 
@@ -399,7 +413,8 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
                 dirs.append(wi_c)
                 rngs.append(rng_c)
             if cfg.use_rtr:
-                org_r, wi_r, pdf_r, rng_r = rtr.reflection_rays(gb, frame_idx)
+                org_r, wi_r, pdf_r, rng_r = rtr.reflection_rays(gb, frame_idx,
+                                                                band)
                 orgs.append(org_r)
                 dirs.append(wi_r)
                 rngs.append(rng_r)
@@ -459,7 +474,7 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
                 mesh_light_specular=cfg.use_mesh_light_specular,
                 rtdgi_candidates=rtdgi_candidates,
                 secondary_full_shading=cfg.secondary_full_shading,
-                validated=True)
+                validated=True, band=band)
     else:
         with pass_scope("sky_refl"):
             refl = sky_env_mod.sample_env(
@@ -501,7 +516,8 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
             aa, taa_state = taa.taa(
                 lit * pre_mult, {k: state[k] for k in taa.KEYS},
                 reproj, gb["depth"], view.sample_offset_pixels,
-                cfg.out_height, cfg.out_width, pre_delta=pre_delta)
+                cfg.out_height, cfg.out_width, pre_delta=pre_delta,
+                band=band)
     else:
         aa = lit
         taa_state = {k: state[k] for k in taa.KEYS}
@@ -518,7 +534,8 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
                                                 aa.shape[1])
         with pass_scope("motion_blur"):
             aa = mb.motion_blur(aa, vel_out, depth_for_mb,
-                                frame_fraction=cfg.motion_blur_scale)
+                                frame_fraction=cfg.motion_blur_scale,
+                                band=band)
 
     # --- depth of field (opt-in): CoC + gather after motion blur
     if cfg.use_dof:

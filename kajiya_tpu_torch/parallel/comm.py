@@ -334,8 +334,17 @@ class Band:
         return self.comm.halo(x, self.rows, self.height, top, bottom,
                               label=label)
 
-    def gather(self, x, label="all_gather"):
-        return self.comm.all_gather(x, self.rows, label=label)
+    def gather(self, x, label="all_gather", ircache=False):
+        return self.comm.all_gather(x, self.rows, label=label,
+                                    ircache=ircache)
 
-    def all_reduce(self, x, label="all_reduce"):
-        return self.comm.all_reduce(x, label=label)
+    def all_reduce(self, x, label="all_reduce", ircache=False):
+        return self.comm.all_reduce(x, label=label, ircache=ircache)
+
+
+def even_slices(n: int, size: int):
+    """`size` contiguous slices [a, b) that cover range(n), in member order:
+    member i takes [i n / size, (i + 1) n / size) (a flat ray batch split
+    over the ranks)."""
+    bounds = [(i * n) // size for i in range(size + 1)]
+    return tuple(zip(bounds[:-1], bounds[1:]))

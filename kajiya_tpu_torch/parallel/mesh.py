@@ -10,13 +10,24 @@ Parallel axes, as in the JAX module:
     bounded stencils, an all-gather of the source for fetches at arbitrary
     uv (the temporal warps, the screen-space radiance reuse), an all-reduce
     for the exposure histogram. Band edges fall on multiples of 16 full-res
-    rows (`band_rows`), so that every half- and quarter-res plane and every
-    (8, 128) ReSTIR tile splits on the same rows.
+    rows (`band_rows`), so that every half- and quarter-res plane, every
+    (8, 128) ReSTIR tile, every 16-row motion-blur tile and every 8-row
+    irradiance-cache query splits on the same rows. The irradiance cache's
+    pool (the `ircache_*` tables) is replicated: every rank gathers the
+    frame's query points, traces its slice of the entry wavefront and
+    gathers the others' radiance, so every rank writes the same pool.
   * ``spp`` (`shard_rays_pt`): the reference path tracer's flat ray batch is
     split into contiguous slices, traced independently and all-gathered.
   * multi-host: a ("host", "tile") grid whose ranks are ordered host-major,
     so that a halo crosses a host seam only between the last band of one
     host and the first of the next; the log counts those bytes apart.
+
+The banded frame runs the default `RenderConfig` (the irradiance cache,
+SSAO, ReSTIR GI, RTR with mesh-light specular, TAA, motion blur) and every
+subset of it; the world radiance cache, depth of field, the traced
+g-buffer, an IBL sky and `temporal_upsampling != 1` raise
+NotImplementedError (`frame.check_supported(..., sharded=True)`). Every
+output and state plane equals the single-device frame's bit for bit.
 
 The JAX module jits the frame with GSPMD shardings and reads the collectives
 XLA inserted from the optimized HLO. The port runs eagerly, so
@@ -39,7 +50,7 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
-from .comm import Band, CollectiveLog, Comm
+from .comm import Band, CollectiveLog, Comm, even_slices
 
 BAND_UNIT = 16      # band edges are multiples of this many full-res rows
 
@@ -256,11 +267,14 @@ def _plan_of(state, mesh: Mesh, band: Band):
 
 def render_frame_sharded(ts, state, view, cfg, levels, mesh: Mesh,
                          axis: str = "tile"):
-    """`render_frame` on this rank's band. `state` is this rank's band of
-    the state (as a sharded frame returns it) or the whole state (as
-    `init_frame_state` makes it), whose row-sharded planes are cut to the
-    band. Returns (band state, band outputs); planes the plan replicates come
-    back whole. Every rank of the mesh calls it with the same arguments."""
+    """`render_frame` on this rank's band, for the configurations the
+    module docstring names (others raise before any work). `state` is this
+    rank's band of the state (as a sharded frame returns it) or the whole
+    state (as `init_frame_state` makes it), whose row-sharded planes are cut
+    to the band. Returns (band state, band outputs); planes the plan
+    replicates come back whole, and so do the irradiance-cache tables, the
+    same on every rank. Every rank of the mesh calls it with the same
+    arguments."""
     from ..frame import check_supported, render_frame
 
     check_supported(cfg, sharded=True)
@@ -467,9 +481,7 @@ def shard_rays_pt(ts, org, d, seed, mesh: Mesh, axis: str = "tile",
     radiance. No communication until that gather."""
     from ..renderers.reference import path_trace
 
-    r, n = org.shape[0], mesh.size
-    bounds = [(i * r) // n for i in range(n + 1)]
-    a, b = bounds[mesh.index], bounds[mesh.index + 1]
+    slices = even_slices(org.shape[0], mesh.size)
+    a, b = slices[mesh.index]
     rad = path_trace(ts, org[a:b], d[a:b], seed[a:b], **pt_kwargs)
-    return mesh.comm.all_gather(rad, tuple(zip(bounds[:-1], bounds[1:])),
-                                label="shard_rays_pt")
+    return mesh.comm.all_gather(rad, slices, label="shard_rays_pt")

@@ -19,6 +19,14 @@ irradiance. Every frame:
   * `build_value_grid` bakes each cell's entry payload into a 13-wide row
     so that a lookup is one row fetch.
 
+With a row `band` (parallel/), the pool stays replicated, the same on
+every rank: the frame gathers the query points (`allocate` then runs on the
+whole frame's queries everywhere), each rank traces and shades a contiguous
+slice of the entry wavefront, and the slices' radiance is all-gathered
+before the SH projection and the write-back, which every rank runs alike.
+A ray's trace and shading read only that ray and the replicated tables, so
+a slice gives the bits the whole wavefront gives.
+
 The JAX module's masked scatters write a neutral value into index 0
 (`.at[where(m, idx, 0)].max(where(m, val, -1))`); here they are
 `scatter_reduce(..., "amax")` over the same operands (ops/scan.py), which is
@@ -37,6 +45,7 @@ from ..brdf.sampling import uniform_sphere
 from ..core import rng as rng_mod
 from ..core.color import luminance
 from ..ops.scan import inclusive_scan, scatter_max
+from ..parallel.comm import even_slices
 from ..sky.env import sample_env
 
 # SH basis constants
@@ -295,11 +304,12 @@ def _write_rows(buf, widx, rows):
 
 def trace_update(state, ts, sky_env, diffuse_env, eye, frame_idx,
                  cfg: IrcacheConfig, max_trace_steps=None,
-                 secondary_full_shading: bool = False):
+                 secondary_full_shading: bool = False, band=None):
     """Trace the entry wavefront (`entry_rays`) and blend the SH estimates
     of the traced entries. On validation frames a large per-ray relative
     luminance change against the stored radiance on at least half the
-    checked rays cuts the entry's history."""
+    checked rays cuts the entry's history. `band`: this rank traces its
+    slice of the wavefront and gathers the others' radiance."""
     from ..rt.trace import scene_trace_closest
     from .hit_lighting import hit_radiance
 
@@ -312,7 +322,12 @@ def trace_update(state, ts, sky_env, diffuse_env, eye, frame_idx,
     eidx = torch.clamp(lst, min=0).long()
     live_r = alive_b[:, None].expand(b, s).reshape(-1)
 
-    hit = scene_trace_closest(ts, rays["org"], d, t_min=1e-4,
+    org, d_t, rng = rays["org"], d, rays["rng"]
+    if band is not None:
+        slices = even_slices(b * s, band.comm.size)
+        lo, hi = slices[band.comm.index]
+        org, d_t, rng = org[lo:hi], d_t[lo:hi], rng[lo:hi]
+    hit = scene_trace_closest(ts, org, d_t, t_min=1e-4,
                               max_steps=max_trace_steps)
 
     # ambient at the hit comes from the cache itself (previous frame's SH)
@@ -321,10 +336,13 @@ def trace_update(state, ts, sky_env, diffuse_env, eye, frame_idx,
     def cache_lookup(p, n):
         return lookup_irradiance(state, grid, p, n, eye, diffuse_env, cfg)
 
-    rad = hit_radiance(ts, hit, d, sky_env, diffuse_env,
+    rad = hit_radiance(ts, hit, d_t, sky_env, diffuse_env,
                        ircache_lookup=cache_lookup,
-                       max_trace_steps=max_trace_steps, rng=rays["rng"],
+                       max_trace_steps=max_trace_steps, rng=rng,
                        full_shading=secondary_full_shading)
+    if band is not None:
+        rad = band.comm.all_gather(rad, slices, label="ircache radiance",
+                                   ircache=True)
     rad = torch.where(live_r[:, None], rad, 0.0)
 
     # --- validation verdict: per-ray relative luminance mismatch

@@ -4,7 +4,8 @@
 Reflection rays rarely hit small emitters, so the specular highlights of
 mesh lights are sampled explicitly at half res with shadow rays, spatially
 reused by a small blur, and added into the reflection stream before its
-temporal and spatial filtering.
+temporal and spatial filtering. With a row `band` (parallel/), the RNG
+takes screen rows and the blur its halo rows.
 """
 from __future__ import annotations
 
@@ -21,10 +22,12 @@ RAY_EPS = 1e-4
 N_SAMPLES = 2      # ~ the reference's 3 sample layers
 
 
-def sample_lights_specular(ts, gb, frame_idx, max_trace_steps=None):
+def sample_lights_specular(ts, gb, frame_idx, max_trace_steps=None,
+                           band=None):
     """Half-res explicit specular from emissive triangles -> (hh, hw, 3):
     N_SAMPLES light samples, each with a shadow ray, then a 5-tap blur.
-    Lanes are masked where the scene has no lights."""
+    Lanes are masked where the scene has no lights. `band`: gb's row band
+    (parallel/)."""
     pos = im.decimate2(gb["pos"])
     n = im.decimate2(gb["normal"])
     gn = im.decimate2(gb["geo_normal"])
@@ -45,7 +48,9 @@ def sample_lights_specular(ts, gb, frame_idx, max_trace_steps=None):
     rg = rough.reshape(-1)
     hm = hitm.reshape(-1)
 
-    px = torch.arange(hh * hw, dtype=torch.int64, device=dev)
+    hb = None if band is None else band.half()
+    y0 = 0 if hb is None else hb.y0
+    px = torch.arange(y0 * hw, (y0 + hh) * hw, dtype=torch.int64, device=dev)
     rng = rng_mod.pixel_rng(px % hw, px // hw, frame_idx, stream=53)
 
     acc = torch.zeros((hh * hw, 3), dtype=torch.float32, device=dev)
@@ -65,4 +70,4 @@ def sample_lights_specular(ts, gb, frame_idx, max_trace_steps=None):
         acc = acc + torch.where((possible & ~occ)[:, None], contrib, 0.0)
     out = (acc / N_SAMPLES).reshape(hh, hw, 3)
     # spatial reuse: a small blur at half res
-    return im.separable_blur(out, im.GAUSS5)
+    return im.separable_blur(out, im.GAUSS5, hb)

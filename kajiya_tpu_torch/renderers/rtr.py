@@ -11,6 +11,11 @@ full res by a 13-tap BRDF-lobe footprint and filtered temporally with a
 ray-length-driven history length. The deferred combine multiplies the
 preintegrated FG term. The temporal fetch of the packed reservoirs and the
 history reprojection go through the warp kernel (core/img.py).
+
+With a row `band` (parallel/; every function takes the band of the
+full-res g-buffer it is given), the RNG, blue noise and lane parities take
+screen rows, the temporal fetches gather their source, the resolves fetch
+their halo rows, and the footprint's size law reads the frame's height.
 """
 from __future__ import annotations
 
@@ -60,7 +65,11 @@ def init_state(h: int, w: int, device=None):
     }
 
 
-def reflection_rays(gb, frame_idx):
+def _half_y0(band):
+    return 0 if band is None else band.half().y0
+
+
+def reflection_rays(gb, frame_idx, band=None):
     """Half-res VNDF reflection ray batch. Returns (org, wi, pdf, rng); the
     frame batches these into the shared secondary trace + shade wavefront."""
     pos = im.decimate2(gb["pos"])
@@ -71,11 +80,12 @@ def reflection_rays(gb, frame_idx):
     rd = im.decimate2(gb["ray_dir"])
     dev = rough.device
 
-    px = torch.arange(hh * hw, dtype=torch.int64, device=dev)
+    y0 = _half_y0(band)
+    px = torch.arange(y0 * hw, (y0 + hh) * hw, dtype=torch.int64, device=dev)
     rng = rng_mod.pixel_rng(px % hw, px // hw, frame_idx, stream=31)
     # blue-noise VNDF sample: glossy lobes get well-spread neighbour samples
     bu1, bu2 = bluenoise.blue_noise_pair(hh, hw, frame_idx, stream=2,
-                                         device=dev)
+                                         device=dev, y0=y0)
     u1 = bu1.reshape(-1)
     u2 = bu2.reshape(-1)
 
@@ -110,10 +120,10 @@ def finish_reflections(gb, wi, pdf, hit_t, rad):
 def trace_reflections(ts, gb, frame_idx, sky_env, diffuse_env,
                       prev_lit=None, prev_depth=None, view=None,
                       ircache_lookup=None, max_trace_steps=None,
-                      secondary_full_shading: bool = False):
+                      secondary_full_shading: bool = False, band=None):
     """Standalone half-res reflection trace (tests / non-batched callers);
     the frame batches reflection_rays into one shared wavefront."""
-    org, wi, pdf, rng = reflection_rays(gb, frame_idx)
+    org, wi, pdf, rng = reflection_rays(gb, frame_idx, band)
     hit = scene_trace_closest(ts, org, wi, t_min=RAY_EPS,
                               max_steps=max_trace_steps)
     rad = hit_radiance(ts, hit, wi, sky_env, diffuse_env,
@@ -153,7 +163,7 @@ def _unpack_res(r):
 
 
 def restir_reflections(state, half, gb, reproj, frame_idx,
-                       rtdgi_candidates=None):
+                       rtdgi_candidates=None, band=None):
     """Temporal reservoir resampling for reflections. Returns
     (spec (hh, hw, 3) lobe-average radiance, ray_len (hh, hw), new reservoir
     state). Reuse from the previous frame is weighted by how well the stored
@@ -166,7 +176,9 @@ def restir_reflections(state, half, gb, reproj, frame_idx,
     rough = rough_h.reshape(-1)
     dev = rough.device
 
-    px = torch.arange(hh * hw, dtype=torch.int64, device=dev).reshape(hh, hw)
+    y0 = _half_y0(band)
+    px = torch.arange(y0 * hw, (y0 + hh) * hw, dtype=torch.int64,
+                      device=dev).reshape(hh, hw)
     rng = rng_mod.pixel_rng(px % hw, px // hw, frame_idx, stream=37)
 
     def p_hat_of(radiance, direction):
@@ -211,7 +223,8 @@ def restir_reflections(state, half, gb, reproj, frame_idx,
         prev["payload"]["t"][..., None], prev["w_sum"][..., None],
         prev["M"][..., None], prev["W"][..., None],
         prev["p_hat"][..., None]], dim=-1)
-    f = im.warp_nearest(packed_prev, im.decimate2(reproj["prev_uv"]))
+    f = im.warp_nearest(packed_prev, im.decimate2(reproj["prev_uv"]),
+                        band=None if band is None else band.half())
     prev_f = {
         "payload": {"radiance": f[..., 0:3], "dir": f[..., 3:6],
                     "t": f[..., 6]},
@@ -262,7 +275,7 @@ def _up2(x, hh, hw):
     return x.repeat_interleave(2, 0).repeat_interleave(2, 1)[:hh, :hw]
 
 
-def apply_validation(state, ctx, hit_t, fresh):
+def apply_validation(state, ctx, hit_t, fresh, band=None):
     """Second half of the reflection validation: where the fresh radiance
     disagrees with the stored one, the stored sample is replaced and its
     history cut, so stale reflections die within one validation period."""
@@ -283,7 +296,8 @@ def apply_validation(state, ctx, hit_t, fresh):
     fresh_h = _up2(fresh.reshape(qh, qw, 3), hh, hw)
     t_h = _up2(torch.clamp(hit_t, max=1e8).reshape(qh, qw), hh, hw)
     dev = inv_h.device
-    rows = torch.arange(hh, device=dev)[:, None]
+    y0 = _half_y0(band)
+    rows = torch.arange(y0, y0 + hh, device=dev)[:, None]
     cols = torch.arange(hw, device=dev)[None, :]
     traced_lane = (rows % 2 == 0) & (cols % 2 == 0)
     replace = inv_h & traced_lane
@@ -325,7 +339,7 @@ def apply_validation(state, ctx, hit_t, fresh):
 def validate_reservoirs(ts, state, gb, sky_env, diffuse_env, frame_idx,
                         prev_lit=None, prev_depth=None, view=None,
                         ircache_lookup=None, max_trace_steps=None,
-                        secondary_full_shading: bool = False):
+                        secondary_full_shading: bool = False, band=None):
     """Standalone reservoir validation (tests / non-batched callers):
     validation_rays -> trace -> shade -> apply_validation."""
     org, d, ctx = validation_rays(state, gb)
@@ -336,7 +350,7 @@ def validate_reservoirs(ts, state, gb, sky_env, diffuse_env, frame_idx,
                          ircache_lookup=ircache_lookup,
                          max_trace_steps=max_trace_steps,
                          full_shading=secondary_full_shading)
-    return apply_validation(state, ctx, hit.t, fresh)
+    return apply_validation(state, ctx, hit.t, fresh, band)
 
 
 _TAPS = ((0, 0),
@@ -346,7 +360,7 @@ _TAPS = ((0, 0),
 
 
 def _resolve_footprint(res_planes, spec_h, ray_len_h, gb, view,
-                       near: float = 0.01):
+                       near: float = 0.01, band=None):
     """Full-res BRDF-lobe footprint resolve: a static lattice of 13 half-res
     taps (centre, r=1 ring, r~2.8 ring) shared by the four output phases,
     each re-weighted like the reference's resolve:
@@ -361,7 +375,9 @@ def _resolve_footprint(res_planes, spec_h, ray_len_h, gb, view,
     The 13 taps ride one stacked axis (the JAX function loops over them):
     a few dozen launches per output phase instead of ~45 per tap.
     Returns (spec (H, W, 3), ray_len (H, W))."""
-    hh, hw = ray_len_h.shape
+    hb = None if band is None else band.half()
+    # the kernel-size law reads the frame's half height, not the band's
+    hh = ray_len_h.shape[0] if hb is None else hb.height
     dev = ray_len_h.device
 
     # ---- packed half-res neighbour plane (one shift per tap moves all 10
@@ -377,7 +393,7 @@ def _resolve_footprint(res_planes, spec_h, ray_len_h, gb, view,
     packed = torch.cat([
         rad_nb, hit_nb, t_nb[..., None], w_nb[..., None],
         vz_h[..., None], rough_h[..., None]], dim=-1)
-    taps = im.shift_stack(packed, _TAPS)          # (13, hh, hw, 10)
+    taps = im.shift_stack(packed, _TAPS, hb)      # (13, hh, hw, 10)
     rad_k, hit_k = taps[..., 0:3], taps[..., 3:6]
     t_k, w_k = taps[..., 6], taps[..., 7]
     vz_k, rough_k = taps[..., 8], taps[..., 9]
@@ -451,7 +467,7 @@ def _pow16(x):
     return x8 * x8
 
 
-def _resolve_full(spec_h, ray_len_h, gb, near: float = 0.01):
+def _resolve_full(spec_h, ray_len_h, gb, near: float = 0.01, band=None):
     """Half -> full joint-bilateral resolve, roughness-aware, with contact
     hardening (a tap whose hit distance is much longer than the centre's
     does not blur into the contact region). Phase-major: each output phase
@@ -480,7 +496,8 @@ def _resolve_full(spec_h, ray_len_h, gb, near: float = 0.01):
                                     * (0.75 if kx != px else 0.25)
                                     for ky in (0, 1) for kx in (0, 1)),
                               dev)[:, None, None]
-            s = im.shift_stack(packed_h, offs)        # (4, hh, hw, 8)
+            s = im.shift_stack(packed_h, offs,
+                               None if band is None else band.half())
             zz, nn = s[..., 0], s[..., 1:4]
             t, v = s[..., 4], s[..., 5:8]
             w_z = torch.exp(-torch.abs(zz - vz) / (0.05 * vz + 1e-4))
@@ -500,20 +517,21 @@ def rtr_pipeline(ts, gb, view, frame_idx, state, reproj, sky_env, diffuse_env,
                  max_trace_steps=None, half=None, mesh_light_specular=False,
                  rtdgi_candidates=None, use_restir: bool = True,
                  secondary_full_shading: bool = False,
-                 validated: bool = False):
+                 validated: bool = False, band=None):
     """Full chain -> (specular radiance (H, W, 3), new_state).
 
     half: precomputed by the frame's shared secondary-ray wavefront; traced
     here standalone when absent. `validated` marks the reservoir state as
     already validated by the frame's batched validation; otherwise it is
     validated here on every VALIDATE_PERIOD-th frame (one host read of the
-    frame index)."""
+    frame index). `band`: gb's row band (parallel/); the frame passes
+    `half` then (the reuse source of a standalone trace is not banded)."""
     if half is None:
         half = trace_reflections(
             ts, gb, frame_idx, sky_env, diffuse_env, prev_lit=prev_lit,
             prev_depth=prev_depth, view=view, ircache_lookup=ircache_lookup,
             max_trace_steps=max_trace_steps,
-            secondary_full_shading=secondary_full_shading)
+            secondary_full_shading=secondary_full_shading, band=band)
 
     if mesh_light_specular:
         # explicit emissive-triangle specular, added into the reflection
@@ -522,7 +540,7 @@ def rtr_pipeline(ts, gb, view, frame_idx, state, reproj, sky_env, diffuse_env,
 
         half = dict(half)
         half["radiance"] = half["radiance"] + sample_lights_specular(
-            ts, gb, frame_idx, max_trace_steps=max_trace_steps)
+            ts, gb, frame_idx, max_trace_steps=max_trace_steps, band=band)
 
     res_keys = [k for k in state if k.startswith("rtr_res_")]
     if use_restir and res_keys:
@@ -533,11 +551,11 @@ def rtr_pipeline(ts, gb, view, frame_idx, state, reproj, sky_env, diffuse_env,
                 prev_lit=prev_lit, prev_depth=prev_depth, view=view,
                 ircache_lookup=ircache_lookup,
                 max_trace_steps=max_trace_steps,
-                secondary_full_shading=secondary_full_shading)
+                secondary_full_shading=secondary_full_shading, band=band)
         with pass_scope("rtr_restir"):
             spec_h, ray_len_h, res_state = restir_reflections(
                 res_state, half, gb, reproj, frame_idx,
-                rtdgi_candidates=rtdgi_candidates)
+                rtdgi_candidates=rtdgi_candidates, band=band)
         res_planes = res_state
     else:
         spec_h, ray_len_h = half["radiance"], half["ray_t"]
@@ -553,13 +571,14 @@ def rtr_pipeline(ts, gb, view, frame_idx, state, reproj, sky_env, diffuse_env,
         }
     with pass_scope("rtr_resolve"):
         full, ray_len = _resolve_footprint(res_planes, spec_h, ray_len_h,
-                                           gb, view)
+                                           gb, view, band=band)
 
     # temporal: rougher surfaces tolerate longer history; contact regions
     # (short rays) shorten it, since they move with parallax
     with pass_scope("rtr_temporal"):
         fetched = reproject_planes(
-            {"h": state["rtr_history"], "l": state["rtr_hist_len"]}, reproj)
+            {"h": state["rtr_history"], "l": state["rtr_hist_len"]}, reproj,
+            band)
         hist = fetched["h"]
         hist_len = fetched["l"]
         contact = torch.clamp(ray_len / 0.2, 0.0, 1.0)
@@ -568,7 +587,7 @@ def rtr_pipeline(ts, gb, view, frame_idx, state, reproj, sky_env, diffuse_env,
         alpha = (1.0 / hist_len)[..., None]
         out = hist * (1 - alpha) + full * alpha
 
-        m1, var = im.local_moments_3x3(full)
+        m1, var = im.local_moments_3x3(full, band)
         sigma = torch.sqrt(torch.clamp(var, min=0.0))
         out = torch.minimum(torch.maximum(out, m1 - sigma * 3.0 - 1e-3),
                             m1 + sigma * 3.0 + 1e-3)

@@ -22,6 +22,11 @@ velocity 2) at the dilated reprojection lattice, through the warp kernel
 Super-resolution (output larger than render res): the frame is gathered to
 the output lattice with the analytic unjitter kernel, 9 input taps
 pre-shifted at render res and fetched by one 27-channel nearest warp.
+
+With a row `band` (parallel/; same resolution in and out), the planes are
+the band's: every stencil fetches its halo rows, the pixel lattice takes
+screen rows, the history fetch gathers its packed source, and the sizes
+that decide the path are the frame's.
 """
 from __future__ import annotations
 
@@ -72,22 +77,22 @@ def _len2(v):
     return torch.sqrt(torch.clamp(v[..., 0] ** 2 + v[..., 1] ** 2, min=0.0))
 
 
-def _closest_velocity(depth, vel):
+def _closest_velocity(depth, vel, band=None):
     """3x3 velocity dilation toward the closest surface (reversed-Z: larger
     depth = closer); ties take the first tap."""
     packed = torch.cat([depth[..., None], vel], dim=-1)
-    s = im.shift_stack(packed, _OFF3)                # (9, H, W, 3)
+    s = im.shift_stack(packed, _OFF3, band)          # (9, H, W, 3)
     k = torch.argmax(s[..., 0], dim=0)               # closest tap index
     best = torch.gather(s, 0, k[None, ..., None].expand(1, *s.shape[1:]))[0]
     return best[..., 1:3]
 
 
-def _filter_input(iycc, depth, k_dist: float):
+def _filter_input(iycc, depth, k_dist: float, band=None):
     """Two 3x3 passes: depth-weighted (accumulating the unweighted moments
     for the deviation), then again with a luma cutoff at the first pass's
     mean. Returns (filtered (H,W,3), deviation (H,W,3))."""
     packed = torch.cat([iycc, depth[..., None]], dim=-1)
-    s = im.shift_stack(packed, _OFF3)                # (9, H, W, 4)
+    s = im.shift_stack(packed, _OFF3, band)          # (9, H, W, 4)
     sy, sd = s[..., :3], s[..., 3]
     d_c = torch.clamp(depth, min=1e-20)
     kd = const_tensor(tuple(math.exp(-k_dist * (dy * dy + dx * dx))
@@ -114,11 +119,11 @@ def _filter_input(iycc, depth, k_dist: float):
     return filtered, dev
 
 
-def _filter_history(hycc, k: int):
+def _filter_history(hycc, k: int, band=None):
     """Two luma-cutoff passes of radius k with distance weights
     exp(-0.8/k^2 * d^2)."""
     offs = [(dy, dx) for dy in range(-k, k + 1) for dx in range(-k, k + 1)]
-    s = im.shift_stack(hycc, offs)                   # (N, H, W, 3)
+    s = im.shift_stack(hycc, offs, band)             # (N, H, W, 3)
     dw = const_tensor(tuple(math.exp(-(0.8 / (k * k)) * (dy * dy + dx * dx))
                             for dy, dx in offs), hycc.device)[:, None, None]
 
@@ -135,16 +140,17 @@ def _filter_history(hycc, k: int):
     return one_pass(luma * 1.001)
 
 
-def _input_prob(fi, dev, vel, closest_hist, smooth_var_rr, vel_hist_rr):
+def _input_prob(fi, dev, vel, closest_hist, smooth_var_rr, vel_hist_rr,
+                band=None):
     """Input probability, its 3x3 max and its 5x5 dilated soft mean."""
     # spatial variance: 3x3 max of the deviation at stride-2 taps
-    ivar = im.shift_stack(dev, [(dy * 2, dx * 2) for dy, dx in _OFF3]
-                          ).amax(dim=0)
+    ivar = im.shift_stack(dev, [(dy * 2, dx * 2) for dy, dx in _OFF3],
+                          band).amax(dim=0)
     ivar = ivar * ivar
     combined_var = torch.minimum(smooth_var_rr, ivar * 10.0)
 
     packed = torch.cat([fi, vel], dim=-1)
-    s = im.shift_stack(packed, _OFF3)                # (9, H, W, 5)
+    s = im.shift_stack(packed, _OFF3, band)          # (9, H, W, 5)
     idiff = s[..., :3] - closest_hist
     v = s[..., 3:5]
     vdiff = _len2((v - vel_hist_rr)
@@ -154,30 +160,31 @@ def _input_prob(fi, dev, vel, closest_hist, smooth_var_rr, vel_hist_rr):
                       - 1000.0 * vdiff).amax(dim=0)
 
     # 3x3 max
-    f1 = im.shift_stack(prob, _OFF3).amax(dim=0)
+    f1 = im.shift_stack(prob, _OFF3, band).amax(dim=0)
 
     # 5x5 dilated mean in exponential-squish space
     sq = torch.exp2(-torch.clamp(10.0 * f1, 0.0, 100.0))
     offs5 = [(dy * 2, dx * 2) for dy in (-2, -1, 0, 1, 2)
              for dx in (-2, -1, 0, 1, 2)]
-    acc = im.shift_stack(sq, offs5).mean(dim=0)
+    acc = im.shift_stack(sq, offs5, band).mean(dim=0)
     return torch.clamp(-0.1 * torch.log2(1e-30 + acc), min=0.0)
 
 
-def _unjitter_sample(iycc, jitter_px, h, w, out_h, out_w, kernel_scale):
+def _unjitter_sample(iycc, jitter_px, h, w, out_h, out_w, kernel_scale,
+                     band=None):
     """Gather the current frame to the output lattice, undoing the sub-pixel
     jitter with an analytic kernel. Returns (color_sum, coverage, ex, ex2).
 
     Same-res: taps are static shifts and the offsets are per-frame scalars.
     Upsampling: 9 pre-shifted taps in one 27-channel nearest warp with
-    per-output-pixel weights."""
+    per-output-pixel weights. `band` (same-res only): iycc's row band."""
     same_res = (out_h == h and out_w == w)
     dev = iycc.device
     jx, jy = jitter_px[0], jitter_px[1]
     dyx = const_tensor(_OFF3_F, dev)                 # (9, 2)
 
     if same_res:
-        col = im.shift_stack(iycc, _OFF3)            # (9, H, W, 3)
+        col = im.shift_stack(iycc, _OFF3, band)      # (9, H, W, 3)
         ox = (dyx[:, 1] + jx) * kernel_scale
         oy = (dyx[:, 0] + jy) * kernel_scale
         d2 = (ox * ox + oy * oy)[:, None, None, None]    # (9, 1, 1, 1)
@@ -188,7 +195,7 @@ def _unjitter_sample(iycc, jitter_px, h, w, out_h, out_w, kernel_scale):
         ex = torch.sum(col * dev_wt, dim=0)
         ex2 = torch.sum(col * col * dev_wt, dim=0)
         dev_wt_sum = torch.sum(dev_wt, dim=0)
-        cov = wt_sum.expand(out_h, out_w)
+        cov = wt_sum.expand(iycc.shape[0], out_w)
         return res, cov, ex / dev_wt_sum, ex2 / dev_wt_sum
 
     # --- super-res path
@@ -243,41 +250,51 @@ def _to_render(x, h, w):
 
 
 def taa(input_img, state, reproj, depth, jitter_px, out_h: int, out_w: int,
-        pre_delta=None):
+        pre_delta=None, band=None):
     """input_img: (H, W, 3) lit radiance at render res (pre-exposed when the
     pre-exposure split is on); depth: (H, W) reversed-Z depth; jitter_px:
     (2,) this frame's sub-pixel jitter. pre_delta: this frame's pre-exposure
     over last frame's; the history, accumulated at the old pre-exposure, is
     rescaled by it (and the variance accumulator, which lives in
     sqrt-encoded space, by the same factor).
+    `band`: the row band of the (same-res) frame that the planes hold.
     Returns ((out_h, out_w, 3), new_state)."""
-    h, w = input_img.shape[:2]
+    h, w = input_img.shape[:2] if band is None else (band.height, band.width)
     dev = input_img.device
     same_res = (out_h == h and out_w == w)
+    if band is not None and not same_res:
+        raise NotImplementedError("a row band of TAA's super-resolution "
+                                  "(ROADMAP.md section 1, item 4)")
     frac_x, frac_y = w / out_w, h / out_h
+
+    def to_out(x):
+        return x if same_res else _to_out(x, out_h, out_w)
+
+    def to_render(x):
+        return x if same_res else _to_render(x, h, w)
 
     # ---- pass 2: filter input (+ deviation) at render res, perceptual YCbCr
     iycc_raw = lin_to_ycbcr(decode_rgb(input_img))
     with pass_scope("filter_input"):
-        fi, dev_in = _filter_input(iycc_raw, depth, 0.8)
+        fi, dev_in = _filter_input(iycc_raw, depth, 0.8, band)
 
     # ---- closest-velocity dilation at render res
-    uv_rr = im.pixel_uv(h, w, device=dev)
+    uv_rr = im.pixel_uv(h, w, device=dev, band=band)
     vel = reproj["prev_uv"] - uv_rr
     with pass_scope("closest_vel"):
-        cvel_rr = _closest_velocity(depth, vel)
+        cvel_rr = _closest_velocity(depth, vel, band)
 
     # ---- pass 1: reproject all temporal planes with one packed 9-channel
     # warp at the dilated closest-velocity lattice
-    uv_out = im.pixel_uv(out_h, out_w, device=dev)
-    cvel_out = _to_out(cvel_rr, out_h, out_w)
+    uv_out = im.pixel_uv(out_h, out_w, device=dev, band=band)
+    cvel_out = to_out(cvel_rr)
     prev_uv_out = uv_out + cvel_out
     packed = torch.cat([state["taa_history"],
                         state["taa_coverage"][..., None],
                         state["taa_smooth_var"],
                         state["taa_velocity"]], dim=-1)
     with pass_scope("warp9"):
-        fetched = im.warp_bilinear(packed, prev_uv_out)
+        fetched = im.warp_bilinear(packed, prev_uv_out, band=band)
     hist_lin = torch.clamp(fetched[..., 0:3], min=0.0)
     rsvar = torch.clamp(fetched[..., 4:7], min=0.0)
     if pre_delta is not None:
@@ -290,18 +307,17 @@ def taa(input_img, state, reproj, depth, jitter_px, out_h: int, out_w: int,
     rvel = fetched[..., 7:9]
 
     # ---- pass 3: filtered history at render res
-    hist_rr = _to_render(rhist, h, w)
+    hist_rr = to_render(rhist)
     with pass_scope("filter_history"):
         fh = _filter_history(lin_to_ycbcr(hist_rr),
-                             2 if 1.0 / frac_x > 1.75 else 1)
+                             2 if 1.0 / frac_x > 1.75 else 1, band)
 
     # ---- passes 4-6: input probability
-    svar_rr = _to_render(rsvar, h, w)
-    vhist_rr = _to_render(rvel, h, w)
+    svar_rr = to_render(rsvar)
+    vhist_rr = to_render(rvel)
     with pass_scope("input_prob"):
-        prob_rr = _input_prob(fi, dev_in, vel, fh, svar_rr, vhist_rr)
-    input_prob = (prob_rr if same_res
-                  else _to_out(prob_rr, out_h, out_w)[..., 0])
+        prob_rr = _input_prob(fi, dev_in, vel, fh, svar_rr, vhist_rr, band)
+    input_prob = prob_rr if same_res else to_out(prob_rr)[..., 0]
 
     # ---- pass 7: final resolve at output res
     hist_ycc = lin_to_ycbcr(rhist)
@@ -312,15 +328,15 @@ def taa(input_img, state, reproj, depth, jitter_px, out_h: int, out_w: int,
     gs = sum(g)
     taps = tuple(x / gs for x in g)
     bhist_p = im.separable_blur(
-        torch.cat([rhist, rcov[..., None]], dim=-1), taps)
+        torch.cat([rhist, rcov[..., None]], dim=-1), taps, band)
     bhist_ycc = lin_to_ycbcr(bhist_p[..., 0:3])
     bcov = bhist_p[..., 3]
 
     with pass_scope("unjitter"):
         center, coverage, ex, ex2 = _unjitter_sample(
-            iycc_raw, jitter_px, h, w, out_h, out_w, 1.0)
+            iycc_raw, jitter_px, h, w, out_h, out_w, 1.0, band)
         bsum, bcover, _, _ = _unjitter_sample(
-            iycc_raw, jitter_px, h, w, out_h, out_w, 0.333)
+            iycc_raw, jitter_px, h, w, out_h, out_w, 0.333, band)
     bcenter = bsum / torch.clamp(bcover, min=1e-20)[..., None]
 
     # low-coverage lanes fall back to the filtered current frame
@@ -335,9 +351,9 @@ def taa(input_img, state, reproj, depth, jitter_px, out_h: int, out_w: int,
     # smooth variance update
     prev_var = rsvar[..., 0:1]
     validity_out = (reproj["validity"] if same_res
-                    else _to_out(reproj["validity"], out_h, out_w)[..., 0])
+                    else to_out(reproj["validity"])[..., 0])
     in_bounds_out = (reproj["in_bounds"] if same_res
-                     else _to_out(reproj["in_bounds"], out_h, out_w)[..., 0])
+                     else to_out(reproj["in_bounds"])[..., 0])
     vel_now = cvel_out
     vel_prev = rvel
     vel_diff = _len2((vel_now - vel_prev)

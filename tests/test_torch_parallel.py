@@ -8,7 +8,15 @@ The model is tests/test_parallel.py (JAX, 8 virtual devices, GSPMD): a
 sharded frame equals the single-device frame, the state stays sharded, no
 collective moves a replicated state, halo traffic exists and stays under one
 plane, the sample-sharded path tracer equals the single-device one, and a
-(2, 2) multi-host frame equals the tile-sharded one. JAX's contract is
+(2, 2) multi-host frame equals the tile-sharded one. The configurations: the
+raster + shadow frame, the diffuse-GI frame (64x128 and the uneven 72 rows),
+and the default frame (every default flag on: the irradiance cache, RTR
+with mesh-light specular as `Renderer` turns it on for cornell, TAA and
+motion blur; the small cache of test_torch_frame_default.py) on a moving,
+jittered camera, three frames at 128 and at 72 rows: frame 0 validates the
+reservoirs and the cache, frames 1-2 run TAA, RTR's temporal reuse and
+motion blur on history. Every rank holds the same irradiance-cache pool,
+checked by a digest per rank. JAX's contract is
 sharded == single device; test_torch_parallel_jax.py holds the sharded port
 frames against JAX's single-device frame.
 
@@ -26,7 +34,8 @@ from kajiya_tpu_torch import convert
 from kajiya_tpu_torch.core.camera import camera_rays
 from kajiya_tpu_torch.core.camera import make_view_constants as view_t
 from kajiya_tpu_torch.frame import SHARDED_TODO, RenderConfig, check_supported
-from kajiya_tpu_torch.frame import init_frame_state, render_frame
+from kajiya_tpu_torch.frame import (init_frame_state, jitter_for_frame,
+                                    render_frame)
 from kajiya_tpu_torch.parallel import (check_sharding_quality,
                                        collective_summary,
                                        compile_frame_sharded,
@@ -37,6 +46,7 @@ from kajiya_tpu_torch.parallel import (check_sharding_quality,
 from kajiya_tpu_torch.parallel import launch
 from kajiya_tpu_torch.parallel.comm import Collective, CollectiveLog
 from kajiya_tpu_torch.parallel.mesh import band_rows, gather_frame
+from kajiya_tpu_torch.renderers.ircache import IrcacheConfig
 
 N_RANKS = 4
 W, H = 64, 16 * 8
@@ -47,24 +57,58 @@ GI = dict(width=W, height=H, primary="raster", sun_soft_shadows=True,
           use_taa=False, use_motion_blur=False)
 RASTER = {**GI, "use_ssao": False, "use_rtdgi": False,
           "use_restir_gi": False}
+# the default RenderConfig with the small cache of
+# tests/test_torch_frame_default.py, as `Renderer` resolves it for cornell
+SMALL_IRCACHE = dict(max_entries=4096, active_budget=1024)
+DEFAULT = dict(width=W, height=H, ircache=IrcacheConfig(**SMALL_IRCACHE),
+               use_mesh_light_specular=True)
 # camera step of tests/test_torch_frame_gi.py (no reprojection knife edge)
 EYE, FWD, STEP = (0.0, 0.0, 2.4), (0.0, 0.0, -1.0), (0.04, 0.013, 0.0)
 N_FRAMES = 2
 OUTPUTS = ("final", "lit", "shadow", "ssao", "diffuse_gi", "reflections",
-           "exposure")
+           "exposure", "taa")
 # the sharded cases: (name, config, frame height)
-CASES = (("gi", GI, H), ("raster", RASTER, H), ("uneven", GI, H_UNEVEN))
+CASES = (("gi", GI, H), ("raster", RASTER, H), ("uneven", GI, H_UNEVEN),
+         ("default", DEFAULT, H), ("uneven_default", DEFAULT, H_UNEVEN))
+# the default frame's cases: 3 frames (a validation frame, then two on
+# history), jittered as the Renderer's views are
+DEFAULT_CASES = ("default", "uneven_default")
 PT_BOUNCES = 2
 
 
-def port_views(h, n=N_FRAMES):
+def n_frames(case):
+    return 3 if case in DEFAULT_CASES else N_FRAMES
+
+
+def case_frames(cases=CASES):
+    return [(c[0], k) for c in cases for k in range(n_frames(c[0]))]
+
+
+def port_views(h, n=N_FRAMES, jitter=False):
     views, prev = [], None
     for k in range(n):
         e = tuple(np.asarray(EYE) + k * np.asarray(STEP))
-        prev = view_t(e, FWD, fov_y_deg=55.0, width=W, height=h, prev=prev,
-                      device="cpu")
+        j = tuple(float(x) for x in jitter_for_frame(k, jitter))
+        prev = view_t(e, FWD, fov_y_deg=55.0, width=W, height=h, jitter=j,
+                      prev=prev, device="cpu")
         views.append(prev)
     return views
+
+
+def case_views(name, h):
+    jit = name in DEFAULT_CASES
+    return port_views(h, n_frames(name), jitter=jit)
+
+
+def ircache_digest(state):
+    """sha256 over the bytes of a state's irradiance-cache tables."""
+    h = hashlib.sha256()
+    for k in sorted(state):
+        if k.startswith("ircache_"):
+            h.update(k.encode())
+            h.update(state[k].contiguous().view(-1).view(torch.uint8)
+                     .numpy().tobytes())
+    return h.hexdigest()
 
 
 def cornell_scene():
@@ -114,16 +158,18 @@ def run_ranks(mesh_args, spec):
     for name, cfg_kw in spec["frames"]:
         cfg = RenderConfig(**cfg_kw)
         st = init_frame_state(cfg, device="cpu")
-        if name == spec.get("log"):
-            res["log"] = list(compile_frame_sharded(
+        if name in spec.get("log", ()):
+            res[f"log_{name}"] = list(compile_frame_sharded(
                 ts, st, views[name][0], cfg, None, mesh))
-            res["plan"] = frame_state_sharding(st, mesh)
-        frames = []
+            res[f"plan_{name}"] = frame_state_sharding(st, mesh)
+        frames, digests = [], []
         for v in views[name]:
             st, out = render_frame_sharded(ts, st, v, cfg, None, mesh)
             frames.append(gather_frame({"out": _outputs(out), "state": st},
                                        mesh, cfg.height, cfg.width))
+            digests.append(mesh.comm.gather_objects(ircache_digest(st)))
         res[name] = frames
+        res[f"{name}_ircache_digests"] = digests
         res[f"{name}_shapes"] = mesh.comm.gather_objects(
             {k: tuple(v.shape) for k, v in st.items()})
     if spec.get("multihost"):
@@ -155,17 +201,20 @@ def run_ranks(mesh_args, spec):
 
 
 def sharded_runs(out_dir, scene_path=None, views=None, cases=CASES,
-                 log="gi", multihost="gi", pt="gi"):
+                 log=("gi", "default"), multihost="gi", pt="gi"):
     """Spawn N_RANKS gloo ranks over `cases` and return rank 0's results.
-    views: {case name: [view numpy dicts]} (default: the port's views)."""
+    views: {case name: [view numpy dicts]} (default: the port's views);
+    `log`: the cases whose first frame is also run by
+    `compile_frame_sharded`."""
     if views is None:
-        views = {name: [convert.to_numpy_dict(v) for v in port_views(h)]
+        views = {name: [convert.to_numpy_dict(v)
+                        for v in case_views(name, h)]
                  for name, _cfg, h in cases}
     spec = dict(out=os.path.join(out_dir, "ranks.pt"), scene=scene_path,
                 views=views,
                 frames=[(name, {**cfg, "height": h})
                         for name, cfg, h in cases],
-                log=log, multihost=multihost, pt=pt)
+                log=tuple(log or ()), multihost=multihost, pt=pt)
     launch.spawn(run_ranks, N_RANKS, args=(spec,), timeout_s=600)
     return torch.load(spec["out"], weights_only=False)
 
@@ -184,7 +233,7 @@ def single():
         cfg = RenderConfig(**{**cfg_kw, "height": h})
         st = init_frame_state(cfg, device="cpu")
         frames = []
-        for v in port_views(h):
+        for v in case_views(name, h):
             st, o = render_frame(ts, st, v, cfg)
             frames.append({"out": _outputs(o), "state": st})
         out[name] = frames
@@ -223,20 +272,33 @@ def test_ranks_ran_gloo(ranks):
     assert ranks["backend"] == "gloo"
 
 
-@pytest.mark.parametrize("case", [c[0] for c in CASES])
-@pytest.mark.parametrize("frame", range(N_FRAMES))
+@pytest.mark.parametrize("case,frame", case_frames())
 def test_sharded_frame_equals_single_device(ranks, single, case, frame):
-    """Gathered outputs and every state plane, bit for bit."""
+    """Gathered outputs and every state plane, bit for bit (the replicated
+    irradiance-cache tables as rank 0 holds them)."""
     assert_equal_trees(ranks[case][frame], single[case][frame],
                        f"{case}/{frame}")
+
+
+@pytest.mark.parametrize("case", DEFAULT_CASES)
+def test_ircache_pool_is_the_same_on_every_rank(ranks, single, case):
+    """After every frame, every rank holds the single-device frame's
+    irradiance-cache tables bit for bit; the cache is live and was
+    validated (frame 0) and traced on history (frames 1, 2)."""
+    for k, per_rank in enumerate(ranks[f"{case}_ircache_digests"]):
+        want = ircache_digest(single[case][k]["state"])
+        assert per_rank == [want] * N_RANKS, (case, k)
+    st = single[case][-1]["state"]
+    assert int(st["ircache_valid"].sum()) > 0
+    assert float(st["ircache_life"].max()) >= 2.0
 
 
 @pytest.mark.parametrize("case", [c[0] for c in CASES])
 def test_state_stays_banded(ranks, case):
     """No rank holds another band's rows: each plane of each rank's state
     has its band's rows (at its plane's resolution)."""
-    h = dict((c[0], c[2]) for c in CASES)[case]
-    full = init_frame_state(RenderConfig(**{**GI, "height": h}),
+    name, cfg_kw, h = next(c for c in CASES if c[0] == case)
+    full = init_frame_state(RenderConfig(**{**cfg_kw, "height": h}),
                             device="cpu")
     rows = band_rows(h, N_RANKS)
     for r, shapes in enumerate(ranks[f"{case}_shapes"]):
@@ -244,7 +306,8 @@ def test_state_stays_banded(ranks, case):
         n_planes = 0
         for k, shape in shapes.items():
             want = tuple(full[k].shape)
-            if len(want) >= 2 and want[1] in (W, W // 2):
+            if len(want) >= 2 and want[1] in (W, W // 2) \
+                    and not k.startswith("ircache_"):
                 k_dec = W // want[1]
                 want = (b // k_dec - a // k_dec,) + want[1:]
                 n_planes += 1
@@ -272,7 +335,7 @@ def test_multihost_frame_equals_four_tiles(ranks):
         e.nbytes for e in seam) < summary["halo"]["bytes"]
     assert summary["all_reduce"]["inter_host_bytes"] > 0
     # the tile-sharded frame has one host: nothing crosses a seam
-    assert all(e.inter_host_bytes == 0 for e in ranks["log"])
+    assert all(e.inter_host_bytes == 0 for e in ranks["log_gi"])
 
 
 def test_shard_rays_pt_equals_single_device(ranks, single):
@@ -291,21 +354,37 @@ def test_distribute_scene_is_bit_exact(ranks, single):
     assert kind == "dataclass" and n_tensors >= 20
 
 
-def test_collective_accounting(ranks):
-    """The sharded GI frame's log: the JAX contract holds (no element above
-    24 planes, nothing of the irradiance cache), halo messages exist and
-    each is under one plane, the histogram is all-reduced, every rank
-    logged."""
-    log = ranks["log"]
+@pytest.mark.parametrize("case", ["gi", "default"])
+def test_collective_accounting(ranks, case):
+    """The sharded frame's log: the JAX contract holds (no element above
+    24 planes, no irradiance-cache element above 8 MiB), halo messages
+    exist and each is under one plane, the histogram is all-reduced, every
+    rank logged. The GI frame has no cache; the default frame's cache
+    collectives are its two gathers per rank (the query points and the
+    entry wavefront's radiance), booked as the cache's."""
+    log = ranks[f"log_{case}"]
     summary, problems = check_sharding_quality(log, H, W)
     assert not problems, problems
     assert "halo" in summary and summary["halo"]["count"] > 0
     assert summary["halo"]["max_bytes"] < H * W * 4
     assert summary["all_reduce"]["count"] == N_RANKS
     assert summary["all_gather"]["plane_max_bytes"] <= 24 * H * W * 4
-    assert not any(e.ircache for e in log)
     assert {e.rank for e in log} == set(range(N_RANKS))
     assert all(e.staged_bytes == 0 for e in log)      # CPU ranks: no staging
+    cache = [e for e in log if e.ircache]
+    if case == "gi":
+        assert not cache
+        return
+    assert sorted(e.label for e in cache) == sorted(
+        ["ircache queries", "ircache radiance"] * N_RANKS)
+    assert all(e.kind == "all_gather" and e.nbytes <= 8 << 20
+               for e in cache)
+    # the queries (stride 4 at 64x128: 16 x 16 points x 4 floats) and the
+    # wavefront's radiance (1024 entries x 4 rays x 3 floats)
+    sizes = {e.label: e.nbytes for e in cache}
+    assert sizes == {"ircache queries": (H // 4) * (W // 4) * 16,
+                     "ircache radiance": 1024 * 4 * 12}
+    assert not any("ircache" in e.label for e in log if not e.ircache)
 
 
 def test_quality_check_flags_replication_and_empty_logs():
@@ -324,10 +403,13 @@ def test_quality_check_flags_replication_and_empty_logs():
     assert problems and "ircache" in problems[0]
 
 
-def test_frame_state_sharding_matches_jax(ranks):
+@pytest.mark.parametrize("case", ["gi", "default"])
+def test_frame_state_sharding_matches_jax(ranks, case):
     """The port's plan equals JAX's `frame_state_sharding` / multi-host
     `_spec_for_multihost` on the same `init_frame_state` (JAX builds only
-    the NamedShardings, on 4 of the 8 virtual CPU devices)."""
+    the NamedShardings, on 4 of the 8 virtual CPU devices). On the default
+    state: TAA's planes row-sharded, every irradiance-cache table
+    replicated."""
     import jax
 
     from kajiya_tpu.frame import RenderConfig as CfgJ
@@ -336,11 +418,22 @@ def test_frame_state_sharding_matches_jax(ranks):
                                           frame_state_sharding as plan_j,
                                           make_mesh as mesh_j,
                                           make_multihost_mesh as mh_j)
+    from kajiya_tpu.renderers.ircache import IrcacheConfig as IrcJ
 
-    sj = init_j(CfgJ(**GI))
+    if case == "gi":
+        sj = init_j(CfgJ(**GI))
+    else:
+        sj = init_j(CfgJ(**{**DEFAULT, "ircache": IrcJ(**SMALL_IRCACHE)}))
     want = {k: tuple(s.spec) for k, s in plan_j(sj, mesh_j(N_RANKS)).items()}
-    assert ranks["plan"] == want
+    assert ranks[f"plan_{case}"] == want
     assert any(want.values()) and not all(want.values())
+    if case == "default":
+        assert all(want[k] == ("tile", None) + (None,) * (sj[k].ndim - 2)
+                   for k in ("taa_history", "taa_coverage", "taa_smooth_var",
+                             "taa_velocity", "rtr_history", "rtr_res_dir"))
+        cache = [k for k in sj if k.startswith("ircache_")]
+        assert len(cache) == 7 and all(want[k] == () for k in cache)
+        return
     mh = mh_j(shape=(2, 2))
     want_mh = {k: tuple(_spec_for_multihost(v, mh).spec)
                for k, v in sj.items()}
@@ -371,7 +464,7 @@ def test_one_rank_mesh_is_the_single_device_frame():
 
 
 @pytest.mark.parametrize("option", [f for f, _ in SHARDED_TODO]
-                         + ["primary", "ibl"])
+                         + ["primary", "ibl", "temporal_upsampling"])
 def test_options_of_the_next_slice_raise(option):
     """Each option the banded frame does not run yet raises
     NotImplementedError naming its ROADMAP item, from `check_supported` and
@@ -379,6 +472,8 @@ def test_options_of_the_next_slice_raise(option):
     kw = {**GI, option: True} if option not in ("primary", "ibl") else GI
     if option == "primary":
         kw = {**GI, "primary": "trace"}
+    if option == "temporal_upsampling":
+        kw = {**DEFAULT, option: 1.5}
     cfg = RenderConfig(**kw)
     ibl = torch.zeros((8, 8, 3)) if option == "ibl" else None
     check_supported(cfg, ibl)                      # the single-device frame
@@ -389,3 +484,14 @@ def test_options_of_the_next_slice_raise(option):
         mesh = make_mesh(device="cpu")
         with pytest.raises(NotImplementedError, match="item 4"):
             render_frame_sharded(None, {}, None, cfg, None, mesh)
+
+
+def test_default_frame_is_supported_sharded():
+    """The default `RenderConfig`, and the one `Renderer` resolves for a
+    scene with emissive triangles, run row-banded."""
+    from dataclasses import replace
+
+    check_supported(RenderConfig(), sharded=True)
+    check_supported(replace(RenderConfig(), use_mesh_light_specular=True),
+                    sharded=True)
+    check_supported(RenderConfig(**DEFAULT), sharded=True)
