@@ -10,7 +10,8 @@ CUDA events; the walk on six wavefronts of the 1,228,802-triangle city40,
 bit for bit with its visit and test counts, its front-to-back closest hits
 also held against the skip-link walk's), checks the GPU path against the
 CPU path on small frames of every path (the default and path-tracer frames
-also forced through the BVH route), then renders at 1920x1080, on the cornell
+also forced through the BVH route; the super-resolution frame shown 1.5
+times its render size), then renders at 1920x1080, on the cornell
 box (32 triangles, brute kernel B) and on the 196,610-triangle procedural
 city (culled kernel C), and on city40 (the BVH walk; 2 default and 2
 path-tracer frames, its set-up timed: scene tables, native BVH build, trace
@@ -52,14 +53,19 @@ two ranks on one card; each rank's bands of CUDA tensors are staged through
 pinned host buffers), rank 0 builds each scene and `distribute_scene` sends
 it to the others (bit for bit, by digest), and they render tile-sharded
 frames at 1920x1080 on cornell (kernel B) and on the city (kernel C) in
-bands of 272, 272, 272 and 264 rows, each rank launching B or C, W and S:
-2 of the GI path, held to the same frames on the whole card at GI_FRAME_TOL
-(state planes relative to max(1, |value|)), and 3 jittered frames of the
-default frame (as `Renderer` resolves it: mesh-light specular on cornell;
-the full irradiance cache, whose tables every rank holds whole), whose
-gathered outputs and every state plane must equal the whole card's bit for
-bit, as must every rank's irradiance-cache tables; every frame's collective
-log is held to `check_sharding_quality`; one (2, 2) multi-host GI frame of
+bands of 272, 272, 272 and 264 rows, each rank launching B or C, W and S
+(its counts held to `expected_launches`): 2 of the GI path, held to the
+same frames on the whole card at GI_FRAME_TOL (state planes relative to
+max(1, |value|)), 3 jittered frames of the default frame (as `Renderer`
+resolves it: mesh-light specular on cornell; the full irradiance cache,
+whose tables every rank holds whole), 2 of the options frame (the default
+frame with the traced g-buffer, the full world radiance cache, its atlas
+split over the ranks' probes, and depth of field) and 3 of temporal
+super-resolution (the default frame rendered at 1280x720 and shown at
+1920x1080, the output planes in bands of their own), whose gathered
+outputs and every state plane must equal the whole card's bit for bit, as
+must every rank's irradiance-cache tables; every frame's collective log is
+held to `check_sharding_quality`; one (2, 2) multi-host GI frame of
 the city is held to the four-tile frame, and the city's 1080p camera rays
 through `shard_rays_pt` (16 bounces) to `path_trace`. A rank that fails
 fails the run with its traceback. Prints one JSON line of the sharded phase
@@ -207,6 +213,9 @@ def bound(bytes_moved, ops):
 # CPU path would take minutes over on the city)
 SMALL_IRCACHE = dict(max_entries=4096, active_budget=1024)
 SMALL_WRC = dict(grid=(4, 2, 4), probe_res=8)
+# the temporal super-resolution factor of the "superres" path: a 1280x720
+# render shown at 1920x1080, where output rows fall between render rows
+SUPERRES = 1.5
 
 
 def slice_cfg(width, height, path="raster", small_ircache=False):
@@ -214,20 +223,25 @@ def slice_cfg(width, height, path="raster", small_ircache=False):
     "gi" (that plus SSAO, RTDGI and ReSTIR GI), "default" (the default
     `RenderConfig`, every default flag on; "textured" is the same frame on
     textured scenes), "options" (that plus the traced g-buffer, the world
-    radiance cache and depth of field; the IBL sky is the Renderer's) or
-    "refpt" (the default config, which the path tracer's frame reads for its
-    size and exposure)."""
+    radiance cache and depth of field; the IBL sky is the Renderer's),
+    "superres" (the default frame rendered at width x height and shown
+    SUPERRES times larger by TAA's temporal super-resolution, as the
+    viewer's `--temporal-upsampling 1.5` does) or "refpt" (the default
+    config, which the path tracer's frame reads for its size and
+    exposure)."""
     from kajiya_tpu_torch.frame import RenderConfig
     from kajiya_tpu_torch.renderers.ircache import IrcacheConfig
     from kajiya_tpu_torch.renderers.wrc import WrcConfig
 
-    if path in ("default", "textured", "options", "refpt"):
+    if path in ("default", "textured", "options", "superres", "refpt"):
         kw = ({"ircache": IrcacheConfig(**SMALL_IRCACHE)} if small_ircache
               else {})
         if path == "options":
             kw.update(primary="trace", use_wrc=True, use_dof=True)
             if small_ircache:
                 kw.update(wrc=WrcConfig(**SMALL_WRC))
+        if path == "superres":
+            kw.update(temporal_upsampling=SUPERRES)
         return RenderConfig(width=width, height=height, **kw)
     gi = path == "gi"
     return RenderConfig(width=width, height=height, primary="raster",
@@ -946,16 +960,61 @@ def warp_inputs(dev):
                               torch.cos(5.0 * xx - 3.0 * yy)], dim=-1) * 3.0
         uv = (uv + motion / torch.tensor([w, h], device=dev)).contiguous()
         img = torch.rand((h, w, c), generator=g, device=dev)
-        yield case, (img[..., 0].contiguous() if c == 1 else img), uv, bilinear
+        yield (case, (img[..., 0].contiguous() if c == 1 else img), uv,
+               bilinear, h * w)
+
+
+def superres_lattices(dev):
+    """The nearest lattices of TAA's super-resolution at 1280x720 shown at
+    1920x1080, as `renderers/taa.py` builds them: (case, source size, uv):
+    the base source pixel of every output pixel (the 27-channel fetch of
+    the unjitter's pre-shifted taps), the output pixel lattice (the resizes
+    to the output) and the render pixel lattice (the resize to the render
+    res)."""
+    from kajiya_tpu_torch.core import img as im
+
+    h, w = round(HEIGHT / SUPERRES), round(WIDTH / SUPERRES)
+    ox = (torch.arange(WIDTH, dtype=torch.float32, device=dev) + 0.5)
+    oy = (torch.arange(HEIGHT, dtype=torch.float32, device=dev) + 0.5)
+    bx, by = torch.floor(ox * (w / WIDTH)), torch.floor(oy * (h / HEIGHT))
+    base_uv = torch.stack([((bx + 0.5) / w)[None].expand(HEIGHT, WIDTH),
+                           ((by + 0.5) / h)[:, None].expand(HEIGHT, WIDTH)],
+                          dim=-1).contiguous()
+    return ((("nearest_c27", 27), (h, w), base_uv),
+            (("to_out_c4", 4), (h, w), im.pixel_uv(HEIGHT, WIDTH, device=dev)),
+            (("to_out_c1", 1), (h, w), im.pixel_uv(HEIGHT, WIDTH, device=dev)),
+            (("to_render_c8", 8), (HEIGHT, WIDTH), im.pixel_uv(h, w,
+                                                              device=dev)))
+
+
+def superres_warp_inputs(dev):
+    """Kernel W's cases of the super-resolution frame at 1080p output:
+    TAA's 27-channel fetch of the unjitter's taps (render -> output), the
+    resize of the closest velocity, validity and bounds (4 channels) and of
+    the input probability (1) to the output, and that of the history,
+    variance and velocity (8) to the render res. Yields (case, img, uv,
+    bilinear, source pixels read: a resize to a coarser lattice reads only
+    the pixels it picks)."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    for (case, c), (h, w), uv in superres_lattices(dev):
+        img = torch.rand((h, w, c), generator=g, device=dev)
+        if c == 1:
+            img = img[..., 0].contiguous()
+        iy = torch.floor(uv[..., 1] * h).clamp(0, h - 1)
+        ix = torch.floor(uv[..., 0] * w).clamp(0, w - 1)
+        read = int(torch.unique(iy).numel()) * int(torch.unique(ix).numel())
+        yield f"superres_{case}", img, uv, False, read
 
 
 def warp_phase(dev):
-    """Kernel W on the cases of `warp_inputs` against the plain sampler, with
-    `grid_sample` timed beside it as the yardstick. Before those, small
-    check-only cases launch the instances of the kernel that no frame shape
-    reaches: float2 elements (C = 2, 6), float4 with several elements a
-    pixel (C = 16) and the run-time divisor (C = 5, 20), on a uv grid of
-    another size than the image with taps off every edge."""
+    """Kernel W on the cases of `warp_inputs` and `superres_warp_inputs`
+    against the plain sampler, with `grid_sample` timed beside it as the
+    yardstick. Before those, small check-only cases launch the instances of
+    the kernel that no frame shape reaches: float2 elements (C = 2, 6),
+    float4 with several elements a pixel (C = 16) and the run-time divisor
+    (C = 5, 20), on a uv grid of another size than the image with taps off
+    every edge; and the sharded frames' band calls (gathered sources, and
+    super-resolution's windows)."""
     import torch.nn.functional as F
 
     from kajiya_tpu_torch.ops import warp_cuda
@@ -991,10 +1050,34 @@ def warp_phase(dev):
             raise AssertionError(f"warp/{case}: max error {err}")
         cases.append(dict(case=case, pixels=uv.shape[0] * w, channels=c,
                           frame_call=False, max_abs_err=err))
+    # the super-resolution frame's band calls: the second of four output
+    # bands (rows 272-544 of 1080) fetched through the kernel from the
+    # window of source rows it reaches (`img.warp_nearest_rows`), equal to
+    # the plain fetch of the whole source; the render band 176-368 of 720
+    # for the resize to the render res
+    from kajiya_tpu_torch.core import img as im
+    from kajiya_tpu_torch.renderers.taa import _rows_reached
+
+    for (case, c), (h, w), uv in superres_lattices(dev):
+        to_render = case.startswith("to_render")
+        a, b = (176, 368) if to_render else (272, 544)
+        ub = uv[a:b]
+        lo, hi = _rows_reached(a, b, h / uv.shape[0], h,
+                               reach=1 if c == 27 else 0)
+        img = torch.rand((h, w, c), generator=g, device=dev)
+        k_out = im.warp_nearest_rows(img[lo:hi], lo, h, ub)
+        p_out = warp_cuda.warp_plain(img, ub, False)
+        err = float((k_out - p_out).abs().max())
+        if not err <= WARP_TOL:
+            raise AssertionError(f"warp/band_superres_{case}: max error "
+                                 f"{err}")
+        cases.append(dict(case=f"band_superres_{case}", pixels=ub.numel() // 2,
+                          channels=c, frame_call=False, max_abs_err=err))
     log("warp check-only cases: max error",
         max(x["max_abs_err"] for x in cases))
-    for case, img, uv, bilinear in warp_inputs(dev):
-        h, w = img.shape[:2]
+    for case, img, uv, bilinear, src_read in (list(warp_inputs(dev))
+                                              + list(superres_warp_inputs(
+                                                  dev))):
         c = 1 if img.ndim == 2 else img.shape[2]
         k_out = warp_cuda.warp_launch(img, uv, bilinear)
         p_out = warp_cuda.warp_plain(img, uv, bilinear)
@@ -1002,8 +1085,9 @@ def warp_phase(dev):
         err = float((k_out - p_out).abs().max())
         if not err <= WARP_TOL:
             raise AssertionError(f"warp/{case}: max error {err}")
-        n = h * w
-        bytes_moved = n * 8 + 2 * n * c * 4       # uv + output + image once
+        n = uv.numel() // 2
+        # uv + output + the source pixels read, once
+        bytes_moved = n * 8 + n * c * 4 + src_read * c * 4
 
         def kernel(img=img, uv=uv, bilinear=bilinear):
             img, uv = img.clone(), uv.clone()
@@ -1407,7 +1491,8 @@ class PathRun:
         if self.path == "refpt":
             return views(eye, fwd, (0.0, 0.0, 0.0), n, w, h, dev)
         return views(eye, fwd, step, n, w, h, dev,
-                     jitter=self.path in ("default", "options", "textured"))
+                     jitter=self.path in ("default", "options", "superres",
+                                          "textured"))
 
 
 FRAME_KEYS = {
@@ -1419,7 +1504,7 @@ FRAME_KEYS = {
                 "reflections", "taa"),
     "refpt": ("final", "lit"),
 }
-FRAME_KEYS["textured"] = FRAME_KEYS["default"]
+FRAME_KEYS["textured"] = FRAME_KEYS["superres"] = FRAME_KEYS["default"]
 # the scenes of each path's small GPU-vs-CPU frames ("city" is city(n=4))
 REF_SCENES = {"textured": ("tcornell", "tcity4")}
 # the paths whose small frames are also rendered on the BVH route, forced
@@ -1438,9 +1523,10 @@ def route_of(ts):
 def reference_phase(dev, ibl):
     """The GPU path (kernels) against the CPU path (plain versions) on a
     small frame of each scene, for every ported path: three frames (four on
-    the GI, default and options paths, so that frame 3 validates live
-    reservoirs and the cache's stored rays; two progressive frames of the
-    path tracer) at 64x48 from the same views; the default and options
+    the GI, default, options and super-resolution paths, so that frame 3
+    validates live reservoirs and the cache's stored rays; two progressive
+    frames of the path tracer) at 64x48 (the super-resolution path shown at
+    96x72) from the same views; the default, options and super-resolution
     paths with the small irradiance cache (and the options path with the
     small world radiance cache); the textured path on the textured cornell
     and the textured asset city at n=4, whose texture pages on the card
@@ -1452,8 +1538,8 @@ def reference_phase(dev, ibl):
     worst, failed = {}, []
     runs = [(path, tols, None) for path, tols in (
         ("raster", FRAME_TOL), ("gi", GI_FRAME_TOL), ("default", GI_FRAME_TOL),
-        ("options", GI_FRAME_TOL), ("refpt", PT_FRAME_TOL),
-        ("textured", GI_FRAME_TOL))]
+        ("options", GI_FRAME_TOL), ("superres", GI_FRAME_TOL),
+        ("refpt", PT_FRAME_TOL), ("textured", GI_FRAME_TOL))]
     runs += [(path, GI_FRAME_TOL if path == "default" else PT_FRAME_TOL, 0)
              for path in BVH_REF_PATHS]
     for path, tols, brute_max in runs:
@@ -1524,16 +1610,22 @@ def expected_launches(path, route, emissive, n_frames):
     path is the default path on textured scenes). The options path is the
     default path with traced primaries (one trace, as the raster's one)
     and the world radiance cache's probe rays + their sun-NEE batch (no
-    light NEE there). The path tracer traces 3 wavefronts a bounce (closest
+    light NEE there); the super-resolution path is the default path with
+    TAA's 4 resizes and fetches between the render and output resolutions
+    (below). The path tracer traces 3 wavefronts a bounce (closest
     hit, sun NEE, light NEE; without emissive triangles the light-NEE
     wavefront is all dead lanes, and still launched) for 16 bounces. W: prev depth + shadow
     moments; on the GI path also the SSAO history, the ReSTIR temporal
     fetch, the occlusion march of spatial pass 1 (4 taps x 2 samples) and
     the GI history; the default path adds the RTR reservoir fetch and
     history, TAA's packed history fetch (its other fetches are resizes,
-    which do not run at temporal_upsampling 1) and the 8 motion-blur taps.
-    S: the 7 + 4 taps of the two ReSTIR spatial passes. The path tracer
-    launches neither W nor S."""
+    which do not run at temporal_upsampling 1) and the 8 motion-blur taps;
+    under super-resolution TAA adds the resize of the closest velocity,
+    validity and bounds to the output, that of the history, variance and
+    velocity to the render res, that of the input probability to the
+    output, and the 27-channel fetch of the unjitter's taps. S: the 7 + 4
+    taps of the two ReSTIR spatial passes. The path tracer launches neither
+    W nor S."""
     kernel = {"brute": "woop_brute", "culled": "woop_culled",
               "bvh": "bvh_walk"}[route]
 
@@ -1544,8 +1636,9 @@ def expected_launches(path, route, emissive, n_frames):
     if path == "refpt":
         return {**trace_counts(3 * PT_BOUNCES * n_frames), "warp": 0,
                 "tile_shift": 0}
-    if path == "textured":       # the default frame on textured scenes
-        path = "default"
+    superres = path == "superres"
+    if path in ("textured", "superres"):    # the default frame, on textured
+        path = "default"                    # scenes or shown larger
     gi = path in ("gi", "default", "options")
     validations = len(range(0, n_frames, 3)) if gi else 0
     per_frame = {"raster": 2, "gi": 5, "default": 8,
@@ -1554,8 +1647,8 @@ def expected_launches(path, route, emissive, n_frames):
         per_frame += 2
     traces = per_frame * n_frames + 2 * validations
     return {**trace_counts(traces),
-            "warp": {"raster": 2, "gi": 13, "default": 24,
-                     "options": 24}[path] * n_frames,
+            "warp": ({"raster": 2, "gi": 13, "default": 24,
+                      "options": 24}[path] + 4 * superres) * n_frames,
             "tile_shift": 11 * n_frames if gi else 0}
 
 
@@ -2114,8 +2207,13 @@ def watch_phase(tmp):
 SHARDED_RANKS = 4
 # the sharded paths, frames per scene of each (the default frame's first
 # validates the reservoirs and the cache, the others run TAA, RTR's
-# temporal reuse and motion blur on history) and the planes gathered of each
-SHARDED_FRAMES = {"gi": 2, "default": 3}
+# temporal reuse and motion blur on history; the options frame adds the
+# traced g-buffer, the world radiance cache and depth of field; the
+# super-resolution frame renders 1280x720 and shows 1920x1080) and the
+# planes gathered of each
+SHARDED_FRAMES = {"gi": 2, "default": 3, "options": 2, "superres": 3}
+# the paths whose sharded frames must equal the whole card's bit for bit
+SHARDED_EXACT = ("default", "options", "superres")
 SHARDED_SCENES = ("cornell", "city")
 SHARDED_BACKEND = "gloo"    # NCCL refuses two ranks on one card
 SHARDED_KEYS = {path: FRAME_KEYS[path] for path in SHARDED_FRAMES}
@@ -2160,24 +2258,29 @@ def ircache_digest(state):
 
 
 def sharded_cfg(path, ts, width, height):
-    """The sharded path's configuration on a scene: the default frame as
-    `Renderer` resolves it (mesh-light specular where the scene has
-    emissive triangles), with the full-size irradiance cache."""
+    """The sharded path's configuration on a scene whose frames are shown
+    at width x height: the default frame and its options as `Renderer`
+    resolves them (mesh-light specular where the scene has emissive
+    triangles), with the full-size irradiance cache and world radiance
+    cache; the super-resolution frame renders SUPERRES times smaller."""
     from dataclasses import replace
 
+    if path == "superres":
+        width, height = round(width / SUPERRES), round(height / SUPERRES)
     cfg = slice_cfg(width, height, path)
-    if path == "default" and int(ts.gpu.num_lights) > 0:
+    if path != "gi" and int(ts.gpu.num_lights) > 0:
         cfg = replace(cfg, use_mesh_light_specular=True)
     return cfg
 
 
 def sharded_path(name, path, ts, mesh, width, height, dev, sync):
     """SHARDED_FRAMES[path] tile-sharded frames of `path` on this rank
-    (launch counters set to 0 just before, read just after; per frame its
-    ms, its launches and its collectives by kind); rank 0 then renders the
-    same frames on the whole card and holds the gathered outputs and every
-    state plane to them: the default frame bit for bit (and every rank's
-    irradiance-cache tables to the whole card's), the GI frame at
+    (launch counters set to 0 just before, read just after, and held to
+    `expected_launches`; per frame its ms, its launches and its collectives
+    by kind, with the bytes of each label); rank 0 then renders the same
+    frames on the whole card and holds the gathered outputs and every
+    state plane to them: the paths of SHARDED_EXACT bit for bit (and every
+    rank's irradiance-cache tables to the whole card's), the GI frame at
     GI_FRAME_TOL. Returns (entry, failures, the first view, the
     configuration, the gathered outputs of the first frame)."""
     import torch.distributed as dist
@@ -2193,8 +2296,8 @@ def sharded_path(name, path, ts, mesh, width, height, dev, sync):
     keys = SHARDED_KEYS[path]
     failed = []
     cfg = sharded_cfg(path, ts, width, height)
-    vs = views(eye, fwd, step, SHARDED_FRAMES[path], width, height, dev,
-               jitter=path == "default")
+    vs = views(eye, fwd, step, SHARDED_FRAMES[path], cfg.width, cfg.height,
+               dev, jitter=path != "gi")
     st = init_frame_state(cfg, device=dev)
     frames, logs, first, digests = [], [], None, []
     _native.reset_launches()
@@ -2217,15 +2320,16 @@ def sharded_path(name, path, ts, mesh, width, height, dev, sync):
         if cfg.use_ircache:
             digests.append(ircache_digest(st))
     launches = dict(_native.launches)
-    need = ("woop_brute" if route_of(ts) == "brute" else "woop_culled",
-            "warp", "tile_shift")
-    short = [k for k in need if launches[k] <= 0 and dev.type == "cuda"]
-    if short:
-        failed.append(f"{name}/{path}: rank {mesh.index} never launched "
-                      f"{short}")
+    want = expected_launches(path, route_of(ts), int(ts.gpu.num_lights) > 0,
+                             len(vs))
+    if launches != want and dev.type == "cuda":
+        failed.append(f"{name}/{path}: rank {mesh.index} launches "
+                      f"{launches}, expected {want}")
     merged = [e for part in mesh.comm.gather_objects(
         [e for log in logs for e in log]) for e in part]
-    summary, problems = check_sharding_quality(merged, height, width)
+    # planes counted at the output size, the frame's largest
+    summary, problems = check_sharding_quality(merged, cfg.out_height,
+                                               cfg.out_width)
     if problems or "halo" not in summary:
         failed.append(f"{name}/{path}: sharding quality {problems} "
                       f"{summary}")
@@ -2234,7 +2338,7 @@ def sharded_path(name, path, ts, mesh, width, height, dev, sync):
         failed.append(f"{name}/{path}: no collective booked as the cache's")
     all_digests = mesh.comm.gather_objects(digests)
     whole = gather_frame({"out": {k: out[k] for k in keys}, "state": st,
-                          "first": first}, mesh, height, width)
+                          "first": first}, mesh, cfg)
     times = [f["ms"] for f in frames]
     entry = dict(frame_ms=times, median_ms=statistics.median(times),
                  launches=launches, frames=frames,
@@ -2252,7 +2356,7 @@ def sharded_path(name, path, ts, mesh, width, height, dev, sync):
             single_ms.append((time.perf_counter() - t0) * 1e3)
             if cfg.use_ircache:
                 single_digests.append(ircache_digest(st1))
-        exact_required = path == "default"
+        exact_required = path in SHARDED_EXACT
         if exact_required and any(d != single_digests for d in all_digests):
             failed.append(f"{name}/{path}: ircache tables per rank "
                           f"{all_digests}, whole card {single_digests}")
@@ -2349,7 +2453,7 @@ def sharded_rank(mesh_args, out_dir, device="cuda", size=(WIDTH, HEIGHT)):
                     _st, mout = render_frame_multihost(
                         ts, init_frame_state(cfg, device=dev), v0, cfg,
                         None, multi)
-                mfinal = gather_frame(mout["final"], multi, height, width)
+                mfinal = gather_frame(mout["final"], multi, cfg)
                 merged_m = [e for part in multi.comm.gather_objects(
                     list(mlog)) for e in part]
                 entry["multihost"] = dict(

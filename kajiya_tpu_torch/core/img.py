@@ -23,11 +23,16 @@ import torch
 from ..device import const_tensor
 
 
-def _gather2d(img, iy, ix):
-    """img[(iy, ix)] with clamped integer indices."""
-    h, w = img.shape[0], img.shape[1]
-    idx = iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)
-    return img.reshape((h * w,) + tuple(img.shape[2:]))[idx]
+def _gather2d(img, iy, ix, height=None, row0: int = 0):
+    """img[(iy, ix)] with integer indices clamped to a plane of `height`
+    rows (default img's), of which img holds rows [row0, row0 + len)."""
+    n, w = img.shape[0], img.shape[1]
+    h = n if height is None else height
+    iy = iy.clamp(0, h - 1)
+    if row0:
+        iy = iy - row0
+    idx = iy * w + ix.clamp(0, w - 1)
+    return img.reshape((n * w,) + tuple(img.shape[2:]))[idx]
 
 
 def sample_nearest(img, uv):
@@ -38,9 +43,14 @@ def sample_nearest(img, uv):
     return _gather2d(img, iy, ix)
 
 
-def sample_bilinear(img, uv):
-    """Bilinear sample at uv with clamp-to-edge addressing per tap."""
-    h, w = img.shape[0], img.shape[1]
+def sample_bilinear(img, uv, height=None, row0: int = 0):
+    """Bilinear sample at uv with clamp-to-edge addressing per tap. With
+    `height`, img is rows [row0, row0 + len) of a plane of that many rows
+    (a halo window): the coordinates and the clamp are the plane's, so the
+    taps are the whole plane's bit for bit (every row they reach must lie in
+    the window)."""
+    h = img.shape[0] if height is None else height
+    w = img.shape[1]
     x = uv[..., 0] * w - 0.5
     y = uv[..., 1] * h - 0.5
     x0 = torch.floor(x)
@@ -52,10 +62,10 @@ def sample_bilinear(img, uv):
         fy = fy[..., None]
     x0i = x0.to(torch.int64)
     y0i = y0.to(torch.int64)
-    c00 = _gather2d(img, y0i, x0i)
-    c10 = _gather2d(img, y0i, x0i + 1)
-    c01 = _gather2d(img, y0i + 1, x0i)
-    c11 = _gather2d(img, y0i + 1, x0i + 1)
+    c00 = _gather2d(img, y0i, x0i, h, row0)
+    c10 = _gather2d(img, y0i, x0i + 1, h, row0)
+    c01 = _gather2d(img, y0i + 1, x0i, h, row0)
+    c11 = _gather2d(img, y0i + 1, x0i + 1, h, row0)
     top = c00 * (1.0 - fx) + c10 * fx
     bot = c01 * (1.0 - fx) + c11 * fx
     return top * (1.0 - fy) + bot * fy
@@ -111,6 +121,19 @@ def warp_nearest(img, uv, window_rows=None, band=None):
     if band is not None:
         img = band.gather(img, label="warp source")
     return warp2d(img, uv, bilinear=False)
+
+
+def warp_nearest_rows(win, row0: int, height: int, uv):
+    """`warp_nearest` of a plane of `height` rows at uv, of which `win`
+    holds rows [row0, row0 + len) (a `Band.window`): each sample's row is
+    taken on the plane's lattice (floor(v * height), clamped to the plane,
+    as the kernel and the plain sampler take it) and moved into the window,
+    where a v at the row's centre picks it again, so the fetch copies the
+    whole plane's elements bit for bit (every row uv reaches must lie in the
+    window)."""
+    iy = torch.clamp(torch.floor(uv[..., 1] * height), 0, height - 1)
+    v = ((iy - row0) + 0.5) / win.shape[0]
+    return warp_nearest(win, torch.stack([uv[..., 0], v], dim=-1))
 
 
 def _avg_axis(x, axis: int):

@@ -20,11 +20,12 @@ is the reference path tracer's progressive frame (the oracle).
     state', outputs = render_frame(..., band=band)
 
 renders one rank's row band of the frame (parallel/: `band` is a
-`parallel.comm.Band`, the state and outputs are the band's planes); the
-passes fetch what they read outside the band through the band's
-collectives, and the irradiance cache's tables stay whole and the same on
-every rank. `check_supported(cfg, sharded=True)` names the options the
-banded frame does not run yet.
+`parallel.comm.Band` of the render-res frame, `out_band` that of the output
+frame under temporal super-resolution; the state and outputs are the
+bands' planes); the passes fetch what they read outside the band through
+the band's collectives, the irradiance cache's tables stay whole and the
+same on every rank, and the world radiance cache's atlas is split over its
+probes. The banded frame takes no IBL env map (`check_supported`).
 
 PyTorch runs eagerly; there is no jit (docs/port_eager.md). Hot reload
 (`core/reload.py`) swaps edited modules and kernels in; `draw` looks
@@ -104,33 +105,18 @@ class RenderConfig:
         return int(round(self.height * self.temporal_upsampling))
 
 
-# the options a row-banded frame (parallel/) does not run yet, each with
-# its place in the queue (ROADMAP.md section 1, item 4)
-SHARDED_TODO = (
-    ("use_wrc", "the world radiance cache"),
-    ("use_dof", "depth of field"),
-)
-
-
 def check_supported(cfg: RenderConfig, ibl_env=None, sharded: bool = False):
     """Every `RenderConfig` option of the JAX frame and its `ibl_env` are
-    ported. The row-banded frame (`sharded`) runs the default frame (the
-    irradiance cache, SSAO, ReSTIR GI, RTR with mesh-light specular, TAA
-    and motion blur) and every subset of it; each other option raises
-    NotImplementedError naming its ROADMAP item."""
-    if not sharded:
-        return
-    todo = [what for flag, what in SHARDED_TODO if getattr(cfg, flag)]
-    if cfg.primary != "raster":
-        todo.append("the traced g-buffer")
-    if cfg.temporal_upsampling != 1.0:
-        todo.append("TAA's super-resolution (temporal_upsampling != 1)")
-    if ibl_env is not None:
-        todo.append("the IBL sky")
-    if todo:
+    ported, and the row-banded frame (`sharded`) runs every configuration.
+    The banded frame takes no IBL env map, as JAX's sharded entry points
+    (`kajiya_tpu.parallel.mesh.render_frame_sharded` and
+    `render_frame_multihost`) render without one: one given raises
+    NotImplementedError."""
+    if sharded and ibl_env is not None:
         raise NotImplementedError(
-            "the sharded frame does not run " + ", ".join(todo) + " yet "
-            "(ROADMAP.md section 1, item 4)")
+            "the sharded frame takes no IBL env map: JAX's sharded entry "
+            "points (kajiya_tpu.parallel.mesh.render_frame_sharded, "
+            "render_frame_multihost) render the atmosphere sky")
 
 
 @lru_cache(maxsize=1)
@@ -217,13 +203,21 @@ def pre_exposure(pre_prev, smoothed_ev, use_taa: bool):
 
 
 def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
-                 levels=None, ircache_lookup=None, ibl_env=None, band=None):
+                 levels=None, ircache_lookup=None, ibl_env=None, band=None,
+                 out_band=None):
     """One frame. Returns (new_state, outputs). `ircache_lookup`, when
     given, replaces the frame's own irradiance cache (which is then left
-    as it is). `band`: render this row band of the frame (parallel/)."""
+    as it is). `band`: render this row band of the frame (parallel/);
+    `out_band`: its band of the (cfg.out_height, cfg.out_width) output
+    frame, needed when that is not the render size."""
     h, w = cfg.height, cfg.width
+    same_res = (cfg.out_height, cfg.out_width) == (h, w)
+    taa_band = band if same_res else out_band
     if band is not None:
         check_supported(cfg, ibl_env, sharded=True)
+        if taa_band is None:
+            raise ValueError("a banded frame under temporal "
+                             "super-resolution needs its output band")
     rows = h if band is None else band.n        # this frame's rows
     mts = cfg.max_trace_steps
     frame_idx = state["frame_idx"]
@@ -339,12 +333,17 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
     wrc_state = {}
     wrc_lookup = None
     if cfg.use_wrc:
+        probes = (None if band is None
+                  else wrc_mod.probe_band(cfg.wrc, band.comm))
         with pass_scope("wrc"):
             wrc_state = wrc_mod.trace_wrc(
                 {"wrc_atlas": state["wrc_atlas"]}, ts, sky_env, diffuse_env,
-                frame_idx, cfg.wrc, max_trace_steps=mts)
+                frame_idx, cfg.wrc, max_trace_steps=mts, probes=probes)
+            wrc_all = wrc_state if probes is None else {
+                "wrc_atlas": probes.gather(wrc_state["wrc_atlas"],
+                                           label="wrc atlas")}
 
-        def wrc_lookup(p, d, _st=wrc_state, _c=cfg.wrc):
+        def wrc_lookup(p, d, _st=wrc_all, _c=cfg.wrc):
             return wrc_mod.lookup(_st, _c, p, d)
 
     if cfg.use_rtdgi or cfg.use_rtr:
@@ -517,45 +516,48 @@ def render_frame(ts, state, view: ViewConstants, cfg: RenderConfig,
                 lit * pre_mult, {k: state[k] for k in taa.KEYS},
                 reproj, gb["depth"], view.sample_offset_pixels,
                 cfg.out_height, cfg.out_width, pre_delta=pre_delta,
-                band=band)
+                band=band, out_band=taa_band)
     else:
         aa = lit
         taa_state = {k: state[k] for k in taa.KEYS}
+    upsampled = cfg.use_taa and not same_res
+    aa_band = taa_band if upsampled else band       # the band `aa` holds
+
+    def at_output(x):
+        """A render-res plane at the size of `aa`."""
+        if not upsampled:
+            return x
+        return im.upsample_bilinear(x, cfg.out_height, cfg.out_width, band,
+                                    aa_band)
 
     # --- motion blur (taa -> motion blur -> post)
     if cfg.use_motion_blur:
         from .renderers import motion_blur as mb
 
-        vel_out = gb["velocity"]
-        depth_for_mb = gb["depth"]
-        if aa.shape[:2] != gb["depth"].shape:
-            vel_out = im.upsample_bilinear(vel_out, aa.shape[0], aa.shape[1])
-            depth_for_mb = im.upsample_bilinear(gb["depth"], aa.shape[0],
-                                                aa.shape[1])
+        vel_out = at_output(gb["velocity"])
+        depth_for_mb = at_output(gb["depth"])
         with pass_scope("motion_blur"):
             aa = mb.motion_blur(aa, vel_out, depth_for_mb,
                                 frame_fraction=cfg.motion_blur_scale,
-                                band=band)
+                                band=aa_band)
 
     # --- depth of field (opt-in): CoC + gather after motion blur
     if cfg.use_dof:
         from .renderers import dof as dof_mod
 
-        depth_for_dof = gb["depth"]
-        if aa.shape[:2] != depth_for_dof.shape:
-            depth_for_dof = im.upsample_bilinear(depth_for_dof, aa.shape[0],
-                                                 aa.shape[1])
+        depth_for_dof = at_output(gb["depth"])
         with pass_scope("dof"):
             aa = dof_mod.dof_gather(aa, depth_for_dof, cfg.dof_focus_dist,
-                                    cfg.dof_aperture, near=cfg.near)
+                                    cfg.dof_aperture, near=cfg.near,
+                                    band=aa_band)
 
     # --- post: exposure + glare + tonemap; `aa` is pre-exposed, so post
-    # applies only the remainder
+    # applies only the remainder (the exposure meters `lit`, at render res)
     with pass_scope("post"):
         exposure, exp_state = post.update_exposure(
             {"smoothed_ev": state["smoothed_ev"]}, lit, dt=cfg.dt,
             ev_shift=cfg.ev_shift, band=band)
-        final = post.post_combine(aa, exposure / pre_mult, band=band)
+        final = post.post_combine(aa, exposure / pre_mult, band=aa_band)
 
     new_state = {
         "frame_idx": frame_idx + 1,

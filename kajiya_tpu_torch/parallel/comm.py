@@ -329,10 +329,29 @@ class Band:
 
     def halo(self, x, top: int, bottom: int | None = None, label="halo"):
         """(window, rows above the band): x extended by the neighbours' rows,
-        clipped to the plane."""
+        clipped to the plane (a reach wider than a neighbour's band takes
+        rows of the bands beyond it too)."""
         bottom = top if bottom is None else bottom
         return self.comm.halo(x, self.rows, self.height, top, bottom,
                               label=label)
+
+    def window(self, x, needs, label="window"):
+        """(window, its first row): rows [lo, hi) = needs[index] of the
+        plane whose band this rank holds as x, where needs[j] are the rows
+        member j reads (a resize between two resolutions, whose bands do not
+        line up). One halo exchange whose reach is the widest of every
+        member's; every member calls it with the same `needs`."""
+        top = max(0, max(a - lo for (a, _b), (lo, _hi)
+                         in zip(self.rows, needs)))
+        bottom = max(0, max(hi - b for (_a, b), (_lo, hi)
+                            in zip(self.rows, needs)))
+        win, above = self.halo(x, top, bottom, label=label)
+        start = self.y0 - above
+        lo, hi = needs[self.comm.index]
+        if lo < start or hi > start + win.shape[0]:
+            raise ValueError(f"rows [{lo}, {hi}) lie outside the window "
+                             f"[{start}, {start + win.shape[0]})")
+        return win[lo - start:hi - start], lo
 
     def gather(self, x, label="all_gather", ircache=False):
         return self.comm.all_gather(x, self.rows, label=label,

@@ -22,12 +22,15 @@ Parallel axes, as in the JAX module:
     so that a halo crosses a host seam only between the last band of one
     host and the first of the next; the log counts those bytes apart.
 
-The banded frame runs the default `RenderConfig` (the irradiance cache,
-SSAO, ReSTIR GI, RTR with mesh-light specular, TAA, motion blur) and every
-subset of it; the world radiance cache, depth of field, the traced
-g-buffer, an IBL sky and `temporal_upsampling != 1` raise
-NotImplementedError (`frame.check_supported(..., sharded=True)`). Every
-output and state plane equals the single-device frame's bit for bit.
+The banded frame runs every `RenderConfig`: the default frame (the
+irradiance cache, SSAO, ReSTIR GI, RTR with mesh-light specular, TAA,
+motion blur), the traced g-buffer, the world radiance cache (its atlas
+split over its probes: each rank traces its probes and all-gathers the
+atlas), depth of field (halo rows) and temporal super-resolution, whose
+output-size planes are banded on the output frame's own bands
+(`FrameBands`). An IBL sky raises NotImplementedError, as JAX's sharded
+entry points take no env map (`frame.check_supported(..., sharded=True)`).
+Every output and state plane equals the single-device frame's bit for bit.
 
 The JAX module jits the frame with GSPMD shardings and reads the collectives
 XLA inserted from the optimized HLO. The port runs eagerly, so
@@ -50,6 +53,7 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
+from ..renderers.taa import KEYS as TAA_KEYS
 from .comm import Band, CollectiveLog, Comm, even_slices
 
 BAND_UNIT = 16      # band edges are multiples of this many full-res rows
@@ -224,73 +228,106 @@ def _spec(shape, n: int, axis):
     return ()
 
 
-def _frame_scale(shape, height, width, band=None):
-    """k when `shape` is an (height // k, width // k, ...) frame plane, whole
-    or (with `band`) this rank's band of one; else None."""
-    if len(shape) < 2:
+# the planes held at the output size (TAA's state and its results): under
+# temporal super-resolution they are banded on the output frame's bands
+OUTPUT_KEYS = TAA_KEYS + ("taa", "final")
+
+
+@dataclass(frozen=True)
+class FrameBands:
+    """This rank's bands of a sharded frame's planes: `render` (the render
+    resolution's; its decimations by `scaled`), `output` (the output
+    frame's, under temporal super-resolution not the render band scaled)
+    and `probes` (the world radiance cache's probe axis, or None)."""
+
+    render: Band
+    output: Band
+    probes: Band | None = None
+
+    def layout(self, key, shape):
+        """(band, whole) for a plane of this frame: the band it is held in,
+        and whether `shape` is the whole plane (else the band's rows); None
+        for a tensor that is not a frame plane. A plane is looked for among
+        the bands of its width, those of its key's resolution first (the
+        output planes are at the render size when TAA is off)."""
+        if len(shape) < 2:
+            return None
+        render = (self.render, self.render.scaled(2), self.render.scaled(4))
+        if key == "wrc_atlas":
+            cands = (self.probes,) if self.probes is not None else ()
+        elif key in OUTPUT_KEYS:
+            cands = (self.output,) + render
+        else:
+            cands = render + (self.output,)
+        for b in cands:
+            if shape[1] == b.width and shape[0] in (b.height, b.n):
+                return b, shape[0] == b.height
         return None
-    for k in (1, 2, 4):
-        rows = band.scaled(k).n if band is not None else height // k
-        if shape[0] == rows and shape[1] == width // k:
-            return k
-    return None
+
+
+def frame_bands(mesh: Mesh, cfg) -> FrameBands:
+    """The bands of `cfg`'s frame on this rank of `mesh`."""
+    from ..renderers.wrc import probe_band
+
+    return FrameBands(
+        render=mesh.band(cfg.height, cfg.width),
+        output=mesh.band(cfg.out_height, cfg.out_width),
+        probes=probe_band(cfg.wrc, mesh.comm) if cfg.use_wrc else None)
 
 
 def frame_state_sharding(state, mesh: Mesh, axis: str = "tile"):
     """The sharding plan of a whole-frame FrameState: for each key, JAX's
     PartitionSpec as a tuple, (axis, None, ...) for a row-sharded plane and
     () for a replicated one; the same answer as JAX's `frame_state_sharding`
-    on the same state. Only band edges differ from JAX's even split
-    (`band_rows`). `render_frame_sharded` keeps the row-sharded planes
-    banded and the replicated ones whole."""
+    on the same state (the output-size TAA planes row-sharded, the world
+    radiance cache's atlas sharded over its probes). Only band edges differ
+    from JAX's even split (`band_rows`). `render_frame_sharded` keeps the
+    sharded planes banded and the replicated ones whole."""
     name = axis if len(mesh.axis_names) == 1 else tuple(mesh.axis_names)
     return {k: _spec(tuple(v.shape), mesh.size, name)
             for k, v in state.items()}
 
 
-def _plan_of(state, mesh: Mesh, band: Band):
-    """{key: (k, sharded, whole)} for the frame planes of a state that may
-    be whole or banded: k their decimation, `sharded` whether the plan
-    row-shards them, `whole` whether this state holds them whole."""
+def _plan_of(state, mesh: Mesh, bands: FrameBands):
+    """{key: (band, sharded, whole)} for the frame planes of a state that
+    may be whole or banded: `band` the one they are held in, `sharded`
+    whether the plan shards them, `whole` whether this state holds them
+    whole."""
     out = {}
-    n = mesh.size
     for key, v in state.items():
-        whole = _frame_scale(tuple(v.shape), band.height, band.width)
-        k = whole or _frame_scale(tuple(v.shape), band.height, band.width,
-                                  band)
-        if k is None:
+        lay = bands.layout(key, tuple(v.shape))
+        if lay is None:
             continue
-        full = (band.height // k,) + tuple(v.shape[1:])
-        out[key] = (k, bool(_spec(full, n, "tile")), whole is not None)
+        b, whole = lay
+        full = (b.height,) + tuple(v.shape[1:])
+        out[key] = (b, bool(_spec(full, mesh.size, "tile")), whole)
     return out
 
 
 def render_frame_sharded(ts, state, view, cfg, levels, mesh: Mesh,
                          axis: str = "tile"):
-    """`render_frame` on this rank's band, for the configurations the
-    module docstring names (others raise before any work). `state` is this
-    rank's band of the state (as a sharded frame returns it) or the whole
-    state (as `init_frame_state` makes it), whose row-sharded planes are cut
-    to the band. Returns (band state, band outputs); planes the plan
-    replicates come back whole, and so do the irradiance-cache tables, the
-    same on every rank. Every rank of the mesh calls it with the same
-    arguments."""
+    """`render_frame` on this rank's bands (an IBL env map is refused, as
+    JAX's sharded entry points take none). `state` is this rank's band of
+    the state (as a sharded frame returns it) or the whole state (as
+    `init_frame_state` makes it), whose sharded planes are cut to the band.
+    Returns (band state, band outputs); planes the plan replicates come
+    back whole, and so do the irradiance-cache tables, the same on every
+    rank. Every rank of the mesh calls it with the same arguments."""
     from ..frame import check_supported, render_frame
 
     check_supported(cfg, sharded=True)
-    band = mesh.band(cfg.height, cfg.width)
-    plan = _plan_of(state, mesh, band)
+    bands = frame_bands(mesh, cfg)
+    plan = _plan_of(state, mesh, bands)
     local = {}
     for key, v in state.items():
-        k, _sharded, whole = plan.get(key, (None, False, False))
-        local[key] = band.scaled(k).rows_of(v) if whole and mesh.size > 1 \
-            else v
+        b, _sharded, whole = plan.get(key, (None, False, False))
+        local[key] = b.rows_of(v) if whole and mesh.size > 1 else v
     new_state, out = render_frame(ts, local, view, cfg, levels=levels,
-                                  band=band)
-    for key, (k, sharded, _whole) in plan.items():
+                                  band=bands.render, out_band=bands.output)
+    for key, (b, sharded, _whole) in plan.items():
         if not sharded and mesh.size > 1:
-            new_state[key] = band.scaled(k).gather(
-                new_state[key], label=f"replicated {key}")
+            new_state[key] = b.gather(new_state[key],
+                                      label=f"replicated {key}")
     return new_state, out
 
 
@@ -304,20 +341,22 @@ def render_frame_multihost(ts, state, view, cfg, levels, mesh: Mesh,
     return render_frame_sharded(ts, state, view, cfg, levels, mesh)
 
 
-def gather_frame(tree, mesh: Mesh, height: int, width: int):
+def gather_frame(tree, mesh: Mesh, cfg):
     """Whole planes of a sharded frame's band outputs or band state (nested
-    dicts), on every rank: each band plane is all-gathered, every other
-    tensor is returned as it is. For tests and checks; the frame itself
-    never gathers a state plane."""
-    band = mesh.band(height, width)
+    dicts, or one tensor), on every rank, for the frame of `cfg`: each band
+    plane is all-gathered on its band (the render band and its decimations,
+    the output band, the atlas's probes), every other tensor is returned as
+    it is. For tests and checks; the frame itself never gathers a state
+    plane."""
+    bands = frame_bands(mesh, cfg)
 
-    def walk(x):
+    def walk(x, key=None):
         if isinstance(x, dict):
-            return {k: walk(v) for k, v in x.items()}
+            return {k: walk(v, k) for k, v in x.items()}
         if torch.is_tensor(x) and mesh.size > 1:
-            k = _frame_scale(tuple(x.shape), height, width, band)
-            if k is not None:
-                return band.scaled(k).gather(x, label="gather_frame")
+            lay = bands.layout(key, tuple(x.shape))
+            if lay is not None and not lay[1]:
+                return lay[0].gather(x, label="gather_frame")
         return x
 
     return walk(tree)
@@ -346,14 +385,17 @@ def collective_summary(log):
     JAX summary's keys: count, bytes, max_bytes, and the largest element of
     the screen-space collectives (plane_max_bytes) and of the irradiance
     cache's (cache_max_bytes); plus the bytes that crossed a host seam
-    (inter_host_bytes), those staged through host memory, and the host
-    seconds spent in the calls (summed over the ranks)."""
+    (inter_host_bytes), those staged through host memory, the host
+    seconds spent in the calls (summed over the ranks), and the bytes of
+    each label ("labels": the pass each collective serves)."""
     out = {}
     for e in log:
         ent = out.setdefault(e.kind, {"count": 0, "bytes": 0, "max_bytes": 0,
                                       "inter_host_bytes": 0,
-                                      "staged_bytes": 0, "seconds": 0.0})
+                                      "staged_bytes": 0, "seconds": 0.0,
+                                      "labels": {}})
         ent["count"] += 1
+        ent["labels"][e.label] = ent["labels"].get(e.label, 0) + e.nbytes
         ent["seconds"] += e.seconds
         ent["bytes"] += e.nbytes
         ent["max_bytes"] = max(ent["max_bytes"], e.nbytes)

@@ -20,11 +20,15 @@ def _project(m, p):
 
 def raytrace_gbuffer(ts: TraceScene, view: ViewConstants, width: int,
                      height: int, max_trace_steps=None,
-                     no_normal_maps: bool = False):
-    """Trace one camera ray per pixel -> gbuffer planes. Where the scene has
-    cluster tables the rays go out in 64x128 screen tiles (compact chunks,
-    narrow frustums, tight culling) and the hits come back in pixel order."""
-    org, d = camera_rays(view, width, height)
+                     no_normal_maps: bool = False, band=None):
+    """Trace one camera ray per pixel -> gbuffer planes (of `band`'s rows of
+    the frame when one is given, parallel/). Where the scene has cluster
+    tables the rays go out in 64x128 screen tiles (compact chunks, narrow
+    frustums, tight culling), counted from the band's first row, the last
+    tile row edge-padded with copies of real rays, and the hits come back
+    in pixel order."""
+    org, d = camera_rays(view, width, height, band=band)
+    rows = height if band is None else band.n
     tiled = ts.woop is not None and "cmin" in ts.woop
     if tiled:
         orgf = tile_order(org).reshape(-1, 3)
@@ -34,10 +38,11 @@ def raytrace_gbuffer(ts: TraceScene, view: ViewConstants, width: int,
         df = d.reshape(-1, 3)
     hit = scene_trace_closest(ts, orgf, df, max_steps=max_trace_steps)
     if tiled:
-        hit = hit.map(lambda x: untile_order(x, height, width).reshape(-1))
+        hit = hit.map(lambda x: untile_order(x, rows, width).reshape(-1))
         df = d.reshape(-1, 3)
     return gbuffer_from_hit(ts, view, hit, df, width, height,
-                            no_normal_maps=no_normal_maps)
+                            no_normal_maps=no_normal_maps,
+                            rows=None if band is None else band.n)
 
 
 def raster_gbuffer(ts: TraceScene, view: ViewConstants, width: int,

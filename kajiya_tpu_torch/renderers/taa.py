@@ -21,12 +21,18 @@ velocity 2) at the dilated reprojection lattice, through the warp kernel
 
 Super-resolution (output larger than render res): the frame is gathered to
 the output lattice with the analytic unjitter kernel, 9 input taps
-pre-shifted at render res and fetched by one 27-channel nearest warp.
+pre-shifted at render res and fetched by one 27-channel nearest warp; the
+planes that cross between the two resolutions do so packed, in one nearest
+resize each way.
 
-With a row `band` (parallel/; same resolution in and out), the planes are
-the band's: every stencil fetches its halo rows, the pixel lattice takes
-screen rows, the history fetch gathers its packed source, and the sizes
-that decide the path are the frame's.
+With a row `band` (parallel/), the planes are the band's: every stencil
+fetches its halo rows, the pixel lattices take screen rows, the history
+fetch gathers its packed source, and the sizes that decide the path are the
+frame's. Under super-resolution the render-res planes hold the render band
+and the output-res planes the output band (`out_band`), whose edges are not
+the render band's scaled: each resize, and the 27-channel fetch, reads a
+window of the other resolution's rows that its output band reaches
+(`Band.window`), its lattice built on the whole frame and cut to the band.
 """
 from __future__ import annotations
 
@@ -171,13 +177,13 @@ def _input_prob(fi, dev, vel, closest_hist, smooth_var_rr, vel_hist_rr,
 
 
 def _unjitter_sample(iycc, jitter_px, h, w, out_h, out_w, kernel_scale,
-                     band=None):
+                     band=None, taps=None):
     """Gather the current frame to the output lattice, undoing the sub-pixel
     jitter with an analytic kernel. Returns (color_sum, coverage, ex, ex2).
 
     Same-res: taps are static shifts and the offsets are per-frame scalars.
-    Upsampling: 9 pre-shifted taps in one 27-channel nearest warp with
-    per-output-pixel weights. `band` (same-res only): iycc's row band."""
+    Upsampling: the 9 taps of `_superres_taps` with per-output-pixel
+    weights. `band` (same-res): iycc's row band."""
     same_res = (out_h == h and out_w == w)
     dev = iycc.device
     jx, jy = jitter_px[0], jitter_px[1]
@@ -199,26 +205,7 @@ def _unjitter_sample(iycc, jitter_px, h, w, out_h, out_w, kernel_scale,
         return res, cov, ex / dev_wt_sum, ex2 / dev_wt_sum
 
     # --- super-res path
-    sx, sy = w / out_w, h / out_h  # input resolution fraction (< 1)
-    ox_pix = (torch.arange(out_w, dtype=torch.float32, device=dev)
-              + 0.5)[None, :]
-    oy_pix = (torch.arange(out_h, dtype=torch.float32, device=dev)
-              + 0.5)[:, None]
-    bx = torch.floor(ox_pix * sx)  # base source pixel
-    by = torch.floor(oy_pix * sy)
-    # fractional offset of (base source texel + jitter) vs the output
-    # sample, in OUTPUT pixel units
-    fx = ((bx + 0.5 + jx) / sx - ox_pix).expand(out_h, out_w)
-    fy = ((by + 0.5 + jy) / sy - oy_pix).expand(out_h, out_w)
-
-    # one 27-channel nearest warp of the 9 pre-shifted taps
-    shifted = im.shift_stack(iycc, _OFF3).permute(1, 2, 0, 3).reshape(
-        h, w, 27)
-    base_uv = torch.stack([((bx + 0.5) / w).expand(out_h, out_w),
-                           ((by + 0.5) / h).expand(out_h, out_w)], dim=-1)
-    fetched = im.warp_nearest(shifted, base_uv)
-
-    col = fetched.reshape(out_h, out_w, 9, 3).permute(2, 0, 1, 3)
+    col, fx, fy, sx, sy = taps
     ox = (fx[None] + (dyx[:, 1] / sx)[:, None, None]) * kernel_scale
     oy = (fy[None] + (dyx[:, 0] / sy)[:, None, None]) * kernel_scale
     d2 = (ox * ox + oy * oy) * sx                    # (9, H, W)
@@ -234,44 +221,114 @@ def _unjitter_sample(iycc, jitter_px, h, w, out_h, out_w, kernel_scale,
             ex2 / torch.clamp(dev_wt_sum, min=1e-20))
 
 
-def _to_out(x, out_h, out_w):
-    """Nearest resize render res -> output res."""
-    if x.shape[0] == out_h and x.shape[1] == out_w:
-        return x
-    return im.warp_nearest(x if x.ndim == 3 else x[..., None],
-                           im.pixel_uv(out_h, out_w, device=x.device))
+def _rows_reached(a: int, b: int, scale: float, n: int, reach: int = 0):
+    """The rows [lo, hi) of an n-row plane that a nearest lattice
+    floor((Y + 0.5) * scale) reads for the rows [a, b) of another plane,
+    widened by `reach` rows each way (a stencil's) and by one more for the
+    float32 rounding of the lattice, clipped to the plane."""
+    lo = math.floor((a + 0.5) * scale) - reach - 1
+    hi = math.floor((b - 0.5) * scale) + reach + 2
+    return max(0, lo), min(n, hi)
 
 
-def _to_render(x, h, w):
-    """Nearest resize output res -> render res."""
-    if x.shape[0] == h and x.shape[1] == w:
-        return x
-    return im.warp_nearest(x, im.pixel_uv(h, w, device=x.device))
+def _superres_taps(iycc, jitter_px, h, w, out_h, out_w, band=None,
+                   out_band=None):
+    """The super-res unjitter's inputs, shared by its two kernel scales:
+    (col (9, Ho, Wo, 3), fx, fy, sx, sy). col holds the 3x3 taps around
+    each output pixel's base source pixel, fetched by one 27-channel nearest
+    warp of the pre-shifted frame; (fx, fy) is the offset of that source
+    pixel's jittered centre from the output sample, in output pixels. The
+    lattices are built on the whole output frame and cut to `out_band`'s
+    rows; with bands, the source is the window of render rows the band's
+    base pixels reach, one more each way for the taps."""
+    dev = iycc.device
+    jx, jy = jitter_px[0], jitter_px[1]
+    sx, sy = w / out_w, h / out_h  # input resolution fraction (< 1)
+    ox_pix = (torch.arange(out_w, dtype=torch.float32, device=dev)
+              + 0.5)[None, :]
+    oy_pix = (torch.arange(out_h, dtype=torch.float32, device=dev)
+              + 0.5)[:, None]
+    bx = torch.floor(ox_pix * sx)  # base source pixel
+    by = torch.floor(oy_pix * sy)
+    # fractional offset of (base source texel + jitter) vs the output
+    # sample, in OUTPUT pixel units
+    fx = (bx + 0.5 + jx) / sx - ox_pix
+    fy = (by + 0.5 + jy) / sy - oy_pix
+    base_v = (by + 0.5) / h
+    if out_band is not None:
+        fy, base_v = out_band.rows_of(fy), out_band.rows_of(base_v)
+    rows = fy.shape[0]
+    base_uv = torch.stack([((bx + 0.5) / w).expand(rows, out_w),
+                           base_v.expand(rows, out_w)], dim=-1)
+    if band is None:
+        src, row0 = iycc, 0
+    else:
+        src, row0 = band.window(
+            iycc, tuple(_rows_reached(a, b, sy, h, reach=1)
+                        for a, b in out_band.rows),
+            label="taa super-res source")
+    # one 27-channel nearest warp of the 9 pre-shifted taps (on a window,
+    # its edge rows clamp wrongly, and the lattice never reads them)
+    shifted = im.shift_stack(src, _OFF3).permute(1, 2, 0, 3).reshape(
+        src.shape[0], w, 27)
+    fetched = (im.warp_nearest(shifted, base_uv) if band is None
+               else im.warp_nearest_rows(shifted, row0, h, base_uv))
+    col = fetched.reshape(rows, out_w, 9, 3).permute(2, 0, 1, 3)
+    return (col, fx.expand(rows, out_w), fy.expand(rows, out_w), sx, sy)
+
+
+def _to_out(x, h, out_h, out_w, band=None, out_band=None):
+    """Nearest resize render res -> output res. With bands, x holds the
+    render band's rows and the result the output band's, read from the
+    window of render rows they reach."""
+    x3 = x if x.ndim == 3 else x[..., None]
+    uv = im.pixel_uv(out_h, out_w, device=x.device, band=out_band)
+    if band is None:
+        return im.warp_nearest(x3, uv)
+    win, row0 = band.window(
+        x3, tuple(_rows_reached(a, b, h / out_h, h) for a, b in out_band.rows),
+        label="taa resize window")
+    return im.warp_nearest_rows(win, row0, h, uv)
+
+
+def _to_render(x, h, w, out_h, out_band=None, band=None):
+    """Nearest resize output res -> render res. With bands, x holds the
+    output band's rows and the result the render band's."""
+    uv = im.pixel_uv(h, w, device=x.device, band=band)
+    if band is None:
+        return im.warp_nearest(x, uv)
+    win, row0 = out_band.window(
+        x, tuple(_rows_reached(a, b, out_h / h, out_h) for a, b in band.rows),
+        label="taa resize window")
+    return im.warp_nearest_rows(win, row0, out_h, uv)
 
 
 def taa(input_img, state, reproj, depth, jitter_px, out_h: int, out_w: int,
-        pre_delta=None, band=None):
+        pre_delta=None, band=None, out_band=None):
     """input_img: (H, W, 3) lit radiance at render res (pre-exposed when the
     pre-exposure split is on); depth: (H, W) reversed-Z depth; jitter_px:
     (2,) this frame's sub-pixel jitter. pre_delta: this frame's pre-exposure
     over last frame's; the history, accumulated at the old pre-exposure, is
     rescaled by it (and the variance accumulator, which lives in
     sqrt-encoded space, by the same factor).
-    `band`: the row band of the (same-res) frame that the planes hold.
+    `band`: the row band of the render-res frame that the render-res planes
+    hold; `out_band`: that of the output frame, which the state and the
+    result hold (under super-resolution; otherwise it is `band`).
     Returns ((out_h, out_w, 3), new_state)."""
     h, w = input_img.shape[:2] if band is None else (band.height, band.width)
     dev = input_img.device
     same_res = (out_h == h and out_w == w)
-    if band is not None and not same_res:
-        raise NotImplementedError("a row band of TAA's super-resolution "
-                                  "(ROADMAP.md section 1, item 4)")
+    ob = band if same_res else out_band
+    if band is not None and ob is None:
+        raise ValueError("TAA's super-resolution on a row band needs the "
+                         "output band")
     frac_x, frac_y = w / out_w, h / out_h
 
     def to_out(x):
-        return x if same_res else _to_out(x, out_h, out_w)
+        return x if same_res else _to_out(x, h, out_h, out_w, band, ob)
 
     def to_render(x):
-        return x if same_res else _to_render(x, h, w)
+        return x if same_res else _to_render(x, h, w, out_h, ob, band)
 
     # ---- pass 2: filter input (+ deviation) at render res, perceptual YCbCr
     iycc_raw = lin_to_ycbcr(decode_rgb(input_img))
@@ -284,17 +341,26 @@ def taa(input_img, state, reproj, depth, jitter_px, out_h: int, out_w: int,
     with pass_scope("closest_vel"):
         cvel_rr = _closest_velocity(depth, vel, band)
 
+    # the render-res planes the output lattice reads, resized in one fetch
+    if same_res:
+        cvel_out = cvel_rr
+        validity_out, in_bounds_out = reproj["validity"], reproj["in_bounds"]
+    else:
+        o = to_out(torch.cat([cvel_rr, reproj["validity"][..., None],
+                              reproj["in_bounds"][..., None]], dim=-1))
+        cvel_out, validity_out, in_bounds_out = o[..., :2], o[..., 2], \
+            o[..., 3]
+
     # ---- pass 1: reproject all temporal planes with one packed 9-channel
     # warp at the dilated closest-velocity lattice
-    uv_out = im.pixel_uv(out_h, out_w, device=dev, band=band)
-    cvel_out = to_out(cvel_rr)
+    uv_out = im.pixel_uv(out_h, out_w, device=dev, band=ob)
     prev_uv_out = uv_out + cvel_out
     packed = torch.cat([state["taa_history"],
                         state["taa_coverage"][..., None],
                         state["taa_smooth_var"],
                         state["taa_velocity"]], dim=-1)
     with pass_scope("warp9"):
-        fetched = im.warp_bilinear(packed, prev_uv_out, band=band)
+        fetched = im.warp_bilinear(packed, prev_uv_out, band=ob)
     hist_lin = torch.clamp(fetched[..., 0:3], min=0.0)
     rsvar = torch.clamp(fetched[..., 4:7], min=0.0)
     if pre_delta is not None:
@@ -306,15 +372,18 @@ def taa(input_img, state, reproj, depth, jitter_px, out_h: int, out_w: int,
     rcov = torch.clamp(fetched[..., 3], min=0.0)
     rvel = fetched[..., 7:9]
 
-    # ---- pass 3: filtered history at render res
-    hist_rr = to_render(rhist)
+    # ---- pass 3: filtered history at render res (the history, variance
+    # and velocity resized in one fetch)
+    if same_res:
+        hist_rr, svar_rr, vhist_rr = rhist, rsvar, rvel
+    else:
+        r = to_render(torch.cat([rhist, rsvar, rvel], dim=-1))
+        hist_rr, svar_rr, vhist_rr = r[..., 0:3], r[..., 3:6], r[..., 6:8]
     with pass_scope("filter_history"):
         fh = _filter_history(lin_to_ycbcr(hist_rr),
                              2 if 1.0 / frac_x > 1.75 else 1, band)
 
     # ---- passes 4-6: input probability
-    svar_rr = to_render(rsvar)
-    vhist_rr = to_render(rvel)
     with pass_scope("input_prob"):
         prob_rr = _input_prob(fi, dev_in, vel, fh, svar_rr, vhist_rr, band)
     input_prob = prob_rr if same_res else to_out(prob_rr)[..., 0]
@@ -328,15 +397,17 @@ def taa(input_img, state, reproj, depth, jitter_px, out_h: int, out_w: int,
     gs = sum(g)
     taps = tuple(x / gs for x in g)
     bhist_p = im.separable_blur(
-        torch.cat([rhist, rcov[..., None]], dim=-1), taps, band)
+        torch.cat([rhist, rcov[..., None]], dim=-1), taps, ob)
     bhist_ycc = lin_to_ycbcr(bhist_p[..., 0:3])
     bcov = bhist_p[..., 3]
 
     with pass_scope("unjitter"):
+        sr_taps = None if same_res else _superres_taps(
+            iycc_raw, jitter_px, h, w, out_h, out_w, band, ob)
         center, coverage, ex, ex2 = _unjitter_sample(
-            iycc_raw, jitter_px, h, w, out_h, out_w, 1.0, band)
+            iycc_raw, jitter_px, h, w, out_h, out_w, 1.0, band, sr_taps)
         bsum, bcover, _, _ = _unjitter_sample(
-            iycc_raw, jitter_px, h, w, out_h, out_w, 0.333, band)
+            iycc_raw, jitter_px, h, w, out_h, out_w, 0.333, band, sr_taps)
     bcenter = bsum / torch.clamp(bcover, min=1e-20)[..., None]
 
     # low-coverage lanes fall back to the filtered current frame
@@ -350,10 +421,6 @@ def taa(input_img, state, reproj, depth, jitter_px, out_h: int, out_w: int,
 
     # smooth variance update
     prev_var = rsvar[..., 0:1]
-    validity_out = (reproj["validity"] if same_res
-                    else to_out(reproj["validity"])[..., 0])
-    in_bounds_out = (reproj["in_bounds"] if same_res
-                     else to_out(reproj["in_bounds"])[..., 0])
     vel_now = cvel_out
     vel_prev = rvel
     vel_diff = _len2((vel_now - vel_prev)

@@ -5,6 +5,11 @@ An 8x3x8 grid of 32^2 octahedral radiance probes, traced as one flat
 wavefront and blended into a (GX*GY*GZ, R, R, 3) atlas. Off by default, as
 in the reference; `RenderConfig(use_wrc=True)` traces it every frame and
 binds `lookup` into the secondary hit lighting for far-field hits.
+
+Over several ranks (parallel/), the atlas is split over its probes
+(`probe_band`): each rank traces its probes' texels, a contiguous slice of
+the wavefront, and blends its slice of the atlas (the hysteresis is per
+texel); the frame all-gathers the whole atlas for `lookup`.
 """
 from __future__ import annotations
 
@@ -39,6 +44,18 @@ def init_state(cfg: WrcConfig, device):
                                      dtype=torch.float32, device=device)}
 
 
+def probe_band(cfg: WrcConfig, comm):
+    """The atlas's probes over the ranks of `comm`, as a `Band` over the
+    probe axis: member i holds probes `even_slices(N, size)[i]`."""
+    from ..parallel.comm import Band, even_slices
+
+    n = cfg.grid[0] * cfg.grid[1] * cfg.grid[2]
+    if n < comm.size:
+        raise NotImplementedError(f"{n} probes cannot be split over "
+                                  f"{comm.size} ranks")
+    return Band(comm, even_slices(n, comm.size), n, cfg.probe_res)
+
+
 def probe_rays(cfg: WrcConfig, device):
     """(org, dir) of every probe texel, (N * R * R, 3) each, probe-major."""
     n = cfg.grid[0] * cfg.grid[1] * cfg.grid[2]
@@ -52,14 +69,22 @@ def probe_rays(cfg: WrcConfig, device):
 
 
 def trace_wrc(state, ts, sky_env, diffuse_env, frame_idx, cfg: WrcConfig,
-              max_trace_steps=None, hysteresis: float = 0.9):
+              max_trace_steps=None, hysteresis: float = 0.9, probes=None):
     """Trace every probe texel ('wrc trace' pass) and blend into the
-    atlas."""
+    atlas. `probes` (a `probe_band`): trace this rank's probes only and
+    return its slice of the atlas; `state` holds that slice, or the whole
+    atlas, which is then cut to it."""
     from ..rt.trace import scene_trace_closest
     from .hit_lighting import hit_radiance
 
     atlas = state["wrc_atlas"]
     org, d = probe_rays(cfg, atlas.device)
+    if probes is not None:
+        if atlas.shape[0] == probes.height:
+            atlas = probes.rows_of(atlas)
+        texels = cfg.probe_res * cfg.probe_res
+        org = org[probes.y0 * texels:probes.y1 * texels]
+        d = d[probes.y0 * texels:probes.y1 * texels]
     hit = scene_trace_closest(ts, org, d, t_min=1e-3,
                               max_steps=max_trace_steps)
     rad = hit_radiance(ts, hit, d, sky_env, diffuse_env,

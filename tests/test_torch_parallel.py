@@ -15,7 +15,13 @@ with mesh-light specular as `Renderer` turns it on for cornell, TAA and
 motion blur; the small cache of test_torch_frame_default.py) on a moving,
 jittered camera, three frames at 128 and at 72 rows: frame 0 validates the
 reservoirs and the cache, frames 1-2 run TAA, RTR's temporal reuse and
-motion blur on history. Every rank holds the same irradiance-cache pool,
+motion blur on history; the options frame (the default frame plus the
+traced g-buffer, the world radiance cache, its atlas split over the ranks'
+probes, and depth of field over halo rows; the atmosphere sky), two
+jittered frames at 128 rows; and temporal super-resolution (the default
+frame rendered at 64x72 and output at 96x108, factor 1.5), three jittered
+frames, whose output bands (32 / 16 / 32 / 28 rows) are not its render bands
+(16 / 16 / 16 / 24) scaled. Every rank holds the same irradiance-cache pool,
 checked by a digest per rank. JAX's contract is
 sharded == single device; test_torch_parallel_jax.py holds the sharded port
 frames against JAX's single-device frame.
@@ -33,7 +39,7 @@ import torch
 from kajiya_tpu_torch import convert
 from kajiya_tpu_torch.core.camera import camera_rays
 from kajiya_tpu_torch.core.camera import make_view_constants as view_t
-from kajiya_tpu_torch.frame import SHARDED_TODO, RenderConfig, check_supported
+from kajiya_tpu_torch.frame import RenderConfig, check_supported
 from kajiya_tpu_torch.frame import (init_frame_state, jitter_for_frame,
                                     render_frame)
 from kajiya_tpu_torch.parallel import (check_sharding_quality,
@@ -44,9 +50,11 @@ from kajiya_tpu_torch.parallel import (check_sharding_quality,
                                        render_frame_multihost,
                                        render_frame_sharded, shard_rays_pt)
 from kajiya_tpu_torch.parallel import launch
-from kajiya_tpu_torch.parallel.comm import Collective, CollectiveLog
+from kajiya_tpu_torch.parallel.comm import (Collective, CollectiveLog,
+                                            even_slices)
 from kajiya_tpu_torch.parallel.mesh import band_rows, gather_frame
 from kajiya_tpu_torch.renderers.ircache import IrcacheConfig
+from kajiya_tpu_torch.renderers.wrc import WrcConfig
 
 N_RANKS = 4
 W, H = 64, 16 * 8
@@ -62,21 +70,38 @@ RASTER = {**GI, "use_ssao": False, "use_rtdgi": False,
 SMALL_IRCACHE = dict(max_entries=4096, active_budget=1024)
 DEFAULT = dict(width=W, height=H, ircache=IrcacheConfig(**SMALL_IRCACHE),
                use_mesh_light_specular=True)
+# the options frame: the default frame with the traced g-buffer, the world
+# radiance cache (the small grid of test_torch_frame_options_frame.py: 2 x 2
+# x 2 probes of 8^2 texels, so the probe axis divides by four and JAX's plan
+# shards it) and depth of field
+WRC = dict(grid=(2, 2, 2), probe_res=8, grid_spacing=1.0,
+           grid_origin=(-0.5, -0.5, -0.5))
+OPTIONS = dict(DEFAULT, primary="trace", use_wrc=True, use_dof=True,
+               wrc=WrcConfig(**WRC))
+# temporal super-resolution: the default frame rendered at 64x72 and output
+# at 96x108 (bands 16/16/16/24 and 32/16/32/28: not one another scaled)
+SUPERRES = dict(DEFAULT, temporal_upsampling=1.5)
+H_SUPERRES = 72
 # camera step of tests/test_torch_frame_gi.py (no reprojection knife edge)
 EYE, FWD, STEP = (0.0, 0.0, 2.4), (0.0, 0.0, -1.0), (0.04, 0.013, 0.0)
 N_FRAMES = 2
 OUTPUTS = ("final", "lit", "shadow", "ssao", "diffuse_gi", "reflections",
            "exposure", "taa")
+GBUFFER = ("depth", "normal", "albedo", "pos", "hit")
 # the sharded cases: (name, config, frame height)
 CASES = (("gi", GI, H), ("raster", RASTER, H), ("uneven", GI, H_UNEVEN),
-         ("default", DEFAULT, H), ("uneven_default", DEFAULT, H_UNEVEN))
-# the default frame's cases: 3 frames (a validation frame, then two on
-# history), jittered as the Renderer's views are
-DEFAULT_CASES = ("default", "uneven_default")
+         ("default", DEFAULT, H), ("uneven_default", DEFAULT, H_UNEVEN),
+         ("options", OPTIONS, H), ("superres", SUPERRES, H_SUPERRES))
+# the cases of the default frame and its options: jittered as the
+# Renderer's views are, 3 frames (a validation frame, then two on history;
+# the options frame 2)
+DEFAULT_CASES = ("default", "uneven_default", "options", "superres")
 PT_BOUNCES = 2
 
 
 def n_frames(case):
+    if case == "options":
+        return 2
     return 3 if case in DEFAULT_CASES else N_FRAMES
 
 
@@ -134,7 +159,8 @@ def scene_digest(tree):
 
 
 def _outputs(out):
-    return {k: out[k] for k in OUTPUTS}
+    return {**{k: out[k] for k in OUTPUTS},
+            "gbuffer": {k: out["gbuffer"][k] for k in GBUFFER}}
 
 
 def run_ranks(mesh_args, spec):
@@ -166,7 +192,7 @@ def run_ranks(mesh_args, spec):
         for v in views[name]:
             st, out = render_frame_sharded(ts, st, v, cfg, None, mesh)
             frames.append(gather_frame({"out": _outputs(out), "state": st},
-                                       mesh, cfg.height, cfg.width))
+                                       mesh, cfg))
             digests.append(mesh.comm.gather_objects(ircache_digest(st)))
         res[name] = frames
         res[f"{name}_ircache_digests"] = digests
@@ -181,7 +207,7 @@ def run_ranks(mesh_args, spec):
                 ts, init_frame_state(cfg, device="cpu"), views[name][0], cfg,
                 None, mh)
         res["multihost"] = gather_frame({"out": _outputs(out), "state": st},
-                                        mh, cfg.height, cfg.width)
+                                        mh, cfg)
         res["multihost_log"] = [e for part in mh.comm.gather_objects(
             list(log)) for e in part]
         res["multihost_shapes"] = mh.comm.gather_objects(
@@ -201,7 +227,8 @@ def run_ranks(mesh_args, spec):
 
 
 def sharded_runs(out_dir, scene_path=None, views=None, cases=CASES,
-                 log=("gi", "default"), multihost="gi", pt="gi"):
+                 log=("gi", "default", "options", "superres"),
+                 multihost="gi", pt="gi"):
     """Spawn N_RANKS gloo ranks over `cases` and return rank 0's results.
     views: {case name: [view numpy dicts]} (default: the port's views);
     `log`: the cases whose first frame is also run by
@@ -293,26 +320,48 @@ def test_ircache_pool_is_the_same_on_every_rank(ranks, single, case):
     assert float(st["ircache_life"].max()) >= 2.0
 
 
+def held_rows(key, shape, cfg, r):
+    """The leading extent rank r holds of a whole state plane of `shape`:
+    its band's rows (TAA's planes on the output frame's bands, the world
+    radiance cache's atlas its slice of the probes), or all of it for a
+    replicated table."""
+    if key.startswith("taa_"):
+        a, b = band_rows(cfg.out_height, N_RANKS)[r]
+        return b - a
+    if key == "wrc_atlas":
+        a, b = even_slices(shape[0], N_RANKS)[r]
+        return b - a
+    if len(shape) >= 2 and shape[1] in (W, W // 2) \
+            and not key.startswith("ircache_"):
+        k = W // shape[1]
+        a, b = band_rows(cfg.height, N_RANKS)[r]
+        return b // k - a // k
+    return shape[0] if shape else None
+
+
 @pytest.mark.parametrize("case", [c[0] for c in CASES])
 def test_state_stays_banded(ranks, case):
     """No rank holds another band's rows: each plane of each rank's state
-    has its band's rows (at its plane's resolution)."""
+    has its band's rows (at its plane's resolution; TAA's planes on the
+    output frame's bands, the radiance cache's atlas its probes)."""
     name, cfg_kw, h = next(c for c in CASES if c[0] == case)
-    full = init_frame_state(RenderConfig(**{**cfg_kw, "height": h}),
-                            device="cpu")
-    rows = band_rows(h, N_RANKS)
+    cfg = RenderConfig(**{**cfg_kw, "height": h})
+    full = init_frame_state(cfg, device="cpu")
     for r, shapes in enumerate(ranks[f"{case}_shapes"]):
-        a, b = rows[r]
         n_planes = 0
         for k, shape in shapes.items():
-            want = tuple(full[k].shape)
-            if len(want) >= 2 and want[1] in (W, W // 2) \
-                    and not k.startswith("ircache_"):
-                k_dec = W // want[1]
-                want = (b // k_dec - a // k_dec,) + want[1:]
-                n_planes += 1
+            whole = tuple(full[k].shape)
+            rows = held_rows(k, whole, cfg, r)
+            want = whole if not whole else (rows,) + whole[1:]
+            n_planes += int(want != whole)
             assert shape == want, (case, r, k, shape, want)
         assert n_planes >= 10
+        if case == "options":
+            assert shapes["wrc_atlas"] == (2, 8, 8, 3)
+        if case == "superres":
+            assert shapes["taa_history"][:2] == (
+                (32, 16, 32, 28)[r], 96)
+            assert shapes["prev_lit"][0] == (16, 16, 16, 24)[r]
 
 
 def test_multihost_frame_equals_four_tiles(ranks):
@@ -354,23 +403,33 @@ def test_distribute_scene_is_bit_exact(ranks, single):
     assert kind == "dataclass" and n_tensors >= 20
 
 
-@pytest.mark.parametrize("case", ["gi", "default"])
+@pytest.mark.parametrize("case", ["gi", "default", "options", "superres"])
 def test_collective_accounting(ranks, case):
     """The sharded frame's log: the JAX contract holds (no element above
     24 planes, no irradiance-cache element above 8 MiB), halo messages
     exist and each is under one plane, the histogram is all-reduced, every
     rank logged. The GI frame has no cache; the default frame's cache
     collectives are its two gathers per rank (the query points and the
-    entry wavefront's radiance), booked as the cache's."""
+    entry wavefront's radiance), booked as the cache's. The options frame
+    adds one all-gather of the whole radiance-cache atlas per rank and the
+    depth of field's halo rows; super-resolution the windows of its
+    resizes and of its 27-channel fetch."""
+    name, cfg_kw, h = next(c for c in CASES if c[0] == case)
+    cfg = RenderConfig(**{**cfg_kw, "height": h})
     log = ranks[f"log_{case}"]
-    summary, problems = check_sharding_quality(log, H, W)
+    # planes are counted at the output size, the frame's largest
+    ho, wo = cfg.out_height, cfg.out_width
+    summary, problems = check_sharding_quality(log, ho, wo)
     assert not problems, problems
     assert "halo" in summary and summary["halo"]["count"] > 0
-    assert summary["halo"]["max_bytes"] < H * W * 4
+    assert summary["halo"]["max_bytes"] < ho * wo * 4
     assert summary["all_reduce"]["count"] == N_RANKS
-    assert summary["all_gather"]["plane_max_bytes"] <= 24 * H * W * 4
+    assert summary["all_gather"]["plane_max_bytes"] <= 24 * ho * wo * 4
     assert {e.rank for e in log} == set(range(N_RANKS))
     assert all(e.staged_bytes == 0 for e in log)      # CPU ranks: no staging
+    labels = {kind: ent["labels"] for kind, ent in summary.items()}
+    assert sum(sum(v.values()) for v in labels.values()) == sum(
+        e.nbytes for e in log)
     cache = [e for e in log if e.ircache]
     if case == "gi":
         assert not cache
@@ -379,12 +438,33 @@ def test_collective_accounting(ranks, case):
         ["ircache queries", "ircache radiance"] * N_RANKS)
     assert all(e.kind == "all_gather" and e.nbytes <= 8 << 20
                for e in cache)
-    # the queries (stride 4 at 64x128: 16 x 16 points x 4 floats) and the
+    # the queries (stride 4: (h / 4) x 16 points x 4 floats) and the
     # wavefront's radiance (1024 entries x 4 rays x 3 floats)
     sizes = {e.label: e.nbytes for e in cache}
-    assert sizes == {"ircache queries": (H // 4) * (W // 4) * 16,
+    assert sizes == {"ircache queries": (h // 4) * (W // 4) * 16,
                      "ircache radiance": 1024 * 4 * 12}
     assert not any("ircache" in e.label for e in log if not e.ircache)
+    atlas = [e for e in log if e.label == "wrc atlas"]
+    dof = [e for e in log if e.label == "dof halo"]
+    windows = [e for e in log if e.label.startswith("taa super-res")
+               or e.label == "taa resize window"]
+    if case == "options":
+        # the 8 probes' 8 x 8 x 3 floats, gathered whole on every rank
+        assert len(atlas) == N_RANKS and all(
+            e.kind == "all_gather" and e.nbytes == 8 * 8 * 8 * 3 * 4
+            for e in atlas)
+        assert dof and all(e.kind == "halo" for e in dof)
+        # 13 rows each way of colour + CoC, from each neighbour that has
+        # them (the inner ranks two, the outer ones one)
+        assert labels["halo"]["dof halo"] == 6 * 13 * W * 4 * 4
+    else:
+        assert not atlas and not dof
+    if case == "superres":
+        assert {e.label for e in windows} == {"taa super-res source",
+                                              "taa resize window"}
+        assert all(e.kind == "halo" for e in windows)
+    else:
+        assert not windows
 
 
 def test_quality_check_flags_replication_and_empty_logs():
@@ -403,13 +483,15 @@ def test_quality_check_flags_replication_and_empty_logs():
     assert problems and "ircache" in problems[0]
 
 
-@pytest.mark.parametrize("case", ["gi", "default"])
+@pytest.mark.parametrize("case", ["gi", "default", "options", "superres"])
 def test_frame_state_sharding_matches_jax(ranks, case):
     """The port's plan equals JAX's `frame_state_sharding` / multi-host
     `_spec_for_multihost` on the same `init_frame_state` (JAX builds only
     the NamedShardings, on 4 of the 8 virtual CPU devices). On the default
     state: TAA's planes row-sharded, every irradiance-cache table
-    replicated."""
+    replicated; on the options state the radiance cache's atlas sharded
+    over its probes; under super-resolution the output-size TAA planes
+    row-sharded."""
     import jax
 
     from kajiya_tpu.frame import RenderConfig as CfgJ
@@ -419,20 +501,28 @@ def test_frame_state_sharding_matches_jax(ranks, case):
                                           make_mesh as mesh_j,
                                           make_multihost_mesh as mh_j)
     from kajiya_tpu.renderers.ircache import IrcacheConfig as IrcJ
+    from kajiya_tpu.renderers.wrc import WrcConfig as WrcJ
 
-    if case == "gi":
-        sj = init_j(CfgJ(**GI))
-    else:
-        sj = init_j(CfgJ(**{**DEFAULT, "ircache": IrcJ(**SMALL_IRCACHE)}))
+    name, cfg_kw, h = next(c for c in CASES if c[0] == case)
+    kw = {**cfg_kw, "height": h}
+    if "ircache" in kw:
+        kw["ircache"] = IrcJ(**SMALL_IRCACHE)
+    if "wrc" in kw:
+        kw["wrc"] = WrcJ(**WRC)
+    sj = init_j(CfgJ(**kw))
     want = {k: tuple(s.spec) for k, s in plan_j(sj, mesh_j(N_RANKS)).items()}
     assert ranks[f"plan_{case}"] == want
     assert any(want.values()) and not all(want.values())
-    if case == "default":
+    if case != "gi":
         assert all(want[k] == ("tile", None) + (None,) * (sj[k].ndim - 2)
                    for k in ("taa_history", "taa_coverage", "taa_smooth_var",
                              "taa_velocity", "rtr_history", "rtr_res_dir"))
         cache = [k for k in sj if k.startswith("ircache_")]
         assert len(cache) == 7 and all(want[k] == () for k in cache)
+        if case == "options":
+            assert want["wrc_atlas"] == ("tile", None, None, None)
+        if case == "superres":
+            assert sj["taa_history"].shape == (108, 96, 3)
         return
     mh = mh_j(shape=(2, 2))
     want_mh = {k: tuple(_spec_for_multihost(v, mh).spec)
@@ -463,27 +553,35 @@ def test_one_rank_mesh_is_the_single_device_frame():
                        {"out": _outputs(o2), "state": s2}, "one rank")
 
 
-@pytest.mark.parametrize("option", [f for f, _ in SHARDED_TODO]
-                         + ["primary", "ibl", "temporal_upsampling"])
+@pytest.mark.parametrize("option", ["primary", "use_wrc", "use_dof",
+                                    "temporal_upsampling", "all"])
+def test_options_are_supported_sharded(option):
+    """The traced g-buffer, the world radiance cache, depth of field and
+    temporal super-resolution run row-banded, alone and together."""
+    kw = {"primary": "trace", "use_wrc": True, "use_dof": True,
+          "temporal_upsampling": 1.5}
+    cfg = RenderConfig(**({**DEFAULT, **kw} if option == "all"
+                          else {**DEFAULT, option: kw[option]}))
+    check_supported(cfg, sharded=True)
+    check_supported(cfg, None, sharded=True)
+
+
+@pytest.mark.parametrize("option", ["ibl"])
 def test_options_of_the_next_slice_raise(option):
-    """Each option the banded frame does not run yet raises
-    NotImplementedError naming its ROADMAP item, from `check_supported` and
-    from the sharded entry point before any work."""
-    kw = {**GI, option: True} if option not in ("primary", "ibl") else GI
-    if option == "primary":
-        kw = {**GI, "primary": "trace"}
-    if option == "temporal_upsampling":
-        kw = {**DEFAULT, option: 1.5}
-    cfg = RenderConfig(**kw)
-    ibl = torch.zeros((8, 8, 3)) if option == "ibl" else None
+    """The one option the banded frame refuses, an IBL env map, raises
+    NotImplementedError naming JAX's sharded API, which renders without
+    one, from `check_supported` and from the banded frame before any work;
+    the single-device frame takes it."""
+    cfg = RenderConfig(**DEFAULT)
+    ibl = torch.zeros((8, 8, 3))
     check_supported(cfg, ibl)                      # the single-device frame
-    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1, "
-                                                  "item 4"):
+    with pytest.raises(NotImplementedError, match="JAX's sharded entry "
+                                                  "points"):
         check_supported(cfg, ibl, sharded=True)
-    if option != "ibl":
-        mesh = make_mesh(device="cpu")
-        with pytest.raises(NotImplementedError, match="item 4"):
-            render_frame_sharded(None, {}, None, cfg, None, mesh)
+    mesh = make_mesh(device="cpu")
+    with pytest.raises(NotImplementedError, match="render_frame_sharded"):
+        render_frame(None, {}, None, cfg, ibl_env=ibl,
+                     band=mesh.band(cfg.height, cfg.width))
 
 
 def test_default_frame_is_supported_sharded():

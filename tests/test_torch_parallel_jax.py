@@ -6,7 +6,11 @@ test_torch_parallel.py (the small cache, mesh-light specular as `Renderer`
 turns it on for cornell; three jittered frames: a validation frame, then
 TAA, RTR's temporal reuse and motion blur on history) and JAX's own
 sharding configuration (tests/test_parallel.py: the defaults with
-`max_trace_steps=256` and motion blur off, the full-size cache; one frame);
+`max_trace_steps=256` and motion blur off, the full-size cache; one frame),
+the options frame of test_torch_parallel.py (the default frame with the
+traced g-buffer, the small world radiance cache and depth of field; two
+jittered frames) and its temporal super-resolution (rendered at 64x72,
+output at 96x108; three jittered frames);
 the gathered outputs and state are held against
 `kajiya_tpu.frame.render_frame`, run eagerly as the frame parity tests run
 it. The sample-sharded path tracer is held against JAX's `path_trace`
@@ -22,7 +26,11 @@ plane, integer planes exact); for the configurations with TAA and RTR,
 that of the single-device default frame (test_torch_frame_default.py: the
 same, with the TAA output and history held to 1e-3 relative to
 max(1, |value|), and `rtr_ray_len`, which carries 1e8 for sky reflections,
-to 1e-3 + 1e-4 relative on >= 99%), and for the path tracer
+to 1e-3 + 1e-4 relative on >= 99%; the options and super-resolution
+frames, which run TAA and RTR, are held to it too: the options' own planes,
+the traced g-buffer, the radiance cache's atlas and the DoF image, to
+test_torch_frame.py's bound, which test_torch_frame_options_frame.py holds
+the single-device options frame to), and for the path tracer
 test_parallel.py's
 1e-4 on every path, relative to max(1, |value|) as
 test_torch_reference_pt.py states it (the emitter seen directly is 20, and
@@ -40,6 +48,7 @@ from kajiya_tpu.frame import init_frame_state as init_j
 from kajiya_tpu.frame import render_frame as render_j
 from kajiya_tpu.frame import jitter_for_frame as jitter_j
 from kajiya_tpu.renderers.ircache import IrcacheConfig as IrcJ
+from kajiya_tpu.renderers.wrc import WrcConfig as WrcJ
 from kajiya_tpu.renderers.reference import path_trace as path_trace_j
 from kajiya_tpu.scene import procedural as proc_j
 from kajiya_tpu.scene.scene import build_gpu_scene as build_gpu_j
@@ -47,19 +56,22 @@ from kajiya_tpu.world import build_trace_scene as build_ts_j
 from kajiya_tpu_torch import convert
 from test_torch_frame import assert_close, assert_state
 from test_torch_frame_default import assert_default_state, assert_plane
-from test_torch_parallel import (DEFAULT, EYE, FWD, GI, H, N_FRAMES, OUTPUTS,
-                                 PT_BOUNCES, RASTER, SMALL_IRCACHE, STEP, W,
+from test_torch_parallel import (DEFAULT, EYE, FWD, GI, H, H_SUPERRES,
+                                 N_FRAMES, OPTIONS, OUTPUTS, PT_BOUNCES,
+                                 RASTER, SMALL_IRCACHE, STEP, SUPERRES, W, WRC,
                                  sharded_runs)
 
 # tests/test_parallel.py's configuration (JAX's own sharding test)
 JAX_SHARDING = dict(width=W, height=H, max_trace_steps=256,
                     use_motion_blur=False)
 CASES = (("gi", GI, H), ("raster", RASTER, H), ("default", DEFAULT, H),
-         ("jax_sharding", JAX_SHARDING, H))
+         ("jax_sharding", JAX_SHARDING, H), ("options", OPTIONS, H),
+         ("superres", SUPERRES, H_SUPERRES))
 # frames and jitter of each case
 FRAMES = {"gi": (N_FRAMES, False), "raster": (N_FRAMES, False),
-          "default": (3, True), "jax_sharding": (1, False)}
-WITH_TAA = ("default", "jax_sharding")
+          "default": (3, True), "jax_sharding": (1, False),
+          "options": (2, True), "superres": (3, True)}
+WITH_TAA = ("default", "jax_sharding", "options", "superres")
 
 
 def jax_views(h, n=N_FRAMES, jitter=False):
@@ -76,6 +88,8 @@ def jax_cfg(cfg, h):
     kw = {**cfg, "height": h}
     if "ircache" in kw:
         kw["ircache"] = IrcJ(**SMALL_IRCACHE)
+    if "wrc" in kw:
+        kw["wrc"] = WrcJ(**WRC)
     return CfgJ(**kw)
 
 
@@ -127,6 +141,12 @@ def test_sharded_frame_matches_jax_single_device(runs, case, frame):
         assert int(got["state"]["ircache_valid"].sum()) > 0
     else:
         assert_state(sj, got["state"])
+    if case == "options":
+        for k in ("depth", "normal", "albedo", "pos"):
+            assert_close(oj["gbuffer"][k], got["out"]["gbuffer"][k], k)
+        assert float(got["state"]["wrc_atlas"].max()) > 0.0
+    if case == "superres":
+        assert tuple(got["out"]["final"].shape) == (108, 96, 3)
 
 
 def test_shard_rays_pt_matches_jax_path_trace(runs):

@@ -81,10 +81,12 @@ def frames():
     return out
 
 
-@pytest.fixture(scope="module", params=[1.0, 2.0])
+@pytest.fixture(scope="module", params=[1.0, 1.5, 2.0])
 def taa_runs(request, frames):
-    """TAA over the 4 frames in both packages at temporal_upsampling 1.0
-    and 2.0 (output 2x the render res, the super-res unjitter)."""
+    """TAA over the 4 frames in both packages at temporal_upsampling 1.0,
+    1.5 (96x72 out of 64x48: the factor of a 1280x720 render shown at
+    1920x1080, where output rows fall between render rows) and 2.0 (output
+    2x the render res); the last two take the super-res unjitter."""
     scale = request.param
     oh, ow = int(round(H * scale)), int(round(W * scale))
     sj = taa_j.init_state(oh, ow)
