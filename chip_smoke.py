@@ -34,8 +34,16 @@ the BVH, its `tlas_refit` range timed and its launches counted):
   2048^2 base colour, metallic-roughness and normal maps, one with a 1024^2
   emissive map, a ground GLB with a 4096x2048 RGBA data-URI PNG, and a .ron
   placing them as the procedural city does: 196,610 triangles) and loads
-  with `apps.view.build_scene`, its bake timed,
+  with `apps.view.build_scene`, its bake timed, and 2 each of the same city
+  with its maps written in the mixed formats (JPEG, BC5 / BC7 DDS, 16-bit
+  PNG) and in the legacy formats (32-bit RLE TGA base colours, 24-bit BMP
+  normal maps, 256-colour GIF metallic-roughness maps, a lossless WebP
+  emissive map), each bake timed by format,
 with the launch counters set to 0 just before each path and read just after,
+each map of the mixed and legacy cities decoded on the host equal to the
+texels its writer reports (the JPEGs within JPEG_PSNR_DB), the committed
+WebP fixtures (tests/data/webp/: lossy, lossy with alpha, lossless,
+animated) decoded on the host to the RGBA digests PIL gave for them,
 and the host syncs of each frame counted (the textured frames may make no
 more than the untextured default frames of the same geometry). Then the
 oracle datum (the port's hybrid frame against its path tracer on cornell at
@@ -274,8 +282,10 @@ SCENES = {
     "tcornell": (lambda p: p.textured_cornell_box(), (0.0, 0.0, 2.4),
                  (0.0, 0.0, -1.0), (0.01, 0.005, 0.0)),
     # "tcity" (the textured asset city, n=16), "tcity4" (n=4, the small
-    # frames' version) and "tcityfmt" (the mixed-format asset city, n=16:
-    # JPEG, BC5 / BC7 DDS and 16-bit PNG maps) are added by main once
+    # frames' version), "tcityfmt" (the mixed-format asset city, n=16:
+    # JPEG, BC5 / BC7 DDS and 16-bit PNG maps) and "tcitylegacy" /
+    # "tcitylegacy4" (the legacy-format asset city, n=16 / n=4 with 256^2
+    # maps: RLE TGA, BMP, GIF and lossless WebP maps) are added by main once
     # `asset_scenes` wrote them
 }
 # the scenes each path renders at 1080p, and a cap on the frames of a scene
@@ -285,11 +295,13 @@ PATH_SCENES = {"raster": ("cornell", "city"), "gi": ("cornell", "city"),
                "default": ("cornell", "city", "city3", "city40"),
                "refpt": ("cornell", "city", "city3", "city40"),
                "options": ("cornell", "city"),
-               "textured": ("tcornell", "tcity", "tcityfmt")}
-FRAME_CAP = {"city3": 2, "tcity": 2, "tcityfmt": 2, "city40": 2}
+               "textured": ("tcornell", "tcity", "tcityfmt", "tcitylegacy")}
+FRAME_CAP = {"city3": 2, "tcity": 2, "tcityfmt": 2, "tcitylegacy": 2,
+             "city40": 2}
 # the untextured scene of the same geometry, whose default frames the
 # textured frames' host syncs are held to
-UNTEXTURED = {"tcornell": "cornell", "tcity": "city", "tcityfmt": "city"}
+UNTEXTURED = {"tcornell": "cornell", "tcity": "city", "tcityfmt": "city",
+              "tcitylegacy": "city"}
 # the decoded JPEG maps of the mixed-format city against the arrays they
 # encode (quality 85, 4:2:0): format_phase reads 42.2-48.8 dB
 JPEG_PSNR_DB = 35.0
@@ -304,10 +316,12 @@ def asset_scenes(root):
     """Write the textured city's assets under `root` (scene/assets.py) and
     return the SCENES entries "tcity" (n=16, 196,610 triangles, seen as the
     city is) and "tcity4" (n=4, the small frames' scene), each loaded
-    through the viewer's `build_scene` from its .ron, and "tcityfmt" (the
-    mixed-format city under `root/fmt`, n=16, seen as the city is), with
-    the mixed-format maps written: {file path: (map, RGBA its file decodes
-    to, or None for a JPEG)}."""
+    through the viewer's `build_scene` from its .ron, "tcityfmt" (the
+    mixed-format city under `root/fmt`, n=16, seen as the city is) and
+    "tcitylegacy" (the legacy-format city under `root/legacy`, n=16) and
+    "tcitylegacy4" (n=4, its maps at 256^2, the small frames' scene), with
+    the mixed and legacy maps written: {file path: (map, RGBA its file
+    decodes to, or None for a JPEG)}."""
     from kajiya_tpu_torch.apps.view import build_scene
     from kajiya_tpu_torch.scene import assets
 
@@ -317,31 +331,50 @@ def asset_scenes(root):
             for n in (16, 4)}
     log(f"textured city assets written in {time.perf_counter() - t0:.1f} s "
         f"under {root}")
-    t0 = time.perf_counter()
-    fmt_root = os.path.join(root, "fmt")
-    written = assets.write_city_assets(fmt_root, formats="mixed")
-    fmt_ron = assets.write_city_ron(fmt_root, n=16, name="cityfmt")
-    maps = {os.path.join(fmt_root, "meshes", k): v
-            for k, v in written.items()}
-    log(f"mixed-format city assets written in "
-        f"{time.perf_counter() - t0:.1f} s under {fmt_root}")
+    maps, fmt_rons = {}, {}
+    for formats, sub in (("mixed", "fmt"), ("legacy", "legacy")):
+        t0 = time.perf_counter()
+        sub_root = os.path.join(root, sub)
+        written = assets.write_city_assets(sub_root, formats=formats)
+        fmt_rons[formats] = assets.write_city_ron(sub_root, n=16,
+                                                  name=f"city{sub}")
+        maps.update({os.path.join(sub_root, "meshes", k): v
+                     for k, v in written.items()})
+        log(f"{formats}-format city assets written in "
+            f"{time.perf_counter() - t0:.1f} s under {sub_root}")
+    # the small frames' legacy city: its maps at 256^2, since a 64x48 frame
+    # needs no more, and two bakes of the full maps would cost ~25 s
+    small_root = os.path.join(root, "legacy_small")
+    assets.write_city_assets(small_root, map_size=256, emissive_size=128,
+                             ground_size=(256, 512), formats="legacy")
+    legacy4 = assets.write_city_ron(small_root, n=4, name="citylegacy4")
     _, eye, fwd, step = SCENES["city"]
+    small = (0.0, 8.0, 14.0)
+    mixed, legacy = fmt_rons["mixed"], fmt_rons["legacy"]
     return {"tcity": (lambda p: build_scene(rons[16]), eye, fwd, step),
-            "tcity4": (lambda p: build_scene(rons[4]), (0.0, 8.0, 14.0),
-                       fwd, step),
-            "tcityfmt": (lambda p: build_scene(fmt_ron), eye, fwd, step)}, \
-        maps
+            "tcity4": (lambda p: build_scene(rons[4]), small, fwd, step),
+            "tcityfmt": (lambda p: build_scene(mixed), eye, fwd, step),
+            "tcitylegacy": (lambda p: build_scene(legacy), eye, fwd, step),
+            "tcitylegacy4": (lambda p: build_scene(legacy4), small, fwd,
+                             step)}, maps
 
 
 def format_phase(maps):
-    """The mixed-format city's maps decoded on the host by the port's
-    decoders: each DDS map (BC5 normals, BC7 metallic-roughness) and the
-    16-bit PNG equal the texels their writer reports, bit for bit; each
-    JPEG base colour is within JPEG_PSNR_DB of the map it encodes. The
-    bytes themselves are held to PIL in the CPU tests (this host has no
-    PIL). Any failed decode raises."""
-    from kajiya_tpu_torch.scene import textures
+    """The mixed- and legacy-format cities' maps decoded on the host by the
+    port's decoders: each DDS map (BC5 normals, BC7 metallic-roughness),
+    the 16-bit PNG and every legacy map (RLE TGA, BMP, GIF, lossless WebP)
+    equal the texels their writer reports, bit for bit; each JPEG base
+    colour is within JPEG_PSNR_DB of the map it encodes. The bytes
+    themselves are held to PIL in the CPU tests (this host has no PIL).
+    Any failed decode raises."""
+    from kajiya_tpu_torch.scene import dds, jpeg, raster, textures, webp
 
+    # the host decoders are built first: each decode ms leaves out g++
+    t0 = time.perf_counter()
+    for build in (jpeg.decoder_library, dds.bcn_library, raster.library,
+                  webp.library):
+        build()
+    log(f"host decoders built in {time.perf_counter() - t0:.1f} s")
     out = {}
     for path, (img, want) in sorted(maps.items()):
         t0 = time.perf_counter()
@@ -365,6 +398,35 @@ def format_phase(maps):
             rec.update(exact=True)
         out[name] = rec
         log(f"format {name}: {rec}")
+    return out
+
+
+def webp_phase():
+    """The committed WebP fixtures (tests/data/webp/, made by
+    tools/make_webp_fixtures.py) decoded on the host by the port: each
+    one's RGBA must have the shape and SHA-256 that PIL gave where the
+    fixtures were made (manifest.json). This holds the lossy VP8 path, its alpha and
+    the animation container on a machine without PIL."""
+    import hashlib
+
+    from kajiya_tpu_torch.scene import textures
+
+    root = os.path.join(REPO, "tests", "data", "webp")
+    with open(os.path.join(root, "manifest.json")) as f:
+        manifest = json.load(f)
+    out = {}
+    for name, want in sorted(manifest.items()):
+        t0 = time.perf_counter()
+        got = textures._decode_image(os.path.join(root, name))
+        ms = (time.perf_counter() - t0) * 1e3
+        digest = hashlib.sha256(got.tobytes()).hexdigest()
+        if list(got.shape) != want["shape"] or digest != want["rgba_sha256"]:
+            raise AssertionError(f"WebP fixture {name}: shape "
+                                 f"{list(got.shape)} digest {digest}, PIL's "
+                                 f"{want['shape']} {want['rgba_sha256']}")
+        out[name] = dict(ms=ms, bytes=want["bytes"], shape=want["shape"],
+                         sha256_equal=True)
+        log(f"webp fixture {name}: {out[name]}")
     return out
 
 
@@ -1506,7 +1568,7 @@ FRAME_KEYS = {
 }
 FRAME_KEYS["textured"] = FRAME_KEYS["superres"] = FRAME_KEYS["default"]
 # the scenes of each path's small GPU-vs-CPU frames ("city" is city(n=4))
-REF_SCENES = {"textured": ("tcornell", "tcity4")}
+REF_SCENES = {"textured": ("tcornell", "tcity4", "tcitylegacy4")}
 # the paths whose small frames are also rendered on the BVH route, forced
 # with brute_max_tris=0
 BVH_REF_PATHS = ("default", "refpt")
@@ -1529,8 +1591,9 @@ def reference_phase(dev, ibl):
     96x72) from the same views; the default, options and super-resolution
     paths with the small irradiance cache (and the options path with the
     small world radiance cache); the textured path on the textured cornell
-    and the textured asset city at n=4, whose texture pages on the card
-    must equal the CPU's byte for byte; the default and path-tracer frames
+    and the textured asset city at n=4 (its 2048^2 PNG maps, and 256^2
+    legacy-format maps), whose texture pages on the card must equal the
+    CPU's byte for byte; the default and path-tracer frames
     again on the BVH route (`brute_max_tris=0`; "+bvh" in the names), where
     the CPU path runs `walk_plain`. Every comparison is made and logged
     before a failure is raised."""
@@ -1674,6 +1737,10 @@ def frame_phase(dev, path, ibl):
                        decode_jpeg=(textures._DECODERS, "JPEG"),
                        decode_dds=(textures._DECODERS, "DDS"),
                        decode_png=(textures._DECODERS, "PNG"),
+                       decode_tga=(textures._DECODERS, "TGA"),
+                       decode_bmp=(textures._DECODERS, "BMP"),
+                       decode_gif=(textures._DECODERS, "GIF"),
+                       decode_webp=(textures._DECODERS, "WEBP"),
                        resize=(textures, "_resize"),
                        bake=(textures, "bake_texture_pages"),
                        pages=(textures, "build_texture_pages"),
@@ -1698,6 +1765,10 @@ def frame_phase(dev, path, ibl):
                         decode_jpeg_s=sec["decode_jpeg"],
                         decode_dds_s=sec["decode_dds"],
                         decode_png_s=sec["decode_png"],
+                        decode_tga_s=sec["decode_tga"],
+                        decode_bmp_s=sec["decode_bmp"],
+                        decode_gif_s=sec["decode_gif"],
+                        decode_webp_s=sec["decode_webp"],
                         resize_s=sec["resize"],
                         pack_mips_s=sec["bake"] - sec["decode"]
                         - sec["resize"],
@@ -2610,6 +2681,7 @@ def main():
     scenes, fmt_maps = asset_scenes(tmp)
     SCENES.update(scenes)
     formats = format_phase(fmt_maps)
+    webp_fixtures = webp_phase()
     brute = brute_phase(dev)
     culled = culled_phase(dev)
     warp = warp_phase(dev)
@@ -2655,6 +2727,8 @@ def main():
     log("textured city frame ms", frames["textured"]["tcity"]["frame_ms"],
         "mixed-format city frame ms",
         frames["textured"]["tcityfmt"]["frame_ms"],
+        "legacy-format city frame ms",
+        frames["textured"]["tcitylegacy"]["frame_ms"],
         "beside the untextured city's default frame ms",
         frames["default"]["city"]["frame_ms"], "(same call)")
     oracle = oracle_phase(dev)
@@ -2697,7 +2771,8 @@ def main():
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "wall_s": wall_s, "kernels": kernels,
                    "frames": frames, "oracle": oracle, "viewer": viewer,
-                   "apps": apps, "formats": formats, "sharded": sharded}, f,
+                   "apps": apps, "formats": formats,
+                   "webp_fixtures": webp_fixtures, "sharded": sharded}, f,
                   indent=1)
     print(json.dumps({"frames": {
         path: {k: {"median_ms": v["median_ms"], "frame_ms": v["frame_ms"],
@@ -2708,6 +2783,7 @@ def main():
         "textured_bake": {sc: v["bake"]
                           for sc, v in frames["textured"].items()},
         "format_decode_ms": {k: v["ms"] for k, v in formats.items()},
+        "webp_fixture_ms": {k: v["ms"] for k, v in webp_fixtures.items()},
         "setup_s": {f"{p}/{sc}": v["setup_parts_s"]
                     for p, per_scene in frames.items()
                     for sc, v in per_scene.items() if sc == "city40"},

@@ -17,6 +17,13 @@ formats a real asset carries (the mixed-format city): each base colour a
 baseline 4:2:0 JPEG from the port's encoder, each normal map BC5 and each
 metallic-roughness map BC7 (mode 6) in DX10 DDS files, b1's emissive map a
 16-bit RGB PNG; the ground stays an 8-bit PNG data URI.
+`formats="legacy"` writes them in the formats older game content and
+glTF's EXT_texture_webp carry (the legacy-format city): each base colour a
+32-bit RLE TGA (bottom-up), each normal map a 24-bit bottom-up BMP, each
+metallic-roughness map a 256-colour GIF, b1's emissive map a lossless
+WebP; each written by the port itself (`tga.encode_tga_rle`,
+`bmp.encode_bmp24`, `gif.encode_gif256`, `webp.encode_vp8l`), which
+reports the exact texels its file decodes to.
 """
 from __future__ import annotations
 
@@ -27,9 +34,13 @@ import struct
 
 import numpy as np
 
+from .bmp import encode_bmp24
 from .dds import bc5_blocks, bc7_mode6_blocks, dds_header
+from .gif import encode_gif256
 from .png import encode_png
 from .procedural import _subdiv_box
+from .tga import encode_tga_rle
+from .webp import encode_vp8l
 
 BLOCK = 3.0
 FILTERS = (0, 1, 2, 3, 4)
@@ -151,6 +162,12 @@ def _map_file(kind: str, img: np.ndarray, formats: str):
     where the format is lossy) of one building map."""
     if formats == "png":
         return ".png", _png(img), None
+    if formats == "legacy":
+        suffix, enc = {"base": (".tga", encode_tga_rle),
+                       "normal": (".bmp", encode_bmp24),
+                       "mr": (".gif", encode_gif256),
+                       "emissive": (".webp", encode_vp8l)}[kind]
+        return (suffix, *enc(img))
     if kind == "base":
         from .jpeg import encode_jpeg
 
@@ -178,12 +195,15 @@ def write_city_assets(root: str, subdiv: int = 8, map_size: int = 2048,
     b0.gltf, b1.gltf, b2.gltf (+ .bin and maps at `map_size`^2 RGB, b1
     also an `emissive_size`^2 emissive map) and ground.glb (a unit quad
     whose base colour is a data-URI PNG of `ground_size` (H, W) RGBA).
-    `formats`: "png" (every map an 8-bit PNG) or "mixed" (JPEG base colour,
+    `formats`: "png" (every map an 8-bit PNG), "mixed" (JPEG base colour,
     BC5 / BC7 DDS normal and metallic-roughness maps, a 16-bit PNG emissive
-    map). Returns {file name: (the RGB map written, the RGBA its file
-    decodes to, or None for a JPEG)} of the building maps."""
-    if formats not in ("png", "mixed"):
-        raise ValueError(f"formats {formats!r}: 'png' or 'mixed'")
+    map) or "legacy" (RLE TGA base colour, BMP normal, GIF
+    metallic-roughness and lossless WebP emissive maps). Returns {file
+    name: (the RGB map written, the RGBA its file decodes to, or None for a
+    JPEG or an 8-bit PNG)} of the building maps."""
+    if formats not in ("png", "mixed", "legacy"):
+        raise ValueError(f"formats {formats!r}: 'png', 'mixed' or "
+                         "'legacy'")
     rng = np.random.default_rng(seed)
     mdir = os.path.join(root, "meshes")
     os.makedirs(mdir, exist_ok=True)

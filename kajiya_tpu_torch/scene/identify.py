@@ -9,9 +9,31 @@ passing as a white texture. `identify` walks PIL's plugin order (the five
 plugins `Image.preinit` loads, then every registered one, `Image.ID`) and
 applies each plugin's `_accept` rule to the first 16 bytes, as
 `Image.open` does. The plugins that have no `_accept` (IM, IMT, IPTC, PCD,
-SPIDER, TGA) are matched by the header checks their `_open` makes first;
-those are necessary conditions only, so a source that fails them cannot be
-opened by that plugin.
+SPIDER, TGA) are matched by the header checks their `_open` makes first
+(IM's whole header of `Key: value` lines, so a binary file with a line
+feed and a colon in its first bytes is no IM candidate); those are
+necessary conditions only, so a source that fails them cannot be opened
+by that plugin.
+
+When a plugin's `_open` refuses the bytes (it raises SyntaxError,
+IndexError, TypeError, KeyError, EOFError or struct.error, or leaves no
+mode or an empty size), `Image.open` tries the next plugin that accepts
+them. The port's decoders signal that with `Refused` (through `opening`),
+and `textures._decode_image` walks `candidates` the same way. Any other
+error propagates, and the bake turns the source white, as the JAX
+package's does.
+
+Where PIL's order puts a plugin the port does not decode before one it
+does, the port raises NotImplementedError for the first, even when PIL's
+`_open` of that plugin would refuse the bytes and the next would decode
+them (the port cannot tell without that plugin's reader). Found by
+sweeping the headers of the ported formats:
+- a TGA whose id field is 10 bytes long and that has no colour map
+  (`0a 00 ...`) is a PCX candidate first;
+- a TGA whose id field is 28 bytes long and that has a colour map
+  (`1c 01 ...`) is an IPTC candidate first;
+- an ICO with no entries whose first entry bytes read `00 01` or `00 02`
+  is a GBR candidate first (PIL refuses such an ICO anyway).
 
 `check_pixels` mirrors `Image.MAX_IMAGE_PIXELS`: PIL refuses an image of
 more than twice that many pixels (`DecompressionBombError`), and the JAX
@@ -21,8 +43,29 @@ from __future__ import annotations
 
 import re
 import struct
+from contextlib import contextmanager
 
 MAX_IMAGE_PIXELS = 1024 * 1024 * 1024 // 4 // 3
+# what `ImageFile.__init__` and `Image.open` take as "this plugin's `_open`
+# refuses the bytes"
+OPEN_ERRORS = (SyntaxError, IndexError, TypeError, KeyError, EOFError,
+               struct.error)
+
+
+class Refused(ValueError):
+    """The plugin's `_open` refuses the bytes: `Image.open` goes on to the
+    next plugin that accepts them (a ValueError, so a refusal that reaches
+    the bake turns the source white)."""
+
+
+@contextmanager
+def opening(fmt: str):
+    """Run a decoder's `_open` part: the errors PIL takes as a refusal
+    become `Refused`; every other error passes unchanged."""
+    try:
+        yield
+    except OPEN_ERRORS as e:
+        raise Refused(f"{fmt}: {e!r}") from e
 
 
 def _i16(b: bytes, o: int = 0) -> int:
@@ -59,18 +102,37 @@ _TIFF = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a",
 _IM_LINE = re.compile(rb"^([A-Za-z][^:]*):[ \t]*(.*)[ \t]*$")
 
 
+_IM_TAGS = ("Comment", "Date", "Digitalization equipment",
+            "File size (no of images)", "Lut", "Name", "Scale (x,y)",
+            "Image size (x*y)", "Image type")
+
+
 def _im(data: bytes) -> bool:
-    """ImImagePlugin: a line feed within 100 bytes and a first header line
-    of the form `Key: value` (at most 100 bytes)."""
+    """ImImagePlugin: a line feed within 100 bytes, then header lines (up
+    to a NUL, a ^Z or the end) that are each `Key: value` of at most 100
+    bytes, one of them a key of the IM format's."""
     if b"\n" not in data[:100]:
         return False
-    head = data.lstrip(b"\r")
-    if not head or head[:1] in (b"\0", b"\x1a"):
-        return False
-    line = head.split(b"\n", 1)[0]
-    if len(line) + 1 > 100:
-        return False
-    return _IM_LINE.match(line.rstrip(b"\r")) is not None
+    pos, tags = 0, 0
+    while True:
+        s = data[pos:pos + 1]
+        pos += 1
+        if s == b"\r":
+            continue
+        if not s or s in (b"\0", b"\x1a"):
+            break
+        end = data.find(b"\n", pos)
+        end = len(data) if end < 0 else end + 1
+        s, pos = s + data[pos:end], end
+        if len(s) > 100:
+            return False
+        s = s[:-2] if s.endswith(b"\r\n") else \
+            s[:-1] if s.endswith(b"\n") else s
+        m = _IM_LINE.match(s)
+        if m is None:
+            return False
+        tags += m.group(1).decode("latin-1", "replace") in _IM_TAGS
+    return tags > 0
 
 
 def _imt(data: bytes) -> bool:

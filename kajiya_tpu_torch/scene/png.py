@@ -42,8 +42,18 @@ class PngError(ValueError):
     """The bytes are not a well-formed PNG."""
 
 
+def _is_cid(kind: bytes) -> bool:
+    return len(kind) == 4 and all(65 <= c <= 90 or 97 <= c <= 122
+                                  for c in kind)
+
+
 def _read_chunks(data: bytes):
-    """(IHDR, PLTE, tRNS, image data) of a PNG byte string."""
+    """(IHDR, PLTE, tRNS, image data) of a PNG byte string, read as PIL
+    reads it: the chunks before the first IDAT whole and with their
+    checksums; the image data as far as the file holds it (an IDAT cut
+    short, or no IEND, is an error only where the image needs the missing
+    bytes); the chunks after it without checksums, stopping at IEND, at
+    the file's end or at bytes that are no chunk name."""
     if data[:8] != PNG_SIGNATURE:
         raise PngError("not a PNG file")
     pos, ihdr, plte, trns, idat = 8, None, None, None, []
@@ -51,16 +61,13 @@ def _read_chunks(data: bytes):
         if pos + 8 > len(data):
             raise PngError("truncated PNG: no image data")
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        if kind == b"IDAT":
+            break
         body = data[pos + 8:pos + 8 + length]
         crc = data[pos + 8 + length:pos + 12 + length]
         if len(body) < length or len(crc) < 4:
             raise PngError(f"truncated {kind!r} chunk")
         pos += 12 + length
-        if kind == b"IDAT":
-            idat.append(body)
-            continue
-        if idat:            # the image data ends at its first other chunk
-            break
         if zlib.crc32(kind + body) != struct.unpack(">I", crc)[0]:
             raise PngError(f"bad checksum in {kind!r}")
         if kind == b"IHDR":
@@ -75,6 +82,24 @@ def _read_chunks(data: bytes):
             raise PngError("no image data")
     if ihdr is None:
         raise PngError("no IHDR chunk")
+    # the image data: consecutive IDAT chunks, the last maybe cut short
+    while True:
+        idat.append(data[pos + 8:pos + 8 + length])
+        pos += 12 + length
+        if pos + 8 > len(data):
+            break
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        if kind != b"IDAT":
+            break
+    # PngImageFile.load_end: every other chunk after the image data is read
+    # through (a chunk cut short raises), up to IEND
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        if not _is_cid(kind) or kind == b"IEND":
+            break
+        if pos + 8 + length > len(data):
+            raise PngError(f"truncated {kind!r} chunk after the image data")
+        pos += 12 + length
     return ihdr, plte, trns, b"".join(idat)
 
 
@@ -192,10 +217,14 @@ def _image_samples(z: bytes, width: int, height: int, depth: int,
     return out
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W, 4) uint8 RGBA, as PIL's `convert("RGBA")`."""
+def decode_png(data: bytes, transparency: bool = True) -> np.ndarray:
+    """PNG bytes -> (H, W, 4) uint8 RGBA, as PIL's `convert("RGBA")`.
+    `transparency=False` ignores tRNS, as PIL does for a PNG inside an ICO
+    (the icon's image takes the PNG's pixels and palette, not its info)."""
     (width, height, depth, ctype, _comp, filt, interlace), plte, trns, z = \
         _read_chunks(data)
+    if not transparency:
+        trns = None
     if ctype not in _CHANNELS or depth not in _DEPTHS[ctype]:
         raise PngError(f"bit depth {depth} with colour type {ctype}")
     if filt:

@@ -9,18 +9,21 @@ x < S, mip m >= 1 in the right column at x = S, y = S - 2 (S >> m)), with a
 (P, 4) int32 `page_sub` table of [page, size, ox, oy] per slot. The atlas is
 then uploaded once. The JAX package decodes and resizes with PIL; the port
 has its own decoders, each giving PIL's `convert("RGBA")` bytes (PNG in
-`png.py`, JPEG in `jpeg.py`, DDS in `dds.py`), and a Lanczos resize that
-gives PIL's `Image.resize(..., LANCZOS)` bytes, so the atlases are equal
-byte for byte.
+`png.py`, JPEG in `jpeg.py`, DDS in `dds.py`, BMP and DIB in `bmp.py`,
+ICO and CUR in `ico.py`, TGA in `tga.py`, GIF in `gif.py`, WebP in
+`webp.py`), and a Lanczos resize that gives PIL's
+`Image.resize(..., LANCZOS)` bytes, so the atlases are equal byte for byte.
 
 Decoding dispatches on the content, not on the file name, in PIL's plugin
-order (`identify.py`). Any other format PIL would open (GIF, BMP, TGA,
-TIFF, WebP, PPM, QOI, JPEG 2000 and the rest of `identify.FORMATS`) raises
-NotImplementedError naming it: a missing decoder never passes as a white
-texture. Bytes that no PIL plugin accepts, a missing file, and a PNG, JPEG
-or DDS source that PIL also refuses (corrupt or truncated data, a DXGI
-format PIL has no decoder for) become a 4x4 white image, as in the JAX
-package.
+order (`identify.py`): a plugin whose `_open` refuses the bytes passes
+them to the next that accepts them, as `Image.open` does (a TGA file that
+CUR's rule also accepts is read as a TGA). Where that walk reaches a
+format the port does not decode yet (TIFF, PPM, QOI, JPEG 2000 and the
+rest of `identify.FORMATS`), it raises NotImplementedError naming it: a
+missing decoder never passes as a white texture. Bytes that no PIL plugin
+opens, a missing file, and a source that PIL also refuses (corrupt or
+truncated data, a layout PIL has no decoder for) become a 4x4 white image,
+as in the JAX package.
 
 `sample_pages` is the per-hit fetch: wrap addressing, bilinear or nearest,
 a static or per-ray mip (ray-cone LOD: lod_base + log2(size)), sRGB decode
@@ -35,17 +38,26 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from .bmp import decode_bmp, decode_dib
 from .dds import decode_dds
-from .identify import candidates
+from .gif import decode_gif
+from .ico import decode_cur, decode_ico
+from .identify import Refused, candidates
 from .jpeg import decode_jpeg
 from .png import decode_png
+from .tga import decode_tga
+from .webp import decode_webp
 
 PAGE_SIZE = 512     # minimum page size; grows to the largest used bucket
 N_MIPS = 6          # 512 -> 16; scales with the page (mip floor stays 16)
 BUCKETS = (2048, 1024, 512, 256, 128)
 
-# the formats the port decodes, by identify's name
-_DECODERS = {"PNG": decode_png, "JPEG": decode_jpeg, "DDS": decode_dds}
+# the formats the port decodes, by identify's name; a decoder raises
+# `identify.Refused` where PIL's plugin `_open` refuses the bytes
+_DECODERS = {"PNG": decode_png, "JPEG": decode_jpeg, "DDS": decode_dds,
+             "BMP": decode_bmp, "DIB": decode_dib, "CUR": decode_cur,
+             "ICO": decode_ico, "TGA": decode_tga, "GIF": decode_gif,
+             "WEBP": decode_webp}
 
 
 def _read_source(path_or_data: str) -> bytes:
@@ -58,19 +70,23 @@ def _read_source(path_or_data: str) -> bytes:
 
 def _decode_image(path_or_data: str) -> np.ndarray:
     """A file path or data URI -> (H, W, 4) uint8, raw values (no colour
-    space conversion). Raises NotImplementedError for a format PIL opens
-    that the port cannot decode yet, OSError / ValueError for a missing
-    source, bytes PIL does not identify, or a source PIL also refuses."""
+    space conversion). The plugins that accept the bytes are tried in PIL's
+    order, each refusal passing to the next, as `Image.open` does. Raises
+    NotImplementedError when that walk reaches a format the port cannot
+    decode yet, OSError / ValueError for a missing source, bytes no plugin
+    opens, or a source PIL also refuses."""
     data = _read_source(path_or_data)
     found = candidates(data)
-    if not found:
-        raise ValueError(f"unknown image format: {path_or_data[:80]}")
-    fmt = found[0]
-    if fmt not in _DECODERS:
-        raise NotImplementedError(
-            f"{' or '.join(found)} texture decoding is not ported (ROADMAP.md "
-            f"section 1): {path_or_data[:80]}")
-    return _DECODERS[fmt](data)
+    for i, fmt in enumerate(found):
+        if fmt not in _DECODERS:
+            raise NotImplementedError(
+                f"{' or '.join(found[i:])} texture decoding is not ported "
+                f"(ROADMAP.md section 1): {path_or_data[:80]}")
+        try:
+            return _DECODERS[fmt](data)
+        except Refused:
+            continue
+    raise ValueError(f"cannot identify image file: {path_or_data[:80]}")
 
 
 # ----------------------------------------------------------------------------

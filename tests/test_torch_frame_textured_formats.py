@@ -1,8 +1,11 @@
 """Port parity, the mixed-format textured city (`scene/assets.py`,
 `write_city_assets(..., formats="mixed")`): base colours as JPEG from the
 port's encoder, normal maps as BC5 and metallic-roughness maps as BC7 DDS,
-b1's emissive map a 16-bit PNG, the ground an 8-bit PNG data URI. JAX
-decodes them with PIL, the port with its own decoders.
+b1's emissive map a 16-bit PNG, the ground an 8-bit PNG data URI; and the
+legacy-format city (`formats="legacy"`): base colours as 32-bit RLE TGA,
+normal maps as 24-bit BMP, metallic-roughness maps as 256-colour GIF, the
+emissive map a lossless WebP. JAX decodes them with PIL, the port with its
+own decoders; the same checks hold both cities.
 
 - The bake of the city's sources: atlas and slot table equal JAX's
   `build_texture_pages` byte for byte, no slot white.
@@ -89,6 +92,10 @@ def test_texture_tables_match(scenes):
 
 @pytest.mark.parametrize("cone", [False, True], ids=["static_mip", "cone"])
 def test_hit_attributes_match(scenes, cone):
+    _check_hit_attributes(scenes, cone)
+
+
+def _check_hit_attributes(scenes, cone):
     ts_j, ts_t = scenes
     org, d = _rays((0.0, 8.0, 14.0), (0.0, 0.0, 0.0), N_RAYS, seed=3)
     hit_t = scene_trace_closest(ts_t, torch.from_numpy(org),
@@ -116,3 +123,64 @@ def test_hit_attributes_match(scenes, cone):
                                        atol=ATTR_TOL, err_msg=k)
     bc = _n(at["base_color"])[mask]
     assert bc.std(axis=0).max() > 0.01
+
+
+# ----------------------------------------------------------------------------
+# the legacy-format city
+# ----------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def legacy_city(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("tcitylegacy"))
+    written = assets.write_city_assets(root, map_size=128, emissive_size=64,
+                                       ground_size=(64, 256),
+                                       formats="legacy")
+    return root, written, assets.write_city_ron(root, n=4)
+
+
+def test_legacy_files(legacy_city):
+    root, written, _ = legacy_city
+    names = sorted(os.listdir(os.path.join(root, "meshes")))
+    kinds = {os.path.splitext(n)[1] for n in names}
+    assert {".tga", ".bmp", ".gif", ".webp", ".gltf", ".glb"} <= kinds
+    assert len(written) == 10
+    assert all(want is not None for _img, want in written.values())
+
+
+def test_legacy_bake_matches_jax(legacy_city):
+    root, written, _ = legacy_city
+    srcs = sorted(glob.glob(os.path.join(root, "meshes", "*_*.*")))
+    assert len(srcs) == 10
+    atlas_t, sub_t = tex_t.bake_texture_pages(srcs)
+    atlas_j, sub_j = tex_j.build_texture_pages(srcs)
+    np.testing.assert_array_equal(sub_t, np.asarray(sub_j))
+    np.testing.assert_array_equal(atlas_t, np.asarray(atlas_j))
+    for page, size, ox, oy in sub_t[1:]:
+        assert not (atlas_t[page, oy:oy + size, ox:ox + size] == 255).all()
+    # every legacy map is lossless: it decodes to the texels written
+    for name, (_img, want) in written.items():
+        got = tex_t._decode_image(os.path.join(root, "meshes", name))
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def legacy_scenes(legacy_city):
+    ron = legacy_city[2]
+    ts_j, _ = build_ts_j(build_gpu_j(load_ron_j(ron)))
+    ts_t, _ = build_ts_t(build_gpu_t(load_ron_t(ron), device="cpu"),
+                         device="cpu")
+    return ts_j, ts_t
+
+
+def test_legacy_texture_tables_match(legacy_scenes):
+    ts_j, ts_t = legacy_scenes
+    for f in ("tex_pages", "page_sub", "mat_tex", "tri_mat"):
+        np.testing.assert_array_equal(_n(getattr(ts_t.gpu, f)),
+                                      np.asarray(getattr(ts_j.gpu, f)),
+                                      err_msg=f)
+
+
+@pytest.mark.parametrize("cone", [False, True], ids=["static_mip", "cone"])
+def test_legacy_hit_attributes_match(legacy_scenes, cone):
+    """The legacy city's hits at the PNG city's tolerance, ATTR_TOL."""
+    _check_hit_attributes(legacy_scenes, cone)

@@ -62,7 +62,9 @@ def test_port_imports_no_jax():
                 "apps/hello.py", "apps/keymap.py", "apps/persisted.py",
                 "core/reload.py", "core/debugging.py", "core/logging.py",
                 "scene/jpeg.py", "hostlib.py", "parallel/__init__.py",
-                "parallel/mesh.py", "parallel/comm.py", "parallel/launch.py"):
+                "parallel/mesh.py", "parallel/comm.py", "parallel/launch.py",
+                "scene/raster.py", "scene/bmp.py", "scene/ico.py",
+                "scene/tga.py", "scene/gif.py", "scene/webp.py"):
         assert os.path.join("kajiya_tpu_torch", new) in names, new
     assert "chip_smoke.py" in names
     for path in files:
@@ -128,11 +130,14 @@ def test_host_sources_built_only_by_their_builder():
     """The host C++ sources under csrc/ (compiled with g++, not nvcc) are
     each named as a path by one module only, the one that builds it: the
     BVH builder by rt/bvh.py, the JPEG encoder and decoder by
-    scene/jpeg.py, the BCn block decoder by scene/dds.py."""
+    scene/jpeg.py, the BCn block decoder by scene/dds.py, the RLE / LZW
+    loops by scene/raster.py, the WebP decoder by scene/webp.py."""
     builders = {"bvh_builder.cpp": "rt/bvh.py",
                 "jpeg_encoder.cpp": "scene/jpeg.py",
                 "jpeg_decoder.cpp": "scene/jpeg.py",
-                "bcn_decoder.cpp": "scene/dds.py"}
+                "bcn_decoder.cpp": "scene/dds.py",
+                "raster_decoder.cpp": "scene/raster.py",
+                "webp_decoder.cpp": "scene/webp.py"}
     on_disk = sorted(n for n in os.listdir(_native.CSRC)
                      if not n.endswith(".cu"))
     assert on_disk == sorted(builders)
@@ -143,15 +148,17 @@ def test_host_sources_built_only_by_their_builder():
         rel = os.path.relpath(path, os.path.join(ROOT, "kajiya_tpu_torch"))
         for src in named:
             assert builders[src] == rel, (src, rel)
-    from kajiya_tpu_torch.scene import dds, jpeg
+    from kajiya_tpu_torch.scene import dds, jpeg, raster, webp
 
     assert jpeg.ENCODER_SOURCE == os.path.join(_native.CSRC,
                                                "jpeg_encoder.cpp")
+    assert raster.SOURCE == os.path.join(_native.CSRC, "raster_decoder.cpp")
+    assert webp.SOURCE == os.path.join(_native.CSRC, "webp_decoder.cpp")
     assert jpeg.DECODER_SOURCE == os.path.join(_native.CSRC,
                                                "jpeg_decoder.cpp")
     assert dds.BCN_SOURCE == os.path.join(_native.CSRC, "bcn_decoder.cpp")
     assert (jpeg.BUILD_DIR == _native.BUILD_DIR == bvh.BUILD_DIR
-            == dds.BUILD_DIR)
+            == dds.BUILD_DIR == raster.BUILD_DIR == webp.BUILD_DIR)
 
 
 @pytest.mark.parametrize("kernel", ["brute", "culled", "warp", "tile_shift",

@@ -8,8 +8,9 @@ white in the port.
   random bytes).
 - The sweep: every format in PIL's `Image.SAVE` that saves a random 8x8 RGB
   or RGBA image is baked by both packages (`build_texture_pages`); each
-  source gives equal atlases or raises NotImplementedError naming
-  ROADMAP.md, and never a white slot where JAX's is not white.
+  source gives equal atlases or, for a format the port does not decode
+  yet, raises NotImplementedError naming ROADMAP.md, and never a white slot
+  where JAX's is not white.
 - Bytes that no plugin accepts bake white in both."""
 import base64
 import io
@@ -101,11 +102,14 @@ def test_sweep_no_white_where_jax_decodes(fmt, mode):
     except NotImplementedError as e:
         name = identify.identify(data)
         assert name is not None and name in str(e) and "ROADMAP" in str(e)
+        assert name not in textures._DECODERS
         return
     np.testing.assert_array_equal(sub_t, sub_j)
     np.testing.assert_array_equal(atlas_t, atlas_j)
     if not jax_white:
-        assert identify.identify(data) in ("PNG", "JPEG", "DDS")
+        assert identify.identify(data) in ("PNG", "JPEG", "DDS", "BMP", "DIB",
+                                           "ICO", "CUR", "TGA", "GIF",
+                                           "WEBP")
 
 
 @pytest.mark.parametrize("data", [b"not an image at all", b"", b"\0" * 64,

@@ -315,21 +315,55 @@ def test_16bit_transparency_matches_pil(case):
                                   b"BM\x36\0\0\0", b"RIFF\0\0\0\0WEBPVP8 ",
                                   b"II*\0\x08\0\0\0"])
 def test_undecoded_formats_raise(tmp_path, head):
-    """A JPEG and a DDS head followed by zeros are corrupt files PIL
-    refuses: the bake turns them white, as the JAX package's does. GIF,
-    BMP, WebP and TIFF, which PIL opens and the port does not decode, raise
-    through the bake: a missing decoder never passes as a white texture."""
+    """A JPEG, DDS, GIF, BMP or WebP head followed by zeros is a corrupt
+    file PIL refuses: the bake turns it white, as the JAX package's does.
+    TIFF, which PIL opens and the port does not decode yet, raises through
+    the bake: a missing decoder never passes as a white texture."""
     p = tmp_path / "img.bin"
     p.write_bytes(head + b"\0" * 64)
-    if head[:3] in (b"\xff\xd8\xff", b"DDS"):
-        with pytest.raises(Exception):
-            _pil(p.read_bytes())
-        atlas, sub = textures.bake_texture_pages([str(p)])
-        page, size, ox, oy = sub[1]
-        assert (atlas[page, oy:oy + size, ox:ox + size] == 255).all()
+    if head[:4] == b"II*\0":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            textures.bake_texture_pages([str(p)])
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        textures.bake_texture_pages([str(p)])
+    with pytest.raises(Exception):
+        _pil(p.read_bytes())
+    atlas, sub = textures.bake_texture_pages([str(p)])
+    page, size, ox, oy = sub[1]
+    assert (atlas[page, oy:oy + size, ox:ox + size] == 255).all()
+
+
+@pytest.mark.parametrize("tail", ["no_iend", "cut_iend", "cut_crc",
+                                  "cut_adler", "cut_rows", "text_after",
+                                  "cut_text_after", "garbage_after"])
+def test_cut_after_image_data_as_pil(tail):
+    """A file cut after its image data: PIL reads the image data as far as
+    the file holds it and stops once the rows are done, so a missing IEND,
+    a cut checksum or a cut end of the zlib stream still decodes; a chunk
+    after the image data that the file cuts short, or rows the data lacks,
+    raise (white in both bakes). Tolerance: exact."""
+    rng = np.random.default_rng(len(tail))
+    px = rng.integers(0, 256, (9, 11, 3), np.uint8)
+    data = raw_png(px, 8, 2, idat_bytes=120)
+    end = len(data) - 12                         # where IEND starts
+    text = _chunk(b"tEXt", b"Comment\0kajiya")
+    data = {
+        "no_iend": data[:end],
+        "cut_iend": data[:end + 6],
+        "cut_crc": data[:end - 2],
+        "cut_adler": data[:end - 6],
+        "cut_rows": data[:end - 40],
+        "text_after": data[:end] + text + data[end:],
+        "cut_text_after": data[:end] + text[:-6],
+        "garbage_after": data[:end] + b"\x01\x02\x03\x04\x05\x06\x07\x08",
+    }[tail]
+    try:
+        want = _pil(data)
+    except Exception:
+        with pytest.raises(PngError):
+            decode_png(data)
+        assert tail in ("cut_rows", "cut_text_after")
+        return
+    np.testing.assert_array_equal(decode_png(data), want)
 
 
 @pytest.mark.parametrize("channels", [1, 2, 3, 4])
