@@ -36,14 +36,20 @@ the BVH, its `tlas_refit` range timed and its launches counted):
   placing them as the procedural city does: 196,610 triangles) and loads
   with `apps.view.build_scene`, its bake timed, and 2 each of the same city
   with its maps written in the mixed formats (JPEG, BC5 / BC7 DDS, 16-bit
-  PNG) and in the legacy formats (32-bit RLE TGA base colours, 24-bit BMP
+  PNG), in the legacy formats (32-bit RLE TGA base colours, 24-bit BMP
   normal maps, 256-colour GIF metallic-roughness maps, a lossless WebP
-  emissive map), each bake timed by format,
+  emissive map) and as TIFFs (LZW tiled base colours with horizontal
+  differencing, deflate planar normal maps, big-endian 16-bit PackBits
+  metallic-roughness maps, a raw emissive map with Orientation 6), each
+  bake timed by format,
 with the launch counters set to 0 just before each path and read just after,
-each map of the mixed and legacy cities decoded on the host equal to the
-texels its writer reports (the JPEGs within JPEG_PSNR_DB), the committed
-WebP fixtures (tests/data/webp/: lossy, lossy with alpha, lossless,
-animated) decoded on the host to the RGBA digests PIL gave for them,
+each map of the mixed, legacy and TIFF cities decoded on the host equal to
+the texels its writer reports (the JPEGs within JPEG_PSNR_DB), the
+committed WebP fixtures (tests/data/webp/: lossy, lossy with alpha,
+lossless, animated) and TIFF fixtures (tests/data/tiff/: JPEG-in-TIFF YCbCr
+2x2, LZMA, the floating-point predictor, CMYK, BigTIFF, tiles; LAB raises
+NotImplementedError) decoded on the host to the RGBA digests PIL gave for
+them,
 and the host syncs of each frame counted (the textured frames may make no
 more than the untextured default frames of the same geometry). Then the
 oracle datum (the port's hybrid frame against its path tracer on cornell at
@@ -283,10 +289,11 @@ SCENES = {
                  (0.0, 0.0, -1.0), (0.01, 0.005, 0.0)),
     # "tcity" (the textured asset city, n=16), "tcity4" (n=4, the small
     # frames' version), "tcityfmt" (the mixed-format asset city, n=16:
-    # JPEG, BC5 / BC7 DDS and 16-bit PNG maps) and "tcitylegacy" /
+    # JPEG, BC5 / BC7 DDS and 16-bit PNG maps), "tcitylegacy" /
     # "tcitylegacy4" (the legacy-format asset city, n=16 / n=4 with 256^2
-    # maps: RLE TGA, BMP, GIF and lossless WebP maps) are added by main once
-    # `asset_scenes` wrote them
+    # maps: RLE TGA, BMP, GIF and lossless WebP maps) and "tcitytiff" /
+    # "tcitytiff4" (the TIFF-textured asset city, n=16 / n=4 with 256^2
+    # maps) are added by main once `asset_scenes` wrote them
 }
 # the scenes each path renders at 1080p, and a cap on the frames of a scene
 # (city3 shows kernel B at the brute route's limit on the two paths that
@@ -295,13 +302,14 @@ PATH_SCENES = {"raster": ("cornell", "city"), "gi": ("cornell", "city"),
                "default": ("cornell", "city", "city3", "city40"),
                "refpt": ("cornell", "city", "city3", "city40"),
                "options": ("cornell", "city"),
-               "textured": ("tcornell", "tcity", "tcityfmt", "tcitylegacy")}
+               "textured": ("tcornell", "tcity", "tcityfmt", "tcitylegacy",
+                            "tcitytiff")}
 FRAME_CAP = {"city3": 2, "tcity": 2, "tcityfmt": 2, "tcitylegacy": 2,
-             "city40": 2}
+             "tcitytiff": 2, "city40": 2}
 # the untextured scene of the same geometry, whose default frames the
 # textured frames' host syncs are held to
 UNTEXTURED = {"tcornell": "cornell", "tcity": "city", "tcityfmt": "city",
-              "tcitylegacy": "city"}
+              "tcitylegacy": "city", "tcitytiff": "city"}
 # the decoded JPEG maps of the mixed-format city against the arrays they
 # encode (quality 85, 4:2:0): format_phase reads 42.2-48.8 dB
 JPEG_PSNR_DB = 35.0
@@ -319,9 +327,10 @@ def asset_scenes(root):
     through the viewer's `build_scene` from its .ron, "tcityfmt" (the
     mixed-format city under `root/fmt`, n=16, seen as the city is) and
     "tcitylegacy" (the legacy-format city under `root/legacy`, n=16) and
-    "tcitylegacy4" (n=4, its maps at 256^2, the small frames' scene), with
-    the mixed and legacy maps written: {file path: (map, RGBA its file
-    decodes to, or None for a JPEG)}."""
+    "tcitylegacy4" (n=4, its maps at 256^2, the small frames' scene), and
+    likewise "tcitytiff" / "tcitytiff4" (the TIFF-textured city under
+    `root/tiff`), with the mixed, legacy and TIFF maps written: {file path:
+    (map, RGBA its file decodes to, or None for a JPEG)}."""
     from kajiya_tpu_torch.apps.view import build_scene
     from kajiya_tpu_torch.scene import assets
 
@@ -332,7 +341,8 @@ def asset_scenes(root):
     log(f"textured city assets written in {time.perf_counter() - t0:.1f} s "
         f"under {root}")
     maps, fmt_rons = {}, {}
-    for formats, sub in (("mixed", "fmt"), ("legacy", "legacy")):
+    for formats, sub in (("mixed", "fmt"), ("legacy", "legacy"),
+                         ("tiff", "tiff")):
         t0 = time.perf_counter()
         sub_root = os.path.join(root, sub)
         written = assets.write_city_assets(sub_root, formats=formats)
@@ -342,37 +352,48 @@ def asset_scenes(root):
                      for k, v in written.items()})
         log(f"{formats}-format city assets written in "
             f"{time.perf_counter() - t0:.1f} s under {sub_root}")
-    # the small frames' legacy city: its maps at 256^2, since a 64x48 frame
-    # needs no more, and two bakes of the full maps would cost ~25 s
-    small_root = os.path.join(root, "legacy_small")
-    assets.write_city_assets(small_root, map_size=256, emissive_size=128,
-                             ground_size=(256, 512), formats="legacy")
-    legacy4 = assets.write_city_ron(small_root, n=4, name="citylegacy4")
+    # the small frames' legacy and TIFF cities: their maps at 256^2, since
+    # a 64x48 frame needs no more, and two bakes of the full maps would cost
+    # ~25 s
+    small = {}
+    for formats in ("legacy", "tiff"):
+        small_root = os.path.join(root, f"{formats}_small")
+        assets.write_city_assets(small_root, map_size=256, emissive_size=128,
+                                 ground_size=(256, 512), formats=formats)
+        small[formats] = assets.write_city_ron(small_root, n=4,
+                                               name=f"city{formats}4")
     _, eye, fwd, step = SCENES["city"]
-    small = (0.0, 8.0, 14.0)
-    mixed, legacy = fmt_rons["mixed"], fmt_rons["legacy"]
+    near = (0.0, 8.0, 14.0)
+    mixed, legacy, tif = (fmt_rons[k] for k in ("mixed", "legacy", "tiff"))
     return {"tcity": (lambda p: build_scene(rons[16]), eye, fwd, step),
-            "tcity4": (lambda p: build_scene(rons[4]), small, fwd, step),
+            "tcity4": (lambda p: build_scene(rons[4]), near, fwd, step),
             "tcityfmt": (lambda p: build_scene(mixed), eye, fwd, step),
             "tcitylegacy": (lambda p: build_scene(legacy), eye, fwd, step),
-            "tcitylegacy4": (lambda p: build_scene(legacy4), small, fwd,
-                             step)}, maps
+            "tcitylegacy4": (lambda p: build_scene(small["legacy"]), near,
+                             fwd, step),
+            "tcitytiff": (lambda p: build_scene(tif), eye, fwd, step),
+            "tcitytiff4": (lambda p: build_scene(small["tiff"]), near, fwd,
+                           step)}, maps
 
 
 def format_phase(maps):
-    """The mixed- and legacy-format cities' maps decoded on the host by the
-    port's decoders: each DDS map (BC5 normals, BC7 metallic-roughness),
-    the 16-bit PNG and every legacy map (RLE TGA, BMP, GIF, lossless WebP)
-    equal the texels their writer reports, bit for bit; each JPEG base
+    """The mixed-format, legacy-format and TIFF cities' maps decoded on the
+    host by the port's decoders: each DDS map (BC5 normals, BC7
+    metallic-roughness), the 16-bit PNG, every legacy map (RLE TGA, BMP,
+    GIF, lossless WebP) and every TIFF map (LZW tiles with differencing,
+    deflate planar strips, big-endian 16-bit PackBits, raw with an
+    Orientation) equal the texels their writer reports, bit for bit; each
+    JPEG base
     colour is within JPEG_PSNR_DB of the map it encodes. The bytes
     themselves are held to PIL in the CPU tests (this host has no PIL).
     Any failed decode raises."""
-    from kajiya_tpu_torch.scene import dds, jpeg, raster, textures, webp
+    from kajiya_tpu_torch.scene import (dds, jpeg, raster, textures, tiff,
+                                        webp)
 
     # the host decoders are built first: each decode ms leaves out g++
     t0 = time.perf_counter()
     for build in (jpeg.decoder_library, dds.bcn_library, raster.library,
-                  webp.library):
+                  webp.library, tiff.library):
         build()
     log(f"host decoders built in {time.perf_counter() - t0:.1f} s")
     out = {}
@@ -401,33 +422,54 @@ def format_phase(maps):
     return out
 
 
-def webp_phase():
-    """The committed WebP fixtures (tests/data/webp/, made by
-    tools/make_webp_fixtures.py) decoded on the host by the port: each
+def fixture_phase(kind):
+    """The committed fixtures of tests/data/<kind>/ (made by
+    tools/make_<kind>_fixtures.py) decoded on the host by the port: each
     one's RGBA must have the shape and SHA-256 that PIL gave where the
-    fixtures were made (manifest.json). This holds the lossy VP8 path, its alpha and
-    the animation container on a machine without PIL."""
+    fixtures were made (manifest.json); one marked "unported" must raise
+    NotImplementedError. This holds WebP's lossy VP8 path, its alpha and
+    the animation container, and TIFF's JPEG-in-TIFF, LZMA, floating-point
+    predictor, CMYK, BigTIFF and tiles, on a machine without PIL."""
     import hashlib
 
     from kajiya_tpu_torch.scene import textures
 
-    root = os.path.join(REPO, "tests", "data", "webp")
+    root = os.path.join(REPO, "tests", "data", kind)
     with open(os.path.join(root, "manifest.json")) as f:
         manifest = json.load(f)
     out = {}
     for name, want in sorted(manifest.items()):
         t0 = time.perf_counter()
+        if want.get("unported"):
+            try:
+                textures._decode_image(os.path.join(root, name))
+            except NotImplementedError as e:
+                out[name] = dict(unported=str(e)[:80])
+                log(f"{kind} fixture {name}: {out[name]}")
+                continue
+            raise AssertionError(f"{kind} fixture {name} decoded; the port "
+                                 "should raise NotImplementedError")
         got = textures._decode_image(os.path.join(root, name))
         ms = (time.perf_counter() - t0) * 1e3
         digest = hashlib.sha256(got.tobytes()).hexdigest()
         if list(got.shape) != want["shape"] or digest != want["rgba_sha256"]:
-            raise AssertionError(f"WebP fixture {name}: shape "
+            raise AssertionError(f"{kind} fixture {name}: shape "
                                  f"{list(got.shape)} digest {digest}, PIL's "
                                  f"{want['shape']} {want['rgba_sha256']}")
         out[name] = dict(ms=ms, bytes=want["bytes"], shape=want["shape"],
                          sha256_equal=True)
-        log(f"webp fixture {name}: {out[name]}")
+        log(f"{kind} fixture {name}: {out[name]}")
     return out
+
+
+def webp_phase():
+    """The WebP fixtures against PIL's digests (fixture_phase)."""
+    return fixture_phase("webp")
+
+
+def tiff_phase():
+    """The TIFF fixtures against PIL's digests (fixture_phase)."""
+    return fixture_phase("tiff")
 
 
 def _lookup(owner, name):
@@ -1568,7 +1610,8 @@ FRAME_KEYS = {
 }
 FRAME_KEYS["textured"] = FRAME_KEYS["superres"] = FRAME_KEYS["default"]
 # the scenes of each path's small GPU-vs-CPU frames ("city" is city(n=4))
-REF_SCENES = {"textured": ("tcornell", "tcity4", "tcitylegacy4")}
+REF_SCENES = {"textured": ("tcornell", "tcity4", "tcitylegacy4",
+                          "tcitytiff4")}
 # the paths whose small frames are also rendered on the BVH route, forced
 # with brute_max_tris=0
 BVH_REF_PATHS = ("default", "refpt")
@@ -1592,8 +1635,8 @@ def reference_phase(dev, ibl):
     paths with the small irradiance cache (and the options path with the
     small world radiance cache); the textured path on the textured cornell
     and the textured asset city at n=4 (its 2048^2 PNG maps, and 256^2
-    legacy-format maps), whose texture pages on the card must equal the
-    CPU's byte for byte; the default and path-tracer frames
+    legacy-format and TIFF maps), whose texture pages on the card must
+    equal the CPU's byte for byte; the default and path-tracer frames
     again on the BVH route (`brute_max_tris=0`; "+bvh" in the names), where
     the CPU path runs `walk_plain`. Every comparison is made and logged
     before a failure is raised."""
@@ -1741,6 +1784,7 @@ def frame_phase(dev, path, ibl):
                        decode_bmp=(textures._DECODERS, "BMP"),
                        decode_gif=(textures._DECODERS, "GIF"),
                        decode_webp=(textures._DECODERS, "WEBP"),
+                       decode_tiff=(textures._DECODERS, "TIFF"),
                        resize=(textures, "_resize"),
                        bake=(textures, "bake_texture_pages"),
                        pages=(textures, "build_texture_pages"),
@@ -1769,6 +1813,7 @@ def frame_phase(dev, path, ibl):
                         decode_bmp_s=sec["decode_bmp"],
                         decode_gif_s=sec["decode_gif"],
                         decode_webp_s=sec["decode_webp"],
+                        decode_tiff_s=sec["decode_tiff"],
                         resize_s=sec["resize"],
                         pack_mips_s=sec["bake"] - sec["decode"]
                         - sec["resize"],
@@ -2682,6 +2727,7 @@ def main():
     SCENES.update(scenes)
     formats = format_phase(fmt_maps)
     webp_fixtures = webp_phase()
+    tiff_fixtures = tiff_phase()
     brute = brute_phase(dev)
     culled = culled_phase(dev)
     warp = warp_phase(dev)
@@ -2729,6 +2775,7 @@ def main():
         frames["textured"]["tcityfmt"]["frame_ms"],
         "legacy-format city frame ms",
         frames["textured"]["tcitylegacy"]["frame_ms"],
+        "TIFF city frame ms", frames["textured"]["tcitytiff"]["frame_ms"],
         "beside the untextured city's default frame ms",
         frames["default"]["city"]["frame_ms"], "(same call)")
     oracle = oracle_phase(dev)
@@ -2772,7 +2819,8 @@ def main():
         json.dump({"card": card, "wall_s": wall_s, "kernels": kernels,
                    "frames": frames, "oracle": oracle, "viewer": viewer,
                    "apps": apps, "formats": formats,
-                   "webp_fixtures": webp_fixtures, "sharded": sharded}, f,
+                   "webp_fixtures": webp_fixtures,
+                   "tiff_fixtures": tiff_fixtures, "sharded": sharded}, f,
                   indent=1)
     print(json.dumps({"frames": {
         path: {k: {"median_ms": v["median_ms"], "frame_ms": v["frame_ms"],
@@ -2784,6 +2832,8 @@ def main():
                           for sc, v in frames["textured"].items()},
         "format_decode_ms": {k: v["ms"] for k, v in formats.items()},
         "webp_fixture_ms": {k: v["ms"] for k, v in webp_fixtures.items()},
+        "tiff_fixture_ms": {k: v.get("ms") for k, v in
+                            tiff_fixtures.items()},
         "setup_s": {f"{p}/{sc}": v["setup_parts_s"]
                     for p, per_scene in frames.items()
                     for sc, v in per_scene.items() if sc == "city40"},

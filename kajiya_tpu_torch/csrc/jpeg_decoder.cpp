@@ -9,8 +9,9 @@
 // approximation; the coefficients of every scan are gathered before the
 // inverse DCT, as libjpeg gathers them for a multi-scan file).
 // Output follows libjpeg's decompression path:
-// - the accurate integer inverse DCT (jidctint.c, jpeg_idct_islow), with the
-//   x86 SIMD builds' saturating output;
+// - the accurate integer inverse DCT (jidctint.c, jpeg_idct_islow), as the
+//   x86 SIMD builds compute it (16-bit lanes that wrap or saturate where a
+//   corrupt file's coefficients leave the range);
 // - fancy upsampling (jdsample.c): h2v1 and h2v2 triangle filters (the
 //   latter with its alternating 8 / 7 rounding bias) when the component is
 //   more than two samples wide, h1v2, and box replication otherwise;
@@ -19,14 +20,19 @@
 // - CMYK and YCCK frames as PIL reads them ("CMYK;I", Adobe polarity), then
 //   PIL's CMYK -> RGB conversion.
 //
-// Refused with status 2 (not implemented): arithmetic coding, lossless and
-// hierarchical frames, other sample precisions, frames whose height comes in
-// a DNL marker, non-integer sampling ratios, progressive files that libjpeg
-// would block-smooth (an AC band of the first nine coefficients incomplete
-// after the last scan), and corrupt entropy data that libjpeg decodes with a
-// warning (a segment that ends early, a code of no table, a restart marker
-// out of sequence). Status 1 (corrupt): what makes PIL raise, such as bytes
-// that end before the image does.
+// Markers are dispatched as libjpeg-turbo's read_markers does: DNL and DAC
+// are read and skipped, a second SOI, the hierarchical and JPG processes
+// (SOF5-7, SOF13-15, JPG) and the codes libjpeg does not know (DHP, EXP,
+// JPGn, reserved) are fatal. PIL's own header walk (JpegImageFile._open,
+// which refuses more) runs first, in scene/jpeg.py.
+//
+// Refused with status 2 (not implemented): arithmetic coding, lossless
+// frames, other sample precisions, non-integer sampling ratios, progressive
+// files that libjpeg would block-smooth (an AC band of the first nine
+// coefficients incomplete after the last scan), and corrupt entropy data
+// that libjpeg decodes with a warning (a segment that ends early, a code of
+// no table, a restart marker out of sequence). Status 1 (corrupt): what
+// makes PIL raise, such as bytes that end before the image does.
 //
 // Built with g++ at first use (scene/jpeg.py) and called through ctypes.
 #include <algorithm>
@@ -38,12 +44,13 @@
 namespace {
 
 struct Fail {
-  int code;  // 1 corrupt, 2 not implemented
+  int code;  // 1 corrupt, 2 not implemented, 3 the data ends (libjpeg suspends)
   std::string msg;
 };
 
 [[noreturn]] void corrupt(const std::string& m) { throw Fail{1, m}; }
 [[noreturn]] void unported(const std::string& m) { throw Fail{2, m}; }
+[[noreturn]] void ends(const std::string& m) { throw Fail{3, m}; }
 
 // natural order of the zigzag index, with 16 guard entries (jutils.c)
 const int kNatural[80] = {
@@ -53,14 +60,65 @@ const int kNatural[80] = {
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
     63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
+// Annex K.3 (jstdhuff.c): the tables libjpeg-turbo gives DC / AC tables 0
+// and 1 that the header leaves undefined (motion JPEG)
+const uint8_t kDcLumaBits[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+const uint8_t kDcChromaBits[16] = {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kAcLumaBits[16] = {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
+const uint8_t kAcLumaVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kAcChromaBits[16] = {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
+const uint8_t kAcChromaVals[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+    0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
 struct Huff {
   bool defined = false;
+  // the DHT segment's table, derived (and checked) where a scan uses it,
+  // as jpeg_make_d_derived_tbl does
+  uint8_t counts[16];
+  uint8_t symbols[256];
+  int nsymbols = 0;
   int maxcode[18];
   int valoffset[18];
   uint8_t vals[256];
   // 9-bit lookahead: (length << 8) | symbol, 0 where the code is longer
   uint16_t look[512];
 };
+
+void define_huff(Huff& h, const uint8_t* counts, const uint8_t* vals,
+                 int nvals) {
+  std::memcpy(h.counts, counts, 16);
+  std::memcpy(h.symbols, vals, nvals);
+  h.nsymbols = nvals;
+  h.defined = true;
+}
 
 void build_huff(Huff& h, const uint8_t* counts, const uint8_t* vals, int nvals,
                 bool dc) {
@@ -158,6 +216,9 @@ struct Decoder {
   int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   Comp comp[4];
   bool saw_eoi = false;
+  int color = 0;             // 0 by the markers, 1 YCbCr -> RGB, 2 as coded
+  bool scanned = false;      // a scan was decoded
+  bool single_done = false;  // single-scan mode, and its scan is decoded
 
   // entropy bit reader
   uint64_t bitbuf = 0;
@@ -168,7 +229,7 @@ struct Decoder {
   int eobrun = 0;
 
   int u8() {
-    if (pos >= n) corrupt("unexpected end of data");
+    if (pos >= n) ends("unexpected end of data");
     return d[pos++];
   }
   int u16() {
@@ -261,11 +322,11 @@ struct Decoder {
   // the next marker code; skips bytes that are not FF as libjpeg and PIL do
   int next_marker() {
     for (;;) {
-      if (pos >= n) corrupt("image file is truncated (no marker)");
+      if (pos >= n) ends("image file is truncated (no marker)");
       int c = d[pos++];
       if (c != 0xFF) continue;
       while (pos < n && d[pos] == 0xFF) pos++;
-      if (pos >= n) corrupt("image file is truncated (no marker)");
+      if (pos >= n) ends("image file is truncated (no marker)");
       c = d[pos++];
       if (c != 0) return c;
     }
@@ -274,7 +335,8 @@ struct Decoder {
   void read_dqt() {
     int len = u16() - 2;
     size_t end = pos + len;
-    if (len < 0 || end > n) corrupt("truncated DQT");
+    if (len < 0) corrupt("bad DQT length");
+    if (end > n) ends("truncated DQT");
     while (pos < end) {
       int pq = u8();
       int t = pq & 15, prec = pq >> 4;
@@ -291,7 +353,8 @@ struct Decoder {
   void read_dht() {
     int len = u16() - 2;
     size_t end = pos + len;
-    if (len < 0 || end > n) corrupt("truncated DHT");
+    if (len < 0) corrupt("bad DHT length");
+    if (end > n) ends("truncated DHT");
     while (pos + 17 <= end) {
       int tc = u8();
       uint8_t counts[16];
@@ -305,14 +368,15 @@ struct Decoder {
       for (int i = 0; i < total; i++) vals[i] = (uint8_t)u8();
       int cls = tc >> 4, id = tc & 15;
       if (id > 3 || cls > 1) corrupt("bad DHT table id");
-      build_huff(cls ? ac_tab[id] : dc_tab[id], counts, vals, total, cls == 0);
+      define_huff(cls ? ac_tab[id] : dc_tab[id], counts, vals, total);
     }
     if (pos != end) corrupt("bad DHT length");
   }
 
   void read_app(int marker) {
     int len = u16() - 2;
-    if (len < 0 || pos + len > n) corrupt("truncated APP segment");
+    if (len < 0) return;  // skip_variable skips nothing, and goes on
+    if (pos + len > n) ends("truncated APP segment");
     const uint8_t* s = d + pos;
     if (marker == 0xE0 && len >= 14 && std::memcmp(s, "JFIF\0", 5) == 0)
       jfif = true;
@@ -327,10 +391,8 @@ struct Decoder {
     if (have_frame) corrupt("two frame headers");
     if (marker == 0xC3 || marker == 0xC7 || marker == 0xCB || marker == 0xCF)
       unported("lossless JPEG frames are not decoded");
-    if (marker >= 0xC9 && marker != 0xCC)
+    if (marker >= 0xC9)
       unported("arithmetic-coded JPEG frames are not decoded");
-    if (marker == 0xC5 || marker == 0xC6)
-      unported("hierarchical JPEG frames are not decoded");
     int len = u16();
     size_t end = pos + len - 2;
     int prec = u8();
@@ -525,11 +587,21 @@ struct Decoder {
       for (int j = 0; j < ncomp; j++)
         if (comp[j].id == id) c = &comp[j];
       if (!c) corrupt("scan names an unknown component");
+      for (int j = 0; j < i; j++)
+        if (sc[j] == c) corrupt("scan names a component twice");
       c->td = t >> 4;
       c->ta = t & 15;
       sc[i] = c;
     }
     int ss = u8(), se = u8(), a = u8();
+    // jdinput.c consume_markers: a scan after single-scan mode's one
+    if (single_done) corrupt("a second scan in single-scan mode");
+    if (ns > 1) {
+      // jdinput.c per_scan_setup: D_MAX_BLOCKS_IN_MCU
+      int blocks = 0;
+      for (int i = 0; i < ns; i++) blocks += sc[i]->h * sc[i]->v;
+      if (blocks > 10) corrupt("too many blocks in an MCU");
+    }
     int ah = a >> 4, al = a & 15;
     if (progressive) {
       if (ss == 0) {
@@ -568,6 +640,14 @@ struct Decoder {
         corrupt("scan uses an undefined DC Huffman table");
       if (need_ac && !ac_tab[c.ta].defined)
         corrupt("scan uses an undefined AC Huffman table");
+      if (need_dc) {
+        Huff& t = dc_tab[c.td];
+        build_huff(t, t.counts, t.symbols, t.nsymbols, true);
+      }
+      if (need_ac) {
+        Huff& t = ac_tab[c.ta];
+        build_huff(t, t.counts, t.symbols, t.nsymbols, false);
+      }
       c.dc_pred = 0;
     }
     // the coefficient buffers are allocated at the first scan, so parsing
@@ -631,47 +711,130 @@ struct Decoder {
         }
       }
     }
+    // The data ended inside the scan's read-ahead, and no bit past it was
+    // needed. libjpeg reads ahead too (up to 57 bits, on its own schedule),
+    // and if its reader meets the end before the last MCU it suspends, and
+    // PIL raises "image file is truncated". A multi-scan file needs its EOI
+    // anyway; in single-scan mode the outcome is libjpeg's read schedule's.
+    const bool single = !progressive && ns == ncomp && !scanned;
+    if (at_end) {
+      if (single)
+        unported("JPEG data that ends within the last bytes of its scan "
+                 "(PIL's result depends on libjpeg's read-ahead)");
+      corrupt("image file is truncated");
+    }
+    if (single && !at_marker && n - pos <= 16) {
+      // no marker stopped the reader, and the data ends within the 16
+      // bytes that libjpeg's read-ahead may still have wanted
+      size_t q = pos;
+      while (q + 1 < n && !(d[q] == 0xFF && d[q + 1] != 0 && d[q + 1] != 0xFF))
+        q++;
+      if (q + 1 >= n)
+        unported("JPEG data that ends within the last bytes of its scan "
+                 "(PIL's result depends on libjpeg's read-ahead)");
+    }
     // leave pos at the marker that ends the scan (any bits left are padding)
     reset_bits();
+    // an interleaved sequential first scan is libjpeg's single-scan mode:
+    // the image is complete, and PIL only finishes the decompressor
+    if (single) single_done = true;
+    scanned = true;
   }
 
-  void parse() {
+  // jstdhuff.c std_huff_tables, as jinit_huff_decoder runs it at the
+  // start of sequential decompression (the progressive decoder does not):
+  // tables 0 and 1 the header left undefined
+  void default_tables() {
+    if (!dc_tab[0].defined) define_huff(dc_tab[0], kDcLumaBits, kDcVals, 12);
+    if (!ac_tab[0].defined)
+      define_huff(ac_tab[0], kAcLumaBits, kAcLumaVals, 162);
+    if (!dc_tab[1].defined) define_huff(dc_tab[1], kDcChromaBits, kDcVals, 12);
+    if (!ac_tab[1].defined)
+      define_huff(ac_tab[1], kAcChromaBits, kAcChromaVals, 162);
+  }
+
+  // jdmarker.c get_dac: arithmetic conditioning values, checked and then
+  // unused by a Huffman-coded frame
+  void read_dac() {
+    int len = u16() - 2;
+    while (len > 0) {
+      int index = u8(), val = u8();
+      len -= 2;
+      if (index >= 32) corrupt("bad DAC index");
+      if (index < 16 && (val & 15) > (val >> 4)) corrupt("bad DAC value");
+    }
+    if (len != 0) corrupt("bad DAC length");
+  }
+
+  // jdmarker.c read_markers: the markers libjpeg-turbo reads, skips or
+  // stops at; `frame_only` stops after the frame header. In single-scan
+  // mode the markers after the scan are read by jpeg_finish_decompress,
+  // whose errors PIL raises but whose running out of data it ignores.
+  void parse(bool frame_only = false) {
+    try {
+      markers(frame_only);
+    } catch (const Fail& f) {
+      // libtiff's JPEGDecode takes any outcome of jpeg_finish_decompress
+      // as done, once the rows are read
+      if (!(single_done && color != 0) && f.code != 3) throw;
+      if (!single_done) corrupt(f.msg);
+    }
+    if (!single_done && !saw_eoi) corrupt("image file is truncated (no EOI)");
+  }
+
+  void markers(bool frame_only) {
     if (n < 2 || d[0] != 0xFF || d[1] != 0xD8) corrupt("not a JPEG file");
     pos = 2;
     for (;;) {
       int m = next_marker();
-      if (m == 0xD8) continue;  // a stray SOI: libjpeg's jdmarker errs
       if (m == 0xD9) {
         saw_eoi = true;
         break;
       }
-      if (m >= 0xD0 && m <= 0xD7) continue;  // stray RSTn
       switch (m) {
-        case 0xDB: read_dqt(); break;
+        case 0xC0: case 0xC1: case 0xC2: case 0xC3: case 0xC9: case 0xCA:
+        case 0xCB:
+          read_sof(m);
+          if (frame_only) {
+            saw_eoi = true;  // the walk stops here
+            return;
+          }
+          break;
+        case 0xC5: case 0xC6: case 0xC7: case 0xC8: case 0xCD: case 0xCE:
+        case 0xCF:
+          corrupt("unsupported JPEG process (libjpeg's JERR_SOF_UNSUPPORTED)");
+        case 0xD8: corrupt("duplicate SOI marker");
+        case 0xDA:
+          if (frame_only) corrupt("no JPEG frame header");
+          if (!scanned && !progressive) default_tables();
+          read_sos();
+          break;
         case 0xC4: read_dht(); break;
+        case 0xDB: read_dqt(); break;
+        case 0xCC: read_dac(); break;
         case 0xDD: {
           int len = u16();
           if (len != 4) corrupt("bad DRI length");
           restart_interval = u16();
           break;
         }
-        case 0xDA: read_sos(); break;
-        case 0xCC: unported("arithmetic-coded JPEG (DAC marker)");
-        case 0xDC: unported("JPEG DNL marker");
-        case 0xDE: case 0xDF: unported("hierarchical JPEG (DHP / EXP)");
-        case 0x01: break;  // TEM has no length
+        case 0x01: case 0xD0: case 0xD1: case 0xD2: case 0xD3: case 0xD4:
+        case 0xD5: case 0xD6: case 0xD7:
+          break;  // TEM and stray RSTn have no segment
         default:
-          if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC) {
-            read_sof(m);
-          } else if (m >= 0xE0 && m <= 0xEF) {
+          if ((m >= 0xE0 && m <= 0xEF) || m == 0xFE) {
             read_app(m);
-          } else {
+          } else if (m == 0xDC) {  // DNL: skipped
             int len = u16() - 2;
-            if (len < 0 || pos + len > n) corrupt("truncated segment");
-            pos += len;
+            if (pos + std::max(len, 0) > n) ends("truncated segment");
+            pos += std::max(len, 0);
+          } else {
+            // DHP, EXP, JPGn and the reserved codes are fatal
+            corrupt("unknown JPEG marker");
           }
       }
     }
+    if (frame_only) corrupt("no JPEG frame header");
     if (!have_frame) corrupt("no JPEG frame");
   }
 
@@ -683,109 +846,73 @@ struct Decoder {
     return (uint8_t)(x < 0 ? 0 : (x > 255 ? 255 : x));
   }
 
-  // jidctint.c jpeg_idct_islow; the results saturate as the SIMD builds'
+  // jpeg_idct_islow as libjpeg-turbo's x86 SIMD builds compute it
+  // (jidctint-sse2.asm / -avx2.asm), which equal jidctint.c while the
+  // coefficients stay in range and part from it on corrupt data: the
+  // dequantised coefficients are 16-bit products (pmullw), the sums that
+  // feed a multiply (in0 +- in4, in7 + in3, in5 + in1) wrap in 16 bits,
+  // each pass's results saturate to 16 bits (packssdw), and a block whose
+  // rows 1-7 are all zero takes the DC shortcut, row 0 << 2 in 16 bits.
+  static inline int16_t w16(int v) { return (int16_t)v; }
+  static inline int16_t sat16(int v) {
+    return (int16_t)(v < -32768 ? -32768 : (v > 32767 ? 32767 : v));
+  }
+
+  // one 8-point pass (the columns of pass 1, the rows of pass 2) of
+  // x[0..7] -> out[0..7] with the given descale
+  static void idct_pass(const int16_t* x, int sh, int32_t* out) {
+    const int CB = 13;
+    const int z2 = x[2], z3 = x[6];
+    const int tmp3e = z2 * (4433 + 6270) + z3 * 4433;
+    const int tmp2e = z2 * 4433 + z3 * (4433 - 15137);
+    const int tmp0e = (int)w16(x[0] + x[4]) * (1 << CB);
+    const int tmp1e = (int)w16(x[0] - x[4]) * (1 << CB);
+    const int t10 = tmp0e + tmp3e, t13 = tmp0e - tmp3e;
+    const int t11 = tmp1e + tmp2e, t12 = tmp1e - tmp2e;
+    const int i7 = x[7], i5 = x[5], i3 = x[3], i1 = x[1];
+    const int oz3 = w16(i7 + i3), oz4 = w16(i5 + i1);
+    const int z3o = oz3 * (9633 - 16069) + oz4 * 9633;
+    const int z4o = oz3 * 9633 + oz4 * (9633 - 3196);
+    const int tmp0 = i7 * (2446 - 7373) + i1 * -7373 + z3o;
+    const int tmp3 = i7 * -7373 + i1 * (12299 - 7373) + z4o;
+    const int tmp1 = i5 * (16819 - 20995) + i3 * -20995 + z4o;
+    const int tmp2 = i5 * -20995 + i3 * (25172 - 20995) + z3o;
+    const int rnd = 1 << (sh - 1);
+    out[0] = (t10 + tmp3 + rnd) >> sh;
+    out[7] = (t10 - tmp3 + rnd) >> sh;
+    out[1] = (t11 + tmp2 + rnd) >> sh;
+    out[6] = (t11 - tmp2 + rnd) >> sh;
+    out[2] = (t12 + tmp1 + rnd) >> sh;
+    out[5] = (t12 - tmp1 + rnd) >> sh;
+    out[3] = (t13 + tmp0 + rnd) >> sh;
+    out[4] = (t13 - tmp0 + rnd) >> sh;
+  }
+
   static void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
                          int stride) {
     const int CB = 13, P1 = 2;
-    int ws[64];
-    for (int c = 0; c < 8; c++) {
-      const int16_t* ip = in + c;
-      const uint16_t* qp = q + c;
-      int* wp = ws + c;
-      if (ip[8] == 0 && ip[16] == 0 && ip[24] == 0 && ip[32] == 0 &&
-          ip[40] == 0 && ip[48] == 0 && ip[56] == 0) {
-        int dc = (ip[0] * (int)qp[0]) * (1 << P1);
-        for (int k = 0; k < 8; k++) wp[8 * k] = dc;
-        continue;
+    int16_t ws[64];  // ws[8 * r + c], after pass 1
+    bool ac_zero = true;
+    for (int k = 8; k < 64; k++) ac_zero = ac_zero && in[k] == 0;
+    if (ac_zero) {
+      for (int c = 0; c < 8; c++) {
+        const int16_t dc = w16(w16(in[c] * q[c]) * (1 << P1));
+        for (int r = 0; r < 8; r++) ws[8 * r + c] = dc;
       }
-      long long z2 = ip[16] * (int)qp[16], z3 = ip[48] * (int)qp[48];
-      long long z1 = (z2 + z3) * 4433;
-      long long tmp2 = z1 + z3 * -15137;
-      long long tmp3 = z1 + z2 * 6270;
-      z2 = ip[0] * (int)qp[0];
-      z3 = ip[32] * (int)qp[32];
-      long long tmp0 = (z2 + z3) * (1 << CB);
-      long long tmp1 = (z2 - z3) * (1 << CB);
-      long long t10 = tmp0 + tmp3, t13 = tmp0 - tmp3;
-      long long t11 = tmp1 + tmp2, t12 = tmp1 - tmp2;
-      tmp0 = ip[56] * (int)qp[56];
-      tmp1 = ip[40] * (int)qp[40];
-      tmp2 = ip[24] * (int)qp[24];
-      tmp3 = ip[8] * (int)qp[8];
-      z1 = tmp0 + tmp3;
-      z2 = tmp1 + tmp2;
-      z3 = tmp0 + tmp2;
-      long long z4 = tmp1 + tmp3;
-      long long z5 = (z3 + z4) * 9633;
-      tmp0 *= 2446;
-      tmp1 *= 16819;
-      tmp2 *= 25172;
-      tmp3 *= 12299;
-      z1 *= -7373;
-      z2 *= -20995;
-      z3 *= -16069;
-      z4 *= -3196;
-      z3 += z5;
-      z4 += z5;
-      tmp0 += z1 + z3;
-      tmp1 += z2 + z4;
-      tmp2 += z2 + z3;
-      tmp3 += z1 + z4;
-      const int sh = CB - P1;
-      const long long rnd = 1LL << (sh - 1);
-      wp[0] = (int)((t10 + tmp3 + rnd) >> sh);
-      wp[56] = (int)((t10 - tmp3 + rnd) >> sh);
-      wp[8] = (int)((t11 + tmp2 + rnd) >> sh);
-      wp[48] = (int)((t11 - tmp2 + rnd) >> sh);
-      wp[16] = (int)((t12 + tmp1 + rnd) >> sh);
-      wp[40] = (int)((t12 - tmp1 + rnd) >> sh);
-      wp[24] = (int)((t13 + tmp0 + rnd) >> sh);
-      wp[32] = (int)((t13 - tmp0 + rnd) >> sh);
+    } else {
+      for (int c = 0; c < 8; c++) {
+        int16_t x[8];
+        int32_t o[8];
+        for (int r = 0; r < 8; r++) x[r] = w16(in[8 * r + c] * q[8 * r + c]);
+        idct_pass(x, CB - P1, o);
+        for (int r = 0; r < 8; r++) ws[8 * r + c] = sat16(o[r]);
+      }
     }
     for (int r = 0; r < 8; r++) {
-      const int* wp = ws + 8 * r;
+      int32_t o[8];
+      idct_pass(ws + 8 * r, CB + P1 + 3, o);
       uint8_t* op = out + (size_t)r * stride;
-      const int sh = CB + P1 + 3;
-      const long long rnd = 1LL << (sh - 1);
-      long long z2 = wp[2], z3 = wp[6];
-      long long z1 = (z2 + z3) * 4433;
-      long long tmp2 = z1 + z3 * -15137;
-      long long tmp3 = z1 + z2 * 6270;
-      long long tmp0 = ((long long)wp[0] + wp[4]) * (1 << CB);
-      long long tmp1 = ((long long)wp[0] - wp[4]) * (1 << CB);
-      long long t10 = tmp0 + tmp3, t13 = tmp0 - tmp3;
-      long long t11 = tmp1 + tmp2, t12 = tmp1 - tmp2;
-      tmp0 = wp[7];
-      tmp1 = wp[5];
-      tmp2 = wp[3];
-      tmp3 = wp[1];
-      z1 = tmp0 + tmp3;
-      z2 = tmp1 + tmp2;
-      z3 = tmp0 + tmp2;
-      long long z4 = tmp1 + tmp3;
-      long long z5 = (z3 + z4) * 9633;
-      tmp0 *= 2446;
-      tmp1 *= 16819;
-      tmp2 *= 25172;
-      tmp3 *= 12299;
-      z1 *= -7373;
-      z2 *= -20995;
-      z3 *= -16069;
-      z4 *= -3196;
-      z3 += z5;
-      z4 += z5;
-      tmp0 += z1 + z3;
-      tmp1 += z2 + z4;
-      tmp2 += z2 + z3;
-      tmp3 += z1 + z4;
-      op[0] = clamp8((int)((t10 + tmp3 + rnd) >> sh) + 128);
-      op[7] = clamp8((int)((t10 - tmp3 + rnd) >> sh) + 128);
-      op[1] = clamp8((int)((t11 + tmp2 + rnd) >> sh) + 128);
-      op[6] = clamp8((int)((t11 - tmp2 + rnd) >> sh) + 128);
-      op[2] = clamp8((int)((t12 + tmp1 + rnd) >> sh) + 128);
-      op[5] = clamp8((int)((t12 - tmp1 + rnd) >> sh) + 128);
-      op[3] = clamp8((int)((t13 + tmp0 + rnd) >> sh) + 128);
-      op[4] = clamp8((int)((t13 - tmp0 + rnd) >> sh) + 128);
+      for (int c = 0; c < 8; c++) op[c] = clamp8(sat16(o[c]) + 128);
     }
   }
 
@@ -894,7 +1021,9 @@ struct Decoder {
     const YccTables& t = ycc_tables();
     if (ncomp == 3) {
       bool rgb;
-      if (jfif)
+      if (color != 0)  // the caller names the colour space, as libtiff does
+        rgb = color == 2;
+      else if (jfif)
         rgb = false;
       else if (adobe)
         rgb = adobe_transform == 0;
@@ -915,6 +1044,7 @@ struct Decoder {
       }
       return;
     }
+    if (color != 0) unported("a named colour space for four components");
     // four components: CMYK, or YCCK under Adobe transform 2 (or another
     // nonzero transform, which libjpeg reads as YCCK with a warning)
     bool ycck = adobe && adobe_transform != 0;
@@ -957,20 +1087,7 @@ extern "C" int kt_jpeg_dims(const uint8_t* data, long long n, int* w, int* h,
     Decoder dec;
     dec.d = data;
     dec.n = (size_t)n;
-    if (n < 2 || data[0] != 0xFF || data[1] != 0xD8) corrupt("not a JPEG file");
-    dec.pos = 2;
-    for (;;) {
-      int m = dec.next_marker();
-      if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC) {
-        dec.read_sof(m);
-        break;
-      }
-      if (m == 0xD9 || m == 0xDA) corrupt("no JPEG frame header");
-      if (m == 0xD8 || (m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
-      int len = dec.u16() - 2;
-      if (len < 0 || dec.pos + len > dec.n) corrupt("truncated segment");
-      dec.pos += len;
-    }
+    dec.parse(true);
     *w = dec.width;
     *h = dec.height;
     return 0;
@@ -983,15 +1100,19 @@ extern "C" int kt_jpeg_dims(const uint8_t* data, long long n, int* w, int* h,
 
 // Decode into rgba (w * h * 4 bytes, w and h from kt_jpeg_dims). Returns 0,
 // 1 for corrupt data, 2 for what is not decoded; msg gets the reason.
-extern "C" int kt_jpeg_decode(const uint8_t* data, long long n, uint8_t* rgba,
-                              int w, int h, char* msg, int cap) {
+// `color` 0 takes the colour space from the markers as libjpeg guesses it;
+// 1 and 2 set it as libtiff does for a JPEG strip or tile (YCbCr converted
+// to RGB, or the components as coded).
+extern "C" int kt_jpeg_decode_as(const uint8_t* data, long long n,
+                                 uint8_t* rgba, int w, int h, int color,
+                                 char* msg, int cap) {
   try {
     Decoder dec;
     dec.d = data;
     dec.n = (size_t)n;
+    dec.color = color;
     dec.parse();
     if (dec.width != w || dec.height != h) corrupt("size changed");
-    if (!dec.saw_eoi) corrupt("image file is truncated (no EOI)");
     if (dec.comp[0].coef.empty()) corrupt("JPEG frame without a scan");
     dec.output(rgba);
     return 0;
@@ -1000,4 +1121,9 @@ extern "C" int kt_jpeg_decode(const uint8_t* data, long long n, uint8_t* rgba,
   } catch (...) {  // std::bad_alloc and the like never cross the C boundary
     return finish(Fail{1, "out of memory decoding JPEG"}, msg, cap);
   }
+}
+
+extern "C" int kt_jpeg_decode(const uint8_t* data, long long n, uint8_t* rgba,
+                              int w, int h, char* msg, int cap) {
+  return kt_jpeg_decode_as(data, n, rgba, w, h, 0, msg, cap);
 }

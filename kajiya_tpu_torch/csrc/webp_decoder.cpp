@@ -8,10 +8,13 @@
 // VP8 is decoded as libwebp decodes it: intra prediction from the
 // unfiltered reconstruction, the loop filter over the whole frame in
 // macroblock order afterwards, libwebp's TransformOne / TransformWHT
-// roundings, its fixed-point YUV -> RGB (src/dsp/yuv.h) and its "fancy"
-// 4:2:0 upsampler, which averages the two diagonals before halving
-// (src/dsp/upsampling.c). The bit readers keep libwebp's end-of-data rules,
-// so a truncated stream fails where libwebp's does.
+// roundings (the full inverse transform in the 16-bit lanes of its x86
+// build, which wrap where a corrupt stream's coefficients leave the range),
+// its fixed-point YUV -> RGB (src/dsp/yuv.h) and its "fancy" 4:2:0
+// upsampler, which averages the two diagonals before halving
+// (src/dsp/upsampling.c). The bit readers keep libwebp's loading schedule
+// and end-of-data rules, so a corrupt or truncated stream reads and fails
+// where libwebp's does.
 
 #include <cstdint>
 #include <cstdlib>
@@ -418,8 +421,9 @@ struct Fail {
 inline int clip255(int v) { return v < 0 ? 0 : v > 255 ? 255 : v; }
 
 // ---------------------------------------------------------------------------
-// VP8 boolean decoder (RFC 6386 section 7), with libwebp's end-of-data rule:
-// the first byte read past the end sets eof and shifts in zeros.
+// VP8 boolean decoder (RFC 6386 section 7), with libwebp's loading schedule
+// and end-of-data rule: the first byte read past the end sets eof and shifts
+// in zeros.
 // ---------------------------------------------------------------------------
 
 struct BoolReader {
@@ -440,7 +444,16 @@ struct BoolReader {
         load();
     }
     void load() {
-        if (buf < end) {
+        if (end - buf >= 8) {
+            // libwebp's VP8LoadNewBytes: 56 bits at a time while 8 bytes
+            // remain. On a corrupt stream the value outgrows its range, and
+            // which high bits the 64-bit shift drops depends on this schedule
+            uint64_t in = 0;
+            for (int i = 0; i < 7; ++i) in = (in << 8) | buf[i];
+            buf += 7;
+            value = (value << 56) | in;
+            bits += 56;
+        } else if (buf < end) {
             bits += 8;
             value = (value << 8) | *buf++;
         } else if (!eof) {
@@ -780,6 +793,52 @@ void transform(const int16_t* in, uint8_t* dst) {
         tmp++;
         dst += BPS;
     }
+}
+
+// libwebp's Transform_SSE2, which the x86 builds use for a block with more
+// than three coefficients (and for the chroma blocks when any has an AC
+// coefficient): the same arithmetic in 16-bit lanes that wrap. A valid
+// stream stays in range, where it equals `transform`; a corrupt one does
+// not, and its pixels are the wrapped lanes'.
+inline int16_t w16(int v) { return (int16_t)v; }
+inline int16_t mulhi16(int16_t x, int k) { return (int16_t)(((int)x * k) >> 16); }
+
+void transform_lanes(const int16_t* in, uint8_t* dst) {
+    int16_t t[4][4];   // t[k][i]: output k of the vertical pass on column i
+    for (int i = 0; i < 4; ++i) {
+        const int16_t x0 = in[i], x1 = in[4 + i], x2 = in[8 + i], x3 = in[12 + i];
+        const int16_t a = w16(x0 + x2), b = w16(x0 - x2);
+        const int16_t c = w16(w16(x1 - x3) +
+                              w16(mulhi16(x1, -30068) - mulhi16(x3, 20091)));
+        const int16_t d = w16(w16(x1 + x3) +
+                              w16(mulhi16(x1, 20091) + mulhi16(x3, -30068)));
+        t[0][i] = w16(a + d);
+        t[1][i] = w16(b + c);
+        t[2][i] = w16(b - c);
+        t[3][i] = w16(a - d);
+    }
+    for (int l = 0; l < 4; ++l) {
+        const int16_t* x = t[l];
+        const int16_t dc = w16(x[0] + 4);
+        const int16_t a = w16(dc + x[2]), b = w16(dc - x[2]);
+        const int16_t c = w16(w16(x[1] - x[3]) +
+                              w16(mulhi16(x[1], -30068) - mulhi16(x[3], 20091)));
+        const int16_t d = w16(w16(x[1] + x[3]) +
+                              w16(mulhi16(x[1], 20091) + mulhi16(x[3], -30068)));
+        const int16_t o[4] = {w16(a + d), w16(b + c), w16(b - c), w16(a - d)};
+        for (int k = 0; k < 4; ++k)
+            dst[k] = (uint8_t)clip255(dst[k] + (o[k] >> 3));
+        dst += BPS;
+    }
+}
+
+// frame_dec.c DoTransform: the 2-bit code of a 4x4 block (3: full, 2: the
+// first three coefficients, 1: DC only)
+inline void do_transform(uint32_t bits, const int16_t* src, uint8_t* dst) {
+    if ((bits >> 30) == 3)
+        transform_lanes(src, dst);
+    else if (bits >> 30)
+        transform(src, dst);
 }
 
 void transform_wht(const int16_t* in, int16_t* out) {
@@ -1338,27 +1397,34 @@ void VP8::reconstruct_row(int mb_y) {
             for (int n = 0; n < 16; ++n, bits <<= 2) {
                 uint8_t* const dst = y_dst + kScan[n];
                 pred4(dst, block.imodes[n]);
-                if (bits >> 30) transform(coeffs + n * 16, dst);
+                do_transform(bits, coeffs + n * 16, dst);
             }
         } else {
             pred16(y_dst, check_mode(mb_x, mb_y, block.imodes[0]));
             if (bits != 0)
                 for (int n = 0; n < 16; ++n, bits <<= 2)
-                    if (bits >> 30) transform(coeffs + n * 16, y_dst + kScan[n]);
+                    do_transform(bits, coeffs + n * 16, y_dst + kScan[n]);
         }
         {
             const uint32_t bits_uv = block.non_zero_uv;
             const int mode = check_mode(mb_x, mb_y, block.uvmode);
             pred8(u_dst, mode);
             pred8(v_dst, mode);
-            if (bits_uv & 0xff)
-                for (int n = 0; n < 4; ++n)
-                    transform(coeffs + 256 + n * 16,
-                              u_dst + (n & 1) * 4 + (n >> 1) * 4 * BPS);
-            if ((bits_uv >> 8) & 0xff)
-                for (int n = 0; n < 4; ++n)
-                    transform(coeffs + 320 + n * 16,
-                              v_dst + (n & 1) * 4 + (n >> 1) * 4 * BPS);
+            // DoUVTransform: TransformUV (the lanes) when any block of the
+            // plane has an AC coefficient, else TransformDCUV
+            for (int p = 0; p < 2; ++p) {
+                const uint32_t b = (bits_uv >> (8 * p)) & 0xff;
+                if (!b) continue;
+                uint8_t* const pdst = p ? v_dst : u_dst;
+                for (int n = 0; n < 4; ++n) {
+                    const int16_t* const src = coeffs + 256 + 64 * p + n * 16;
+                    uint8_t* const dst = pdst + (n & 1) * 4 + (n >> 1) * 4 * BPS;
+                    if (b & 0xaa)
+                        transform_lanes(src, dst);
+                    else
+                        transform(src, dst);
+                }
+            }
         }
         if (mb_y < mb_h - 1) {
             std::memcpy(top_yuv[0].y, y_dst + 15 * BPS, 16);

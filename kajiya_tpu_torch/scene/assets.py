@@ -23,7 +23,13 @@ glTF's EXT_texture_webp carry (the legacy-format city): each base colour a
 metallic-roughness map a 256-colour GIF, b1's emissive map a lossless
 WebP; each written by the port itself (`tga.encode_tga_rle`,
 `bmp.encode_bmp24`, `gif.encode_gif256`, `webp.encode_vp8l`), which
-reports the exact texels its file decodes to.
+reports the exact texels its file decodes to. `formats="tiff"` writes every
+map as a TIFF (the TIFF-textured city), each in another layout of the
+port's writer (`tiff.write_tiff`): base colours LZW with horizontal
+differencing in 256 x 256 tiles, normal maps deflate in planar strips,
+metallic-roughness maps big-endian 16-bit PackBits, and b1's emissive map
+raw with Orientation 6 (stored turned a quarter, so that it decodes to the
+map).
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from .gif import encode_gif256
 from .png import encode_png
 from .procedural import _subdiv_box
 from .tga import encode_tga_rle
+from .tiff import write_tiff
 from .webp import encode_vp8l
 
 BLOCK = 3.0
@@ -162,6 +169,22 @@ def _map_file(kind: str, img: np.ndarray, formats: str):
     where the format is lossy) of one building map."""
     if formats == "png":
         return ".png", _png(img), None
+    if formats == "tiff":
+        want = np.concatenate(
+            [img, np.full(img.shape[:2] + (1,), 255, np.uint8)], -1)
+        if kind == "base":
+            data = write_tiff(img, compression=5, predictor=2,
+                              tile=(256, 256))
+        elif kind == "normal":
+            data = write_tiff(img, compression=8, planar=2,
+                              rows_per_strip=64)
+        elif kind == "mr":
+            data = write_tiff(img.astype(np.uint16) * 257,
+                              compression=32773, order=">")
+        else:
+            data = write_tiff(np.ascontiguousarray(np.rot90(img, 1)),
+                              orientation=6)
+        return ".tif", data, want
     if formats == "legacy":
         suffix, enc = {"base": (".tga", encode_tga_rle),
                        "normal": (".bmp", encode_bmp24),
@@ -197,13 +220,14 @@ def write_city_assets(root: str, subdiv: int = 8, map_size: int = 2048,
     whose base colour is a data-URI PNG of `ground_size` (H, W) RGBA).
     `formats`: "png" (every map an 8-bit PNG), "mixed" (JPEG base colour,
     BC5 / BC7 DDS normal and metallic-roughness maps, a 16-bit PNG emissive
-    map) or "legacy" (RLE TGA base colour, BMP normal, GIF
-    metallic-roughness and lossless WebP emissive maps). Returns {file
-    name: (the RGB map written, the RGBA its file decodes to, or None for a
-    JPEG or an 8-bit PNG)} of the building maps."""
-    if formats not in ("png", "mixed", "legacy"):
-        raise ValueError(f"formats {formats!r}: 'png', 'mixed' or "
-                         "'legacy'")
+    map), "legacy" (RLE TGA base colour, BMP normal, GIF
+    metallic-roughness and lossless WebP emissive maps) or "tiff" (every
+    map a TIFF, each in another layout). Returns {file name: (the RGB map
+    written, the RGBA its file decodes to, or None for a JPEG or an 8-bit
+    PNG)} of the building maps."""
+    if formats not in ("png", "mixed", "legacy", "tiff"):
+        raise ValueError(f"formats {formats!r}: 'png', 'mixed', 'legacy' "
+                         "or 'tiff'")
     rng = np.random.default_rng(seed)
     mdir = os.path.join(root, "meshes")
     os.makedirs(mdir, exist_ok=True)

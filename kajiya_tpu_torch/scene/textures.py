@@ -11,14 +11,14 @@ then uploaded once. The JAX package decodes and resizes with PIL; the port
 has its own decoders, each giving PIL's `convert("RGBA")` bytes (PNG in
 `png.py`, JPEG in `jpeg.py`, DDS in `dds.py`, BMP and DIB in `bmp.py`,
 ICO and CUR in `ico.py`, TGA in `tga.py`, GIF in `gif.py`, WebP in
-`webp.py`), and a Lanczos resize that gives PIL's
+`webp.py`, TIFF in `tiff.py`), and a Lanczos resize that gives PIL's
 `Image.resize(..., LANCZOS)` bytes, so the atlases are equal byte for byte.
 
 Decoding dispatches on the content, not on the file name, in PIL's plugin
 order (`identify.py`): a plugin whose `_open` refuses the bytes passes
 them to the next that accepts them, as `Image.open` does (a TGA file that
 CUR's rule also accepts is read as a TGA). Where that walk reaches a
-format the port does not decode yet (TIFF, PPM, QOI, JPEG 2000 and the
+format the port does not decode yet (PPM, QOI, JPEG 2000 and the
 rest of `identify.FORMATS`), it raises NotImplementedError naming it: a
 missing decoder never passes as a white texture. Bytes that no PIL plugin
 opens, a missing file, and a source that PIL also refuses (corrupt or
@@ -46,6 +46,7 @@ from .identify import Refused, candidates
 from .jpeg import decode_jpeg
 from .png import decode_png
 from .tga import decode_tga
+from .tiff import decode_tiff
 from .webp import decode_webp
 
 PAGE_SIZE = 512     # minimum page size; grows to the largest used bucket
@@ -57,7 +58,7 @@ BUCKETS = (2048, 1024, 512, 256, 128)
 _DECODERS = {"PNG": decode_png, "JPEG": decode_jpeg, "DDS": decode_dds,
              "BMP": decode_bmp, "DIB": decode_dib, "CUR": decode_cur,
              "ICO": decode_ico, "TGA": decode_tga, "GIF": decode_gif,
-             "WEBP": decode_webp}
+             "WEBP": decode_webp, "TIFF": decode_tiff}
 
 
 def _read_source(path_or_data: str) -> bytes:

@@ -93,9 +93,7 @@ def decode_tga(data: bytes) -> np.ndarray:
 
 def _rle(data, offset, mode, rawmode, depth, w, h, ystep):
     """The `tga_rle` tile: rows expanded natively, then unpacked."""
-    if rawmode not in raster.UNPACKERS.get(mode, ()):
-        raise DecodeError(f"unknown raw mode {rawmode} for {mode}")
-    row_bytes = (w * raster.RAW_BITS[rawmode] + 7) // 8
+    row_bytes = (w * raster.raw_bits(mode, rawmode) + 7) // 8
     rows = np.zeros((h, row_bytes), np.uint8)
     st = raster.library().kt_tga_rle(data, len(data), offset, depth // 8,
                                      row_bytes, h, rows.ctypes.data)

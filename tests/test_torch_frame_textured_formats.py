@@ -4,8 +4,11 @@ port's encoder, normal maps as BC5 and metallic-roughness maps as BC7 DDS,
 b1's emissive map a 16-bit PNG, the ground an 8-bit PNG data URI; and the
 legacy-format city (`formats="legacy"`): base colours as 32-bit RLE TGA,
 normal maps as 24-bit BMP, metallic-roughness maps as 256-colour GIF, the
-emissive map a lossless WebP. JAX decodes them with PIL, the port with its
-own decoders; the same checks hold both cities.
+emissive map a lossless WebP; and the TIFF-textured city
+(`formats="tiff"`): LZW tiled base colours with horizontal differencing,
+deflate planar normal maps, big-endian 16-bit PackBits metallic-roughness
+maps, a raw emissive map with Orientation 6. JAX decodes them with PIL, the
+port with its own decoders; the same checks hold the three cities.
 
 - The bake of the city's sources: atlas and slot table equal JAX's
   `build_texture_pages` byte for byte, no slot white.
@@ -184,3 +187,62 @@ def test_legacy_texture_tables_match(legacy_scenes):
 def test_legacy_hit_attributes_match(legacy_scenes, cone):
     """The legacy city's hits at the PNG city's tolerance, ATTR_TOL."""
     _check_hit_attributes(legacy_scenes, cone)
+
+
+# ----------------------------------------------------------------------------
+# the TIFF-textured city
+# ----------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def tiff_city(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("tcitytiff"))
+    written = assets.write_city_assets(root, map_size=128, emissive_size=64,
+                                       ground_size=(64, 256), formats="tiff")
+    return root, written, assets.write_city_ron(root, n=4)
+
+
+def test_tiff_files(tiff_city):
+    root, written, _ = tiff_city
+    names = sorted(os.listdir(os.path.join(root, "meshes")))
+    assert sum(n.endswith(".tif") for n in names) == 10
+    assert len(written) == 10
+    assert all(want is not None for _img, want in written.values())
+
+
+def test_tiff_bake_matches_jax(tiff_city):
+    root, written, _ = tiff_city
+    srcs = sorted(glob.glob(os.path.join(root, "meshes", "*_*.*")))
+    assert len(srcs) == 10
+    atlas_t, sub_t = tex_t.bake_texture_pages(srcs)
+    atlas_j, sub_j = tex_j.build_texture_pages(srcs)
+    np.testing.assert_array_equal(sub_t, np.asarray(sub_j))
+    np.testing.assert_array_equal(atlas_t, np.asarray(atlas_j))
+    for page, size, ox, oy in sub_t[1:]:
+        assert not (atlas_t[page, oy:oy + size, ox:ox + size] == 255).all()
+    for name, (_img, want) in written.items():
+        got = tex_t._decode_image(os.path.join(root, "meshes", name))
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def tiff_scenes(tiff_city):
+    ron = tiff_city[2]
+    ts_j, _ = build_ts_j(build_gpu_j(load_ron_j(ron)))
+    ts_t, _ = build_ts_t(build_gpu_t(load_ron_t(ron), device="cpu"),
+                         device="cpu")
+    return ts_j, ts_t
+
+
+def test_tiff_texture_tables_match(tiff_scenes):
+    ts_j, ts_t = tiff_scenes
+    for f in ("tex_pages", "page_sub", "mat_tex", "tri_mat"):
+        np.testing.assert_array_equal(_n(getattr(ts_t.gpu, f)),
+                                      np.asarray(getattr(ts_j.gpu, f)),
+                                      err_msg=f)
+
+
+@pytest.mark.parametrize("cone", [False, True], ids=["static_mip", "cone"])
+def test_tiff_hit_attributes_match(tiff_scenes, cone):
+    """The TIFF city's hits at the PNG city's tolerance, ATTR_TOL."""
+    _check_hit_attributes(tiff_scenes, cone)
+

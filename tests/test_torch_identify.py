@@ -109,7 +109,7 @@ def test_sweep_no_white_where_jax_decodes(fmt, mode):
     if not jax_white:
         assert identify.identify(data) in ("PNG", "JPEG", "DDS", "BMP", "DIB",
                                            "ICO", "CUR", "TGA", "GIF",
-                                           "WEBP")
+                                           "WEBP", "TIFF")
 
 
 @pytest.mark.parametrize("data", [b"not an image at all", b"", b"\0" * 64,

@@ -8,6 +8,7 @@ baseline and progressive; optimized tables; restart intervals; qualities
 1-100; sizes from 1x1 to 2048 wide) and from the port's own encoder. A few
 are edited by hand: a 4:4:0 frame (h1v2 upsampling), a YCCK frame, an RGB
 frame without markers, and the frames the decoder refuses."""
+import collections
 import io
 import struct
 import time
@@ -17,6 +18,7 @@ import pytest
 from PIL import Image
 
 from kajiya_tpu_torch.scene import textures
+from kajiya_tpu_torch.scene.identify import Refused
 from kajiya_tpu_torch.scene.jpeg import JpegError, decode_jpeg, encode_jpeg
 
 SIZES = [(1, 1), (3, 5), (17, 33), (64, 48), (100, 131)]
@@ -177,8 +179,11 @@ def test_block_smoothing_refused():
 @pytest.mark.parametrize("case", ["arithmetic", "lossless", "12bit",
                                   "hierarchical"])
 def test_unported_frames_raise(case):
-    """Arithmetic-coded, lossless, 12-bit and hierarchical frames raise
-    NotImplementedError, naming ROADMAP.md."""
+    """Arithmetic-coded and lossless frames raise NotImplementedError,
+    naming ROADMAP.md. A 12-bit frame is refused as PIL's `_open` refuses
+    it ("cannot handle 12-bit layers"), and a hierarchical one (SOF5) is
+    corrupt as libjpeg's JERR_SOF_UNSUPPORTED makes PIL's load raise: both
+    bake white, as in the JAX package."""
     rng = np.random.default_rng(12)
     data = bytearray(_save(_image(rng, 16, 16, 3), "RGB"))
     i = _sof(data)
@@ -187,6 +192,12 @@ def test_unported_frames_raise(case):
     else:
         data[i + 1] = {"arithmetic": 0xC9, "lossless": 0xC3,
                        "hierarchical": 0xC5}[case]
+    if case in ("12bit", "hierarchical"):
+        with pytest.raises(Exception):
+            _pil(bytes(data))
+        with pytest.raises(Refused if case == "12bit" else JpegError):
+            decode_jpeg(bytes(data))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         decode_jpeg(bytes(data))
 
@@ -196,7 +207,7 @@ def test_corrupt_files():
     raises JpegError and the bake turns it white. A scan cut short but
     closed by EOI: libjpeg pads it with zeros and warns (PIL decodes it);
     the port refuses it with NotImplementedError. Bytes after SOI that hold
-    no frame: both refuse."""
+    no frame: both refuse (PIL's `_open` runs off the end)."""
     rng = np.random.default_rng(13)
     data = _save(_image(rng, 64, 64, 3), "RGB", quality=90)
     sos = data.index(b"\xff\xda")
@@ -217,7 +228,7 @@ def test_corrupt_files():
     junk = b"\xff\xd8\xff\xe0\x00\x10JFIF\x00" + bytes(64)
     with pytest.raises(Exception):
         _pil(junk)
-    with pytest.raises(JpegError):
+    with pytest.raises(Refused):
         decode_jpeg(junk)
 
 
@@ -248,14 +259,15 @@ def test_refused_headers_bake_white_in_both(case):
     where the scan uses the table), a 65535 x 65535 frame (PIL's
     decompression-bomb limit; the port parses its markers without
     allocating the image), and a frame with no scan. The port raises
-    ValueError (JpegError where its parser refuses the file), and both
-    packages' bakes turn it white."""
+    ValueError (JpegError where libjpeg's parser refuses the file, Refused
+    where PIL's `_open` does), and both packages' bakes turn it white."""
     from kajiya_tpu.scene import textures as tex_j
 
     data = _hostile(case)
     with pytest.raises(Exception):
         _pil(data)
-    with pytest.raises(JpegError if case != "bomb" else ValueError):
+    want = {"bomb": ValueError, "no_scan": Refused}.get(case, JpegError)
+    with pytest.raises(want):
         decode_jpeg(data)
     uri = "data:image/jpeg;base64," + __import__("base64").b64encode(
         data).decode()
@@ -280,3 +292,129 @@ def test_decode_2048_is_fast():
     dt = time.perf_counter() - t0
     np.testing.assert_array_equal(out, _pil(data))
     assert dt < 3.0, dt
+
+
+def _gradient_jpeg():
+    """The 64x64 gradient of the marker and table sweeps, at quality 75."""
+    y, x = np.mgrid[0:64, 0:64]
+    img = np.stack([(7 * x) % 256, (5 * y) % 256, (3 * (x + y)) % 256],
+                   -1).astype(np.uint8)
+    return _save(img, "RGB", quality=75)
+
+
+def _pil_or_none(data):
+    try:
+        return _pil(data)
+    except Exception:
+        return None
+
+
+def _port_or_none(data, unported_ok):
+    """The bake's decode (None where it turns white); NotImplementedError
+    passes as "unported" where the caller allows it."""
+    uri = "data:image/jpeg;base64," + __import__("base64").b64encode(
+        data).decode()
+    try:
+        return textures._decode_image(uri)
+    except NotImplementedError:
+        if not unported_ok:
+            raise
+        return "unported"
+    except (OSError, ValueError):
+        return None
+
+
+def _assert_as_pil(data, unported_ok=False):
+    """PIL's bytes, or an error where PIL raises (or NotImplementedError,
+    with `unported_ok`); the outcome: "decoded", "refused" or "unported"."""
+    want, got = _pil_or_none(data), _port_or_none(data, unported_ok)
+    if isinstance(got, str):
+        return got
+    if want is None:
+        assert got is None, "PIL raises, the port decodes"
+        return "refused"
+    assert got is not None, "PIL decodes, the port raises"
+    np.testing.assert_array_equal(got, want)
+    return "decoded"
+
+
+@pytest.mark.parametrize("high", range(16))
+def test_first_marker_code_as_pil(high):
+    """Byte 3 (APP0's marker code) set to each value: `JpegImageFile._open`
+    refuses a code outside its table and a frame header it cannot handle,
+    walks on past a code with no handler, and libjpeg then fails on what it
+    cannot read (a second SOI, JPG / JPGn, SOF5-7 / SOF13-15, DHP, EXP) or
+    skips it (DNL, DAC). Decoded in both, or refused in both."""
+    base = _gradient_jpeg()
+    for v in range(16 * high, 16 * high + 16):
+        data = bytearray(base)
+        data[3] = v
+        _assert_as_pil(bytes(data))
+
+
+# the sweeps' files that raise NotImplementedError, by case: no change may
+# send more of them there (PERF.md gives the outcomes)
+AC_SYMBOL_UNPORTED = (13, 14, 13, 13, 13, 13, 13, 13, 11, 8, 8, 7, 7, 6, 5, 5)
+CUT_UNPORTED = (16, 15, 13, 15, 16, 10)
+
+
+@pytest.mark.parametrize("high", range(16))
+def test_ac_table_symbol_as_pil(high):
+    """Symbol 1 of the luma AC Huffman table (byte 232) set to each value:
+    the garbled scan's coefficients leave the range in which libjpeg-turbo's
+    SIMD inverse DCT (16-bit lanes) equals its C one. PIL's bytes, PIL's
+    error, or NotImplementedError (a warning libjpeg decodes past)."""
+    base = _gradient_jpeg()
+    assert base[210:212] == b"\xff\xc4"
+    seen = collections.Counter()
+    for v in range(16 * high, 16 * high + 16):
+        data = bytearray(base)
+        data[232] = v
+        seen[_assert_as_pil(bytes(data), unported_ok=True)] += 1
+    assert seen["unported"] <= AC_SYMBOL_UNPORTED[high], seen
+
+
+def _fuzz_source(k):
+    """The k-th base file of the cut-and-flip sweep: L, RGB or CMYK, noise
+    or gradients, baseline or progressive, with or without restarts, each
+    subsampling."""
+    r = np.random.default_rng(k)
+    w, h = int(r.integers(8, 70)), int(r.integers(8, 70))
+    if k % 3 == 0:
+        img = r.integers(0, 256, (h, w, 3)).astype(np.uint8)
+    else:
+        y, x = np.mgrid[0:h, 0:w]
+        img = np.stack([(7 * x) % 256, (5 * y) % 256, (3 * (x + y)) % 256],
+                       -1).astype(np.uint8)
+    im = Image.fromarray(img)
+    mode = ("RGB", "L", "CMYK", "RGB")[k % 4]
+    if mode != "RGB":
+        im = im.convert(mode)
+    kw = {"quality": int(r.integers(5, 100)),
+          "subsampling": int(r.integers(0, 3))}
+    if k % 5 == 1:
+        kw["progressive"] = True
+    if k % 7 == 2:
+        kw["restart_marker_blocks"] = 2
+    buf = io.BytesIO()
+    im.save(buf, "JPEG", **kw)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("part", range(6))
+def test_cut_or_flipped_as_pil(part):
+    """600 seeded cut or flipped files (100 a case): PIL's bytes, PIL's
+    error, or NotImplementedError; never pixels that differ silently."""
+    rng = np.random.default_rng(1600 + part)
+    seen = collections.Counter()
+    for t in range(100):
+        data = bytearray(_fuzz_source((100 * part + t) % 41))
+        if rng.random() < 0.3:
+            data = data[:int(rng.integers(0, len(data)))]
+        else:
+            for _ in range(int(rng.integers(1, 4))):
+                i = int(rng.integers(0, len(data)))
+                data[i] = int(rng.integers(0, 256)) if rng.random() < 0.5 \
+                    else data[i] ^ (1 << int(rng.integers(0, 8)))
+        seen[_assert_as_pil(bytes(data), unported_ok=True)] += 1
+    assert seen["unported"] <= CUT_UNPORTED[part], seen

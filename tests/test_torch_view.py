@@ -152,7 +152,7 @@ def test_view_refuses_unported_inputs(tmp_path, argv):
     """What the viewer refuses, and what it bakes white as JAX does: a .ron
     scene whose texture is a JPEG head followed by zeros and a .gltf whose
     texture is such a DDS head are corrupt files PIL refuses too, so they
-    render with a white texture; a .gltf whose texture is a TIFF (a format
+    render with a white texture; a .gltf whose texture is a PGM (a format
     PIL opens and the port cannot decode yet) raises rather than turn
     white. (`--watch`, refused here until hot reload was ported, is
     test_view_watch_reloads.)"""
@@ -161,12 +161,13 @@ def test_view_refuses_unported_inputs(tmp_path, argv):
     from PIL import Image
 
     head = {"scene.ron": b"\xff\xd8\xff\xe0", "mesh.gltf": b"DDS ",
-            "anim.gltf": b"II*\0"}[argv[1]]
+            "anim.gltf": b"P5 1 1 255\n"}[argv[1]]
     out = tmp_path / "x.png"
     argv = ["--scene", _scene_with_texture(tmp_path, argv[1], head)]
     run = argv + ["--device", "cpu", "--width", "8", "--height", "8", "-o",
                   str(out)]
-    if head == b"II*\0":
+    if head.startswith(b"P5"):
+        Image.open(io.BytesIO(head + b"\0" * 64)).convert("RGBA")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             view_app.main(run)
         return

@@ -21,6 +21,7 @@ import hashlib
 import io
 import json
 import os
+import struct
 
 import numpy as np
 import pytest
@@ -162,6 +163,46 @@ def test_corrupt_streams_as_pil(data):
             i = data.draw(st.integers(0, len(src) - 1))
             src[i] ^= 1 << data.draw(st.integers(0, 7))
     assert_as_pil_or_unported(bytes(src))
+
+
+def _gradient(w=64, h=64):
+    y, x = np.mgrid[0:h, 0:w]
+    return np.stack([(7 * x) % 256, (5 * y) % 256, (3 * (x + y)) % 256],
+                    -1).astype(np.uint8)
+
+
+def test_lossy_first_token_byte_ff():
+    """A lossy file whose token partition starts with 0xFF: the bool
+    decoder's value outgrows its range at once. libwebp loads 56 bits at a
+    time while 8 bytes remain, so its 64-bit value drops other high bits
+    than a byte-wise reader's; the first macroblock then reads less than the
+    whole partition, and the frame decodes (a byte-wise reader ran past the
+    end and raised). Its coefficients leave the 16-bit range in which the
+    SSE2 transform equals libwebp's C one."""
+    data = bytearray(encode(_gradient(), quality=70))
+    assert len(data) == 412
+    first = struct.unpack_from("<I", data, 20)[0] & 0xFFFFFF
+    assert 20 + 10 + (first >> 5) == 135    # the token partition's start
+    data[135] = 0xFF
+    assert_as_pil(bytes(data), must_decode=True)
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_lossy_partitions_flipped(seed):
+    """Seeded single flipped or set bytes in the lossy partitions of
+    several pictures and qualities: PIL's bytes, or an error where libwebp
+    refuses (out-of-range coefficients go through the wrapping transform)."""
+    rng = np.random.default_rng(900 + seed)
+    kinds = ("smooth", "noise", "rgba")
+    for k in range(30):
+        img = picture(np.random.default_rng(k), int(rng.integers(8, 70)),
+                      int(rng.integers(8, 70)), kinds[k % 3])
+        src = bytearray(encode(img, quality=int(rng.integers(5, 100))))
+        start = src.index(b"VP8 ") + 18     # past the frame tag and sizes
+        i = int(rng.integers(start, len(src)))
+        src[i] = int(rng.integers(0, 256)) if rng.random() < 0.5 else \
+            src[i] ^ (1 << int(rng.integers(0, 8)))
+        assert_as_pil(bytes(src))
 
 
 def test_bake_matches_jax():
