@@ -40,16 +40,22 @@ the BVH, its `tlas_refit` range timed and its launches counted):
   normal maps, 256-colour GIF metallic-roughness maps, a lossless WebP
   emissive map) and as TIFFs (LZW tiled base colours with horizontal
   differencing, deflate planar normal maps, big-endian 16-bit PackBits
-  metallic-roughness maps, a raw emissive map with Orientation 6), each
-  bake timed by format,
+  metallic-roughness maps, a raw emissive map with Orientation 6) and in
+  the formats art and game pipelines emit (4-channel PackBits PSD base
+  colours, RLE SGI normal maps, 24-bit RLE PCX metallic-roughness maps, a
+  QOI emissive map), each bake timed by format,
 with the launch counters set to 0 just before each path and read just after,
-each map of the mixed, legacy and TIFF cities decoded on the host equal to
-the texels its writer reports (the JPEGs within JPEG_PSNR_DB), the
+each map of the mixed, legacy, TIFF and studio cities decoded on the host
+equal to the texels its writer reports (the JPEGs within JPEG_PSNR_DB), the
 committed WebP fixtures (tests/data/webp/: lossy, lossy with alpha,
-lossless, animated) and TIFF fixtures (tests/data/tiff/: JPEG-in-TIFF YCbCr
+lossless, animated), TIFF fixtures (tests/data/tiff/: JPEG-in-TIFF YCbCr
 2x2, LZMA, the floating-point predictor, CMYK, BigTIFF, tiles; LAB raises
-NotImplementedError) decoded on the host to the RGBA digests PIL gave for
-them,
+NotImplementedError) and studio fixtures (tests/data/studio/: BLP1 JPEG
+and palette, BLP2 palette, DXT1 / 3 / 5, FTEX raw and DXT1, PSD CMYK,
+indexed and bitmap, PCX of 2 and 4 bit planes and 8-bit palette, DCX, PFM,
+16-bit PGM; BLP2 raw BGRA, which PIL cannot decode, must raise what the
+bake turns white, a LAB PSD NotImplementedError) decoded on the host to the
+RGBA digests PIL gave for them,
 and the host syncs of each frame counted (the textured frames may make no
 more than the untextured default frames of the same geometry). Then the
 oracle datum (the port's hybrid frame against its path tracer on cornell at
@@ -293,7 +299,9 @@ SCENES = {
     # "tcitylegacy4" (the legacy-format asset city, n=16 / n=4 with 256^2
     # maps: RLE TGA, BMP, GIF and lossless WebP maps) and "tcitytiff" /
     # "tcitytiff4" (the TIFF-textured asset city, n=16 / n=4 with 256^2
-    # maps) are added by main once `asset_scenes` wrote them
+    # maps) and "tcitystudio" / "tcitystudio4" (the studio-format asset
+    # city: PSD, SGI, PCX and QOI maps) are added by main once
+    # `asset_scenes` wrote them
 }
 # the scenes each path renders at 1080p, and a cap on the frames of a scene
 # (city3 shows kernel B at the brute route's limit on the two paths that
@@ -303,13 +311,14 @@ PATH_SCENES = {"raster": ("cornell", "city"), "gi": ("cornell", "city"),
                "refpt": ("cornell", "city", "city3", "city40"),
                "options": ("cornell", "city"),
                "textured": ("tcornell", "tcity", "tcityfmt", "tcitylegacy",
-                            "tcitytiff")}
+                            "tcitytiff", "tcitystudio")}
 FRAME_CAP = {"city3": 2, "tcity": 2, "tcityfmt": 2, "tcitylegacy": 2,
-             "tcitytiff": 2, "city40": 2}
+             "tcitytiff": 2, "tcitystudio": 2, "city40": 2}
 # the untextured scene of the same geometry, whose default frames the
 # textured frames' host syncs are held to
 UNTEXTURED = {"tcornell": "cornell", "tcity": "city", "tcityfmt": "city",
-              "tcitylegacy": "city", "tcitytiff": "city"}
+              "tcitylegacy": "city", "tcitytiff": "city",
+              "tcitystudio": "city"}
 # the decoded JPEG maps of the mixed-format city against the arrays they
 # encode (quality 85, 4:2:0): format_phase reads 42.2-48.8 dB
 JPEG_PSNR_DB = 35.0
@@ -329,8 +338,10 @@ def asset_scenes(root):
     "tcitylegacy" (the legacy-format city under `root/legacy`, n=16) and
     "tcitylegacy4" (n=4, its maps at 256^2, the small frames' scene), and
     likewise "tcitytiff" / "tcitytiff4" (the TIFF-textured city under
-    `root/tiff`), with the mixed, legacy and TIFF maps written: {file path:
-    (map, RGBA its file decodes to, or None for a JPEG)}."""
+    `root/tiff`) and "tcitystudio" / "tcitystudio4" (the studio-format city
+    under `root/studio`), with the mixed, legacy, TIFF and studio maps
+    written: {file path: (map, RGBA its file decodes to, or None for a
+    JPEG)}."""
     from kajiya_tpu_torch.apps.view import build_scene
     from kajiya_tpu_torch.scene import assets
 
@@ -342,7 +353,7 @@ def asset_scenes(root):
         f"under {root}")
     maps, fmt_rons = {}, {}
     for formats, sub in (("mixed", "fmt"), ("legacy", "legacy"),
-                         ("tiff", "tiff")):
+                         ("tiff", "tiff"), ("studio", "studio")):
         t0 = time.perf_counter()
         sub_root = os.path.join(root, sub)
         written = assets.write_city_assets(sub_root, formats=formats)
@@ -352,11 +363,11 @@ def asset_scenes(root):
                      for k, v in written.items()})
         log(f"{formats}-format city assets written in "
             f"{time.perf_counter() - t0:.1f} s under {sub_root}")
-    # the small frames' legacy and TIFF cities: their maps at 256^2, since
-    # a 64x48 frame needs no more, and two bakes of the full maps would cost
-    # ~25 s
+    # the small frames' legacy, TIFF and studio cities: their maps at 256^2,
+    # since a 64x48 frame needs no more, and two bakes of the full maps
+    # would cost ~25 s on an NVIDIA H100 80GB HBM3 host at 700.00 W
     small = {}
-    for formats in ("legacy", "tiff"):
+    for formats in ("legacy", "tiff", "studio"):
         small_root = os.path.join(root, f"{formats}_small")
         assets.write_city_assets(small_root, map_size=256, emissive_size=128,
                                  ground_size=(256, 512), formats=formats)
@@ -364,7 +375,8 @@ def asset_scenes(root):
                                                name=f"city{formats}4")
     _, eye, fwd, step = SCENES["city"]
     near = (0.0, 8.0, 14.0)
-    mixed, legacy, tif = (fmt_rons[k] for k in ("mixed", "legacy", "tiff"))
+    mixed, legacy, tif, studio = (fmt_rons[k] for k in (
+        "mixed", "legacy", "tiff", "studio"))
     return {"tcity": (lambda p: build_scene(rons[16]), eye, fwd, step),
             "tcity4": (lambda p: build_scene(rons[4]), near, fwd, step),
             "tcityfmt": (lambda p: build_scene(mixed), eye, fwd, step),
@@ -373,17 +385,20 @@ def asset_scenes(root):
                              fwd, step),
             "tcitytiff": (lambda p: build_scene(tif), eye, fwd, step),
             "tcitytiff4": (lambda p: build_scene(small["tiff"]), near, fwd,
-                           step)}, maps
+                           step),
+            "tcitystudio": (lambda p: build_scene(studio), eye, fwd, step),
+            "tcitystudio4": (lambda p: build_scene(small["studio"]), near,
+                             fwd, step)}, maps
 
 
 def format_phase(maps):
-    """The mixed-format, legacy-format and TIFF cities' maps decoded on the
-    host by the port's decoders: each DDS map (BC5 normals, BC7
+    """The mixed-format, legacy-format, TIFF and studio cities' maps decoded
+    on the host by the port's decoders: each DDS map (BC5 normals, BC7
     metallic-roughness), the 16-bit PNG, every legacy map (RLE TGA, BMP,
-    GIF, lossless WebP) and every TIFF map (LZW tiles with differencing,
+    GIF, lossless WebP), every TIFF map (LZW tiles with differencing,
     deflate planar strips, big-endian 16-bit PackBits, raw with an
-    Orientation) equal the texels their writer reports, bit for bit; each
-    JPEG base
+    Orientation) and every studio map (PackBits PSD, RLE SGI, RLE PCX, QOI)
+    equal the texels their writer reports, bit for bit; each JPEG base
     colour is within JPEG_PSNR_DB of the map it encodes. The bytes
     themselves are held to PIL in the CPU tests (this host has no PIL).
     Any failed decode raises."""
@@ -391,6 +406,7 @@ def format_phase(maps):
                                         webp)
 
     # the host decoders are built first: each decode ms leaves out g++
+    # (raster.library holds the PCX, SGI, PackBits, QOI and DXT loops too)
     t0 = time.perf_counter()
     for build in (jpeg.decoder_library, dds.bcn_library, raster.library,
                   webp.library, tiff.library):
@@ -428,8 +444,11 @@ def fixture_phase(kind):
     one's RGBA must have the shape and SHA-256 that PIL gave where the
     fixtures were made (manifest.json); one marked "unported" must raise
     NotImplementedError. This holds WebP's lossy VP8 path, its alpha and
-    the animation container, and TIFF's JPEG-in-TIFF, LZMA, floating-point
-    predictor, CMYK, BigTIFF and tiles, on a machine without PIL."""
+    the animation container, TIFF's JPEG-in-TIFF, LZMA, floating-point
+    predictor, CMYK, BigTIFF and tiles, and the studio formats the studio
+    city does not carry, on a machine without PIL. One marked "white" (a
+    file PIL cannot decode) must raise what the bake turns white
+    (OSError or ValueError)."""
     import hashlib
 
     from kajiya_tpu_torch.scene import textures
@@ -440,6 +459,15 @@ def fixture_phase(kind):
     out = {}
     for name, want in sorted(manifest.items()):
         t0 = time.perf_counter()
+        if want.get("white"):
+            try:
+                textures._decode_image(os.path.join(root, name))
+            except (OSError, ValueError) as e:
+                out[name] = dict(white=str(e)[:80])
+                log(f"{kind} fixture {name}: {out[name]}")
+                continue
+            raise AssertionError(f"{kind} fixture {name} decoded; PIL "
+                                 "cannot, and the bake turns it white")
         if want.get("unported"):
             try:
                 textures._decode_image(os.path.join(root, name))
@@ -470,6 +498,12 @@ def webp_phase():
 def tiff_phase():
     """The TIFF fixtures against PIL's digests (fixture_phase)."""
     return fixture_phase("tiff")
+
+
+def studio_phase():
+    """The studio fixtures (BLP, FTEX, PSD, PCX, DCX, PFM, 16-bit PGM)
+    against PIL's digests (fixture_phase)."""
+    return fixture_phase("studio")
 
 
 def _lookup(owner, name):
@@ -1611,7 +1645,7 @@ FRAME_KEYS = {
 FRAME_KEYS["textured"] = FRAME_KEYS["superres"] = FRAME_KEYS["default"]
 # the scenes of each path's small GPU-vs-CPU frames ("city" is city(n=4))
 REF_SCENES = {"textured": ("tcornell", "tcity4", "tcitylegacy4",
-                          "tcitytiff4")}
+                          "tcitytiff4", "tcitystudio4")}
 # the paths whose small frames are also rendered on the BVH route, forced
 # with brute_max_tris=0
 BVH_REF_PATHS = ("default", "refpt")
@@ -1635,7 +1669,8 @@ def reference_phase(dev, ibl):
     paths with the small irradiance cache (and the options path with the
     small world radiance cache); the textured path on the textured cornell
     and the textured asset city at n=4 (its 2048^2 PNG maps, and 256^2
-    legacy-format and TIFF maps), whose texture pages on the card must
+    legacy-format, TIFF and studio maps), whose texture pages on the card
+    must
     equal the CPU's byte for byte; the default and path-tracer frames
     again on the BVH route (`brute_max_tris=0`; "+bvh" in the names), where
     the CPU path runs `walk_plain`. Every comparison is made and logged
@@ -1785,6 +1820,10 @@ def frame_phase(dev, path, ibl):
                        decode_gif=(textures._DECODERS, "GIF"),
                        decode_webp=(textures._DECODERS, "WEBP"),
                        decode_tiff=(textures._DECODERS, "TIFF"),
+                       decode_psd=(textures._DECODERS, "PSD"),
+                       decode_sgi=(textures._DECODERS, "SGI"),
+                       decode_pcx=(textures._DECODERS, "PCX"),
+                       decode_qoi=(textures._DECODERS, "QOI"),
                        resize=(textures, "_resize"),
                        bake=(textures, "bake_texture_pages"),
                        pages=(textures, "build_texture_pages"),
@@ -1814,6 +1853,10 @@ def frame_phase(dev, path, ibl):
                         decode_gif_s=sec["decode_gif"],
                         decode_webp_s=sec["decode_webp"],
                         decode_tiff_s=sec["decode_tiff"],
+                        decode_psd_s=sec["decode_psd"],
+                        decode_sgi_s=sec["decode_sgi"],
+                        decode_pcx_s=sec["decode_pcx"],
+                        decode_qoi_s=sec["decode_qoi"],
                         resize_s=sec["resize"],
                         pack_mips_s=sec["bake"] - sec["decode"]
                         - sec["resize"],
@@ -2728,6 +2771,7 @@ def main():
     formats = format_phase(fmt_maps)
     webp_fixtures = webp_phase()
     tiff_fixtures = tiff_phase()
+    studio_fixtures = studio_phase()
     brute = brute_phase(dev)
     culled = culled_phase(dev)
     warp = warp_phase(dev)
@@ -2776,6 +2820,8 @@ def main():
         "legacy-format city frame ms",
         frames["textured"]["tcitylegacy"]["frame_ms"],
         "TIFF city frame ms", frames["textured"]["tcitytiff"]["frame_ms"],
+        "studio city frame ms",
+        frames["textured"]["tcitystudio"]["frame_ms"],
         "beside the untextured city's default frame ms",
         frames["default"]["city"]["frame_ms"], "(same call)")
     oracle = oracle_phase(dev)
@@ -2820,7 +2866,8 @@ def main():
                    "frames": frames, "oracle": oracle, "viewer": viewer,
                    "apps": apps, "formats": formats,
                    "webp_fixtures": webp_fixtures,
-                   "tiff_fixtures": tiff_fixtures, "sharded": sharded}, f,
+                   "tiff_fixtures": tiff_fixtures,
+                   "studio_fixtures": studio_fixtures, "sharded": sharded}, f,
                   indent=1)
     print(json.dumps({"frames": {
         path: {k: {"median_ms": v["median_ms"], "frame_ms": v["frame_ms"],
@@ -2834,6 +2881,8 @@ def main():
         "webp_fixture_ms": {k: v["ms"] for k, v in webp_fixtures.items()},
         "tiff_fixture_ms": {k: v.get("ms") for k, v in
                             tiff_fixtures.items()},
+        "studio_fixture_ms": {k: v.get("ms") for k, v in
+                              studio_fixtures.items()},
         "setup_s": {f"{p}/{sc}": v["setup_parts_s"]
                     for p, per_scene in frames.items()
                     for sc, v in per_scene.items() if sc == "city40"},

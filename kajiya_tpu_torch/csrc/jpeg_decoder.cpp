@@ -216,7 +216,8 @@ struct Decoder {
   int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   Comp comp[4];
   bool saw_eoi = false;
-  int color = 0;             // 0 by the markers, 1 YCbCr -> RGB, 2 as coded
+  int color = 0;             // 0 by the markers, 1 YCbCr -> RGB, 2 as coded,
+                             // 3 by the markers, four components as CMYK
   bool scanned = false;      // a scan was decoded
   bool single_done = false;  // single-scan mode, and its scan is decoded
 
@@ -776,7 +777,8 @@ struct Decoder {
     } catch (const Fail& f) {
       // libtiff's JPEGDecode takes any outcome of jpeg_finish_decompress
       // as done, once the rows are read
-      if (!(single_done && color != 0) && f.code != 3) throw;
+      if (!(single_done && (color == 1 || color == 2)) && f.code != 3)
+        throw;
       if (!single_done) corrupt(f.msg);
     }
     if (!single_done && !saw_eoi) corrupt("image file is truncated (no EOI)");
@@ -1021,7 +1023,7 @@ struct Decoder {
     const YccTables& t = ycc_tables();
     if (ncomp == 3) {
       bool rgb;
-      if (color != 0)  // the caller names the colour space, as libtiff does
+      if (color == 1 || color == 2)  // libtiff names the colour space
         rgb = color == 2;
       else if (jfif)
         rgb = false;
@@ -1044,10 +1046,13 @@ struct Decoder {
       }
       return;
     }
-    if (color != 0) unported("a named colour space for four components");
+    if (color == 1 || color == 2)
+      unported("a named colour space for four components");
     // four components: CMYK, or YCCK under Adobe transform 2 (or another
-    // nonzero transform, which libjpeg reads as YCCK with a warning)
-    bool ycck = adobe && adobe_transform != 0;
+    // nonzero transform, which libjpeg reads as YCCK with a warning);
+    // BlpImagePlugin's jpegmode "CMYK" (color 3) sets libjpeg's colour
+    // space to CMYK whatever the markers say
+    bool ycck = adobe && adobe_transform != 0 && color != 3;
     for (size_t i = 0; i < np; i++) {
       int c0 = p[0][i], c1 = p[1][i], c2 = p[2][i], k = p[3][i];
       if (ycck) {
@@ -1102,7 +1107,8 @@ extern "C" int kt_jpeg_dims(const uint8_t* data, long long n, int* w, int* h,
 // 1 for corrupt data, 2 for what is not decoded; msg gets the reason.
 // `color` 0 takes the colour space from the markers as libjpeg guesses it;
 // 1 and 2 set it as libtiff does for a JPEG strip or tile (YCbCr converted
-// to RGB, or the components as coded).
+// to RGB, or the components as coded); 3 is 0 with four components taken
+// as CMYK, never YCCK (PIL's BLP reader sets the JPEG mode "CMYK").
 extern "C" int kt_jpeg_decode_as(const uint8_t* data, long long n,
                                  uint8_t* rgba, int w, int h, int color,
                                  char* msg, int cap) {

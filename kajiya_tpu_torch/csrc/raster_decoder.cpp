@@ -1,9 +1,12 @@
-// The sequential loops of the BMP, TGA and GIF texture decoders
-// (scene/bmp.py, scene/tga.py, scene/gif.py), each as PIL 12.1.0 runs it:
-// BmpImagePlugin.BmpRleDecoder (RLE8 / RLE4), TgaRleDecode.c and
-// GifDecode.c. Python parses the headers and unpacks the rows; these
-// functions only expand the compressed streams. Built with g++ at first use
-// (hostlib.load) and called through ctypes.
+// The sequential loops of the raster texture decoders, each as PIL 12.1.0
+// runs it: BmpImagePlugin.BmpRleDecoder (RLE8 / RLE4, scene/bmp.py),
+// TgaRleDecode.c (scene/tga.py), GifDecode.c (scene/gif.py), PcxDecode.c
+// (scene/pcx.py), SgiRleDecode.c (scene/sgi.py), PackDecode.c (scene/psd.py),
+// QoiImagePlugin.QoiDecoder (scene/qoi.py) and BlpImagePlugin's decode_dxt1
+// / 3 / 5 (scene/blp.py), and the encoders of the port's SGI, PCX and QOI
+// writers (scene/assets.py's studio city). Python parses the headers and
+// unpacks the rows; these functions only expand the compressed streams.
+// Built with g++ at first use (hostlib.load) and called through ctypes.
 //
 // Status codes: 0 done, 1 the data ends first (PIL: "image file is
 // truncated"), 2 a broken stream, 3 an overrun, 4 a short delta record
@@ -271,6 +274,408 @@ int kt_gif_lzw(const char* data_, long long n, long long pos, int bits,
             }
         }
     }
+}
+
+// PcxDecode: rows of `bytes` bytes (planes x stride) from `pos`, written
+// into `out` (rows * bytes). A run that passes its row's end is cut and
+// flags an overrun (PIL decodes on and raises at the end). Before a row is
+// unpacked, PIL moves its planes together where their stride is longer
+// than a plane: for the bit-plane modes (`bits` 2 or 4, the planes) a
+// plane is (xsize + 7) / 8 bytes, else xsize bytes, bytes / xsize of them.
+int kt_pcx_rle(const char* data_, long long n, long long pos, int xsize,
+               int bits, int bytes, int rows, uint8_t* out) {
+    const uint8_t* p = reinterpret_cast<const uint8_t*>(data_);
+    std::vector<uint8_t> line(bytes > 0 ? bytes : 1);
+    int x = 0, y = 0;
+    bool overrun = false;
+    for (;;) {
+        if (pos >= n) return kTruncated;
+        if ((p[pos] & 0xC0) == 0xC0) {
+            if (pos + 1 >= n) return kTruncated;
+            int cnt = p[pos] & 0x3F;
+            for (; cnt > 0; --cnt) {
+                if (x >= bytes) {
+                    overrun = true;
+                    break;
+                }
+                line[x++] = p[pos + 1];
+            }
+            pos += 2;
+        } else {
+            line[x++] = p[pos++];
+        }
+        if (x >= bytes) {
+            int xs, bands, stride;
+            if (bits == 2 || bits == 4) {
+                xs = (xsize + 7) / 8;
+                bands = bits;
+                stride = bytes / bits;
+            } else {
+                xs = xsize;
+                bands = bytes / xsize;
+                stride = bands ? bytes / bands : 0;
+            }
+            if (stride > xs)
+                for (int i = 1; i < bands; ++i)
+                    std::memmove(&line[(size_t)i * xs],
+                                 &line[(size_t)i * stride], xs);
+            std::memcpy(out + (long long)y * bytes, line.data(), bytes);
+            x = 0;
+            if (++y >= rows) return overrun ? kOverrun : kOk;
+        }
+    }
+}
+
+namespace {
+
+inline uint32_t be32(const uint8_t* b) {
+    return (uint32_t)b[0] << 24 | (uint32_t)b[1] << 16 | (uint32_t)b[2] << 8 |
+           (uint32_t)b[3];
+}
+
+// SgiRleDecode's expandrow (bpc 1) and expandrow2 (bpc 2): -1 an overrun, 1
+// the row's bytes end without a terminator (PIL stops decoding, no error),
+// 0 done. `n` counts down from the row's byte length once per chunk.
+int sgi_row(uint8_t* dest, const uint8_t* src, int n, int z, int xsize,
+            const uint8_t* end, int bpc) {
+    int x = 0;
+    for (; n > 0; n--) {
+        uint8_t pixel;
+        if (bpc == 1) {
+            if (src > end) return -1;
+            pixel = *src++;
+        } else {
+            if (src + 1 > end) return -1;
+            pixel = src[1];
+            src += 2;
+        }
+        if (n == 1 && pixel != 0) return n;
+        uint8_t count = pixel & 0x7F;
+        if (!count) return 0;
+        if (x + count > xsize) return -1;
+        x += count;
+        if (pixel & 0x80) {
+            if (src + (long long)bpc * count > end) return -1;
+            while (count--) {
+                std::memcpy(dest, src, bpc);
+                src += bpc;
+                dest += (long long)z * bpc;
+            }
+        } else {
+            if (src + (bpc - 1) > end || (bpc == 2 && src + 2 > end))
+                return -1;
+            while (count--) {
+                std::memcpy(dest, src, bpc);
+                dest += (long long)z * bpc;
+            }
+            src += bpc;
+        }
+    }
+    return 0;
+}
+
+}  // namespace
+
+// ImagingSgiRleDecode over the whole file (the header is 512 bytes): the
+// offset and length tables, then each row of each of `zsize` channels into
+// one interleaved row buffer that persists from row to row, stored bottom-up
+// into `out` (ysize rows of xsize * zsize * bpc bytes). A row whose bytes
+// end without a terminator stops the decode with no error; rows not reached
+// stay as they are (zero).
+int kt_sgi_rle(const char* data_, long long n, int bpc, int xsize, int ysize,
+               int zsize, uint8_t* out) {
+    const uint8_t* base = reinterpret_cast<const uint8_t*>(data_);
+    long long bufsize = n - 512;
+    long long tablen = (long long)zsize * ysize;
+    if (bufsize < 8 * tablen) return kOverrun;
+    const uint8_t* ptr = base + 512;
+    const uint8_t* end = ptr + bufsize - 1;
+    long long row_bytes = (long long)xsize * zsize * bpc;
+    std::vector<uint8_t> buffer((size_t)xsize * zsize * 2, 0);
+    int y = ysize - 1;
+    for (int rowno = 0; rowno < ysize; ++rowno, --y) {
+        for (int ch = 0; ch < zsize; ++ch) {
+            long long t = rowno + (long long)ch * ysize;
+            uint32_t off = be32(ptr + 4 * t);
+            uint32_t len = be32(ptr + 4 * tablen + 4 * t);
+            if (off < 512) return kOverrun;
+            off -= 512;
+            // no check of the length: the row stops at its terminator, and
+            // reading past the file's end is the overrun
+            int st = sgi_row(&buffer[(size_t)ch * bpc], ptr + off, (int)len,
+                             zsize, xsize, end, bpc);
+            if (st == -1) return kOverrun;
+            if (st == 1) return kOk;
+        }
+        std::memcpy(out + (long long)y * row_bytes, buffer.data(),
+                    (size_t)row_bytes);
+    }
+    return kOk;
+}
+
+// PackDecode (PIL's packbits, as the PSD plugin uses it): one band of
+// `rows` rows of `bytes` bytes from `pos` to the end of the file; a run or
+// literal that passes its row's end is cut, 0x80 is a no-op, and data that
+// ends before the last row is truncated.
+int kt_packbits_rows(const char* data_, long long n, long long pos, int bytes,
+                     int rows, uint8_t* out) {
+    const uint8_t* p = reinterpret_cast<const uint8_t*>(data_);
+    int x = 0, y = 0;
+    uint8_t* row = out;
+    for (;;) {
+        if (pos >= n) return kTruncated;
+        uint8_t h = p[pos];
+        if (h & 0x80) {
+            if (h == 0x80) {
+                ++pos;
+                continue;
+            }
+            if (pos + 2 > n) return kTruncated;
+            for (int k = 257 - h; k > 0 && x < bytes; --k) row[x++] = p[pos + 1];
+            pos += 2;
+        } else {
+            long long m = (long long)h + 2;
+            if (n - pos < m) return kTruncated;
+            for (long long i = 1; i < m && x < bytes; ++i) row[x++] = p[pos + i];
+            pos += m;
+        }
+        if (x >= bytes) {
+            x = 0;
+            if (++y >= rows) return kOk;
+            row += bytes;
+        }
+    }
+}
+
+// QoiDecoder.decode: ops from `pos` until `npix` pixels of `bands` (3 or 4)
+// bytes are out (a run may pass the end: `out` holds 62 pixels more). The
+// index keeps the pixels that PIL's dict keeps: set after every op but a
+// run, and read as (0, 0, 0, 0) where unset. Data that ends inside an op is
+// truncated (PIL raises there).
+int kt_qoi(const char* data_, long long n, long long pos, long long npix,
+           int bands, uint8_t* out) {
+    const uint8_t* p = reinterpret_cast<const uint8_t*>(data_);
+    uint8_t index[64][4] = {{0}};
+    bool seen[64] = {false};
+    uint8_t px[4] = {0, 0, 0, 255};
+    long long dest = npix * bands, len = 0;
+    while (len < dest) {
+        if (pos >= n) return kTruncated;
+        int b = p[pos++];
+        uint8_t v[4];
+        if (b == 0xFE) {
+            if (n - pos < 3) return kTruncated;
+            v[0] = p[pos], v[1] = p[pos + 1], v[2] = p[pos + 2], v[3] = px[3];
+            pos += 3;
+        } else if (b == 0xFF) {
+            if (n - pos < 4) return kTruncated;
+            std::memcpy(v, p + pos, 4);
+            pos += 4;
+        } else {
+            int op = b >> 6;
+            if (op == 0) {
+                int k = b & 0x3F;
+                if (seen[k]) std::memcpy(v, index[k], 4);
+                else v[0] = v[1] = v[2] = v[3] = 0;
+            } else if (op == 1) {
+                v[0] = (uint8_t)(px[0] + ((b >> 4) & 3) - 2);
+                v[1] = (uint8_t)(px[1] + ((b >> 2) & 3) - 2);
+                v[2] = (uint8_t)(px[2] + (b & 3) - 2);
+                v[3] = px[3];
+            } else if (op == 2) {
+                if (pos >= n) return kTruncated;
+                int b2 = p[pos++];
+                int dg = (b & 0x3F) - 32;
+                v[0] = (uint8_t)(px[0] + dg + ((b2 >> 4) & 0xF) - 8);
+                v[1] = (uint8_t)(px[1] + dg);
+                v[2] = (uint8_t)(px[2] + dg + (b2 & 0xF) - 8);
+                v[3] = px[3];
+            } else {
+                int run = (b & 0x3F) + 1;
+                for (int r = 0; r < run; ++r, len += bands)
+                    std::memcpy(out + len, px, bands);
+                continue;
+            }
+        }
+        std::memcpy(px, v, 4);
+        int h = (v[0] * 3 + v[1] * 5 + v[2] * 7 + v[3] * 11) % 64;
+        std::memcpy(index[h], v, 4);
+        seen[h] = true;
+        std::memcpy(out + len, v, bands);
+        len += bands;
+    }
+    return kOk;
+}
+
+// BlpImagePlugin's decode_dxt1 / 3 / 5 over ceil(h / 4) block rows of
+// `linesize` bytes from `pos`: the byte stream PIL hands to its raw
+// decoder, each block row as 4 rows of ceil(w / 4) * 4 pixels of `bpp`
+// bytes (DXT1 without alpha 3, else 4). `kind` 0 DXT1, 1 DXT3, 7 DXT5.
+int kt_blp_dxt(const char* data_, long long n, long long pos, int w, int h,
+               int kind, int alpha, uint8_t* out) {
+    const uint8_t* p = reinterpret_cast<const uint8_t*>(data_);
+    int blocks = (w + 3) / 4, brows = (h + 3) / 4;
+    int bsize = kind == 0 ? 8 : 16;
+    int bpp = (kind == 0 && !alpha) ? 3 : 4;
+    long long linesize = (long long)blocks * bsize;
+    if (pos < 0 || n - pos < linesize * brows) return kTruncated;
+    long long row_len = (long long)blocks * 4 * bpp;
+    for (int yb = 0; yb < brows; ++yb) {
+        const uint8_t* line = p + pos + linesize * yb;
+        uint8_t* rows = out + (long long)yb * 4 * row_len;
+        for (int bi = 0; bi < blocks; ++bi) {
+            const uint8_t* blk = line + (long long)bi * bsize;
+            const uint8_t* col = kind == 0 ? blk : blk + 8;
+            int c0 = col[0] | col[1] << 8, c1 = col[2] | col[3] << 8;
+            uint32_t code = (uint32_t)col[4] | (uint32_t)col[5] << 8 |
+                            (uint32_t)col[6] << 16 | (uint32_t)col[7] << 24;
+            int r0 = ((c0 >> 11) & 0x1F) << 3, g0 = ((c0 >> 5) & 0x3F) << 2,
+                b0 = (c0 & 0x1F) << 3;
+            int r1 = ((c1 >> 11) & 0x1F) << 3, g1 = ((c1 >> 5) & 0x3F) << 2,
+                b1 = (c1 & 0x1F) << 3;
+            uint64_t abits = 0;
+            if (kind == 7)
+                for (int k = 0; k < 6; ++k) abits |= (uint64_t)blk[2 + k] << (8 * k);
+            for (int j = 0; j < 4; ++j) {
+                for (int i = 0; i < 4; ++i) {
+                    int t = 4 * j + i;
+                    int c = (code >> (2 * t)) & 3;
+                    int r, g, b, a = 255;
+                    bool three = kind == 0 && !(c0 > c1);
+                    if (c == 0) r = r0, g = g0, b = b0;
+                    else if (c == 1) r = r1, g = g1, b = b1;
+                    else if (c == 2 && !three)
+                        r = (2 * r0 + r1) / 3, g = (2 * g0 + g1) / 3,
+                        b = (2 * b0 + b1) / 3;
+                    else if (c == 2)
+                        r = (r0 + r1) / 2, g = (g0 + g1) / 2, b = (b0 + b1) / 2;
+                    else if (!three)
+                        r = (2 * r1 + r0) / 3, g = (2 * g1 + g0) / 3,
+                        b = (2 * b1 + b0) / 3;
+                    else
+                        r = g = b = a = 0;
+                    if (kind == 1) {
+                        int nib = blk[t / 2];
+                        a = 17 * ((t & 1) ? nib >> 4 : nib & 0xF);
+                    } else if (kind == 7) {
+                        int a0 = blk[0], a1 = blk[1];
+                        int ac = (int)((abits >> (3 * t)) & 7);
+                        if (ac == 0) a = a0;
+                        else if (ac == 1) a = a1;
+                        else if (a0 > a1)
+                            a = ((8 - ac) * a0 + (ac - 1) * a1) / 7;
+                        else if (ac == 6) a = 0;
+                        else if (ac == 7) a = 255;
+                        else a = ((6 - ac) * a0 + (ac - 1) * a1) / 5;
+                    }
+                    uint8_t* o = rows + j * row_len + ((long long)bi * 4 + i) * bpp;
+                    o[0] = (uint8_t)r, o[1] = (uint8_t)g, o[2] = (uint8_t)b;
+                    if (bpp == 4) o[3] = (uint8_t)a;
+                }
+            }
+        }
+    }
+    return kOk;
+}
+
+// The SGI writer's RLE of one row of one channel (`n` samples `step` bytes
+// apart): runs of 3 to 127 equal bytes, literals of up to 127, then the
+// terminating 0. `out` holds 2 n + 2 bytes; returns the length.
+long long kt_sgi_rle_encode(const uint8_t* in, long long n, long long step,
+                            uint8_t* out) {
+    long long i = 0, len = 0;
+    auto at = [&](long long k) { return in[k * step]; };
+    while (i < n) {
+        long long j = i;
+        while (j + 1 < n && at(j + 1) == at(i) && j - i < 126) ++j;
+        if (j - i >= 2) {
+            out[len++] = (uint8_t)(j - i + 1);
+            out[len++] = at(i);
+            i = j + 1;
+            continue;
+        }
+        j = i;
+        while (j < n && j - i < 127 &&
+               !(j + 2 < n && at(j + 1) == at(j) && at(j + 2) == at(j)))
+            ++j;
+        if (j == i) j = i + 1;
+        out[len++] = (uint8_t)(0x80 | (j - i));
+        for (long long k = i; k < j; ++k) out[len++] = at(k);
+        i = j;
+    }
+    out[len++] = 0;
+    return len;
+}
+
+// The PCX writer's RLE of one row: runs of up to 63 equal bytes as
+// (0xC0 | count, byte), a single byte below 0xC0 as itself. `out` holds 2 n
+// bytes; returns the length.
+long long kt_pcx_rle_encode(const uint8_t* in, long long n, uint8_t* out) {
+    long long i = 0, len = 0;
+    while (i < n) {
+        long long j = i;
+        while (j + 1 < n && in[j + 1] == in[i] && j - i < 62) ++j;
+        long long cnt = j - i + 1;
+        if (cnt > 1 || (in[i] & 0xC0) == 0xC0) out[len++] = (uint8_t)(0xC0 | cnt);
+        out[len++] = in[i];
+        i = j + 1;
+    }
+    return len;
+}
+
+// The QOI writer: `npix` pixels of `bands` (3 or 4) bytes into ops that
+// PIL's QoiDecoder reads back to the same pixels (its index, which a run
+// leaves alone, is tracked as it keeps it). `out` holds 5 npix + 1 bytes;
+// returns the length of the ops.
+long long kt_qoi_encode(const uint8_t* in, long long npix, int bands,
+                        uint8_t* out) {
+    uint8_t index[64][4] = {{0}};
+    bool seen[64] = {false};
+    uint8_t px[4] = {0, 0, 0, 255};
+    long long len = 0, run = 0;
+    for (long long k = 0; k < npix; ++k) {
+        uint8_t v[4] = {in[k * bands], in[k * bands + 1], in[k * bands + 2],
+                        bands == 4 ? in[k * bands + 3] : px[3]};
+        if (std::memcmp(v, px, 4) == 0) {
+            if (++run == 62) {
+                out[len++] = (uint8_t)(0xC0 | (run - 1));
+                run = 0;
+            }
+            continue;
+        }
+        if (run) {
+            out[len++] = (uint8_t)(0xC0 | (run - 1));
+            run = 0;
+        }
+        int h = (v[0] * 3 + v[1] * 5 + v[2] * 7 + v[3] * 11) % 64;
+        int dr = (int8_t)(uint8_t)(v[0] - px[0]);
+        int dg = (int8_t)(uint8_t)(v[1] - px[1]);
+        int db = (int8_t)(uint8_t)(v[2] - px[2]);
+        if (seen[h] && std::memcmp(index[h], v, 4) == 0) {
+            out[len++] = (uint8_t)h;
+        } else if (v[3] != px[3]) {
+            out[len++] = 0xFF;
+            std::memcpy(out + len, v, 4);
+            len += 4;
+        } else if (dr >= -2 && dr <= 1 && dg >= -2 && dg <= 1 && db >= -2 &&
+                   db <= 1) {
+            out[len++] = (uint8_t)(0x40 | (dr + 2) << 4 | (dg + 2) << 2 |
+                                   (db + 2));
+        } else if (dg >= -32 && dg <= 31 && dr - dg >= -8 && dr - dg <= 7 &&
+                   db - dg >= -8 && db - dg <= 7) {
+            out[len++] = (uint8_t)(0x80 | (dg + 32));
+            out[len++] = (uint8_t)((dr - dg + 8) << 4 | (db - dg + 8));
+        } else {
+            out[len++] = 0xFE;
+            std::memcpy(out + len, v, 3);
+            len += 3;
+        }
+        std::memcpy(px, v, 4);
+        std::memcpy(index[h], v, 4);
+        seen[h] = true;
+    }
+    if (run) out[len++] = (uint8_t)(0xC0 | (run - 1));
+    return len;
 }
 
 }  // extern "C"

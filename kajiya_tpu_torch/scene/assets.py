@@ -29,7 +29,12 @@ port's writer (`tiff.write_tiff`): base colours LZW with horizontal
 differencing in 256 x 256 tiles, normal maps deflate in planar strips,
 metallic-roughness maps big-endian 16-bit PackBits, and b1's emissive map
 raw with Orientation 6 (stored turned a quarter, so that it decodes to the
-map).
+map). `formats="studio"` writes them in the formats art and game
+pipelines emit (the studio city): each base colour a 4-channel (RGBA,
+alpha 255) PackBits PSD, each normal map an 8-bit 3-channel RLE SGI, each
+metallic-roughness map a 24-bit 3-plane RLE PCX, b1's emissive map a QOI,
+each from the port's writers (`psd.encode_psd`, `sgi.encode_sgi_rle`,
+`pcx.encode_pcx_rgb`, `qoi.encode_qoi`).
 """
 from __future__ import annotations
 
@@ -43,8 +48,12 @@ import numpy as np
 from .bmp import encode_bmp24
 from .dds import bc5_blocks, bc7_mode6_blocks, dds_header
 from .gif import encode_gif256
+from .pcx import encode_pcx_rgb
 from .png import encode_png
 from .procedural import _subdiv_box
+from .psd import encode_psd
+from .qoi import encode_qoi
+from .sgi import encode_sgi_rle
 from .tga import encode_tga_rle
 from .tiff import write_tiff
 from .webp import encode_vp8l
@@ -185,6 +194,15 @@ def _map_file(kind: str, img: np.ndarray, formats: str):
             data = write_tiff(np.ascontiguousarray(np.rot90(img, 1)),
                               orientation=6)
         return ".tif", data, want
+    if formats == "studio":
+        if kind == "base":
+            rgba = np.concatenate(
+                [img, np.full(img.shape[:2] + (1,), 255, np.uint8)], -1)
+            return (".psd", *encode_psd(rgba))
+        suffix, enc = {"normal": (".rgb", encode_sgi_rle),
+                       "mr": (".pcx", encode_pcx_rgb),
+                       "emissive": (".qoi", encode_qoi)}[kind]
+        return (suffix, *enc(img))
     if formats == "legacy":
         suffix, enc = {"base": (".tga", encode_tga_rle),
                        "normal": (".bmp", encode_bmp24),
@@ -221,13 +239,14 @@ def write_city_assets(root: str, subdiv: int = 8, map_size: int = 2048,
     `formats`: "png" (every map an 8-bit PNG), "mixed" (JPEG base colour,
     BC5 / BC7 DDS normal and metallic-roughness maps, a 16-bit PNG emissive
     map), "legacy" (RLE TGA base colour, BMP normal, GIF
-    metallic-roughness and lossless WebP emissive maps) or "tiff" (every
-    map a TIFF, each in another layout). Returns {file name: (the RGB map
-    written, the RGBA its file decodes to, or None for a JPEG or an 8-bit
-    PNG)} of the building maps."""
-    if formats not in ("png", "mixed", "legacy", "tiff"):
-        raise ValueError(f"formats {formats!r}: 'png', 'mixed', 'legacy' "
-                         "or 'tiff'")
+    metallic-roughness and lossless WebP emissive maps), "tiff" (every
+    map a TIFF, each in another layout) or "studio" (PSD base colour, SGI
+    normal, PCX metallic-roughness and QOI emissive maps). Returns {file
+    name: (the RGB map written, the RGBA its file decodes to, or None for a
+    JPEG or an 8-bit PNG)} of the building maps."""
+    if formats not in ("png", "mixed", "legacy", "tiff", "studio"):
+        raise ValueError(f"formats {formats!r}: 'png', 'mixed', 'legacy', "
+                         "'tiff' or 'studio'")
     rng = np.random.default_rng(seed)
     mdir = os.path.join(root, "meshes")
     os.makedirs(mdir, exist_ok=True)

@@ -2,7 +2,7 @@
 would try it, without PIL.
 
 The JAX package's bake opens every source with PIL and bakes a white
-texture only when PIL raises. The port decodes PNG, JPEG and DDS itself;
+texture only when PIL raises. The port decodes most formats itself;
 for any other bytes it must know whether PIL would have decoded them, so
 that a format it cannot decode raises NotImplementedError instead of
 passing as a white texture. `identify` walks PIL's plugin order (the five
@@ -13,7 +13,8 @@ SPIDER, TGA) are matched by the header checks their `_open` makes first
 (IM's whole header of `Key: value` lines, so a binary file with a line
 feed and a colon in its first bytes is no IM candidate); those are
 necessary conditions only, so a source that fails them cannot be opened
-by that plugin.
+by that plugin. GBR's `_accept` also passes a QOI of width 1 or 2: its
+`_open`'s header checks are applied too.
 
 When a plugin's `_open` refuses the bytes (it raises SyntaxError,
 IndexError, TypeError, KeyError, EOFError or struct.error, or leaves no
@@ -28,12 +29,11 @@ does, the port raises NotImplementedError for the first, even when PIL's
 `_open` of that plugin would refuse the bytes and the next would decode
 them (the port cannot tell without that plugin's reader). Found by
 sweeping the headers of the ported formats:
-- a TGA whose id field is 10 bytes long and that has no colour map
-  (`0a 00 ...`) is a PCX candidate first;
 - a TGA whose id field is 28 bytes long and that has a colour map
   (`1c 01 ...`) is an IPTC candidate first;
-- an ICO with no entries whose first entry bytes read `00 01` or `00 02`
-  is a GBR candidate first (PIL refuses such an ICO anyway).
+- an ICO with no entries whose first entry bytes read `00 01` or `00 02`,
+  and whose next 12 bytes pass GBR's header checks, is a GBR candidate
+  first (PIL refuses such an ICO anyway).
 
 `check_pixels` mirrors `Image.MAX_IMAGE_PIXELS`: PIL refuses an image of
 more than twice that many pixels (`DecompressionBombError`), and the JAX
@@ -95,6 +95,18 @@ def _gbr(p):
         return False
     size, version = struct.unpack_from(">II", p)
     return size >= 20 and version in (1, 2)
+
+
+def _gbr_open(data: bytes) -> bool:
+    """The header checks of GbrImagePlugin's `_open`, each a refusal: a
+    width and height, a depth of 1 or 4, and for version 2 the magic and
+    the spacing (a QOI of width 1 or 2 passes GBR's `_accept`)."""
+    if len(data) < 20:
+        return False
+    version, w, h, depth = struct.unpack_from(">4I", data, 4)
+    if not w or not h or depth not in (1, 4):
+        return False
+    return version == 1 or (data[20:24] == b"GIMP" and len(data) >= 28)
 
 
 _TIFF = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a",
@@ -259,7 +271,8 @@ def candidates(data: bytes) -> list:
     also passes CUR's rule)."""
     table = dict(_ACCEPT)
     order = list(_PREINIT) + [n for n, _ in _ACCEPT if n not in _PREINIT]
-    return [name for name in order if _matches(name, table[name], data)]
+    return [name for name in order if _matches(name, table[name], data)
+            and (name != "GBR" or _gbr_open(data))]
 
 
 def identify(data: bytes) -> str | None:

@@ -261,7 +261,9 @@ def decode_jpeg_stream(data: bytes, color: int) -> np.ndarray:
     """A JPEG stream as libjpeg decodes it for libtiff (no PIL header
     walk): (H, W, 4) uint8, its colour space set by `color` (1: YCbCr
     converted to RGB, 2: the components as coded; a single component is
-    grey either way)."""
+    grey either way). `color` 3 takes the colour space from the markers,
+    as PIL does, but four components as CMYK even under an Adobe YCCK
+    transform (PIL's BLP reader sets the JPEG mode "CMYK")."""
     lib = decoder_library()
     data = bytes(data)
     msg = ctypes.create_string_buffer(256)

@@ -1,7 +1,7 @@
-"""What the BMP, ICO / CUR, TGA, GIF and TIFF decoders share: a file-like
-view of the bytes, PIL's raw unpackers and palettes, its `raw` tile
-decoder, its `convert("RGBA")`, and the native loops of
-`csrc/raster_decoder.cpp`.
+"""What the BMP, ICO / CUR, TGA, GIF, TIFF, PCX, PPM, SGI, QOI, PSD, BLP and
+FTEX decoders share: a file-like view of the bytes, PIL's raw unpackers
+and palettes, its `raw` tile decoder, its `convert("RGBA")`, and the
+native loops of `csrc/raster_decoder.cpp`.
 
 Each decoder follows its PIL 12.1.0 plugin statement by statement, so that
 it gives the same bytes and refuses where PIL refuses. An image is a
@@ -11,7 +11,8 @@ mode "1" and "L" and "P" as (H, W) uint8 ("1" as 0 / 255), "I;16" and
 "LAB" (H, W, 3), "RGBA" and "CMYK" (H, W, 4), and for "P" and "PA" a
 (256, 4) RGBA palette.
 
-The sequential loops (BMP RLE4 / RLE8, TGA RLE, GIF LZW) run in C++,
+The sequential loops (BMP RLE4 / RLE8, TGA RLE, GIF LZW, PCX RLE, SGI RLE,
+PIL's PackBits, QOI, BLP's DXT) and the studio writers' encoders run in C++,
 compiled with g++ at first use into the gitignored `_build/`
 (`hostlib.load`); a failed build raises, and there is no Python loop to
 fall back to.
@@ -62,6 +63,24 @@ def library() -> ctypes.CDLL:
         lib.kt_gif_lzw.argtypes = [ctypes.c_char_p, i64, i64, c_int, c_int,
                                    c_int, c_int, ptr, c_int]
         lib.kt_gif_lzw.restype = c_int
+        lib.kt_pcx_rle.argtypes = [ctypes.c_char_p, i64, i64, c_int, c_int,
+                                   c_int, c_int, ptr]
+        lib.kt_sgi_rle.argtypes = [ctypes.c_char_p, i64, c_int, c_int, c_int,
+                                   c_int, ptr]
+        lib.kt_packbits_rows.argtypes = [ctypes.c_char_p, i64, i64, c_int,
+                                         c_int, ptr]
+        lib.kt_qoi.argtypes = [ctypes.c_char_p, i64, i64, i64, c_int, ptr]
+        lib.kt_blp_dxt.argtypes = [ctypes.c_char_p, i64, i64, c_int, c_int,
+                                   c_int, c_int, ptr]
+        for f in (lib.kt_pcx_rle, lib.kt_sgi_rle, lib.kt_packbits_rows,
+                  lib.kt_qoi, lib.kt_blp_dxt):
+            f.restype = c_int
+        lib.kt_sgi_rle_encode.argtypes = [ptr, i64, i64, ptr]
+        lib.kt_pcx_rle_encode.argtypes = [ptr, i64, ptr]
+        lib.kt_qoi_encode.argtypes = [ptr, i64, c_int, ptr]
+        for f in (lib.kt_sgi_rle_encode, lib.kt_pcx_rle_encode,
+                  lib.kt_qoi_encode):
+            f.restype = i64
         _lib = lib
         return lib
 

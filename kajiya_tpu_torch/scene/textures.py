@@ -11,15 +11,17 @@ then uploaded once. The JAX package decodes and resizes with PIL; the port
 has its own decoders, each giving PIL's `convert("RGBA")` bytes (PNG in
 `png.py`, JPEG in `jpeg.py`, DDS in `dds.py`, BMP and DIB in `bmp.py`,
 ICO and CUR in `ico.py`, TGA in `tga.py`, GIF in `gif.py`, WebP in
-`webp.py`, TIFF in `tiff.py`), and a Lanczos resize that gives PIL's
+`webp.py`, TIFF in `tiff.py`, PCX and DCX in `pcx.py`, the PPM family in
+`ppm.py`, SGI in `sgi.py`, QOI in `qoi.py`, PSD in `psd.py`, BLP in
+`blp.py`, FTEX in `ftex.py`), and a Lanczos resize that gives PIL's
 `Image.resize(..., LANCZOS)` bytes, so the atlases are equal byte for byte.
 
 Decoding dispatches on the content, not on the file name, in PIL's plugin
 order (`identify.py`): a plugin whose `_open` refuses the bytes passes
 them to the next that accepts them, as `Image.open` does (a TGA file that
 CUR's rule also accepts is read as a TGA). Where that walk reaches a
-format the port does not decode yet (PPM, QOI, JPEG 2000 and the
-rest of `identify.FORMATS`), it raises NotImplementedError naming it: a
+format the port does not decode yet (ICNS, JPEG 2000 and the rest of
+`identify.FORMATS`), it raises NotImplementedError naming it: a
 missing decoder never passes as a white texture. Bytes that no PIL plugin
 opens, a missing file, and a source that PIL also refuses (corrupt or
 truncated data, a layout PIL has no decoder for) become a 4x4 white image,
@@ -38,13 +40,20 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from .blp import decode_blp
 from .bmp import decode_bmp, decode_dib
 from .dds import decode_dds
+from .ftex import decode_ftex
 from .gif import decode_gif
 from .ico import decode_cur, decode_ico
 from .identify import Refused, candidates
 from .jpeg import decode_jpeg
+from .pcx import decode_dcx, decode_pcx
 from .png import decode_png
+from .ppm import decode_ppm
+from .psd import decode_psd
+from .qoi import decode_qoi
+from .sgi import decode_sgi
 from .tga import decode_tga
 from .tiff import decode_tiff
 from .webp import decode_webp
@@ -58,7 +67,14 @@ BUCKETS = (2048, 1024, 512, 256, 128)
 _DECODERS = {"PNG": decode_png, "JPEG": decode_jpeg, "DDS": decode_dds,
              "BMP": decode_bmp, "DIB": decode_dib, "CUR": decode_cur,
              "ICO": decode_ico, "TGA": decode_tga, "GIF": decode_gif,
-             "WEBP": decode_webp, "TIFF": decode_tiff}
+             "WEBP": decode_webp, "TIFF": decode_tiff, "PCX": decode_pcx,
+             "DCX": decode_dcx, "PPM": decode_ppm, "SGI": decode_sgi,
+             "QOI": decode_qoi, "PSD": decode_psd, "BLP": decode_blp,
+             "FTEX": decode_ftex}
+# the decoders whose outcome depends on whether PIL reads a file or bytes
+# in memory (PCX seeks back from the end: a real file cannot seek before
+# its start, an in-memory one stops there)
+_FROM_FILE = ("PCX", "DCX")
 
 
 def _read_source(path_or_data: str) -> bytes:
@@ -84,6 +100,9 @@ def _decode_image(path_or_data: str) -> np.ndarray:
                 f"{' or '.join(found[i:])} texture decoding is not ported "
                 f"(ROADMAP.md section 1): {path_or_data[:80]}")
         try:
+            if fmt in _FROM_FILE:
+                return _DECODERS[fmt](
+                    data, from_file=not path_or_data.startswith("data:"))
             return _DECODERS[fmt](data)
         except Refused:
             continue

@@ -13,7 +13,8 @@ hypothesis test cuts and flips bytes. The bake of each format equals JAX's
 `build_texture_pages` atlas byte for byte.
 
 The helpers here (`pil_rgba`, `port_rgba`, `assert_as_pil`,
-`assert_bake_matches_jax`) are shared by the TGA, GIF and WebP files."""
+`sweep_outcome`, `assert_bake_matches_jax`) are shared by the TGA, GIF,
+WebP, PCX, PPM, SGI, QOI, PSD, BLP and FTEX files."""
 import base64
 import functools
 import io
@@ -77,6 +78,31 @@ def assert_as_pil_or_unported(data: bytes):
         unported = [f for f in identify.candidates(data)
                     if f not in textures._DECODERS]
         assert unported and unported[0] in str(e)
+
+
+def sweep_outcome(data: bytes, inner: tuple = ()) -> str:
+    """`assert_as_pil_or_unported`, naming the outcome for a sweep's
+    count: "pixels" (PIL's bytes), "white" (an error in both) or
+    "unported" (NotImplementedError, from an unported plugin that accepts
+    the bytes first, or one whose message holds a string of `inner`: an
+    unported case inside a ported decoder)."""
+    from kajiya_tpu_torch.scene import identify
+
+    try:
+        got = port_rgba(data)
+    except NotImplementedError as e:
+        if not any(k in str(e) for k in inner):
+            unported = [f for f in identify.candidates(data)
+                        if f not in textures._DECODERS]
+            assert unported and unported[0] in str(e), str(e)
+        return "unported"
+    want = pil_rgba(data)
+    if want is None:
+        assert got is None, "PIL refuses, the port decodes"
+        return "white"
+    assert got is not None, "PIL decodes, the port refuses"
+    np.testing.assert_array_equal(got, want)
+    return "pixels"
 
 
 def assert_bake_matches_jax(sources):

@@ -7,8 +7,11 @@ normal maps as 24-bit BMP, metallic-roughness maps as 256-colour GIF, the
 emissive map a lossless WebP; and the TIFF-textured city
 (`formats="tiff"`): LZW tiled base colours with horizontal differencing,
 deflate planar normal maps, big-endian 16-bit PackBits metallic-roughness
-maps, a raw emissive map with Orientation 6. JAX decodes them with PIL, the
-port with its own decoders; the same checks hold the three cities.
+maps, a raw emissive map with Orientation 6; and the studio city
+(`formats="studio"`): 4-channel PackBits PSD base colours, RLE SGI normal
+maps, 24-bit RLE PCX metallic-roughness maps, a QOI emissive map. JAX
+decodes them with PIL, the port with its own decoders; the same checks
+hold the four cities.
 
 - The bake of the city's sources: atlas and slot table equal JAX's
   `build_texture_pages` byte for byte, no slot white.
@@ -246,3 +249,64 @@ def test_tiff_hit_attributes_match(tiff_scenes, cone):
     """The TIFF city's hits at the PNG city's tolerance, ATTR_TOL."""
     _check_hit_attributes(tiff_scenes, cone)
 
+
+
+# ----------------------------------------------------------------------------
+# the studio city
+# ----------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def studio_city(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("tcitystudio"))
+    written = assets.write_city_assets(root, map_size=128, emissive_size=64,
+                                       ground_size=(64, 256),
+                                       formats="studio")
+    return root, written, assets.write_city_ron(root, n=4)
+
+
+def test_studio_files(studio_city):
+    root, written, _ = studio_city
+    names = sorted(os.listdir(os.path.join(root, "meshes")))
+    kinds = {os.path.splitext(n)[1] for n in names}
+    assert {".psd", ".rgb", ".pcx", ".qoi", ".gltf", ".glb"} <= kinds
+    assert len(written) == 10
+    assert all(want is not None for _img, want in written.values())
+
+
+def test_studio_bake_matches_jax(studio_city):
+    root, written, _ = studio_city
+    srcs = sorted(glob.glob(os.path.join(root, "meshes", "*_*.*")))
+    assert len(srcs) == 10
+    atlas_t, sub_t = tex_t.bake_texture_pages(srcs)
+    atlas_j, sub_j = tex_j.build_texture_pages(srcs)
+    np.testing.assert_array_equal(sub_t, np.asarray(sub_j))
+    np.testing.assert_array_equal(atlas_t, np.asarray(atlas_j))
+    for page, size, ox, oy in sub_t[1:]:
+        assert not (atlas_t[page, oy:oy + size, ox:ox + size] == 255).all()
+    # every studio map is lossless: it decodes to the texels written
+    for name, (_img, want) in written.items():
+        got = tex_t._decode_image(os.path.join(root, "meshes", name))
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def studio_scenes(studio_city):
+    ron = studio_city[2]
+    ts_j, _ = build_ts_j(build_gpu_j(load_ron_j(ron)))
+    ts_t, _ = build_ts_t(build_gpu_t(load_ron_t(ron), device="cpu"),
+                         device="cpu")
+    return ts_j, ts_t
+
+
+def test_studio_texture_tables_match(studio_scenes):
+    ts_j, ts_t = studio_scenes
+    for f in ("tex_pages", "page_sub", "mat_tex", "tri_mat"):
+        np.testing.assert_array_equal(_n(getattr(ts_t.gpu, f)),
+                                      np.asarray(getattr(ts_j.gpu, f)),
+                                      err_msg=f)
+
+
+@pytest.mark.parametrize("cone", [False, True], ids=["static_mip", "cone"])
+def test_studio_hit_attributes_match(studio_scenes, cone):
+    """The studio city's hits at the PNG city's tolerance, ATTR_TOL."""
+    _check_hit_attributes(studio_scenes, cone)

@@ -64,7 +64,10 @@ def test_port_imports_no_jax():
                 "scene/jpeg.py", "hostlib.py", "parallel/__init__.py",
                 "parallel/mesh.py", "parallel/comm.py", "parallel/launch.py",
                 "scene/raster.py", "scene/bmp.py", "scene/ico.py",
-                "scene/tga.py", "scene/gif.py", "scene/webp.py"):
+                "scene/tga.py", "scene/gif.py", "scene/webp.py",
+                "scene/tiff.py", "scene/pcx.py", "scene/ppm.py",
+                "scene/sgi.py", "scene/qoi.py", "scene/psd.py",
+                "scene/blp.py", "scene/ftex.py"):
         assert os.path.join("kajiya_tpu_torch", new) in names, new
     assert "chip_smoke.py" in names
     for path in files:
@@ -130,9 +133,9 @@ def test_host_sources_built_only_by_their_builder():
     """The host C++ sources under csrc/ (compiled with g++, not nvcc) are
     each named as a path by one module only, the one that builds it: the
     BVH builder by rt/bvh.py, the JPEG encoder and decoder by
-    scene/jpeg.py, the BCn block decoder by scene/dds.py, the RLE / LZW
-    loops by scene/raster.py, the WebP decoder by scene/webp.py, the TIFF
-    codecs by scene/tiff.py."""
+    scene/jpeg.py, the BCn block decoder by scene/dds.py, the RLE / LZW /
+    PackBits / QOI / DXT loops by scene/raster.py, the WebP decoder by
+    scene/webp.py, the TIFF codecs by scene/tiff.py."""
     builders = {"bvh_builder.cpp": "rt/bvh.py",
                 "jpeg_encoder.cpp": "scene/jpeg.py",
                 "jpeg_decoder.cpp": "scene/jpeg.py",

@@ -107,9 +107,7 @@ def test_sweep_no_white_where_jax_decodes(fmt, mode):
     np.testing.assert_array_equal(sub_t, sub_j)
     np.testing.assert_array_equal(atlas_t, atlas_j)
     if not jax_white:
-        assert identify.identify(data) in ("PNG", "JPEG", "DDS", "BMP", "DIB",
-                                           "ICO", "CUR", "TGA", "GIF",
-                                           "WEBP", "TIFF")
+        assert identify.identify(data) in textures._DECODERS
 
 
 @pytest.mark.parametrize("data", [b"not an image at all", b"", b"\0" * 64,
@@ -137,3 +135,34 @@ def test_decompression_bomb_limit():
     identify.check_pixels(2 * Image.MAX_IMAGE_PIXELS, 1)
     with pytest.raises(ValueError, match="bomb"):
         identify.check_pixels(2 * Image.MAX_IMAGE_PIXELS + 1, 1)
+
+
+@pytest.mark.parametrize("part", range(4))
+def test_tga_with_ten_byte_id_as_pil(part):
+    """A TGA whose id field is 10 bytes long and that has no colour map
+    starts `0a 00`, which PCX's rule accepts: PIL tries PCX's `_open`
+    first (which mostly raises "unknown PCX mode", white) and the port,
+    which reads PCX, goes the same way. 50 seeded headers a part: image
+    types, depths, origins, sizes and id bytes."""
+    import struct
+
+    from test_torch_bmp import sweep_outcome
+
+    rng = np.random.default_rng(2500 + part)
+    seen = {}
+    for _ in range(50):
+        itype = int(rng.choice([1, 2, 3, 9, 10, 11]))
+        depth = int(rng.choice([1, 8, 16, 24, 32]))
+        w, h = (int(v) for v in rng.integers(1, 20, 2))
+        head = struct.pack("<BBBHHBHHHHBB", 10, 0, itype,
+                           int(rng.integers(0, 3)), 0, 0,
+                           int(rng.integers(0, 4)), int(rng.integers(0, 4)),
+                           w, h, depth, int(rng.choice([0, 0x20])))
+        ident = rng.integers(0, 256, 10, np.uint8)
+        ident[rng.random(10) < 0.5] = 1
+        body = rng.integers(0, 256, w * h * 4 + 40, np.uint8).tobytes()
+        data = head + ident.tobytes() + body
+        assert identify.candidates(data)[0] == "PCX"
+        outcome = sweep_outcome(data)
+        seen[outcome] = seen.get(outcome, 0) + 1
+    assert "unported" not in seen, seen

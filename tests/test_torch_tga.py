@@ -10,8 +10,9 @@ what PIL does not write: image types 1, 2, 3, 9, 10 and 11 at depths 1, 8,
 the id field, all four orientations, RLE packets that run across rows.
 A TGA as PIL writes it starts `00 00 02 00`, which CUR's rule accepts too:
 CUR's `_open` refuses it and the TGA plugin reads it, in PIL and in the
-port. Where an unported plugin stands first (PCX, IPTC, GBR), the port
-raises NotImplementedError (the cases `scene/identify.py` lists)."""
+port. Where an unported plugin stands first (IPTC, GBR), the port
+raises NotImplementedError (the cases `scene/identify.py` lists); a TGA
+that PCX's rule accepts goes where PIL takes it."""
 import functools
 import struct
 
@@ -126,7 +127,9 @@ def test_pil_tga_bakes_through_cur():
 def test_unported_plugin_first_raises(case):
     """The refusal cases of `scene/identify.py`: an unported plugin that
     PIL's order tries first makes the port raise NotImplementedError, never
-    white, whatever PIL's own `_open` of that plugin then does."""
+    white, whatever PIL's own `_open` of that plugin then does. PCX, which
+    stood first for a TGA with a 10-byte id field, is ported: that TGA now
+    goes where PIL takes it (PCX's `_open`, then TGA's)."""
     rng = np.random.default_rng(0)
     pix = rng.integers(0, 256, 64 * 4, np.uint8).tobytes()
     data = {
@@ -134,9 +137,14 @@ def test_unported_plugin_first_raises(case):
         "iptc": tga_file(8, 8, 1, 8, pix[:64], (0, 256, 24),
                          rng.integers(0, 256, 768, np.uint8).tobytes(),
                          idlen=28),
-        "gbr": b"\0\0\1\0\0\0\0\1" + pix,
+        # an ICO of no entries whose next bytes pass GBR's header checks
+        # (width, height, depth 1)
+        "gbr": b"\0\0\1\0\0\0\0\1" + struct.pack(">3I", 8, 8, 1) + pix,
     }[case]
     assert identify.candidates(data)[0] == case.upper()
+    if case == "pcx":
+        assert_as_pil(data)
+        return
     with pytest.raises(NotImplementedError, match=case.upper()):
         textures._decode_image(uri(data))
 
