@@ -43,14 +43,20 @@ the BVH, its `tlas_refit` range timed and its launches counted):
   metallic-roughness maps, a raw emissive map with Orientation 6) and in
   the formats art and game pipelines emit (4-channel PackBits PSD base
   colours, RLE SGI normal maps, 24-bit RLE PCX metallic-roughness maps, a
-  QOI emissive map), each bake timed by format,
+  QOI emissive map) and as TIFFs of the later codecs (zstd tiled base
+  colours with differencing, zstd 16-bit planar big-endian normal maps,
+  ThunderScan 4-bit grey metallic-roughness maps, a CCITT Group 4 bilevel
+  emissive window mask), each bake timed by format,
 with the launch counters set to 0 just before each path and read just after,
-each map of the mixed, legacy, TIFF and studio cities decoded on the host
+each map of the mixed, legacy, TIFF, studio and TIFF-codec cities decoded on
+the host
 equal to the texels its writer reports (the JPEGs within JPEG_PSNR_DB), the
 committed WebP fixtures (tests/data/webp/: lossy, lossy with alpha,
 lossless, animated), TIFF fixtures (tests/data/tiff/: JPEG-in-TIFF YCbCr
-2x2, LZMA, the floating-point predictor, CMYK, BigTIFF, tiles; LAB raises
-NotImplementedError) and studio fixtures (tests/data/studio/: BLP1 JPEG
+2x2, LZMA, the floating-point predictor, CMYK, BigTIFF, tiles, CCITT RLE /
+RLEW / Group 3 / Group 4, zstd, ThunderScan, old-style JPEG 4:2:0 and 4:4:4;
+LAB raises NotImplementedError, SGILog what the bake turns white) and studio
+fixtures (tests/data/studio/: BLP1 JPEG
 and palette, BLP2 palette, DXT1 / 3 / 5, FTEX raw and DXT1, PSD CMYK,
 indexed and bitmap, PCX of 2 and 4 bit planes and 8-bit palette, DCX, PFM,
 16-bit PGM; BLP2 raw BGRA, which PIL cannot decode, must raise what the
@@ -300,8 +306,9 @@ SCENES = {
     # maps: RLE TGA, BMP, GIF and lossless WebP maps) and "tcitytiff" /
     # "tcitytiff4" (the TIFF-textured asset city, n=16 / n=4 with 256^2
     # maps) and "tcitystudio" / "tcitystudio4" (the studio-format asset
-    # city: PSD, SGI, PCX and QOI maps) are added by main once
-    # `asset_scenes` wrote them
+    # city: PSD, SGI, PCX and QOI maps) and "tcitycodec" / "tcitycodec4"
+    # (the TIFF-codec city: zstd, ThunderScan and CCITT Group 4 maps) are
+    # added by main once `asset_scenes` wrote them
 }
 # the scenes each path renders at 1080p, and a cap on the frames of a scene
 # (city3 shows kernel B at the brute route's limit on the two paths that
@@ -311,14 +318,14 @@ PATH_SCENES = {"raster": ("cornell", "city"), "gi": ("cornell", "city"),
                "refpt": ("cornell", "city", "city3", "city40"),
                "options": ("cornell", "city"),
                "textured": ("tcornell", "tcity", "tcityfmt", "tcitylegacy",
-                            "tcitytiff", "tcitystudio")}
+                            "tcitytiff", "tcitystudio", "tcitycodec")}
 FRAME_CAP = {"city3": 2, "tcity": 2, "tcityfmt": 2, "tcitylegacy": 2,
-             "tcitytiff": 2, "tcitystudio": 2, "city40": 2}
+             "tcitytiff": 2, "tcitystudio": 2, "tcitycodec": 2, "city40": 2}
 # the untextured scene of the same geometry, whose default frames the
 # textured frames' host syncs are held to
 UNTEXTURED = {"tcornell": "cornell", "tcity": "city", "tcityfmt": "city",
               "tcitylegacy": "city", "tcitytiff": "city",
-              "tcitystudio": "city"}
+              "tcitystudio": "city", "tcitycodec": "city"}
 # the decoded JPEG maps of the mixed-format city against the arrays they
 # encode (quality 85, 4:2:0): format_phase reads 42.2-48.8 dB
 JPEG_PSNR_DB = 35.0
@@ -338,10 +345,11 @@ def asset_scenes(root):
     "tcitylegacy" (the legacy-format city under `root/legacy`, n=16) and
     "tcitylegacy4" (n=4, its maps at 256^2, the small frames' scene), and
     likewise "tcitytiff" / "tcitytiff4" (the TIFF-textured city under
-    `root/tiff`) and "tcitystudio" / "tcitystudio4" (the studio-format city
-    under `root/studio`), with the mixed, legacy, TIFF and studio maps
-    written: {file path: (map, RGBA its file decodes to, or None for a
-    JPEG)}."""
+    `root/tiff`), "tcitystudio" / "tcitystudio4" (the studio-format city
+    under `root/studio`) and "tcitycodec" / "tcitycodec4" (the TIFF-codec
+    city under `root/codec`), with the mixed, legacy, TIFF, studio and
+    TIFF-codec maps written: {file path: (map, RGBA its file decodes to, or
+    None for a JPEG)}."""
     from kajiya_tpu_torch.apps.view import build_scene
     from kajiya_tpu_torch.scene import assets
 
@@ -353,7 +361,8 @@ def asset_scenes(root):
         f"under {root}")
     maps, fmt_rons = {}, {}
     for formats, sub in (("mixed", "fmt"), ("legacy", "legacy"),
-                         ("tiff", "tiff"), ("studio", "studio")):
+                         ("tiff", "tiff"), ("studio", "studio"),
+                         ("tiffcodec", "codec")):
         t0 = time.perf_counter()
         sub_root = os.path.join(root, sub)
         written = assets.write_city_assets(sub_root, formats=formats)
@@ -363,11 +372,12 @@ def asset_scenes(root):
                      for k, v in written.items()})
         log(f"{formats}-format city assets written in "
             f"{time.perf_counter() - t0:.1f} s under {sub_root}")
-    # the small frames' legacy, TIFF and studio cities: their maps at 256^2,
+    # the small frames' legacy, TIFF, studio and TIFF-codec cities: their
+    # maps at 256^2,
     # since a 64x48 frame needs no more, and two bakes of the full maps
     # would cost ~25 s on an NVIDIA H100 80GB HBM3 host at 700.00 W
     small = {}
-    for formats in ("legacy", "tiff", "studio"):
+    for formats in ("legacy", "tiff", "studio", "tiffcodec"):
         small_root = os.path.join(root, f"{formats}_small")
         assets.write_city_assets(small_root, map_size=256, emissive_size=128,
                                  ground_size=(256, 512), formats=formats)
@@ -375,8 +385,8 @@ def asset_scenes(root):
                                                name=f"city{formats}4")
     _, eye, fwd, step = SCENES["city"]
     near = (0.0, 8.0, 14.0)
-    mixed, legacy, tif, studio = (fmt_rons[k] for k in (
-        "mixed", "legacy", "tiff", "studio"))
+    mixed, legacy, tif, studio, codec = (fmt_rons[k] for k in (
+        "mixed", "legacy", "tiff", "studio", "tiffcodec"))
     return {"tcity": (lambda p: build_scene(rons[16]), eye, fwd, step),
             "tcity4": (lambda p: build_scene(rons[4]), near, fwd, step),
             "tcityfmt": (lambda p: build_scene(mixed), eye, fwd, step),
@@ -388,7 +398,10 @@ def asset_scenes(root):
                            step),
             "tcitystudio": (lambda p: build_scene(studio), eye, fwd, step),
             "tcitystudio4": (lambda p: build_scene(small["studio"]), near,
-                             fwd, step)}, maps
+                             fwd, step),
+            "tcitycodec": (lambda p: build_scene(codec), eye, fwd, step),
+            "tcitycodec4": (lambda p: build_scene(small["tiffcodec"]), near,
+                            fwd, step)}, maps
 
 
 def format_phase(maps):
@@ -397,7 +410,9 @@ def format_phase(maps):
     metallic-roughness), the 16-bit PNG, every legacy map (RLE TGA, BMP,
     GIF, lossless WebP), every TIFF map (LZW tiles with differencing,
     deflate planar strips, big-endian 16-bit PackBits, raw with an
-    Orientation) and every studio map (PackBits PSD, RLE SGI, RLE PCX, QOI)
+    Orientation), every studio map (PackBits PSD, RLE SGI, RLE PCX, QOI) and
+    every TIFF-codec map (zstd RGB tiles with differencing, zstd 16-bit
+    planar big-endian, ThunderScan 4-bit grey, a CCITT Group 4 mask)
     equal the texels their writer reports, bit for bit; each JPEG base
     colour is within JPEG_PSNR_DB of the map it encodes. The bytes
     themselves are held to PIL in the CPU tests (this host has no PIL).
@@ -409,7 +424,7 @@ def format_phase(maps):
     # (raster.library holds the PCX, SGI, PackBits, QOI and DXT loops too)
     t0 = time.perf_counter()
     for build in (jpeg.decoder_library, dds.bcn_library, raster.library,
-                  webp.library, tiff.library):
+                  webp.library, tiff.library, tiff.zstd_library):
         build()
     log(f"host decoders built in {time.perf_counter() - t0:.1f} s")
     out = {}
@@ -417,7 +432,10 @@ def format_phase(maps):
         t0 = time.perf_counter()
         got = textures._decode_image(path)
         ms = (time.perf_counter() - t0) * 1e3
-        name = os.path.basename(path)
+        # the city's folder and the file: the TIFF and TIFF-codec cities
+        # share their maps' names
+        name = os.path.join(os.path.basename(os.path.dirname(os.path.dirname(
+            path))), os.path.basename(path))
         rec = dict(ms=ms, bytes=os.path.getsize(path),
                    shape=list(got.shape))
         if want is None:
@@ -1645,7 +1663,7 @@ FRAME_KEYS = {
 FRAME_KEYS["textured"] = FRAME_KEYS["superres"] = FRAME_KEYS["default"]
 # the scenes of each path's small GPU-vs-CPU frames ("city" is city(n=4))
 REF_SCENES = {"textured": ("tcornell", "tcity4", "tcitylegacy4",
-                          "tcitytiff4", "tcitystudio4")}
+                          "tcitytiff4", "tcitystudio4", "tcitycodec4")}
 # the paths whose small frames are also rendered on the BVH route, forced
 # with brute_max_tris=0
 BVH_REF_PATHS = ("default", "refpt")
@@ -1669,7 +1687,8 @@ def reference_phase(dev, ibl):
     paths with the small irradiance cache (and the options path with the
     small world radiance cache); the textured path on the textured cornell
     and the textured asset city at n=4 (its 2048^2 PNG maps, and 256^2
-    legacy-format, TIFF and studio maps), whose texture pages on the card
+    legacy-format, TIFF, studio and TIFF-codec maps), whose texture pages
+    on the card
     must
     equal the CPU's byte for byte; the default and path-tracer frames
     again on the BVH route (`brute_max_tris=0`; "+bvh" in the names), where
@@ -2822,6 +2841,8 @@ def main():
         "TIFF city frame ms", frames["textured"]["tcitytiff"]["frame_ms"],
         "studio city frame ms",
         frames["textured"]["tcitystudio"]["frame_ms"],
+        "TIFF-codec city frame ms",
+        frames["textured"]["tcitycodec"]["frame_ms"],
         "beside the untextured city's default frame ms",
         frames["default"]["city"]["frame_ms"], "(same call)")
     oracle = oracle_phase(dev)

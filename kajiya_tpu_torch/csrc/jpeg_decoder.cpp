@@ -1133,3 +1133,61 @@ extern "C" int kt_jpeg_decode(const uint8_t* data, long long n, uint8_t* rgba,
                               int w, int h, char* msg, int cap) {
   return kt_jpeg_decode_as(data, n, rgba, w, h, 0, msg, cap);
 }
+
+// The frame of a JPEG stream for raw data output: info[0] the component
+// count, info[1..4] width, height, the largest h and v factors, then per
+// component its h, v and the plane's width and rows (whole MCUs).
+extern "C" int kt_jpeg_planes_info(const uint8_t* data, long long n, int* info,
+                                   char* msg, int cap) {
+  try {
+    Decoder dec;
+    dec.d = data;
+    dec.n = (size_t)n;
+    dec.parse(true);
+    info[0] = dec.ncomp;
+    info[1] = dec.width;
+    info[2] = dec.height;
+    info[3] = dec.hmax;
+    info[4] = dec.vmax;
+    for (int i = 0; i < dec.ncomp; i++) {
+      info[5 + 4 * i] = dec.comp[i].h;
+      info[6 + 4 * i] = dec.comp[i].v;
+      info[7 + 4 * i] = dec.comp[i].aw * 8;
+      info[8 + 4 * i] = dec.comp[i].ah * 8;
+    }
+    return 0;
+  } catch (const Fail& f) {
+    return finish(f, msg, cap);
+  } catch (...) {
+    return finish(Fail{1, "out of memory decoding JPEG"}, msg, cap);
+  }
+}
+
+// libjpeg's raw data output (jpeg_read_raw_data, as libtiff's old-style
+// JPEG codec reads it): each component's samples at its own resolution,
+// the planes of kt_jpeg_planes_info one after the other, blocks outside the
+// image left 0. The stream is decoded as libtiff's codecs decode theirs
+// (the markers after the scan are not read).
+extern "C" int kt_jpeg_planes(const uint8_t* data, long long n, uint8_t* out,
+                              char* msg, int cap) {
+  try {
+    Decoder dec;
+    dec.d = data;
+    dec.n = (size_t)n;
+    dec.color = 2;
+    dec.parse();
+    for (int i = 0; i < dec.ncomp; i++)
+      if (dec.comp[i].coef.empty()) corrupt("JPEG component without a scan");
+    dec.check_smoothing();
+    for (int i = 0; i < dec.ncomp; i++) {
+      std::vector<uint8_t> s = dec.samples(dec.comp[i]);
+      std::memcpy(out, s.data(), s.size());
+      out += s.size();
+    }
+    return 0;
+  } catch (const Fail& f) {
+    return finish(f, msg, cap);
+  } catch (...) {
+    return finish(Fail{1, "out of memory decoding JPEG"}, msg, cap);
+  }
+}

@@ -194,6 +194,33 @@ def _map_file(kind: str, img: np.ndarray, formats: str):
             data = write_tiff(np.ascontiguousarray(np.rot90(img, 1)),
                               orientation=6)
         return ".tif", data, want
+    if formats == "tiffcodec":
+        want = np.concatenate(
+            [img, np.full(img.shape[:2] + (1,), 255, np.uint8)], -1)
+        if kind == "base":
+            data = write_tiff(img, compression=50000, predictor=2,
+                              tile=(256, 256))
+        elif kind == "normal":
+            data = write_tiff(img.astype(np.uint16) * 257, compression=50000,
+                              planar=2, order=">", rows_per_strip=256)
+        elif kind == "mr":
+            # roughness as 4-bit grey: glTF reads it from green, metallic
+            # from blue, so both take the grey level
+            grey = img[..., 1] >> 4
+            data = write_tiff(grey, photometric=1, compression=32809, bits=4,
+                              rows_per_strip=64)
+            want = np.concatenate([np.repeat((grey * 17)[..., None], 3, -1),
+                                   want[..., 3:]], -1)
+        else:
+            # the lit windows as a bilevel mask, white (bit 0 under
+            # MinIsWhite) where lit
+            lit = img.any(-1)
+            data = write_tiff((~lit).astype(np.uint8), photometric=0,
+                              compression=4, bits=1, fillorder=2)
+            want = np.concatenate([np.repeat(
+                np.where(lit, 255, 0).astype(np.uint8)[..., None], 3, -1),
+                want[..., 3:]], -1)
+        return ".tif", data, want
     if formats == "studio":
         if kind == "base":
             rgba = np.concatenate(
@@ -240,13 +267,17 @@ def write_city_assets(root: str, subdiv: int = 8, map_size: int = 2048,
     BC5 / BC7 DDS normal and metallic-roughness maps, a 16-bit PNG emissive
     map), "legacy" (RLE TGA base colour, BMP normal, GIF
     metallic-roughness and lossless WebP emissive maps), "tiff" (every
-    map a TIFF, each in another layout) or "studio" (PSD base colour, SGI
-    normal, PCX metallic-roughness and QOI emissive maps). Returns {file
+    map a TIFF, each in another layout), "studio" (PSD base colour, SGI
+    normal, PCX metallic-roughness and QOI emissive maps) or "tiffcodec"
+    (TIFFs of the later codecs: zstd RGB tiles with differencing, zstd
+    16-bit planar big-endian normals, ThunderScan 4-bit grey
+    metallic-roughness, a CCITT Group 4 bilevel emissive window mask). Returns {file
     name: (the RGB map written, the RGBA its file decodes to, or None for a
     JPEG or an 8-bit PNG)} of the building maps."""
-    if formats not in ("png", "mixed", "legacy", "tiff", "studio"):
+    if formats not in ("png", "mixed", "legacy", "tiff", "studio",
+                       "tiffcodec"):
         raise ValueError(f"formats {formats!r}: 'png', 'mixed', 'legacy', "
-                         "'tiff' or 'studio'")
+                         "'tiff', 'studio' or 'tiffcodec'")
     rng = np.random.default_rng(seed)
     mdir = os.path.join(root, "meshes")
     os.makedirs(mdir, exist_ok=True)

@@ -23,7 +23,10 @@ decoder does not cover (arithmetic coding, lossless, 12-bit,
 progressive files libjpeg would block-smooth, corrupt entropy data that
 libjpeg decodes with a warning) raises NotImplementedError.
 
-`read_jpeg_header` reads a JFIF's size and components from its SOF0 marker.
+`decode_jpeg_planes` gives libjpeg's raw data output (each component's
+samples, no upsampling, no colour conversion), which libtiff's old-style
+JPEG codec reads. `read_jpeg_header` reads a JFIF's size and components from
+its SOF0 marker.
 """
 from __future__ import annotations
 
@@ -109,6 +112,14 @@ def decoder_library() -> ctypes.CDLL:
             ctypes.c_char_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
         lib.kt_jpeg_decode_as.restype = ctypes.c_int
+        lib.kt_jpeg_planes_info.argtypes = [
+            ctypes.c_char_p, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_char_p, ctypes.c_int]
+        lib.kt_jpeg_planes_info.restype = ctypes.c_int
+        lib.kt_jpeg_planes.argtypes = [
+            ctypes.c_char_p, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_char_p, ctypes.c_int]
+        lib.kt_jpeg_planes.restype = ctypes.c_int
         _decoder = lib
         return lib
 
@@ -278,6 +289,47 @@ def decode_jpeg_stream(data: bytes, color: int) -> np.ndarray:
     if st:
         _raise(st, msg)
     return out
+
+
+def jpeg_frame(data: bytes) -> dict:
+    """The frame header of a JPEG stream as libjpeg reads it (the markers
+    before it read and checked): width, height, the largest sampling
+    factors and each component's (h, v). Raises JpegError where libjpeg's
+    jpeg_read_header fails before the frame."""
+    lib = decoder_library()
+    data = bytes(data)
+    msg = ctypes.create_string_buffer(256)
+    info = np.zeros(5 + 4 * 4, np.int32)
+    st = lib.kt_jpeg_planes_info(data, len(data), info.ctypes.data, msg,
+                                 len(msg))
+    if st:
+        _raise(st, msg)
+    comps = [tuple(int(v) for v in info[5 + 4 * i:9 + 4 * i])
+             for i in range(int(info[0]))]
+    return {"width": int(info[1]), "height": int(info[2]),
+            "hmax": int(info[3]), "vmax": int(info[4]),
+            "comps": [c[:2] for c in comps], "planes": [c[2:] for c in comps]}
+
+
+def decode_jpeg_planes(data: bytes) -> list:
+    """libjpeg's raw data output of a JPEG stream (jpeg_read_raw_data, no
+    upsampling and no colour conversion, as libtiff's old-style JPEG codec
+    asks for it): one (rows, width) uint8 plane a component, at the
+    component's resolution and padded to whole MCUs."""
+    frame = jpeg_frame(data)
+    lib = decoder_library()
+    data = bytes(data)
+    msg = ctypes.create_string_buffer(256)
+    sizes = [w * h for w, h in frame["planes"]]
+    out = np.empty(sum(sizes), np.uint8)
+    st = lib.kt_jpeg_planes(data, len(data), out.ctypes.data, msg, len(msg))
+    if st:
+        _raise(st, msg)
+    planes, pos = [], 0
+    for (w, h), n in zip(frame["planes"], sizes):
+        planes.append(out[pos:pos + n].reshape(h, w))
+        pos += n
+    return planes
 
 
 def read_jpeg_header(data: bytes):

@@ -58,23 +58,39 @@ from .raster import DecodeError
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "tiff_decoder.cpp")
+ZSTD_SOURCE = os.path.join(_PKG, "csrc", "zstd_decoder.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
 CXX = "g++"
 CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()
 _lib = None
+_zstd = None
 
 
 def library() -> ctypes.CDLL:
-    """The PackBits and LZW codecs, compiled at first use into BUILD_DIR."""
+    """The PackBits, LZW, CCITT and ThunderScan codecs, compiled at first
+    use into BUILD_DIR."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
         lib = hostlib.load(SOURCE, "tiff_decoder", CXX, CXX_FLAGS, BUILD_DIR,
                            "the TIFF decoder")
-        i64, ptr = ctypes.c_longlong, ctypes.c_void_p
+        i64, ptr, i32 = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+        lib.kt_tiff_fax.argtypes = [ctypes.c_char_p, i64, ptr, i64, i32, i32,
+                                    i32, i64, ptr, i32, i32,
+                                    ctypes.POINTER(i64),
+                                    ctypes.POINTER(i32)]
+        lib.kt_tiff_fax.restype = i32
+        lib.kt_tiff_fax_encode.argtypes = [ctypes.c_char_p, i32, i32, i64, i32,
+                                           i32, ptr, i64]
+        lib.kt_tiff_fax_encode.restype = i64
+        lib.kt_tiff_thunder.argtypes = [ctypes.c_char_p, i64, ptr, i64, i32,
+                                        i64]
+        lib.kt_tiff_thunder.restype = i32
+        lib.kt_tiff_thunder_encode.argtypes = [ctypes.c_char_p, i32, i32, ptr]
+        lib.kt_tiff_thunder_encode.restype = i64
         lib.kt_tiff_packbits.argtypes = [ctypes.c_char_p, i64, ptr, i64]
         lib.kt_tiff_packbits.restype = ctypes.c_int
         lib.kt_tiff_lzw.argtypes = [ctypes.c_char_p, i64, ptr, i64,
@@ -88,18 +104,35 @@ def library() -> ctypes.CDLL:
         return lib
 
 
+def zstd_library() -> ctypes.CDLL:
+    """The zstd decoder and encoder (`csrc/zstd_decoder.cpp`), compiled at
+    first use into BUILD_DIR."""
+    global _zstd
+    with _lock:
+        if _zstd is not None:
+            return _zstd
+        lib = hostlib.load(ZSTD_SOURCE, "zstd_decoder", CXX, CXX_FLAGS,
+                           BUILD_DIR, "the zstd decoder")
+        i64, ptr = ctypes.c_longlong, ctypes.c_void_p
+        lib.kt_zstd_tiff.argtypes = [ctypes.c_char_p, i64, ptr, i64, ptr]
+        lib.kt_zstd_tiff.restype = ctypes.c_int
+        lib.kt_zstd_encode.argtypes = [ctypes.c_char_p, i64, ptr, i64,
+                                       ctypes.c_int, ctypes.c_int]
+        lib.kt_zstd_encode.restype = i64
+        _zstd = lib
+        return lib
+
+
 COMPRESSION_INFO = {
     1: "raw", 2: "tiff_ccitt", 3: "group3", 4: "group4", 5: "tiff_lzw",
     6: "tiff_jpeg", 7: "jpeg", 8: "tiff_adobe_deflate", 32771: "tiff_raw_16",
     32773: "packbits", 32809: "tiff_thunderscan", 32946: "tiff_deflate",
     34676: "tiff_sgilog", 34677: "tiff_sgilog24", 34925: "lzma",
     50000: "zstd", 50001: "webp"}
-# the compressions PIL's libtiff decodes that the port does not
-_UNPORTED = {"tiff_ccitt": "CCITT RLE", "group3": "CCITT Group 3",
-             "group4": "CCITT Group 4", "tiff_jpeg": "old-style JPEG",
-             "tiff_raw_16": "tiff_raw_16", "tiff_thunderscan": "ThunderScan",
-             "tiff_sgilog": "SGILog", "tiff_sgilog24": "SGILog24",
-             "zstd": "zstd"}
+# the CCITT compressions (tif_fax3.c)
+_FAX = (2, 3, 4, 32771)
+# the codecs whose strips libtiff's predictor undoes
+_PREDICTED = (5, 8, 32946, 34925, 50000)
 
 II, MM = b"II", b"MM"
 # (ByteOrder, PhotoInterpretation, SampleFormat, FillOrder, BitsPerSample,
@@ -677,9 +710,14 @@ class _Dir:
         return (width * self.bps * s + 7) // 8
 
 
-def _read_segment(data: bytes, d: _Dir, i: int, size: int) -> bytes:
-    """TIFFFillStrip / TIFFFillTile's raw bytes of strip or tile i."""
+def _read_segment(data: bytes, d: _Dir, i: int, size: int,
+                  state: dict | None = None) -> bytes:
+    """TIFFFillStrip / TIFFFillTile's raw bytes of strip or tile i (its
+    file offset kept in `state`: the RLEW codec aligns to even addresses,
+    and PIL's buffer holds the file from one)."""
     offset, count = d.offsets[i], d.counts[i]
+    if state is not None:
+        state["offset"] = offset
     if count == 0:
         raise TiffError(f"invalid byte count of strip or tile {i}")
     if count > 1024 * 1024 and size and (count - 4096) // 10 > size:
@@ -713,6 +751,21 @@ def _decode_segment(raw: bytes, d: _Dir, occ: int, state: dict,
         if st:
             raise TiffError("LZW: corrupt or short data")
         return out.tobytes()
+    if comp in _FAX:
+        return _decode_fax(raw, d, occ, state, seg)
+    if comp == 32809:
+        return _decode_thunder(raw, d, occ)
+    if comp == 50000:
+        out = np.empty(occ, np.uint8)
+        bufs = state.setdefault("zstd", (ctypes.c_longlong * 3)())
+        st = zstd_library().kt_zstd_tiff(raw, len(raw), out.ctypes.data, occ,
+                                         bufs)
+        if st == 2:
+            raise _unported("zstd data whose outcome in libzstd is not "
+                            "modelled")
+        if st:
+            raise TiffError("zstd: corrupt or short data")
+        return out.tobytes()
     if comp in (8, 32946):
         try:
             out = zlib.decompressobj().decompress(raw, occ)
@@ -725,6 +778,66 @@ def _decode_segment(raw: bytes, d: _Dir, occ: int, state: dict,
     if len(out) < occ:
         raise TiffError("not enough data")
     return out
+
+
+def _decode_fax(raw, d, occ, state, seg):
+    """Fax3DecodeRLE / Fax3Decode1D / Fax3Decode2D / Fax4Decode into PIL's
+    strip or tile buffer, which outlives the segment: Group 4 data that
+    ends early (an EOFB, the end of the data), and a tile whose codec fails
+    (TIFFReadEncodedTile takes its -1 for success), leave the rows after it
+    as the previous segment left them. The run arrays and Group 3's
+    no-EOL mode outlive the segment too, as libtiff's do."""
+    if d.bps != 1:
+        raise TiffError("Bits/sample must be 1 for Group 3/4")
+    if d.spp != 1 and d.planar == 1:
+        raise TiffError("Samples/pixel shall be 1 for Group 3/4")
+    width = seg[0]
+    rowbytes = d.row_size(width)
+    opts = d.scalar(292, 0) if d.compression == 3 else 0
+    two_d = d.compression == 4 or (d.compression == 3 and opts & 1)
+    if "fax" not in state:
+        nruns = -(-(width + 1) // 32) * 32 * (2 if two_d else 1)
+        state["fax"] = (np.zeros(2 * nruns + 2, np.uint32), nruns)
+        state["buf"], state["defined"] = np.zeros(0, np.uint8), 0
+    runs, nruns = state["fax"]
+    noeol = state.setdefault("noeol", ctypes.c_int(0))
+    if state["buf"].size < occ:
+        grown = np.zeros(occ, np.uint8)
+        grown[:state["buf"].size] = state["buf"]
+        state["buf"] = grown
+    buf = state["buf"]
+    rows = ctypes.c_longlong()
+    st = library().kt_tiff_fax(raw, len(raw), buf.ctypes.data, occ,
+                               d.compression, opts, width, rowbytes,
+                               runs.ctypes.data, nruns,
+                               state.get("offset", 0) & 1, ctypes.byref(rows),
+                               ctypes.byref(noeol))
+    if st == 2:
+        raise _unported("CCITT data that libtiff decodes against memory "
+                        "before its run arrays")
+    if st and not d.tiled:
+        # TIFFReadEncodedTile takes the codec's -1 for success
+        raise TiffError("CCITT: premature end or corrupt data")
+    written = min(rows.value * rowbytes, occ)
+    if written < occ and occ > state["defined"]:
+        raise _unported("CCITT data that ends before the strip or tile, "
+                        "whose rows PIL's buffer left undefined")
+    state["defined"] = max(state["defined"], written)
+    return buf[:occ].tobytes()
+
+
+def _decode_thunder(raw, d, occ):
+    """ThunderDecodeRow: one ThunderDecode a row of ImageWidth pixels."""
+    if d.bps != 4:
+        raise TiffError("the Thunder decoder only supports 4 bits a sample")
+    if d.tiled:
+        raise _unported("tiled ThunderScan (libtiff decodes rows of the "
+                        "image's width into the tile)")
+    out = np.zeros(occ, np.uint8)
+    if library().kt_tiff_thunder(raw, len(raw), out.ctypes.data, occ,
+                                 d.width, d.row_size(d.width)):
+        raise TiffError("ThunderScan: not enough or too much data")
+    return out.tobytes()
 
 
 def _lzma(raw: bytes, occ: int) -> bytes:
@@ -754,7 +867,7 @@ def _lzma(raw: bytes, occ: int) -> bytes:
 def _check_predictor(d: _Dir) -> None:
     """PredictorSetupDecode: the codecs with a predictor (LZW, deflate,
     LZMA) refuse what they cannot undo."""
-    if d.compression not in (5, 8, 32946, 34925) or d.predictor == 1:
+    if d.compression not in _PREDICTED or d.predictor == 1:
         return
     if d.predictor == 2:
         if d.bps not in (8, 16, 32, 64):
@@ -774,7 +887,7 @@ def _post_decode(buf: bytes, d: _Dir, rowsize: int, order: str) -> np.ndarray:
     samples to the host's (little-endian) order: (rows, rowsize) uint8."""
     rows = np.frombuffer(buf, np.uint8).reshape(-1, rowsize)
     stride = d.spp if d.planar == 1 else 1
-    pred = d.predictor if d.compression in (5, 8, 32946, 34925) else 1
+    pred = d.predictor if d.compression in _PREDICTED else 1
     nb = d.bps // 8 if d.bps in (16, 24, 32, 64) else 1
     if pred == 3:
         return _fp_acc(rows, nb, stride)
@@ -832,9 +945,8 @@ def _load_libtiff(data: bytes, im: _Image) -> np.ndarray:
     d = _Dir(im.ifd, data)
     if (d.width, d.length) != im.tile_size:
         raise TiffError("libtiff's size differs")
-    name = COMPRESSION_INFO.get(d.compression)
-    if name in _UNPORTED:
-        raise _unported(f"compression {d.compression} ({_UNPORTED[name]})")
+    if d.compression == 6:
+        return _load_ojpeg(data, im, d)
     if d.photometric == 6 and not (d.compression == 7 and d.planar == 1):
         return _load_ycbcr(data, im, d)
     _check_predictor(d)
@@ -869,7 +981,7 @@ def _load_libtiff(data: bytes, im: _Image) -> np.ndarray:
                 for x in range(0, xsize, d.tw):
                     i = (y // d.th) * d.across + x // d.tw + \
                         plane * d.per_plane
-                    raw = _read_segment(data, d, i, tilesize)
+                    raw = _read_segment(data, d, i, tilesize, state)
                     rows = _post_decode(_decode_segment(raw, d, tilesize,
                                                         state, (d.tw, d.th)),
                                         d, rowsize, order)
@@ -891,7 +1003,7 @@ def _load_libtiff(data: bytes, im: _Image) -> np.ndarray:
             for plane in range(planes):
                 i = y // rps + plane * d.per_plane
                 nrows = min(rps, ysize - y)
-                raw = _read_segment(data, d, i, stripsize)
+                raw = _read_segment(data, d, i, stripsize, state)
                 rows = _post_decode(_decode_segment(raw, d, nrows * rowsize,
                                                     state, (xsize, nrows)),
                                     d, rowsize, order)
@@ -1032,6 +1144,392 @@ def _decode_jpeg_segment(raw, d, occ, state, seg):
     return out
 
 
+# ----------------------------------------------------------------------------
+# old-style JPEG (tif_ojpeg.c)
+# ----------------------------------------------------------------------------
+
+class _OjpegSource:
+    """OJPEGReadBufferFill's bytes: the JPEGInterchangeFormat block, then
+    each strip with a file offset, as one stream read a byte at a time; a
+    skip stops at the end of its block."""
+
+    def __init__(self, blocks):
+        self.blocks, self.k, self.pos = blocks, 0, 0
+
+    def _next(self):
+        while self.k < len(self.blocks) and \
+                self.pos >= len(self.blocks[self.k][1]):
+            self.k, self.pos = self.k + 1, 0
+        return self.k < len(self.blocks)
+
+    def peek(self):
+        if not self._next():
+            raise TiffError("old-style JPEG: premature end of data")
+        return self.blocks[self.k][1][self.pos]
+
+    def byte(self):
+        v = self.peek()
+        self.pos += 1
+        return v
+
+    def word(self):
+        return (self.byte() << 8) | self.byte()
+
+    def block(self, n):
+        return bytes(self.byte() for _ in range(n))
+
+    def skip(self, n):
+        if self._next():
+            self.pos += min(n, len(self.blocks[self.k][1]) - self.pos)
+
+    def rest(self):
+        """The compressed data after the scan header, with OJPEG's RSTn
+        between strips and EOI after the last."""
+        out, rst = bytearray(), 0
+        self._next()
+        for k in range(self.k, len(self.blocks)):
+            kind, b = self.blocks[k]
+            out += b[self.pos:] if k == self.k else b
+            if kind == "strip" and k + 1 < len(self.blocks):
+                out += bytes((0xFF, 0xD0 + rst))
+                rst = (rst + 1) % 8
+        return bytes(out) + b"\xff\xd9"
+
+
+def _ojpeg_blocks(data: bytes, d: _Dir, strips: int) -> list:
+    """OJPEGReadBufferFill's sources: the JPEGInterchangeFormat block (its
+    length cut to the file), then each strip's bytes (to the file's end
+    where its count is 0). A strip libtiff skips (offset 0 or past the
+    file) changes where it writes RSTn and EOI: not modelled."""
+    size = len(data)
+    blocks = []
+    jif, jifl = d.scalar(513, 0), d.scalar(514, 0)
+    if jif and jif < size:
+        if jifl == 0 or jif + jifl > size:
+            jifl = size - jif
+        blocks.append(("jif", data[jif:jif + jifl]))
+    for i in range(strips):
+        pos, count = d.offsets[i], d.counts[i]
+        if pos == 0 or pos >= size:
+            raise _unported("an old-style JPEG strip libtiff skips")
+        togo = size - pos if count == 0 else min(count, size - pos)
+        blocks.append(("strip", data[pos:pos + togo]))
+    return blocks
+
+
+def _ojpeg_sof_sampling(blocks, hor, ver):
+    """OJPEGSubsamplingCorrect's pass over the markers: the first frame
+    header's sampling of component 0, and whether libjpeg must upsample
+    (a factor libtiff's subsampling cannot hold)."""
+    src = _OjpegSource(blocks)
+    try:
+        while src.peek() == 0xFF:
+            src.byte()
+            m = src.byte()
+            while m == 0xFF:
+                m = src.byte()
+            if m == 0xD8:
+                continue
+            if m in (0xC4, 0xDB, 0xDD, 0xFE) or 0xE0 <= m <= 0xEF:
+                n = src.word()
+                if n < 2 or (m in (0xC4, 0xDB) and n <= 2):
+                    return hor, ver, False
+                if m == 0xDD:
+                    if n != 4:
+                        return hor, ver, False
+                    src.word()
+                else:
+                    src.skip(n - 2)
+                continue
+            if m in (0xC0, 0xC1, 0xC3):
+                n = src.word()
+                if n < 11 or (n - 8) % 3 or src.byte() != 8:
+                    return hor, ver, False
+                src.skip(4)
+                k = (n - 8) // 3
+                if src.byte() != k:
+                    return hor, ver, False
+                force = False
+                for q in range(k):
+                    src.byte()
+                    o = src.byte()
+                    if q == 0:
+                        hor, ver = o >> 4, o & 15
+                        force |= hor not in (1, 2, 4) or ver not in (1, 2, 4)
+                    elif o != 0x11:
+                        force = True
+                    src.byte()
+                return hor, ver, force
+            return hor, ver, False
+    except TiffError:
+        pass
+    return hor, ver, False
+
+
+def _ojpeg_stream(data, d, blocks, spp, hor, ver, restart):
+    """OJPEGReadHeaderInfoSec and OJPEGWriteStream: the JPEG stream libjpeg
+    reads, from the markers of the data or from the tables tags."""
+    err = TiffError
+    src = _OjpegSource(blocks)
+    qt, dc, ac = {}, {}, {}
+    sof = sos = None
+    while src.peek() == 0xFF:
+        src.byte()
+        m = src.byte()
+        while m == 0xFF:
+            m = src.byte()
+        if m == 0xD8:
+            continue
+        if m == 0xFE or 0xE0 <= m <= 0xEF:
+            n = src.word()
+            if n < 2:
+                raise err("old-style JPEG: corrupt JPEG data")
+            if n > 2:
+                src.skip(n - 2)
+        elif m == 0xDD:
+            if src.word() != 4:
+                raise err("old-style JPEG: corrupt DRI marker")
+            restart = src.word()
+        elif m == 0xDB:
+            n = src.word()
+            if n <= 2:
+                raise err("old-style JPEG: corrupt DQT marker")
+            n -= 2
+            while n > 0:
+                if n < 65:
+                    raise err("old-style JPEG: corrupt DQT marker")
+                body = src.block(65)
+                if body[0] & 15 > 3:
+                    raise err("old-style JPEG: corrupt DQT marker")
+                if body[0] >> 4:
+                    raise _unported("an old-style JPEG 16-bit table")
+                qt[body[0] & 15] = b"\xff\xdb\x00\x43" + body
+                n -= 65
+        elif m == 0xC4:
+            n = src.word()
+            if n <= 2:
+                raise err("old-style JPEG: corrupt DHT marker")
+            body = src.block(n - 2)
+            o = body[0] if body else 0
+            table = b"\xff\xc4" + n.to_bytes(2, "big") + body
+            if o & 0xF0 == 0 and o <= 3:
+                dc[o] = table
+            elif o & 0xF0 == 16 and o & 15 <= 3:
+                ac[o & 15] = table
+            else:
+                raise err("old-style JPEG: corrupt DHT marker")
+        elif m in (0xC0, 0xC1, 0xC3):
+            if sof is not None:
+                raise err("old-style JPEG: corrupt JPEG data")
+            n = src.word()
+            if n < 11 or (n - 8) % 3:
+                raise err("old-style JPEG: corrupt SOF marker")
+            k = (n - 8) // 3
+            if k != spp:
+                raise err("old-style JPEG: unexpected number of samples")
+            if src.byte() != 8:
+                raise err("old-style JPEG: unexpected bits per sample")
+            y, x = src.word(), src.word()
+            if y < d.length:
+                raise err("old-style JPEG: unexpected height")
+            if x < d.width:
+                raise err("old-style JPEG: unexpected width")
+            if x > d.width:
+                raise err("old-style JPEG: width exceeds the image's")
+            if src.byte() != k:
+                raise err("old-style JPEG: corrupt SOF marker")
+            comps = []
+            for q in range(k):
+                c, hv, tq = src.byte(), src.byte(), src.byte()
+                if q == 0 and (hv >> 4, hv & 15) != (hor, ver):
+                    raise err("old-style JPEG: unexpected sampling factor")
+                if q and hv != 0x11:
+                    raise err("old-style JPEG: unexpected sampling factor")
+                comps.append((c, hv, tq))
+            sof = (m, y, x, comps)
+        elif m == 0xDA:
+            if sof is None:
+                raise err("old-style JPEG: corrupt SOS marker")
+            if src.word() != 6 + 2 * spp or src.byte() != spp:
+                raise err("old-style JPEG: corrupt SOS marker")
+            sos = [(src.byte(), src.byte()) for _ in range(spp)]
+            src.skip(3)
+            break
+        else:
+            raise err(f"old-style JPEG: unknown marker {m:#x}")
+    if sof is None:
+        sof, sos = _ojpeg_tables(data, d, spp, hor, ver, qt, dc, ac)
+    elif sos is None:
+        raise err("old-style JPEG: no scan header")
+    if sof[0] == 0xC3:
+        raise _unported("a lossless old-style JPEG")
+    marker, y, x, comps = sof
+    out = bytearray(b"\xff\xd8")
+    for t in (qt, dc, ac):
+        for k in range(4):
+            out += t.get(k, b"")
+    if restart:
+        out += bytes((0xFF, 0xDD, 0, 4, restart >> 8 & 255, restart & 255))
+    out += bytes((0xFF, marker, 0, 8 + 3 * spp, 8, y >> 8 & 255, y & 255,
+                  x >> 8 & 255, x & 255, spp))
+    for c in comps:
+        out += bytes(c)
+    out += bytes((0xFF, 0xDA, 0, 6 + 2 * spp, spp))
+    for c in sos:
+        out += bytes(c)
+    out += b"\x00\x3f\x00"
+    return bytes(out) + src.rest()
+
+
+def _ojpeg_tables(data, d, spp, hor, ver, qt, dc, ac):
+    """OJPEGReadHeaderInfoSecTables*: DQT and DHT segments built from the
+    JPEGQTables, JPEGDCTables and JPEGACTables offsets, and the frame and
+    scan headers libtiff writes for them."""
+    def offsets(tag):
+        v = tuple(d.entry(tag)) if tag in d.ifd else ()
+        if len(v) > 3:
+            raise _unported(f"tag {tag} with {len(v)} values")
+        return v + (0,) * (spp - len(v)) if len(v) < spp else v
+
+    def read(off, n):
+        if off + n > len(data):
+            raise TiffError("old-style JPEG: table past the file's end")
+        return data[off:off + n]
+
+    q_off, dc_off, ac_off = offsets(519), offsets(520), offsets(521)
+    if not q_off or not q_off[0] or not dc_off or not dc_off[0] or \
+            not ac_off or not ac_off[0]:
+        raise TiffError("old-style JPEG: missing JPEG tables")
+    tq, tda = [0] * spp, [0] * spp
+    for m in range(spp):
+        if q_off[m] and (m == 0 or q_off[m] != q_off[m - 1]):
+            if any(q_off[m] == q_off[n] for n in range(m - 1)):
+                raise TiffError("old-style JPEG: corrupt JPEGQTables")
+            qt[m] = b"\xff\xdb\x00\x43" + bytes((m,)) + read(q_off[m], 64)
+            tq[m] = m
+        else:
+            tq[m] = tq[m - 1]
+    for tables, offs, cls in ((dc, dc_off, 0), (ac, ac_off, 1)):
+        for m in range(spp):
+            if offs[m] and (m == 0 or offs[m] != offs[m - 1]):
+                if any(offs[m] == offs[n] for n in range(m - 1)):
+                    raise TiffError("old-style JPEG: corrupt Huffman tables")
+                counts = read(offs[m], 16)
+                q = sum(counts)
+                syms = read(offs[m] + 16, q)
+                tables[m] = b"\xff\xc4" + (19 + q).to_bytes(2, "big") + \
+                    bytes((cls << 4 | m,)) + counts + syms
+                tda[m] = (m << 4) if cls == 0 else tda[m] | m
+            elif cls == 0:
+                tda[m] = tda[m - 1]
+            else:
+                tda[m] = tda[m] | (tda[m - 1] & 15)
+    comps = [(o, (hor << 4 | ver) if o == 0 else 0x11, tq[o])
+             for o in range(spp)]
+    sos = [(o, tda[o]) for o in range(spp)]
+    return (0xC0, d.length, d.width, comps), sos
+
+
+def _load_ojpeg(data: bytes, im: _Image, d: _Dir) -> np.ndarray:
+    """Old-style JPEG as libtiff's tif_ojpeg.c decodes it under PIL: the
+    JPEG stream OJPEG writes for libjpeg (the JPEGInterchangeFormat block
+    and the strips, or tables from the JPEGQTables / DCTables / ACTables
+    tags; RSTn between strips), its sampling corrected from the frame
+    header, and libjpeg's raw output (no upsampling, no colour conversion)
+    packed in YCbCr blocks for TIFFRGBAImage (`_load_ycbcr`), or grey rows
+    as they are. Errors before the first strip's data whiten the texture;
+    a YCbCr strip that fails later leaves TIFFRGBAImage a zeroed buffer,
+    which is not modelled (NotImplementedError)."""
+    from .jpeg import JpegError, decode_jpeg_planes, jpeg_frame
+
+    ifd = d.ifd
+    # TIFFReadDirectory's OJPEG fixups
+    if d.photometric is None or d.photometric == 2:
+        d.photometric = 6
+    if 258 not in ifd:
+        d.bps = 8
+    if 277 not in ifd:
+        d.spp = 3 if d.photometric == 6 else 1 if d.photometric in (0, 1) \
+            else d.spp
+    if d.tiled or d.planar != 1:
+        raise _unported("tiled or separate-plane old-style JPEG")
+    spp = d.spp
+    ycc = d.photometric == 6
+    if not ycc and spp != 1:
+        raise TiffError("PIL's unpacker row is longer than libtiff's")
+    if spp not in (1, 3):
+        raise TiffError("old-style JPEG: unsupported SamplesPerPixel")
+    hor = ver = 1
+    blocks = _ojpeg_blocks(data, d, d.per_plane)
+    if spp == 3:
+        # OJPEGSubsamplingCorrect: the tag's values (2, 2 without one),
+        # then the first frame header's
+        sub = d.entry(530) if 530 in ifd else (2, 2)
+        if len(sub) != 2:
+            raise _unported("a YCbCrSubSampling of other than two values")
+        hor, ver, force = _ojpeg_sof_sampling(blocks, *sub)
+        if force:
+            raise _unported("old-style JPEG that libjpeg upsamples")
+    rps = d.rps if d.rps < 2 ** 32 - 1 else d.length
+    restart = d.scalar(515, 0)
+    if rps < d.length:
+        if hor not in (1, 2, 4) or ver not in (1, 2, 4):
+            raise TiffError("old-style JPEG: invalid subsampling")
+        if rps % (ver * 8):
+            raise TiffError("old-style JPEG: strip length and subsampling")
+        restart = -(-d.width // (hor * 8)) * (rps // (ver * 8))
+    stream = _ojpeg_stream(data, d, blocks, spp, hor, ver, restart & 0xFFFF)
+    try:
+        frame = jpeg_frame(stream)
+    except JpegError as e:
+        raise TiffError(f"old-style JPEG: {e}") from e
+    if frame["width"] != d.width or (frame["hmax"], frame["vmax"]) != \
+            (hor, ver):
+        raise TiffError("old-style JPEG: libjpeg's frame differs")
+    try:
+        planes = decode_jpeg_planes(stream)
+    except JpegError as e:
+        if ycc:
+            raise _unported("old-style JPEG data that fails in a strip "
+                            "TIFFRGBAImage then reads zeroed") from e
+        raise TiffError(f"old-style JPEG: {e}") from e
+    if not ycc:
+        # OJPEGDecodeScanlines: grey rows, unpacked as "L"
+        img = raster.new(im.mode, d.width, d.length)
+        img[...] = planes[0][:d.length, :d.width].reshape(img.shape)
+        return img
+    # OJPEGDecodeRaw: lines of subsampling blocks (hor x ver Y, Cb, Cr)
+    lineout = -(-d.width // hor)
+    y, cb, cr = planes
+    imcu = -(-frame["height"] // (8 * ver))
+    nlines = imcu * 8
+    r, st = np.arange(nlines) // 8, np.arange(nlines) % 8
+    yrows = (r * 8 * ver + st * ver)[:, None] + np.arange(ver)[None]
+    ys = y[yrows][:, :, :lineout * hor]                 # (lines, ver, W)
+    ys = ys.reshape(nlines, ver, lineout, hor).transpose(0, 2, 1, 3)
+    ys = ys.reshape(nlines, lineout, hor * ver)
+    crow = r * 8 + st
+    lines = np.concatenate([ys, cb[crow][:, :lineout, None],
+                            cr[crow][:, :lineout, None]], -1)
+    lines = lines.reshape(nlines, -1)
+    bpl = lines.shape[1]
+    cursor = [0]
+
+    def decode(i, size):
+        if size % bpl:
+            raise _unported("old-style JPEG strips of a fractional line, "
+                            "which TIFFRGBAImage then reads zeroed")
+        n = size // bpl
+        k = cursor[0]
+        if k + n > nlines:
+            raise _unported("old-style JPEG data shorter than its image")
+        cursor[0] += n
+        return lines[k:k + n].tobytes()
+
+    # the subsampling TIFFRGBAImage reads is OJPEG's, tag or not
+    return _load_ycbcr(data, im, d, sub=(hor, ver), decode=decode)
+
+
 # tif_color.c's defaults: Rec. 601 luma and the YCbCr ReferenceBlackWhite
 _LUMA = (0.299, 0.587, 0.114)
 _RBW = (0.0, 255.0, 128.0, 255.0, 128.0, 255.0)
@@ -1102,7 +1600,8 @@ def _rational_field(d: _Dir, tag: int, n: int, default):
                  for a, b in zip(v[::2], v[1::2]))
 
 
-def _load_ycbcr(data: bytes, im: _Image, d: _Dir) -> np.ndarray:
+def _load_ycbcr(data: bytes, im: _Image, d: _Dir, sub=None,
+                decode=None) -> np.ndarray:
     """_decodeAsRGBA: libtiff's TIFFRGBAImage over blocks of strips or
     tiles, 8-bit YCbCr with its subsampling converted by tif_color.c (PIL
     reads the raster top-left first whatever the Orientation, and unpacks
@@ -1111,11 +1610,13 @@ def _load_ycbcr(data: bytes, im: _Image, d: _Dir) -> np.ndarray:
         raise _unported("separate-plane JPEG YCbCr")
     if d.bps not in (1, 2, 4, 8, 16) or d.sampleformat == 3:
         raise TiffError("TIFFRGBAImageOK refuses the sample format")
-    sub = (2, 2)
-    if 530 in d.ifd:
-        sub = d.entry(530)
-        if len(sub) != 2:
-            raise _unported("a YCbCrSubSampling of other than two values")
+    if sub is None:
+        sub = (2, 2)
+        if 530 in d.ifd:
+            sub = d.entry(530)
+            if len(sub) != 2:
+                raise _unported("a YCbCrSubSampling of other than two "
+                                "values")
     hs, vs = sub
     if d.bps != 8 or d.spp != 3 or (d.planar == 1 and (hs << 4 | vs) not in (
             0x11, 0x12, 0x21, 0x22, 0x41, 0x42, 0x44)) or \
@@ -1143,9 +1644,11 @@ def _load_ycbcr(data: bytes, im: _Image, d: _Dir) -> np.ndarray:
         return _ycbcr_to_rgb(ys, cb, cr, tables)
 
     def segment(i, size):
+        if decode is not None:
+            return decode(i, size)
         try:
-            raw = _read_segment(data, d, i, size)
-            return _decode_segment(raw, d, size, state)
+            raw = _read_segment(data, d, i, size, state)
+            return _decode_segment(raw, d, size, state, (d.width, 0))
         except TiffError as e:
             # stoponerr is 0: libtiff goes on with the buffer it has
             raise _unported(f"a YCbCr strip that libtiff reads past an "
@@ -1249,6 +1752,10 @@ def decode_tiff(data: bytes) -> np.ndarray:
     with opening("TIFF"):
         im = _open(data)
     check_pixels(*im.size)
+    if im.compression in ("tiff_sgilog", "tiff_sgilog24"):
+        # LogLuvSetupDecode takes only the LogL and LogLuv photometrics,
+        # which PIL's OPEN_INFO lacks: every file PIL opens fails to load
+        raise TiffError("SGILog needs a LogL or LogLuv photometric")
     if im.mode == "LAB":
         raise _unported("LAB (PIL converts it through LittleCMS)")
     check_pixels(*im.tile_size)
@@ -1262,12 +1769,41 @@ def decode_tiff(data: bytes) -> np.ndarray:
 # the writer (the TIFF-textured city's maps)
 # ----------------------------------------------------------------------------
 
-def _compress(raw: bytes, compression: int) -> bytes:
+def _compress(raw: bytes, compression: int, rows: int = 0, width: int = 0,
+              t4options: int = 0) -> bytes:
+    """One strip or tile of `rows` rows of `width` samples, raw as the
+    codec gets them, compressed."""
     if compression == 1:
         return raw
     if compression in (8, 32946):
         return zlib.compress(raw, 6)
+    if compression == 50000:
+        cap = len(raw) + len(raw) // 64 + 256
+        out = np.empty(cap, np.uint8)
+        wlog = max(10, min(27, (max(len(raw), 1) - 1).bit_length()))
+        n = zstd_library().kt_zstd_encode(raw, len(raw), out.ctypes.data, cap,
+                                         wlog, 1)
+        if n < 0:
+            raise ValueError("zstd output larger than its buffer")
+        return out[:n].tobytes()
     lib = library()
+    if compression in _FAX:
+        rowbytes = len(raw) // rows
+        cap = rows * (width * 3 + 64) + 64
+        out = np.empty(cap, np.uint8)
+        n = lib.kt_tiff_fax_encode(raw, width, rows, rowbytes, compression,
+                                   t4options, out.ctypes.data, cap)
+        if n < 0:
+            raise ValueError("CCITT output larger than its buffer")
+        return out[:n].tobytes()
+    if compression == 32809:
+        px = np.frombuffer(raw, np.uint8).reshape(rows, -1)
+        px = np.stack([px >> 4, px & 15], -1).reshape(rows, -1)[:, :width]
+        px = np.ascontiguousarray(px)
+        out = np.empty(rows * (width + 1), np.uint8)
+        n = lib.kt_tiff_thunder_encode(px.tobytes(), width, rows,
+                                       out.ctypes.data)
+        return out[:n].tobytes()
     if compression == 5:
         cap = len(raw) * 2 + 64
         out = np.empty(cap, np.uint8)
@@ -1282,20 +1818,37 @@ def _compress(raw: bytes, compression: int) -> bytes:
     raise ValueError(f"the writer has no compression {compression}")
 
 
+def _pack_rows(blk: np.ndarray, bits: int, dt: np.dtype) -> np.ndarray:
+    """(rows, width, S) samples -> (rows, bytes) as a strip stores them:
+    MSB-first packed below 8 bits, else in the file's byte order."""
+    if bits < 8:
+        v = blk.reshape(blk.shape[0], -1).astype(np.uint8)
+        planes = [(v >> (bits - 1 - b)) & 1 for b in range(bits)]
+        bitrows = np.stack(planes, -1).reshape(v.shape[0], -1)
+        return np.packbits(bitrows, axis=1)
+    return blk.reshape(blk.shape[0], -1).astype(dt)
+
+
 def write_tiff(samples: np.ndarray, *, photometric: int = 2,
                compression: int = 1, predictor: int = 1, planar: int = 1,
                tile: tuple | None = None, rows_per_strip: int | None = None,
-               order: str = "<", orientation: int | None = None) -> bytes:
-    """A baseline TIFF of (H, W, S) uint8 or uint16 samples (8 or 16 bits),
-    in strips or (tw, th) tiles, contiguous or planar (2), raw (1), LZW (5),
-    deflate (8) or PackBits (32773), horizontal differencing (predictor 2)
-    and either byte order; `orientation` is written as the Orientation tag
-    (the samples are stored as given)."""
+               order: str = "<", orientation: int | None = None,
+               bits: int | None = None, fillorder: int = 1,
+               t4options: int | None = None) -> bytes:
+    """A baseline TIFF of (H, W, S) samples: uint8 or uint16 (8 or 16
+    bits), or `bits` 1 or 4 (values below 2 ** bits), in strips or (tw, th)
+    tiles, contiguous or planar (2), raw (1), LZW (5), deflate (8),
+    PackBits (32773), zstd (50000, a checksummed frame a strip), CCITT RLE
+    (2), RLEW (32771), Group 3 (3, `t4options` its T4Options), Group 4 (4)
+    or ThunderScan (32809), horizontal differencing (predictor 2), FillOrder
+    1 or 2 (the codec's bytes bit-reversed) and either byte order;
+    `orientation` is written as the Orientation tag (the samples are stored
+    as given)."""
     samples = np.asarray(samples)
     if samples.ndim == 2:
         samples = samples[..., None]
     h, w, spp = samples.shape
-    bps = 16 if samples.dtype == np.uint16 else 8
+    bps = bits or (16 if samples.dtype == np.uint16 else 8)
     dt = np.dtype(order + ("u2" if bps == 16 else "u1"))
     planes = [samples[..., i:i + 1] for i in range(spp)] if planar == 2 \
         else [samples]
@@ -1314,12 +1867,17 @@ def write_tiff(samples: np.ndarray, *, photometric: int = 2,
             blocks += [pl[y0:y0 + rps] for y0 in range(0, h, rps)]
     blobs = []
     for blk in blocks:
-        v = blk.reshape(blk.shape[0], -1).astype(dt.newbyteorder("="))
+        v = _pack_rows(blk, bps, dt.newbyteorder("="))
         if predictor == 2:
             stride = blk.shape[2]
             v = v.copy()
             v[:, stride:] = v[:, stride:] - v[:, :-stride]
-        blobs.append(_compress(v.astype(dt).tobytes(), compression))
+        raw = v.astype(dt).tobytes() if bps >= 8 else v.tobytes()
+        blob = _compress(raw, compression, blk.shape[0], blk.shape[1],
+                         t4options or 0)
+        if fillorder == 2:
+            blob = raster.REVERSE[np.frombuffer(blob, np.uint8)].tobytes()
+        blobs.append(blob)
     head = 8
     body = bytearray()
     offsets = []
@@ -1339,6 +1897,10 @@ def write_tiff(samples: np.ndarray, *, photometric: int = 2,
         tags[317] = (3, [predictor])
     if orientation is not None:
         tags[274] = (3, [orientation])
+    if fillorder != 1:
+        tags[266] = (3, [fillorder])
+    if t4options is not None:
+        tags[292] = (4, [t4options])
     ifd_off = head + len(body)
     ext_off = ifd_off + 2 + 12 * len(tags) + 4
     entries, ext = bytearray(), bytearray()

@@ -135,14 +135,16 @@ def test_host_sources_built_only_by_their_builder():
     BVH builder by rt/bvh.py, the JPEG encoder and decoder by
     scene/jpeg.py, the BCn block decoder by scene/dds.py, the RLE / LZW /
     PackBits / QOI / DXT loops by scene/raster.py, the WebP decoder by
-    scene/webp.py, the TIFF codecs by scene/tiff.py."""
+    scene/webp.py, the TIFF codecs and the zstd decoder by
+    scene/tiff.py."""
     builders = {"bvh_builder.cpp": "rt/bvh.py",
                 "jpeg_encoder.cpp": "scene/jpeg.py",
                 "jpeg_decoder.cpp": "scene/jpeg.py",
                 "bcn_decoder.cpp": "scene/dds.py",
                 "raster_decoder.cpp": "scene/raster.py",
                 "webp_decoder.cpp": "scene/webp.py",
-                "tiff_decoder.cpp": "scene/tiff.py"}
+                "tiff_decoder.cpp": "scene/tiff.py",
+                "zstd_decoder.cpp": "scene/tiff.py"}
     on_disk = sorted(n for n in os.listdir(_native.CSRC)
                      if not n.endswith(".cu"))
     assert on_disk == sorted(builders)
@@ -160,6 +162,7 @@ def test_host_sources_built_only_by_their_builder():
     assert raster.SOURCE == os.path.join(_native.CSRC, "raster_decoder.cpp")
     assert webp.SOURCE == os.path.join(_native.CSRC, "webp_decoder.cpp")
     assert tiff.SOURCE == os.path.join(_native.CSRC, "tiff_decoder.cpp")
+    assert tiff.ZSTD_SOURCE == os.path.join(_native.CSRC, "zstd_decoder.cpp")
     assert jpeg.DECODER_SOURCE == os.path.join(_native.CSRC,
                                                "jpeg_decoder.cpp")
     assert dds.BCN_SOURCE == os.path.join(_native.CSRC, "bcn_decoder.cpp")
