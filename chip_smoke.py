@@ -11,7 +11,8 @@ bit for bit with its visit and test counts, its front-to-back closest hits
 also held against the skip-link walk's), checks the GPU path against the
 CPU path on small frames of every path (the default and path-tracer frames
 also forced through the BVH route; the super-resolution frame shown 1.5
-times its render size), then renders at 1920x1080, on the cornell
+times its render size; the CPU side rendered in worker processes while the
+card runs the kernel phases), then renders at 1920x1080, on the cornell
 box (32 triangles, brute kernel B) and on the 196,610-triangle procedural
 city (culled kernel C), and on city40 (the BVH walk; 2 default and 2
 path-tracer frames, its set-up timed: scene tables, native BVH build, trace
@@ -46,22 +47,27 @@ the BVH, its `tlas_refit` range timed and its launches counted):
   QOI emissive map) and as TIFFs of the later codecs (zstd tiled base
   colours with differencing, zstd 16-bit planar big-endian normal maps,
   ThunderScan 4-bit grey metallic-roughness maps, a CCITT Group 4 bilevel
-  emissive window mask), each bake timed by format,
+  emissive window mask) and in PIL's smaller plugins (LZW LAB TIFF base
+  colours, 24-bit RLE Sun raster normal maps, XPM metallic-roughness maps
+  of at most 256 colours, an ICNS emissive map whose best member is a
+  1024^2 PNG), each bake timed by format,
 with the launch counters set to 0 just before each path and read just after,
-each map of the mixed, legacy, TIFF, studio and TIFF-codec cities decoded on
-the host
-equal to the texels its writer reports (the JPEGs within JPEG_PSNR_DB), the
+each map of the mixed, legacy, TIFF, studio, TIFF-codec and plugin cities
+decoded on the host
+equal to the texels its writer reports (the JPEGs within JPEG_PSNR_DB, the
+LAB maps to the SHA-256 PIL gave for them), the
 committed WebP fixtures (tests/data/webp/: lossy, lossy with alpha,
 lossless, animated), TIFF fixtures (tests/data/tiff/: JPEG-in-TIFF YCbCr
 2x2, LZMA, the floating-point predictor, CMYK, BigTIFF, tiles, CCITT RLE /
-RLEW / Group 3 / Group 4, zstd, ThunderScan, old-style JPEG 4:2:0 and 4:4:4;
-LAB raises NotImplementedError, SGILog what the bake turns white) and studio
+RLEW / Group 3 / Group 4, zstd, ThunderScan, old-style JPEG 4:2:0 and 4:4:4,
+LAB; SGILog what the bake turns white), studio
 fixtures (tests/data/studio/: BLP1 JPEG
 and palette, BLP2 palette, DXT1 / 3 / 5, FTEX raw and DXT1, PSD CMYK,
 indexed and bitmap, PCX of 2 and 4 bit planes and 8-bit palette, DCX, PFM,
-16-bit PGM; BLP2 raw BGRA, which PIL cannot decode, must raise what the
-bake turns white, a LAB PSD NotImplementedError) decoded on the host to the
-RGBA digests PIL gave for them,
+16-bit PGM, a LAB PSD; BLP2 raw BGRA, which PIL cannot decode, must raise
+what the bake turns white) and plugin fixtures (tests/data/plugins/: LAB
+TIFFs and PSDs, ICNS, GBR, IPTC, XBM, XPM, Sun rasters, MSP, XV thumbnail,
+IMT, PIXAR) decoded on the host to the RGBA digests PIL gave for them,
 and the host syncs of each frame counted (the textured frames may make no
 more than the untextured default frames of the same geometry). Then the
 oracle datum (the port's hybrid frame against its path tracer on cornell at
@@ -107,6 +113,7 @@ from __future__ import annotations
 
 import collections
 import json
+import multiprocessing
 import os
 import shutil
 import statistics
@@ -115,6 +122,7 @@ import sys
 import tempfile
 import time
 import warnings
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
@@ -307,8 +315,10 @@ SCENES = {
     # "tcitytiff4" (the TIFF-textured asset city, n=16 / n=4 with 256^2
     # maps) and "tcitystudio" / "tcitystudio4" (the studio-format asset
     # city: PSD, SGI, PCX and QOI maps) and "tcitycodec" / "tcitycodec4"
-    # (the TIFF-codec city: zstd, ThunderScan and CCITT Group 4 maps) are
-    # added by main once `asset_scenes` wrote them
+    # (the TIFF-codec city: zstd, ThunderScan and CCITT Group 4 maps) and
+    # "tcityplugins" / "tcityplugins4" (the plugin city: LAB TIFF, RLE Sun
+    # raster, XPM and ICNS maps) are added by main once `asset_scenes`
+    # wrote them
 }
 # the scenes each path renders at 1080p, and a cap on the frames of a scene
 # (city3 shows kernel B at the brute route's limit on the two paths that
@@ -318,14 +328,17 @@ PATH_SCENES = {"raster": ("cornell", "city"), "gi": ("cornell", "city"),
                "refpt": ("cornell", "city", "city3", "city40"),
                "options": ("cornell", "city"),
                "textured": ("tcornell", "tcity", "tcityfmt", "tcitylegacy",
-                            "tcitytiff", "tcitystudio", "tcitycodec")}
+                            "tcitytiff", "tcitystudio", "tcitycodec",
+                            "tcityplugins")}
 FRAME_CAP = {"city3": 2, "tcity": 2, "tcityfmt": 2, "tcitylegacy": 2,
-             "tcitytiff": 2, "tcitystudio": 2, "tcitycodec": 2, "city40": 2}
+             "tcitytiff": 2, "tcitystudio": 2, "tcitycodec": 2,
+             "tcityplugins": 2, "city40": 2}
 # the untextured scene of the same geometry, whose default frames the
 # textured frames' host syncs are held to
 UNTEXTURED = {"tcornell": "cornell", "tcity": "city", "tcityfmt": "city",
               "tcitylegacy": "city", "tcitytiff": "city",
-              "tcitystudio": "city", "tcitycodec": "city"}
+              "tcitystudio": "city", "tcitycodec": "city",
+              "tcityplugins": "city"}
 # the decoded JPEG maps of the mixed-format city against the arrays they
 # encode (quality 85, 4:2:0): format_phase reads 42.2-48.8 dB
 JPEG_PSNR_DB = 35.0
@@ -334,6 +347,20 @@ JPEG_PSNR_DB = 35.0
 # frame refits the BVH inside its `tlas_refit` range
 MOVED = {"default": ("city40",)}
 MOVE, MOVE_FRAME = (0.05, 0.0, 0.0), 1
+# the format cities `asset_scenes` writes, as (formats, directory under the
+# root), and the scene name of each (a city of SMALL_FORMATS also has a
+# small version, its name with a "4" added)
+CITIES = (("mixed", "fmt"), ("legacy", "legacy"), ("tiff", "tiff"),
+          ("studio", "studio"), ("tiffcodec", "codec"),
+          ("plugins", "plugins"))
+CITY_SCENES = {"mixed": "tcityfmt", "legacy": "tcitylegacy",
+               "tiff": "tcitytiff", "studio": "tcitystudio",
+               "tiffcodec": "tcitycodec", "plugins": "tcityplugins"}
+# the small frames' legacy, TIFF, studio, TIFF-codec and plugin cities:
+# their maps at 256^2, since a 64x48 frame needs no more, and two bakes of
+# the full maps would cost ~25 s on an NVIDIA H100 80GB HBM3 host at
+# 700.00 W
+SMALL_FORMATS = ("legacy", "tiff", "studio", "tiffcodec", "plugins")
 
 
 def asset_scenes(root):
@@ -346,62 +373,70 @@ def asset_scenes(root):
     "tcitylegacy4" (n=4, its maps at 256^2, the small frames' scene), and
     likewise "tcitytiff" / "tcitytiff4" (the TIFF-textured city under
     `root/tiff`), "tcitystudio" / "tcitystudio4" (the studio-format city
-    under `root/studio`) and "tcitycodec" / "tcitycodec4" (the TIFF-codec
-    city under `root/codec`), with the mixed, legacy, TIFF, studio and
-    TIFF-codec maps written: {file path: (map, RGBA its file decodes to, or
-    None for a JPEG)}."""
-    from kajiya_tpu_torch.apps.view import build_scene
+    under `root/studio`), "tcitycodec" / "tcitycodec4" (the TIFF-codec
+    city under `root/codec`) and "tcityplugins" / "tcityplugins4" (the
+    plugin city under `root/plugins`), with the mixed, legacy, TIFF,
+    studio, TIFF-codec and plugin maps written: {file path: (map, RGBA its
+    file decodes to, or None for a JPEG or a LAB TIFF)}."""
     from kajiya_tpu_torch.scene import assets
 
+    def write(job):
+        formats, sub = job
+        if sub is None:
+            return assets.write_city_assets(root)
+        if sub.endswith("_small"):
+            return assets.write_city_assets(
+                os.path.join(root, sub), map_size=256, emissive_size=128,
+                ground_size=(256, 512), formats=formats)
+        return assets.write_city_assets(os.path.join(root, sub),
+                                        formats=formats)
+
+    # the cities are written on threads: their zlib, LZW and numpy work
+    # runs outside the interpreter lock (55.6 s one after another, 14.2 s on
+    # seven threads, on an 8-core x86-64 host)
     t0 = time.perf_counter()
-    assets.write_city_assets(root)
-    rons = {n: assets.write_city_ron(root, n=n, name=f"city{n}")
-            for n in (16, 4)}
-    log(f"textured city assets written in {time.perf_counter() - t0:.1f} s "
-        f"under {root}")
-    maps, fmt_rons = {}, {}
-    for formats, sub in (("mixed", "fmt"), ("legacy", "legacy"),
-                         ("tiff", "tiff"), ("studio", "studio"),
-                         ("tiffcodec", "codec")):
-        t0 = time.perf_counter()
+    jobs = [("png", None)] + list(CITIES) + [(f, f"{f}_small")
+                                             for f in SMALL_FORMATS]
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        written = dict(zip(jobs, pool.map(write, jobs)))
+    maps = {}
+    for formats, sub in CITIES:
         sub_root = os.path.join(root, sub)
-        written = assets.write_city_assets(sub_root, formats=formats)
-        fmt_rons[formats] = assets.write_city_ron(sub_root, n=16,
-                                                  name=f"city{sub}")
+        assets.write_city_ron(sub_root, n=16, name=f"city{sub}")
         maps.update({os.path.join(sub_root, "meshes", k): v
-                     for k, v in written.items()})
-        log(f"{formats}-format city assets written in "
-            f"{time.perf_counter() - t0:.1f} s under {sub_root}")
-    # the small frames' legacy, TIFF, studio and TIFF-codec cities: their
-    # maps at 256^2,
-    # since a 64x48 frame needs no more, and two bakes of the full maps
-    # would cost ~25 s on an NVIDIA H100 80GB HBM3 host at 700.00 W
-    small = {}
-    for formats in ("legacy", "tiff", "studio", "tiffcodec"):
-        small_root = os.path.join(root, f"{formats}_small")
-        assets.write_city_assets(small_root, map_size=256, emissive_size=128,
-                                 ground_size=(256, 512), formats=formats)
-        small[formats] = assets.write_city_ron(small_root, n=4,
-                                               name=f"city{formats}4")
+                     for k, v in written[formats, sub].items()})
+    for n in (16, 4):
+        assets.write_city_ron(root, n=n, name=f"city{n}")
+    for formats in SMALL_FORMATS:
+        assets.write_city_ron(os.path.join(root, f"{formats}_small"), n=4,
+                              name=f"city{formats}4")
+    log(f"the textured cities' assets written in "
+        f"{time.perf_counter() - t0:.1f} s under {root}")
+    return asset_scene_entries(root), maps
+
+
+def asset_scene_entries(root):
+    """The SCENES entries of the asset cities that `asset_scenes` wrote
+    under `root`, each loaded through the viewer's `build_scene` from its
+    .ron (a process of its own rebuilds them from `root` alone)."""
+    from kajiya_tpu_torch.apps.view import build_scene
+
     _, eye, fwd, step = SCENES["city"]
     near = (0.0, 8.0, 14.0)
-    mixed, legacy, tif, studio, codec = (fmt_rons[k] for k in (
-        "mixed", "legacy", "tiff", "studio", "tiffcodec"))
-    return {"tcity": (lambda p: build_scene(rons[16]), eye, fwd, step),
-            "tcity4": (lambda p: build_scene(rons[4]), near, fwd, step),
-            "tcityfmt": (lambda p: build_scene(mixed), eye, fwd, step),
-            "tcitylegacy": (lambda p: build_scene(legacy), eye, fwd, step),
-            "tcitylegacy4": (lambda p: build_scene(small["legacy"]), near,
-                             fwd, step),
-            "tcitytiff": (lambda p: build_scene(tif), eye, fwd, step),
-            "tcitytiff4": (lambda p: build_scene(small["tiff"]), near, fwd,
-                           step),
-            "tcitystudio": (lambda p: build_scene(studio), eye, fwd, step),
-            "tcitystudio4": (lambda p: build_scene(small["studio"]), near,
-                             fwd, step),
-            "tcitycodec": (lambda p: build_scene(codec), eye, fwd, step),
-            "tcitycodec4": (lambda p: build_scene(small["tiffcodec"]), near,
-                            fwd, step)}, maps
+
+    def scene(ron, at):
+        path = os.path.join(root, ron)
+        return (lambda p: build_scene(path), at, fwd, step)
+
+    entries = {"tcity": scene("scenes/city16.ron", eye),
+               "tcity4": scene("scenes/city4.ron", near)}
+    for formats, sub in CITIES:
+        entries[CITY_SCENES[formats]] = scene(
+            f"{sub}/scenes/city{sub}.ron", eye)
+    for formats in SMALL_FORMATS:
+        entries[CITY_SCENES[formats] + "4"] = scene(
+            f"{formats}_small/scenes/city{formats}4.ron", near)
+    return entries
 
 
 def format_phase(maps):
@@ -412,20 +447,29 @@ def format_phase(maps):
     deflate planar strips, big-endian 16-bit PackBits, raw with an
     Orientation), every studio map (PackBits PSD, RLE SGI, RLE PCX, QOI) and
     every TIFF-codec map (zstd RGB tiles with differencing, zstd 16-bit
-    planar big-endian, ThunderScan 4-bit grey, a CCITT Group 4 mask)
-    equal the texels their writer reports, bit for bit; each JPEG base
-    colour is within JPEG_PSNR_DB of the map it encodes. The bytes
-    themselves are held to PIL in the CPU tests (this host has no PIL).
-    Any failed decode raises."""
-    from kajiya_tpu_torch.scene import (dds, jpeg, raster, textures, tiff,
-                                        webp)
+    planar big-endian, ThunderScan 4-bit grey, a CCITT Group 4 mask) and
+    every plugin map but the LAB ones (RLE Sun raster, XPM, ICNS with a PNG
+    member) equal the texels their writer reports, bit for bit; each JPEG
+    base colour is within JPEG_PSNR_DB of the map it encodes; each LAB base
+    colour (converted as LittleCMS does) has the SHA-256 that PIL gave for
+    that very map (tests/data/plugins/manifest.json, "city/..."). The
+    bytes themselves are held to PIL in the CPU tests (this host has no
+    PIL). Any failed decode raises."""
+    import hashlib
+
+    from kajiya_tpu_torch.scene import (dds, jpeg, lab, raster, textures,
+                                        tiff, webp)
 
     # the host decoders are built first: each decode ms leaves out g++
     # (raster.library holds the PCX, SGI, PackBits, QOI and DXT loops too)
     t0 = time.perf_counter()
     for build in (jpeg.decoder_library, dds.bcn_library, raster.library,
-                  webp.library, tiff.library, tiff.zstd_library):
+                  webp.library, tiff.library, tiff.zstd_library, lab.nodes):
         build()
+    with open(os.path.join(REPO, "tests", "data", "plugins",
+                           "manifest.json")) as f:
+        pil_digests = {k: v for k, v in json.load(f).items()
+                       if v.get("city_map")}
     log(f"host decoders built in {time.perf_counter() - t0:.1f} s")
     out = {}
     for path, (img, want) in sorted(maps.items()):
@@ -438,7 +482,16 @@ def format_phase(maps):
             path))), os.path.basename(path))
         rec = dict(ms=ms, bytes=os.path.getsize(path),
                    shape=list(got.shape))
-        if want is None:
+        city_map = "city/" + os.path.basename(path)
+        if want is None and path.endswith(".tif"):
+            digest = hashlib.sha256(got.tobytes()).hexdigest()
+            pil = pil_digests[city_map]
+            if list(got.shape) != pil["shape"] or \
+                    digest != pil["rgba_sha256"]:
+                raise AssertionError(f"{name}: LAB map digest {digest}, "
+                                     f"PIL's {pil['rgba_sha256']}")
+            rec.update(pil_sha256_equal=True)
+        elif want is None:
             mse = float(((got[..., :3].astype(np.float64) - img) ** 2).mean())
             psnr = 10.0 * np.log10(255.0 ** 2 / max(mse, 1e-12))
             if not psnr >= JPEG_PSNR_DB:
@@ -463,10 +516,11 @@ def fixture_phase(kind):
     fixtures were made (manifest.json); one marked "unported" must raise
     NotImplementedError. This holds WebP's lossy VP8 path, its alpha and
     the animation container, TIFF's JPEG-in-TIFF, LZMA, floating-point
-    predictor, CMYK, BigTIFF and tiles, and the studio formats the studio
-    city does not carry, on a machine without PIL. One marked "white" (a
-    file PIL cannot decode) must raise what the bake turns white
-    (OSError or ValueError)."""
+    predictor, CMYK, BigTIFF and tiles, the studio formats the studio
+    city does not carry, and LAB, ICNS and the small plugins, on a machine
+    without PIL. One marked "white" (a file PIL cannot decode) must raise
+    what the bake turns white (OSError or ValueError); the plugin city's
+    LAB maps ("city_map") are format_phase's."""
     import hashlib
 
     from kajiya_tpu_torch.scene import textures
@@ -476,6 +530,8 @@ def fixture_phase(kind):
         manifest = json.load(f)
     out = {}
     for name, want in sorted(manifest.items()):
+        if want.get("city_map"):
+            continue
         t0 = time.perf_counter()
         if want.get("white"):
             try:
@@ -522,6 +578,13 @@ def studio_phase():
     """The studio fixtures (BLP, FTEX, PSD, PCX, DCX, PFM, 16-bit PGM)
     against PIL's digests (fixture_phase)."""
     return fixture_phase("studio")
+
+
+def plugin_phase():
+    """The plugin fixtures (LAB TIFF and PSD, ICNS, GBR, IPTC, XBM, XPM,
+    SUN, MSP, XV thumbnail, IMT, PIXAR) against PIL's digests
+    (fixture_phase)."""
+    return fixture_phase("plugins")
 
 
 def _lookup(owner, name):
@@ -1038,7 +1101,7 @@ def culled_phase(dev):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         p_out = wc.culled_plain(b, t_min, any_hit, True,
-                                chunks_per_step=256 * 512 // b.rb,
+                                chunks_per_step=1024 * 512 // b.rb,
                                 visits=walked, ray_visits=ray_walked)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
@@ -1663,7 +1726,8 @@ FRAME_KEYS = {
 FRAME_KEYS["textured"] = FRAME_KEYS["superres"] = FRAME_KEYS["default"]
 # the scenes of each path's small GPU-vs-CPU frames ("city" is city(n=4))
 REF_SCENES = {"textured": ("tcornell", "tcity4", "tcitylegacy4",
-                          "tcitytiff4", "tcitystudio4", "tcitycodec4")}
+                          "tcitytiff4", "tcitystudio4", "tcitycodec4",
+                          "tcityplugins4")}
 # the paths whose small frames are also rendered on the BVH route, forced
 # with brute_max_tris=0
 BVH_REF_PATHS = ("default", "refpt")
@@ -1677,7 +1741,82 @@ def route_of(ts):
     return "culled" if ts.woop.get("cmin") is not None else "brute"
 
 
-def reference_phase(dev, ibl):
+# the small GPU-vs-CPU frames' CPU side runs in REF_WORKERS processes of
+# REF_THREADS torch threads each, while the card runs the kernel phases (one
+# after another on the host they took 129 s without the textured scenes,
+# on an 8-core x86-64 host)
+REF_WORKERS, REF_THREADS = 3, 2
+REF_SIZE = (64, 48)
+
+
+def reference_runs():
+    """The small frames' runs: (path, tolerances, brute_max_tris or None,
+    frames, scene name)."""
+    runs = [(path, tols, None) for path, tols in (
+        ("raster", FRAME_TOL), ("gi", GI_FRAME_TOL), ("default", GI_FRAME_TOL),
+        ("options", GI_FRAME_TOL), ("superres", GI_FRAME_TOL),
+        ("refpt", PT_FRAME_TOL), ("textured", GI_FRAME_TOL))]
+    runs += [(path, GI_FRAME_TOL if path == "default" else PT_FRAME_TOL, 0)
+             for path in BVH_REF_PATHS]
+    for path, tols, brute_max in runs:
+        n = {"raster": 3, "refpt": 2}.get(path, 4)
+        for name in REF_SCENES.get(path, ("cornell", "city")):
+            yield path, tols, brute_max, n, name
+
+
+def reference_frames(dev, ibl, path, brute_max, n, name):
+    """The small frames of one run on `dev`: the last frame's outputs and
+    the texture pages."""
+    make, eye, fwd, step = SCENES[name]
+    if name == "city":
+        make = lambda p: p.city(n=4, subdiv=8)      # noqa: E731
+        eye, fwd = (0.0, 8.0, 14.0), (0.0, -0.45, -1.0)
+    run = PathRun(path, make, dev, *REF_SIZE, ibl=ibl, small_ircache=True,
+                  brute_max_tris=brute_max)
+    if brute_max is not None and route_of(run.r.ts) != "bvh":
+        raise AssertionError(f"{path}/{name}: not on the BVH route")
+    for v in run.views(eye, fwd, step, n, dev):
+        o = run.step(v)
+    return o, run.r.gpu.tex_pages
+
+
+def page_digest(pages):
+    """SHA-256 of a texture page tensor, with its dtype and shape (None for
+    a scene without textures)."""
+    import hashlib
+
+    if pages is None:
+        return None
+    a = pages.cpu().contiguous()
+    return (str(a.dtype), tuple(a.shape),
+            hashlib.sha256(a.numpy().tobytes()).hexdigest())
+
+
+def reference_cpu(root, ibl, path, brute_max, n, name):
+    """The CPU side of one run of the small frames, in a worker process:
+    the compared planes, the primary hit mask and the pages' digest."""
+    torch.set_num_threads(REF_THREADS)
+    SCENES.update(asset_scene_entries(root))
+    o, pages = reference_frames(torch.device("cpu"), ibl, path, brute_max,
+                                n, name)
+    return ({k: o[k] for k in FRAME_KEYS[path]},
+            None if path == "refpt" else o["gbuffer"]["hit"],
+            page_digest(pages))
+
+
+def start_reference_cpu(root, ibl):
+    """Start the CPU side of every run of the small frames in worker
+    processes; returns the pool and {run: future}. The cities go first, as
+    they take the longest."""
+    pool = ProcessPoolExecutor(REF_WORKERS,
+                               mp_context=multiprocessing.get_context("spawn"))
+    runs = sorted(reference_runs(), key=lambda r: "cornell" in r[4])
+    return pool, {(path, brute_max, name): pool.submit(
+        reference_cpu, root, ibl, path, brute_max, n, name)
+        for path, _tols, brute_max, n, name in runs}
+
+
+def reference_phase(dev, ibl, cpu_side):
     """The GPU path (kernels) against the CPU path (plain versions) on a
     small frame of each scene, for every ported path: three frames (four on
     the GI, default, options and super-resolution paths, so that frame 3
@@ -1687,65 +1826,39 @@ def reference_phase(dev, ibl):
     paths with the small irradiance cache (and the options path with the
     small world radiance cache); the textured path on the textured cornell
     and the textured asset city at n=4 (its 2048^2 PNG maps, and 256^2
-    legacy-format, TIFF, studio and TIFF-codec maps), whose texture pages
-    on the card
-    must
-    equal the CPU's byte for byte; the default and path-tracer frames
-    again on the BVH route (`brute_max_tris=0`; "+bvh" in the names), where
-    the CPU path runs `walk_plain`. Every comparison is made and logged
-    before a failure is raised."""
-    w, h = 64, 48
+    legacy-format, TIFF, studio, TIFF-codec and plugin maps), whose texture
+    pages on the card must equal the CPU's byte for byte; the default and
+    path-tracer frames again on the BVH route (`brute_max_tris=0`; "+bvh"
+    in the names), where the CPU path runs `walk_plain`. The CPU side comes
+    from `cpu_side` (`start_reference_cpu`'s futures). Every comparison is
+    made and logged before a failure is raised."""
     worst, failed = {}, []
-    runs = [(path, tols, None) for path, tols in (
-        ("raster", FRAME_TOL), ("gi", GI_FRAME_TOL), ("default", GI_FRAME_TOL),
-        ("options", GI_FRAME_TOL), ("superres", GI_FRAME_TOL),
-        ("refpt", PT_FRAME_TOL), ("textured", GI_FRAME_TOL))]
-    runs += [(path, GI_FRAME_TOL if path == "default" else PT_FRAME_TOL, 0)
-             for path in BVH_REF_PATHS]
-    for path, tols, brute_max in runs:
+    for path, tols, brute_max, n, name in reference_runs():
         tol, min_frac, max_mean = tols
-        n = {"raster": 3, "refpt": 2}.get(path, 4)
-        for name in REF_SCENES.get(path, ("cornell", "city")):
-            make, eye, fwd, step = SCENES[name]
-            if name == "city":
-                make = lambda p: p.city(n=4, subdiv=8)      # noqa: E731
-                eye, fwd = (0.0, 8.0, 14.0), (0.0, -0.45, -1.0)
-            outs, pages = {}, {}
-            for d in (dev, torch.device("cpu")):
-                run = PathRun(path, make, d, w, h, ibl=ibl,
-                              small_ircache=True, brute_max_tris=brute_max)
-                if brute_max is not None and route_of(run.r.ts) != "bvh":
-                    raise AssertionError(f"{path}/{name}: not on the BVH "
-                                         "route")
-                for v in run.views(eye, fwd, step, n, d):
-                    o = run.step(v)
-                outs[d.type] = o
-                pages[d.type] = run.r.gpu.tex_pages
-            if brute_max is not None:
-                name = f"{name}+bvh"
-            if path == "textured" and not torch.equal(pages["cuda"].cpu(),
-                                                      pages["cpu"]):
-                failed.append(f"{path}/{name}: texture pages on the card "
-                              "differ from the CPU's")
-            if path != "refpt":
-                same = float((outs["cuda"]["gbuffer"]["hit"].cpu()
-                              == outs["cpu"]["gbuffer"]["hit"]
-                              ).float().mean())
-                if same < HIT_AGREE:
-                    failed.append(f"{path}/{name}: GPU vs CPU hit masks "
-                                  f"agree on {same}")
-            for k in FRAME_KEYS[path]:
-                if k == "shadow" and path != "raster":
-                    continue
-                a, b = outs["cuda"][k].cpu(), outs["cpu"][k]
-                diff = (a - b).abs()
-                frac = float((diff <= tol).float().mean())
-                mean = float(diff.mean())
-                worst[f"{path}/{name}/{k}"] = (frac, mean)
-                if not bool(torch.isfinite(a).all()) or frac < min_frac \
-                        or mean > max_mean:
-                    failed.append(f"{path}/{name}/{k}: GPU vs CPU frac "
-                                  f"{frac} mean {mean}")
+        o, pages = reference_frames(dev, ibl, path, brute_max, n, name)
+        planes, hit, digest = cpu_side[path, brute_max, name].result()
+        if brute_max is not None:
+            name = f"{name}+bvh"
+        if path == "textured" and page_digest(pages) != digest:
+            failed.append(f"{path}/{name}: texture pages on the card "
+                          "differ from the CPU's")
+        if path != "refpt":
+            same = float((o["gbuffer"]["hit"].cpu() == hit).float().mean())
+            if same < HIT_AGREE:
+                failed.append(f"{path}/{name}: GPU vs CPU hit masks "
+                              f"agree on {same}")
+        for k in FRAME_KEYS[path]:
+            if k == "shadow" and path != "raster":
+                continue
+            a, b = o[k].cpu(), planes[k]
+            diff = (a - b).abs()
+            frac = float((diff <= tol).float().mean())
+            mean = float(diff.mean())
+            worst[f"{path}/{name}/{k}"] = (frac, mean)
+            if not bool(torch.isfinite(a).all()) or frac < min_frac \
+                    or mean > max_mean:
+                failed.append(f"{path}/{name}/{k}: GPU vs CPU frac "
+                              f"{frac} mean {mean}")
     log("GPU vs CPU small frames (fraction within tolerance, mean abs "
         "diff):", worst)
     if failed:
@@ -1822,6 +1935,7 @@ def frame_phase(dev, path, ibl):
     from kajiya_tpu_torch import frame as frame_mod
     from kajiya_tpu_torch.ops import _native
     from kajiya_tpu_torch.rt import bvh as bvh_mod
+    from kajiya_tpu_torch.scene import lab
     from kajiya_tpu_torch.scene import scene as scene_mod
     from kajiya_tpu_torch.scene import textures
 
@@ -1843,6 +1957,10 @@ def frame_phase(dev, path, ibl):
                        decode_sgi=(textures._DECODERS, "SGI"),
                        decode_pcx=(textures._DECODERS, "PCX"),
                        decode_qoi=(textures._DECODERS, "QOI"),
+                       decode_sun=(textures._DECODERS, "SUN"),
+                       decode_xpm=(textures._DECODERS, "XPM"),
+                       decode_icns=(textures._DECODERS, "ICNS"),
+                       lab_transform=(lab, "to_rgba"),
                        resize=(textures, "_resize"),
                        bake=(textures, "bake_texture_pages"),
                        pages=(textures, "build_texture_pages"),
@@ -1876,6 +1994,10 @@ def frame_phase(dev, path, ibl):
                         decode_sgi_s=sec["decode_sgi"],
                         decode_pcx_s=sec["decode_pcx"],
                         decode_qoi_s=sec["decode_qoi"],
+                        decode_sun_s=sec["decode_sun"],
+                        decode_xpm_s=sec["decode_xpm"],
+                        decode_icns_s=sec["decode_icns"],
+                        lab_transform_s=sec["lab_transform"],
                         resize_s=sec["resize"],
                         pack_mips_s=sec["bake"] - sec["decode"]
                         - sec["resize"],
@@ -2745,6 +2867,18 @@ def sharded_phase():
     return result
 
 
+PHASE_S = {}
+
+
+def timed(name, phase, *args):
+    """phase(*args), its wall seconds kept in PHASE_S and logged."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    PHASE_S[name] = time.perf_counter() - t0
+    log(f"phase {name}: {PHASE_S[name]:.1f} s")
+    return out
+
+
 def kernel_entry(name, source, replaces, cases, launches, library):
     """One JSON entry per kernel: the sum over its cases (one launch at each
     shape the frame gives it; a case marked `frame_call=False` is listed but
@@ -2787,17 +2921,24 @@ def main():
     write_panorama(ibl)
     scenes, fmt_maps = asset_scenes(tmp)
     SCENES.update(scenes)
-    formats = format_phase(fmt_maps)
-    webp_fixtures = webp_phase()
-    tiff_fixtures = tiff_phase()
-    studio_fixtures = studio_phase()
-    brute = brute_phase(dev)
-    culled = culled_phase(dev)
-    warp = warp_phase(dev)
-    tileshift = tileshift_phase(dev)
-    bvh = bvh_phase(dev)
-    reference_phase(dev, ibl)
-    frames = {path: frame_phase(dev, path, ibl) for path in N_FRAMES}
+    formats = timed("formats", format_phase, fmt_maps)
+    webp_fixtures = timed("webp", webp_phase)
+    tiff_fixtures = timed("tiff", tiff_phase)
+    studio_fixtures = timed("studio", studio_phase)
+    plugin_fixtures = timed("plugins", plugin_phase)
+    # the small frames' CPU side runs beside the kernel phases
+    pool, cpu_side = start_reference_cpu(tmp, ibl)
+    try:
+        brute = timed("brute", brute_phase, dev)
+        culled = timed("culled", culled_phase, dev)
+        warp = timed("warp", warp_phase, dev)
+        tileshift = timed("tileshift", tileshift_phase, dev)
+        bvh = timed("bvh", bvh_phase, dev)
+        timed("reference", reference_phase, dev, ibl, cpu_side)
+    finally:
+        pool.shutdown(cancel_futures=True)
+    frames = {path: timed(f"frames_{path}", frame_phase, dev, path, ibl)
+              for path in N_FRAMES}
     # the default frame's passes wait for the card nowhere the GI frame's
     # do not: the same frame indices make the same number of host syncs
     # (from frame 1: a path's first frame also copies the constants it
@@ -2843,14 +2984,17 @@ def main():
         frames["textured"]["tcitystudio"]["frame_ms"],
         "TIFF-codec city frame ms",
         frames["textured"]["tcitycodec"]["frame_ms"],
+        "plugin city frame ms",
+        frames["textured"]["tcityplugins"]["frame_ms"],
         "beside the untextured city's default frame ms",
         frames["default"]["city"]["frame_ms"], "(same call)")
-    oracle = oracle_phase(dev)
-    viewer = viewer_phase(tmp)
-    apps = {"stream": stream_phase(tmp), "hello": hello_phase(tmp),
-            "watch": watch_phase(tmp)}
+    oracle = timed("oracle", oracle_phase, dev)
+    viewer = timed("viewer", viewer_phase, tmp)
+    apps = {name: timed(name, phase, tmp) for name, phase in (
+        ("stream", stream_phase), ("hello", hello_phase),
+        ("watch", watch_phase))}
     shutil.rmtree(tmp, ignore_errors=True)
-    sharded = sharded_phase()
+    sharded = timed("sharded", sharded_phase)
 
     def launched(kernel):
         n = sum(frames[p][sc]["launches"][kernel]
@@ -2888,8 +3032,9 @@ def main():
                    "apps": apps, "formats": formats,
                    "webp_fixtures": webp_fixtures,
                    "tiff_fixtures": tiff_fixtures,
-                   "studio_fixtures": studio_fixtures, "sharded": sharded}, f,
-                  indent=1)
+                   "studio_fixtures": studio_fixtures,
+                   "plugin_fixtures": plugin_fixtures, "sharded": sharded,
+                   "phase_s": PHASE_S}, f, indent=1)
     print(json.dumps({"frames": {
         path: {k: {"median_ms": v["median_ms"], "frame_ms": v["frame_ms"],
                    "tris": v["tris"], "launches": v["launches"],
@@ -2904,6 +3049,8 @@ def main():
                             tiff_fixtures.items()},
         "studio_fixture_ms": {k: v.get("ms") for k, v in
                               studio_fixtures.items()},
+        "plugin_fixture_ms": {k: v.get("ms") for k, v in
+                              plugin_fixtures.items()},
         "setup_s": {f"{p}/{sc}": v["setup_parts_s"]
                     for p, per_scene in frames.items()
                     for sc, v in per_scene.items() if sc == "city40"},
@@ -2914,7 +3061,7 @@ def main():
             "frame_ms_wall", "frames_per_s", "parts_per_s", "server_encode",
             "jpeg_encode_ms_here", "snap_png_bytes", "seconds")},
         "watch_poll_s": apps["watch"]["poll_s"],
-        "wall_s": wall_s}), flush=True)
+        "phase_s": PHASE_S, "wall_s": wall_s}), flush=True)
     print(json.dumps({"sharded": sharded}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,10 @@
 // runs it: BmpImagePlugin.BmpRleDecoder (RLE8 / RLE4, scene/bmp.py),
 // TgaRleDecode.c (scene/tga.py), GifDecode.c (scene/gif.py), PcxDecode.c
 // (scene/pcx.py), SgiRleDecode.c (scene/sgi.py), PackDecode.c (scene/psd.py),
-// QoiImagePlugin.QoiDecoder (scene/qoi.py) and BlpImagePlugin's decode_dxt1
-// / 3 / 5 (scene/blp.py), and the encoders of the port's SGI, PCX and QOI
-// writers (scene/assets.py's studio city). Python parses the headers and
+// QoiImagePlugin.QoiDecoder (scene/qoi.py), BlpImagePlugin's decode_dxt1
+// / 3 / 5 (scene/blp.py) and SunRleDecode.c (scene/sun.py), and the
+// encoders of the port's SGI, PCX, QOI and SUN writers (scene/assets.py's
+// studio and plugin cities). Python parses the headers and
 // unpacks the rows; these functions only expand the compressed streams.
 // Built with g++ at first use (hostlib.load) and called through ctypes.
 //
@@ -675,6 +676,68 @@ long long kt_qoi_encode(const uint8_t* in, long long npix, int bands,
         seen[h] = true;
     }
     if (run) out[len++] = (uint8_t)(0xC0 | (run - 1));
+    return len;
+}
+
+// SunRleDecode.c: rows of `bytes` bytes (no padding) from byte `pos`; a
+// byte 0x80 starts an escape: 0x80 0x00 is a literal 0x80, 0x80 n v a run
+// of n + 1 bytes v, which may run on into the next rows. Status 1 when the
+// data ends before the last row (PIL then reads no more: "image file is
+// truncated").
+int kt_sun_rle(const char* data_, long long n, long long pos, long long bytes,
+               int ysize, uint8_t* out) {
+    const uint8_t* p = reinterpret_cast<const uint8_t*>(data_) + pos;
+    long long left = n - pos;
+    long long total = bytes * ysize, x = 0;
+    while (x < total) {
+        if (left <= 0) return kTruncated;
+        if (p[0] == 0x80) {
+            if (left < 2) return kTruncated;
+            long long run = p[1];
+            if (run == 0) {
+                out[x++] = 0x80;
+                p += 2;
+                left -= 2;
+                continue;
+            }
+            if (left < 3) return kTruncated;
+            run += 1;
+            if (run > total - x) run = total - x;
+            std::memset(out + x, p[2], (size_t)run);
+            x += run;
+            p += 3;
+            left -= 3;
+        } else {
+            out[x++] = p[0];
+            p += 1;
+            left -= 1;
+        }
+    }
+    return kOk;
+}
+
+// The SUN writer's RLE (SunRleDecode.c's inverse): runs of 3 to 256 bytes,
+// a 0x80 byte escaped; returns the bytes written.
+long long kt_sun_rle_encode(const uint8_t* in, long long n, uint8_t* out) {
+    long long len = 0, i = 0;
+    while (i < n) {
+        long long j = i;
+        while (j + 1 < n && in[j + 1] == in[i] && j - i < 255) ++j;
+        long long run = j - i + 1;
+        if (run >= 3 || in[i] == 0x80) {
+            if (run == 1) {
+                out[len++] = 0x80;
+                out[len++] = 0;
+            } else {
+                out[len++] = 0x80;
+                out[len++] = (uint8_t)(run - 1);
+                out[len++] = in[i];
+            }
+            i = j + 1;
+        } else {
+            out[len++] = in[i++];
+        }
+    }
     return len;
 }
 

@@ -411,7 +411,8 @@ def culled_plain(b: CulledBatch, t_min, any_hit: bool, early_stop: bool,
                  ray_skip: bool = False):
     """Plain version of kernel C over every chunk: the chunk-level block
     walk, early stop and any-hit exit, with the chunks of one step processed
-    side by side. Returns padded (t, tri, u, v) of shape (n_chunks * rb,).
+    side by side (each block tested on the chunks still walking). Returns
+    padded (t, tri, u, v) of shape (n_chunks * rb,).
     If `visits` is a list, each step's per-chunk count of visited blocks is
     appended to it (the work the bound counts). If `ray_visits` is a list,
     each step's per-chunk count of ray x block pairs that the kernel's
@@ -457,38 +458,44 @@ def culled_plain(b: CulledBatch, t_min, any_hit: bool, early_stop: bool,
                 worst = torch.minimum(tb, tm).amax(dim=1)
                 go &= b.bdist[g, k] <= worst
             alive = go
-            if not bool(go.any()):
+            a = go.nonzero()[:, 0]
+            if a.numel() == 0:
                 break
             walked += go
-            blk = b.blist[g, k].to(torch.int64).clamp(0, nblk - 1)
-            need = go[:, None]
+            ga = g[a]
+            blk = b.blist[ga, k].to(torch.int64).clamp(0, nblk - 1)
+            oa = [x[a] for x in o]
+            da = [x[a] for x in dd]
+            tba, tma = tb[a], tm[a]
             if per_ray:
                 # the rays a per-ray walk still tests against this block
-                need = (tm > t_min) & need
-                limit = torch.minimum(tb, tm)
+                need = tma > t_min
+                limit = torch.minimum(tba, tma)
                 if any_hit:
-                    need &= tri < 0
+                    need &= tri[a] < 0
                 elif early_stop:
-                    need &= b.bdist[g, k][:, None] <= limit
+                    need &= b.bdist[ga, k][:, None] <= limit
                 if early_stop:
                     need &= _crosses_box(b.bounds[blk],
-                                         [x[..., 0] for x in o], inv, pad,
+                                         [x[..., 0] for x in oa],
+                                         [x[a] for x in inv], pad[a],
                                          t_min, limit)
-                ray_walked += need.sum(dim=1)
-            c = b.coef[blk]                                # (n, 21, 128)
-            cb = [c[:, r, None, :] for r in range(N_COEF)]  # (n, 1, 128)
-            t, u, v, rw_ok = _woop_math(cb, o, dd)
+                ray_walked[a] += need.sum(dim=1)
+            c = b.coef[blk]                                # (m, 21, 128)
+            cb = [c[:, r, None, :] for r in range(N_COEF)]  # (m, 1, 128)
+            t, u, v, rw_ok = _woop_math(cb, oa, da)
             ok = (rw_ok & (u >= -_BEPS) & (v >= -_BEPS)
                   & ((u + v) <= _ONE_BEPS) & (t > t_min)
-                  & (t < tb[..., None]) & (t < tm[..., None])
-                  & (need if ray_skip else go[:, None])[..., None])
+                  & (t < tba[..., None]) & (t < tma[..., None]))
+            if ray_skip:
+                ok &= need[..., None]
             bt, idx, bu, bv = _select_first_min(t, u, v, ok)
-            closer = bt < tb
-            tb = torch.where(closer, bt, tb)
-            tri = torch.where(closer, (blk[:, None] * CULL_TB + idx)
-                              .to(torch.int32), tri)
-            ub = torch.where(closer, bu, ub)
-            vb = torch.where(closer, bv, vb)
+            closer = bt < tba
+            tb[a] = torch.where(closer, bt, tba)
+            tri[a] = torch.where(closer, (blk[:, None] * CULL_TB + idx)
+                                 .to(torch.int32), tri[a])
+            ub[a] = torch.where(closer, bu, ub[a])
+            vb[a] = torch.where(closer, bv, vb[a])
         outs.append((tb, tri, ub, vb))
         if visits is not None:
             visits.append(walked)

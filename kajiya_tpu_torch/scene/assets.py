@@ -34,7 +34,15 @@ pipelines emit (the studio city): each base colour a 4-channel (RGBA,
 alpha 255) PackBits PSD, each normal map an 8-bit 3-channel RLE SGI, each
 metallic-roughness map a 24-bit 3-plane RLE PCX, b1's emissive map a QOI,
 each from the port's writers (`psd.encode_psd`, `sgi.encode_sgi_rle`,
-`pcx.encode_pcx_rgb`, `qoi.encode_qoi`).
+`pcx.encode_pcx_rgb`, `qoi.encode_qoi`). `formats="plugins"` writes them
+in PIL's smaller plugins (the plugin city): each base colour an LZW LAB
+TIFF with differencing (its samples an integer approximation of the map's
+Lab; PIL converts LAB through LittleCMS, so no texels are known here), each
+normal map a 24-bit RLE Sun raster, each metallic-roughness map a `P` XPM
+of at most 256 colours (the map quantised: roughness to 64 levels), b1's
+emissive map an ICNS whose best member is a PNG, beside an `it32` / `t8mk`
+pair at 128^2 (`tiff.write_tiff`, `sun.encode_sun_rle`, `xpm.encode_xpm`,
+`icns.encode_icns`).
 """
 from __future__ import annotations
 
@@ -48,15 +56,18 @@ import numpy as np
 from .bmp import encode_bmp24
 from .dds import bc5_blocks, bc7_mode6_blocks, dds_header
 from .gif import encode_gif256
+from .icns import encode_icns, mask_member, rgb_member
 from .pcx import encode_pcx_rgb
 from .png import encode_png
 from .procedural import _subdiv_box
 from .psd import encode_psd
 from .qoi import encode_qoi
 from .sgi import encode_sgi_rle
+from .sun import encode_sun_rle
 from .tga import encode_tga_rle
 from .tiff import write_tiff
 from .webp import encode_vp8l
+from .xpm import encode_xpm
 
 BLOCK = 3.0
 FILTERS = (0, 1, 2, 3, 4)
@@ -169,6 +180,52 @@ def _png(img):
     return encode_png(img, filters=FILTERS, idat_bytes=IDAT_BYTES)
 
 
+def lab_samples(rgb: np.ndarray) -> np.ndarray:
+    """(H, W, 3) uint8 RGB -> (H, W, 3) uint8 TIFF CIELab samples (L, then
+    a and b as signed bytes): luma as L, red - green as a and yellow - blue
+    as b, in integers, so that every machine writes the same bytes."""
+    c = rgb.astype(np.int32)
+    lum = (77 * c[..., 0] + 150 * c[..., 1] + 29 * c[..., 2] + 128) >> 8
+    a = np.clip((c[..., 0] - c[..., 1]) * 3 // 4, -128, 127)
+    b = np.clip(((c[..., 0] + c[..., 1]) // 2 - c[..., 2]) * 3 // 4, -128,
+                127)
+    return (np.stack([lum, a, b], -1) & 255).astype(np.uint8)
+
+
+# ICNS members by the PNG's size: (code, the code of its size's RGB member
+# or None)
+_ICNS_PNG = {1024: b"ic10", 512: b"ic09", 256: b"ic08", 128: b"ic07"}
+
+
+def _plugin_map(kind: str, img: np.ndarray):
+    """The plugin city's (suffix, bytes, RGBA or None for the LAB map)."""
+    want = np.concatenate([img, np.full(img.shape[:2] + (1,), 255,
+                                        np.uint8)], -1)
+    if kind == "base":
+        return ".tif", write_tiff(lab_samples(img), photometric=8,
+                                  compression=5, predictor=2,
+                                  rows_per_strip=64), None
+    if kind == "normal":
+        return ".ras", encode_sun_rle(img), want
+    if kind == "mr":
+        q = img.copy()
+        q[..., 1] &= 0xFC
+        code = (q.astype(np.int32) << np.array([16, 8, 0])).sum(-1)
+        codes, idx = np.unique(code, return_inverse=True)
+        colours = ((codes[:, None] >> np.array([16, 8, 0])) & 255).astype(
+            np.uint8)
+        if len(colours) > 256:
+            raise ValueError(f"{len(colours)} colours for a P XPM")
+        want[..., :3] = q
+        return ".xpm", encode_xpm(idx.reshape(q.shape[:2]), colours,
+                                  bpp=2), want
+    small = img[::max(1, img.shape[0] // 128), ::max(1, img.shape[1] // 128)]
+    members = [(b"it32", rgb_member(small[:128, :128], it32=True)),
+               (b"t8mk", mask_member(np.full((128, 128), 255, np.uint8))),
+               (_ICNS_PNG[img.shape[0]], _png(img))]
+    return ".icns", encode_icns(members), want
+
+
 # DXGI formats of the mixed-format city's maps
 DXGI_BC5_UNORM, DXGI_BC7_UNORM = 83, 98
 
@@ -178,6 +235,8 @@ def _map_file(kind: str, img: np.ndarray, formats: str):
     where the format is lossy) of one building map."""
     if formats == "png":
         return ".png", _png(img), None
+    if formats == "plugins":
+        return _plugin_map(kind, img)
     if formats == "tiff":
         want = np.concatenate(
             [img, np.full(img.shape[:2] + (1,), 255, np.uint8)], -1)
@@ -271,13 +330,15 @@ def write_city_assets(root: str, subdiv: int = 8, map_size: int = 2048,
     normal, PCX metallic-roughness and QOI emissive maps) or "tiffcodec"
     (TIFFs of the later codecs: zstd RGB tiles with differencing, zstd
     16-bit planar big-endian normals, ThunderScan 4-bit grey
-    metallic-roughness, a CCITT Group 4 bilevel emissive window mask). Returns {file
-    name: (the RGB map written, the RGBA its file decodes to, or None for a
-    JPEG or an 8-bit PNG)} of the building maps."""
+    metallic-roughness, a CCITT Group 4 bilevel emissive window mask) or
+    "plugins" (LAB TIFF base colour, RLE Sun raster normal, XPM
+    metallic-roughness and ICNS emissive maps). Returns {file name: (the
+    RGB map written, the RGBA its file decodes to, or None for a JPEG, an
+    8-bit PNG or a LAB TIFF)} of the building maps."""
     if formats not in ("png", "mixed", "legacy", "tiff", "studio",
-                       "tiffcodec"):
+                       "tiffcodec", "plugins"):
         raise ValueError(f"formats {formats!r}: 'png', 'mixed', 'legacy', "
-                         "'tiff', 'studio' or 'tiffcodec'")
+                         "'tiff', 'studio', 'tiffcodec' or 'plugins'")
     rng = np.random.default_rng(seed)
     mdir = os.path.join(root, "meshes")
     os.makedirs(mdir, exist_ok=True)

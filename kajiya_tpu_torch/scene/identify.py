@@ -13,8 +13,7 @@ SPIDER, TGA) are matched by the header checks their `_open` makes first
 (IM's whole header of `Key: value` lines, so a binary file with a line
 feed and a colon in its first bytes is no IM candidate); those are
 necessary conditions only, so a source that fails them cannot be opened
-by that plugin. GBR's `_accept` also passes a QOI of width 1 or 2: its
-`_open`'s header checks are applied too.
+by that plugin.
 
 When a plugin's `_open` refuses the bytes (it raises SyntaxError,
 IndexError, TypeError, KeyError, EOFError or struct.error, or leaves no
@@ -27,13 +26,10 @@ package's does.
 Where PIL's order puts a plugin the port does not decode before one it
 does, the port raises NotImplementedError for the first, even when PIL's
 `_open` of that plugin would refuse the bytes and the next would decode
-them (the port cannot tell without that plugin's reader). Found by
-sweeping the headers of the ported formats:
-- a TGA whose id field is 28 bytes long and that has a colour map
-  (`1c 01 ...`) is an IPTC candidate first;
-- an ICO with no entries whose first entry bytes read `00 01` or `00 02`,
-  and whose next 12 bytes pass GBR's header checks, is a GBR candidate
-  first (PIL refuses such an ICO anyway).
+them (the port cannot tell without that plugin's reader). The two such
+cases the header sweeps found (a TGA with a 28-byte id field and a colour
+map, which IPTC's check accepts; an ICO of no entries that passes GBR's)
+went with IPTC and GBR's decoders; none is known now.
 
 `check_pixels` mirrors `Image.MAX_IMAGE_PIXELS`: PIL refuses an image of
 more than twice that many pixels (`DecompressionBombError`), and the JAX
@@ -95,18 +91,6 @@ def _gbr(p):
         return False
     size, version = struct.unpack_from(">II", p)
     return size >= 20 and version in (1, 2)
-
-
-def _gbr_open(data: bytes) -> bool:
-    """The header checks of GbrImagePlugin's `_open`, each a refusal: a
-    width and height, a depth of 1 or 4, and for version 2 the magic and
-    the spacing (a QOI of width 1 or 2 passes GBR's `_accept`)."""
-    if len(data) < 20:
-        return False
-    version, w, h, depth = struct.unpack_from(">4I", data, 4)
-    if not w or not h or depth not in (1, 4):
-        return False
-    return version == 1 or (data[20:24] == b"GIMP" and len(data) >= 28)
 
 
 _TIFF = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a",
@@ -271,8 +255,7 @@ def candidates(data: bytes) -> list:
     also passes CUR's rule)."""
     table = dict(_ACCEPT)
     order = list(_PREINIT) + [n for n, _ in _ACCEPT if n not in _PREINIT]
-    return [name for name in order if _matches(name, table[name], data)
-            and (name != "GBR" or _gbr_open(data))]
+    return [name for name in order if _matches(name, table[name], data)]
 
 
 def identify(data: bytes) -> str | None:

@@ -13,8 +13,9 @@ pair outside it is PIL's KeyError, a refusal, so the next plugin that
 accepts the bytes is tried; too few channels is PIL's OSError (white).
 PIL's PackBits (`PackDecode.c`, in `csrc/raster_decoder.cpp`) ignores the
 byte counts and decodes each channel from its offset to the end of the
-file, cutting a run or literal at its row's end. LAB reaches PIL's
-LittleCMS conversion, which the port has not ported: NotImplementedError.
+file, cutting a run or literal at its row's end. LAB's planes are copied
+into PIL's LAB storage as they are (a and b offset by 128, the pad byte 0,
+so the RGBA's alpha is 0) and converted as LittleCMS does (`lab.py`).
 """
 from __future__ import annotations
 
@@ -104,10 +105,6 @@ def decode_psd(data: bytes) -> np.ndarray:
     if w <= 0 or h <= 0:
         raise Refused("PSD: size not positive (ImageFile refuses it)")
     check_pixels(w, h)
-    if mode == "LAB":
-        raise NotImplementedError(
-            "PSD LAB: PIL converts LAB through LittleCMS, not ported "
-            "(ROADMAP.md section 1)")
     if compression not in (0, 1):
         raise DecodeError("cannot load this image")
     nbytes = (w + 7) // 8 if mode == "1" else w
@@ -137,16 +134,8 @@ def decode_psd(data: bytes) -> np.ndarray:
     palette = None
     if mode == "P":
         palette = raster.palette("RGB", b"") if pal is None else \
-            _planar_palette(pal)
+            raster.planar_palette(pal)
     return raster.to_rgba(mode, px, palette)
-
-
-def _planar_palette(data: bytes) -> np.ndarray:
-    """ImagePalette.raw("RGB;L", 768 bytes): R, G and B planes of 256."""
-    pal = np.zeros((256, 4), np.uint8)
-    pal[:, 3] = 255
-    pal[:, :3] = np.frombuffer(data, np.uint8).reshape(3, 256).T
-    return pal
 
 
 def encode_psd(img: np.ndarray):

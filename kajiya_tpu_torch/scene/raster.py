@@ -1,19 +1,19 @@
-"""What the BMP, ICO / CUR, TGA, GIF, TIFF, PCX, PPM, SGI, QOI, PSD, BLP and
-FTEX decoders share: a file-like view of the bytes, PIL's raw unpackers
-and palettes, its `raw` tile decoder, its `convert("RGBA")`, and the
-native loops of `csrc/raster_decoder.cpp`.
+"""What the BMP, ICO / CUR, TGA, GIF, TIFF, PCX, PPM, SGI, QOI, PSD, BLP,
+FTEX, SUN and the other small plugins' decoders share: a file-like view of
+the bytes, PIL's raw unpackers and palettes, its `raw` tile decoder, its
+`convert("RGBA")`, and the native loops of `csrc/raster_decoder.cpp`.
 
 Each decoder follows its PIL 12.1.0 plugin statement by statement, so that
 it gives the same bytes and refuses where PIL refuses. An image is a
 (mode, pixels, palette) triple as PIL holds it before `convert("RGBA")`:
 mode "1" and "L" and "P" as (H, W) uint8 ("1" as 0 / 255), "I;16" and
-"I;16B" uint16, "I" int32, "F" float32, "LA" and "PA" (H, W, 2), "RGB" and
-"LAB" (H, W, 3), "RGBA" and "CMYK" (H, W, 4), and for "P" and "PA" a
-(256, 4) RGBA palette.
+"I;16B" uint16, "I" int32, "F" float32, "LA" and "PA" (H, W, 2), "RGB"
+(H, W, 3), "RGBA" and "CMYK" (H, W, 4), "LAB" (H, W, 4) as `lab.py` holds
+it, and for "P" and "PA" a (256, 4) RGBA palette.
 
 The sequential loops (BMP RLE4 / RLE8, TGA RLE, GIF LZW, PCX RLE, SGI RLE,
-PIL's PackBits, QOI, BLP's DXT) and the studio writers' encoders run in C++,
-compiled with g++ at first use into the gitignored `_build/`
+PIL's PackBits, QOI, BLP's DXT, SUN RLE) and the writers' encoders run in
+C++, compiled with g++ at first use into the gitignored `_build/`
 (`hostlib.load`); a failed build raises, and there is no Python loop to
 fall back to.
 """
@@ -26,6 +26,7 @@ import threading
 import numpy as np
 
 from .. import hostlib
+from . import lab
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "raster_decoder.cpp")
@@ -72,14 +73,16 @@ def library() -> ctypes.CDLL:
         lib.kt_qoi.argtypes = [ctypes.c_char_p, i64, i64, i64, c_int, ptr]
         lib.kt_blp_dxt.argtypes = [ctypes.c_char_p, i64, i64, c_int, c_int,
                                    c_int, c_int, ptr]
+        lib.kt_sun_rle.argtypes = [ctypes.c_char_p, i64, i64, i64, c_int, ptr]
         for f in (lib.kt_pcx_rle, lib.kt_sgi_rle, lib.kt_packbits_rows,
-                  lib.kt_qoi, lib.kt_blp_dxt):
+                  lib.kt_qoi, lib.kt_blp_dxt, lib.kt_sun_rle):
             f.restype = c_int
         lib.kt_sgi_rle_encode.argtypes = [ptr, i64, i64, ptr]
         lib.kt_pcx_rle_encode.argtypes = [ptr, i64, ptr]
         lib.kt_qoi_encode.argtypes = [ptr, i64, c_int, ptr]
+        lib.kt_sun_rle_encode.argtypes = [ptr, i64, ptr]
         for f in (lib.kt_sgi_rle_encode, lib.kt_pcx_rle_encode,
-                  lib.kt_qoi_encode):
+                  lib.kt_qoi_encode, lib.kt_sun_rle_encode):
             f.restype = i64
         _lib = lib
         return lib
@@ -186,6 +189,8 @@ def new(mode: str, w: int, h: int) -> np.ndarray:
         return np.zeros((h, w), np.int32)
     if mode == "F":
         return np.zeros((h, w), np.float32)
+    if mode == "LAB":
+        return np.zeros((h, w, 4), np.uint8)
     b = BANDS[mode]
     return np.zeros((h, w) if b == 1 else (h, w, b), np.uint8)
 
@@ -249,7 +254,7 @@ def unpack(rows: np.ndarray, rawmode: str, mode: str, w: int,
         dt = ">f4" if rawmode == "F;32BF" else "<f4"
         return rows[:, :4 * w].copy().view(dt).astype(np.float32)
     if mode == "LAB":
-        return rows[:, :3 * w].reshape(h, w, 3).copy()
+        return lab.unpack_lab(rows, w)
     if bits == 16:
         v = rows[:, :2 * w].reshape(h, w, 2).astype(np.uint16)
         v = v[..., 0] | (v[..., 1] << 8)
@@ -365,6 +370,18 @@ def palette(rawmode: str, data: bytes) -> np.ndarray:
     return pal
 
 
+def planar_palette(data: bytes) -> np.ndarray:
+    """putpalette("RGB", "RGB;L", data): len / 3 entries whose red, green
+    and blue come from three planes of that length, the rest (0, 0, 0,
+    255); more than 256 raise (PIL's "invalid palette size")."""
+    n = len(data) // 3
+    if n > 256:
+        raise DecodeError("invalid palette size")
+    pal = palette("RGB", b"")
+    pal[:n, :3] = np.frombuffer(data, np.uint8, 3 * n).reshape(3, n).T
+    return pal
+
+
 def to_rgba(mode: str, px: np.ndarray, pal: np.ndarray | None = None,
             transparency: int | None = None) -> np.ndarray:
     """PIL's `convert("RGBA")` of an image of `mode` (with `pal` for "P";
@@ -393,6 +410,8 @@ def to_rgba(mode: str, px: np.ndarray, pal: np.ndarray | None = None,
         return to_rgba("L", grey(mode, px))
     if mode == "CMYK":
         return cmyk_to_rgba(px)
+    if mode == "LAB":
+        return lab.to_rgba(px)
     return np.ascontiguousarray(px)
 
 

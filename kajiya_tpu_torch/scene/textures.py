@@ -13,14 +13,18 @@ has its own decoders, each giving PIL's `convert("RGBA")` bytes (PNG in
 ICO and CUR in `ico.py`, TGA in `tga.py`, GIF in `gif.py`, WebP in
 `webp.py`, TIFF in `tiff.py`, PCX and DCX in `pcx.py`, the PPM family in
 `ppm.py`, SGI in `sgi.py`, QOI in `qoi.py`, PSD in `psd.py`, BLP in
-`blp.py`, FTEX in `ftex.py`), and a Lanczos resize that gives PIL's
-`Image.resize(..., LANCZOS)` bytes, so the atlases are equal byte for byte.
+`blp.py`, FTEX in `ftex.py`, ICNS in `icns.py`, GBR in `gbr.py`, IPTC in
+`iptc.py`, XBM in `xbm.py`, XPM in `xpm.py`, SUN in `sun.py`, MSP in
+`msp.py`, XV thumbnails in `xvthumb.py`, IMT in `imt.py`, PIXAR in
+`pixar.py`; LAB images through `lab.py`), and a Lanczos resize that gives
+PIL's `Image.resize(..., LANCZOS)` bytes, so the atlases are equal byte for
+byte.
 
 Decoding dispatches on the content, not on the file name, in PIL's plugin
 order (`identify.py`): a plugin whose `_open` refuses the bytes passes
 them to the next that accepts them, as `Image.open` does (a TGA file that
 CUR's rule also accepts is read as a TGA). Where that walk reaches a
-format the port does not decode yet (ICNS, JPEG 2000 and the rest of
+format the port does not decode yet (JPEG 2000, AVIF and the rest of
 `identify.FORMATS`), it raises NotImplementedError naming it: a
 missing decoder never passes as a white texture. Bytes that no PIL plugin
 opens, a missing file, and a source that PIL also refuses (corrupt or
@@ -44,19 +48,29 @@ from .blp import decode_blp
 from .bmp import decode_bmp, decode_dib
 from .dds import decode_dds
 from .ftex import decode_ftex
+from .gbr import decode_gbr
 from .gif import decode_gif
+from .icns import decode_icns
 from .ico import decode_cur, decode_ico
 from .identify import Refused, candidates
+from .imt import decode_imt
+from .iptc import decode_iptc
 from .jpeg import decode_jpeg
+from .msp import decode_msp
 from .pcx import decode_dcx, decode_pcx
+from .pixar import decode_pixar
 from .png import decode_png
 from .ppm import decode_ppm
 from .psd import decode_psd
 from .qoi import decode_qoi
 from .sgi import decode_sgi
+from .sun import decode_sun
 from .tga import decode_tga
 from .tiff import decode_tiff
 from .webp import decode_webp
+from .xbm import decode_xbm
+from .xpm import decode_xpm
+from .xvthumb import decode_xvthumb
 
 PAGE_SIZE = 512     # minimum page size; grows to the largest used bucket
 N_MIPS = 6          # 512 -> 16; scales with the page (mip floor stays 16)
@@ -70,7 +84,10 @@ _DECODERS = {"PNG": decode_png, "JPEG": decode_jpeg, "DDS": decode_dds,
              "WEBP": decode_webp, "TIFF": decode_tiff, "PCX": decode_pcx,
              "DCX": decode_dcx, "PPM": decode_ppm, "SGI": decode_sgi,
              "QOI": decode_qoi, "PSD": decode_psd, "BLP": decode_blp,
-             "FTEX": decode_ftex}
+             "FTEX": decode_ftex, "ICNS": decode_icns, "GBR": decode_gbr,
+             "IPTC": decode_iptc, "XBM": decode_xbm, "XPM": decode_xpm,
+             "SUN": decode_sun, "MSP": decode_msp, "XVTHUMB": decode_xvthumb,
+             "IMT": decode_imt, "PIXAR": decode_pixar}
 # the decoders whose outcome depends on whether PIL reads a file or bytes
 # in memory (PCX seeks back from the end: a real file cannot seek before
 # its start, an in-memory one stops there)

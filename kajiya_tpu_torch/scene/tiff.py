@@ -29,11 +29,10 @@ Then the two routes of `_setup`:
 After either route, `exif_transpose` applies the Orientation tag, and
 `raster.to_rgba` converts the mode.
 
-NotImplementedError ("TIFF ..., see ROADMAP.md"): CCITT RLE / Group 3 /
-Group 4, old-style JPEG, zstd, SGILog, ThunderScan and tiff_raw_16
-compression; a LAB image (PIL converts it through LittleCMS); and
-directories or streams whose outcome in libtiff the port does not model
-(it never guesses pixels).
+A LAB image (photometric 8) converts as PIL's LittleCMS transform does
+(`lab.py`). NotImplementedError ("TIFF ..., see ROADMAP.md"): directories
+or streams whose outcome in libtiff the port does not model (it never
+guesses pixels).
 """
 from __future__ import annotations
 
@@ -1732,19 +1731,6 @@ def _transpose(px: np.ndarray, orientation) -> np.ndarray:
     return np.ascontiguousarray(px)
 
 
-def _palette(data: bytes) -> np.ndarray:
-    """putpalette("RGB", "RGB;L", data): len / 3 entries whose red, green
-    and blue come from three planes; the rest (0, 0, 0, 255)."""
-    n = len(data) // 3
-    if n > 256:
-        raise TiffError("invalid palette size")
-    pal = np.zeros((256, 4), np.uint8)
-    pal[:, 3] = 255
-    v = np.frombuffer(data, np.uint8, count=3 * n).reshape(3, n)
-    pal[:n, :3] = v.T
-    return pal
-
-
 def decode_tiff(data: bytes) -> np.ndarray:
     """TIFF bytes -> (H, W, 4) uint8 RGBA, as PIL's `convert("RGBA")`.
     Raises `identify.Refused` where `TiffImageFile._open` refuses them."""
@@ -1756,10 +1742,9 @@ def decode_tiff(data: bytes) -> np.ndarray:
         # LogLuvSetupDecode takes only the LogL and LogLuv photometrics,
         # which PIL's OPEN_INFO lacks: every file PIL opens fails to load
         raise TiffError("SGILog needs a LogL or LogLuv photometric")
-    if im.mode == "LAB":
-        raise _unported("LAB (PIL converts it through LittleCMS)")
     check_pixels(*im.tile_size)
-    pal = _palette(im.palette) if im.palette is not None else None
+    pal = raster.planar_palette(im.palette) if im.palette is not None \
+        else None
     px = _load_libtiff(data, im) if im.libtiff else _load_raw(data, im)
     px = _transpose(px, _orientation(im.ifd))
     return raster.to_rgba(im.mode, px, pal)

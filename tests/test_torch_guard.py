@@ -67,7 +67,11 @@ def test_port_imports_no_jax():
                 "scene/tga.py", "scene/gif.py", "scene/webp.py",
                 "scene/tiff.py", "scene/pcx.py", "scene/ppm.py",
                 "scene/sgi.py", "scene/qoi.py", "scene/psd.py",
-                "scene/blp.py", "scene/ftex.py"):
+                "scene/blp.py", "scene/ftex.py", "scene/lab.py",
+                "scene/icns.py", "scene/gbr.py", "scene/iptc.py",
+                "scene/xbm.py", "scene/xpm.py", "scene/sun.py",
+                "scene/msp.py", "scene/xvthumb.py", "scene/imt.py",
+                "scene/pixar.py"):
         assert os.path.join("kajiya_tpu_torch", new) in names, new
     assert "chip_smoke.py" in names
     for path in files:
@@ -136,7 +140,7 @@ def test_host_sources_built_only_by_their_builder():
     scene/jpeg.py, the BCn block decoder by scene/dds.py, the RLE / LZW /
     PackBits / QOI / DXT loops by scene/raster.py, the WebP decoder by
     scene/webp.py, the TIFF codecs and the zstd decoder by
-    scene/tiff.py."""
+    scene/tiff.py, the LAB transform by scene/lab.py."""
     builders = {"bvh_builder.cpp": "rt/bvh.py",
                 "jpeg_encoder.cpp": "scene/jpeg.py",
                 "jpeg_decoder.cpp": "scene/jpeg.py",
@@ -144,7 +148,8 @@ def test_host_sources_built_only_by_their_builder():
                 "raster_decoder.cpp": "scene/raster.py",
                 "webp_decoder.cpp": "scene/webp.py",
                 "tiff_decoder.cpp": "scene/tiff.py",
-                "zstd_decoder.cpp": "scene/tiff.py"}
+                "zstd_decoder.cpp": "scene/tiff.py",
+                "lab_transform.cpp": "scene/lab.py"}
     on_disk = sorted(n for n in os.listdir(_native.CSRC)
                      if not n.endswith(".cu"))
     assert on_disk == sorted(builders)

@@ -9,7 +9,7 @@ PackBits composites (PIL ignores the per-row byte counts: a run or literal
 that passes its row's end is cut, 0x80 is a no-op), image resources and a
 layer section of any content (PIL does not parse the layers to convert).
 The refusal and white cases (16 bits: PIL's KeyError, a refusal; too few
-channels: its OSError), LAB (NotImplementedError), a 300-file
+channels: its OSError), LAB (through LittleCMS's transform), a 300-file
 cut-and-flip sweep, the writer of the studio city's base colours and the
 bake against JAX's."""
 import collections
@@ -176,14 +176,16 @@ def test_refused_and_white_as_pil(case):
 
 
 def test_lab_raises_unported():
-    """LAB (mode 9) reaches PIL's LittleCMS conversion, which the port does
-    not mirror: NotImplementedError naming PSD and ROADMAP.md, never white
-    (PIL decodes it)."""
+    """LAB (mode 9) reaches PIL's LittleCMS conversion, which the port now
+    mirrors (`scene/lab.py`): PIL's bytes, raw and PackBits, with the
+    planes copied as PIL copies them (alpha 0), and NotImplementedError no
+    more (the name is the test's earlier one)."""
     rng = np.random.default_rng(7)
-    data = psd_file(runs(rng, 3, 6, 8), 9)
-    assert pil_rgba(data) is not None
-    with pytest.raises(NotImplementedError, match=r"PSD.*ROADMAP\.md"):
-        textures._decode_image(uri(data))
+    for comp in (0, 1):
+        data = psd_file(runs(rng, 3, 6, 8), 9, comp=comp)
+        assert pil_rgba(data) is not None
+        np.testing.assert_array_equal(textures._decode_image(uri(data)),
+                                      pil_rgba(data))
 
 
 def test_writer_decodes_to_its_texels():
@@ -213,7 +215,7 @@ def _fuzz_base(k):
 
 
 # the sweep's files that raise NotImplementedError (a cut or flipped header
-# that an unported plugin accepts first, or that makes the mode LAB), by
+# that an unported plugin accepts first), by
 # part
 CUT_UNPORTED = (0, 0, 0, 0, 0, 0)
 
@@ -233,7 +235,7 @@ def test_cut_or_flipped_as_pil(part):
                 i = int(rng.integers(0, len(data)))
                 data[i] = int(rng.integers(0, 256)) if rng.random() < 0.5 \
                     else data[i] ^ (1 << int(rng.integers(0, 8)))
-        seen[sweep_outcome(bytes(data), inner=("PSD LAB",))] += 1
+        seen[sweep_outcome(bytes(data))] += 1
     assert seen["unported"] <= CUT_UNPORTED[part], seen
 
 

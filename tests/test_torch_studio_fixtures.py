@@ -5,7 +5,8 @@ in the port (from its path, as the bake reads it), to the RGBA digest of
 `manifest.json`, which `chip_smoke.py::studio_phase` checks on the card's
 host, where there is no PIL; a file marked "white" (BLP2's raw BGRA, which
 PIL has no decoder for) raises what the bake turns white in both; the LAB
-PSD raises NotImplementedError in the port."""
+PSD gives PIL's bytes (once "unported", now converted as LittleCMS
+does)."""
 import hashlib
 import io
 import json
@@ -26,8 +27,7 @@ with open(os.path.join(FIXTURES, "manifest.json")) as _f:
 def test_manifest_lists_every_kind():
     assert len(MANIFEST) == 19
     assert sum(bool(r.get("white")) for r in MANIFEST.values()) == 1
-    assert [n for n, r in MANIFEST.items() if r.get("unported")] == [
-        "psd_lab.psd"]
+    assert [n for n, r in MANIFEST.items() if r.get("unported")] == []
     assert sum(r["bytes"] for r in MANIFEST.values()) < 200_000
 
 

@@ -125,11 +125,13 @@ def test_pil_tga_bakes_through_cur():
 
 @pytest.mark.parametrize("case", ["pcx", "iptc", "gbr"])
 def test_unported_plugin_first_raises(case):
-    """The refusal cases of `scene/identify.py`: an unported plugin that
-    PIL's order tries first makes the port raise NotImplementedError, never
-    white, whatever PIL's own `_open` of that plugin then does. PCX, which
-    stood first for a TGA with a 10-byte id field, is ported: that TGA now
-    goes where PIL takes it (PCX's `_open`, then TGA's)."""
+    """The cases where a plugin PIL's order tries first once made the port
+    raise NotImplementedError (the test keeps its earlier name). PCX,
+    which stands first for a TGA with a 10-byte id field, IPTC, first for
+    a TGA with a 28-byte id field and a colour map, and GBR, first for an
+    ICO of no entries whose next bytes pass GBR's header checks, are
+    ported: each file now goes where PIL takes it (that plugin's `_open`,
+    then the next's)."""
     rng = np.random.default_rng(0)
     pix = rng.integers(0, 256, 64 * 4, np.uint8).tobytes()
     data = {
@@ -142,11 +144,7 @@ def test_unported_plugin_first_raises(case):
         "gbr": b"\0\0\1\0\0\0\0\1" + struct.pack(">3I", 8, 8, 1) + pix,
     }[case]
     assert identify.candidates(data)[0] == case.upper()
-    if case == "pcx":
-        assert_as_pil(data)
-        return
-    with pytest.raises(NotImplementedError, match=case.upper()):
-        textures._decode_image(uri(data))
+    assert_as_pil(data)
 
 
 @functools.lru_cache(maxsize=None)

@@ -13,7 +13,7 @@ deflate and LZMA, in strips and tiles, contiguous and planar, with the
 predictors, in both byte orders; JPEG-in-TIFF strips and tiles (YCbCr 1x1,
 2x1, 2x2, with and without JPEGTables); YCbCr that is not JPEG at every
 subsampling; every Orientation; BigTIFF; FillOrder 2; then the refusals,
-the compressions that once raised NotImplementedError, a WebP-compressed file
+the compressions that once raised NotImplementedError, LAB, a WebP-compressed file
 (white in both bakes), a seeded cut-and-flip sweep, the committed fixtures
 against their manifest, the city's writer, and the bake against JAX's.
 Inputs are made from numpy seeds."""
@@ -397,13 +397,15 @@ def test_pil_written(mode, compression):
 
 
 def test_lab_raises_unported():
-    """PIL converts LAB through LittleCMS, which the port does not
-    mirror: NotImplementedError naming TIFF and ROADMAP.md."""
+    """PIL converts LAB through LittleCMS, which the port now mirrors
+    (`scene/lab.py`): the LAB TIFF PIL writes decodes to PIL's bytes, and
+    raises NotImplementedError no more (the name is the test's earlier
+    one)."""
     buf = io.BytesIO()
     Image.new("LAB", (5, 4), (50, 10, 200)).save(buf, "TIFF")
-    pil_rgba(buf.getvalue())
-    with pytest.raises(NotImplementedError, match="TIFF.*ROADMAP"):
-        tiff.decode_tiff(buf.getvalue())
+    want = pil_rgba(buf.getvalue())
+    assert want is not None
+    np.testing.assert_array_equal(tiff.decode_tiff(buf.getvalue()), want)
 
 
 # ----------------------------------------------------------------------------

@@ -152,23 +152,26 @@ def test_view_refuses_unported_inputs(tmp_path, argv):
     """What the viewer refuses, and what it bakes white as JAX does: a .ron
     scene whose texture is a JPEG head followed by zeros and a .gltf whose
     texture is such a DDS head are corrupt files PIL refuses too, so they
-    render with a white texture; a .gltf whose texture is a Sun raster (a
-    format PIL opens and the port cannot decode yet; a PGM until the port
-    decoded PGM) raises rather than turn white. (`--watch`, refused here
-    until hot reload was ported, is test_view_watch_reloads.)"""
+    render with a white texture; a .gltf whose texture is a FITS file (a
+    format PIL opens and the port cannot decode yet; a PGM, then a Sun
+    raster, until the port decoded them) raises rather than turn white.
+    (`--watch`, refused here until hot reload was ported, is
+    test_view_watch_reloads.)"""
     import io
-    import struct
 
     from PIL import Image
 
-    sun = struct.pack(">8I", 0x59A66A95, 1, 1, 8, 2, 1, 0, 0)
+    fits = b"".join(card.ljust(80) for card in (
+        b"SIMPLE  =                    T", b"BITPIX  =                    8",
+        b"NAXIS   =                    2", b"NAXIS1  =                    1",
+        b"NAXIS2  =                    1", b"END")).ljust(2880)
     head = {"scene.ron": b"\xff\xd8\xff\xe0", "mesh.gltf": b"DDS ",
-            "anim.gltf": sun}[argv[1]]
+            "anim.gltf": fits}[argv[1]]
     out = tmp_path / "x.png"
     argv = ["--scene", _scene_with_texture(tmp_path, argv[1], head)]
     run = argv + ["--device", "cpu", "--width", "8", "--height", "8", "-o",
                   str(out)]
-    if head == sun:
+    if head == fits:
         Image.open(io.BytesIO(head + b"\0" * 64)).convert("RGBA")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             view_app.main(run)

@@ -10,8 +10,7 @@ EGA palette, of 4 planes, and 8-bit with a palette; DCX; PFM and a 16-bit
 PGM; and a LAB PSD. `manifest.json` holds each file's shape and the
 SHA-256 of the RGBA that PIL's `Image.open(f).convert("RGBA")` gives; a
 file PIL cannot decode is marked "white" (the port must raise what the
-bake turns white), and one the port does not decode (LAB, which PIL
-converts through LittleCMS) "unported". `chip_smoke.py` decodes the files
+bake turns white). `chip_smoke.py` decodes the files
 with the port on a machine that has no PIL and holds them to these
 digests; `tests/test_torch_studio_fixtures.py` checks that the manifest
 still matches PIL and the port.
@@ -111,8 +110,6 @@ def main():
         else:
             rec.update(shape=list(rgba.shape), rgba_sha256=hashlib.sha256(
                 rgba.tobytes()).hexdigest())
-        if name == "psd_lab.psd":
-            rec["unported"] = True
         manifest[name] = rec
     with open(os.path.join(OUT, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)

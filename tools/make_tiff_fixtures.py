@@ -11,9 +11,8 @@ RLE bilevel files and its zstd RGB with differencing, and the port's
 writer's RLEW, ThunderScan, old-style JPEG (4:2:0 in the interchange form
 in strips, 4:4:4 in the tables form) and SGILog files.
 `manifest.json` holds each file's shape and the SHA-256 of the RGBA that
-PIL's `Image.open(f).convert("RGBA")` gives; a file the port does not
-decode (LAB, which PIL converts through LittleCMS) is marked "unported",
-one PIL fails to load (SGILog under an RGB photometric) "white".
+PIL's `Image.open(f).convert("RGBA")` gives; one PIL fails to load
+(SGILog under an RGB photometric) is marked "white".
 `chip_smoke.py` decodes the files with the port on a machine that has no
 PIL and holds them to these digests; `tests/test_torch_tiff.py` checks
 that the manifest still matches PIL and the port.
@@ -127,8 +126,6 @@ def main():
         manifest[name] = {"bytes": len(data), "shape": list(rgba.shape),
                           "rgba_sha256": hashlib.sha256(
                               rgba.tobytes()).hexdigest()}
-        if name == "lab.tif":
-            manifest[name]["unported"] = True
     with open(os.path.join(OUT, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")
