@@ -50,12 +50,15 @@ the BVH, its `tlas_refit` range timed and its launches counted):
   emissive window mask) and in PIL's smaller plugins (LZW LAB TIFF base
   colours, 24-bit RLE Sun raster normal maps, XPM metallic-roughness maps
   of at most 256 colours, an ICNS emissive map whose best member is a
-  1024^2 PNG), each bake timed by format,
+  1024^2 PNG) and in PIL's integer, float and animation plugins (one-frame
+  BRUN FLC base colours and a PhotoCD base image, IM `RGB image` normal
+  maps, 8-bit FITS metallic-roughness maps, a McIdas and a SPIDER emissive
+  map), each bake timed by format,
 with the launch counters set to 0 just before each path and read just after,
-each map of the mixed, legacy, TIFF, studio, TIFF-codec and plugin cities
-decoded on the host
+each map of the mixed, legacy, TIFF, studio, TIFF-codec, plugin and
+rare-format cities decoded on the host
 equal to the texels its writer reports (the JPEGs within JPEG_PSNR_DB, the
-LAB maps to the SHA-256 PIL gave for them), the
+LAB and PhotoCD maps to the SHA-256 PIL gave for them), the
 committed WebP fixtures (tests/data/webp/: lossy, lossy with alpha,
 lossless, animated), TIFF fixtures (tests/data/tiff/: JPEG-in-TIFF YCbCr
 2x2, LZMA, the floating-point predictor, CMYK, BigTIFF, tiles, CCITT RLE /
@@ -67,7 +70,10 @@ indexed and bitmap, PCX of 2 and 4 bit planes and 8-bit palette, DCX, PFM,
 16-bit PGM, a LAB PSD; BLP2 raw BGRA, which PIL cannot decode, must raise
 what the bake turns white) and plugin fixtures (tests/data/plugins/: LAB
 TIFFs and PSDs, ICNS, GBR, IPTC, XBM, XPM, Sun rasters, MSP, XV thumbnail,
-IMT, PIXAR) decoded on the host to the RGBA digests PIL gave for them,
+IMT, PIXAR) and rare-format fixtures (tests/data/rare/: IM in every mode
+PIL opens, McIdas, SPIDER, FITS of every BITPIX and GZIP_1, FLI / FLC of
+every chunk type, PCD in each orientation) decoded on the host to the RGBA
+digests PIL gave for them,
 and the host syncs of each frame counted (the textured frames may make no
 more than the untextured default frames of the same geometry). Then the
 oracle datum (the port's hybrid frame against its path tracer on cornell at
@@ -317,8 +323,9 @@ SCENES = {
     # city: PSD, SGI, PCX and QOI maps) and "tcitycodec" / "tcitycodec4"
     # (the TIFF-codec city: zstd, ThunderScan and CCITT Group 4 maps) and
     # "tcityplugins" / "tcityplugins4" (the plugin city: LAB TIFF, RLE Sun
-    # raster, XPM and ICNS maps) are added by main once `asset_scenes`
-    # wrote them
+    # raster, XPM and ICNS maps) and "tcityrare" / "tcityrare4" (the
+    # rare-format city: FLC, PhotoCD, IM, FITS, McIdas and SPIDER maps) are
+    # added by main once `asset_scenes` wrote them
 }
 # the scenes each path renders at 1080p, and a cap on the frames of a scene
 # (city3 shows kernel B at the brute route's limit on the two paths that
@@ -329,16 +336,16 @@ PATH_SCENES = {"raster": ("cornell", "city"), "gi": ("cornell", "city"),
                "options": ("cornell", "city"),
                "textured": ("tcornell", "tcity", "tcityfmt", "tcitylegacy",
                             "tcitytiff", "tcitystudio", "tcitycodec",
-                            "tcityplugins")}
+                            "tcityplugins", "tcityrare")}
 FRAME_CAP = {"city3": 2, "tcity": 2, "tcityfmt": 2, "tcitylegacy": 2,
              "tcitytiff": 2, "tcitystudio": 2, "tcitycodec": 2,
-             "tcityplugins": 2, "city40": 2}
+             "tcityplugins": 2, "tcityrare": 2, "city40": 2}
 # the untextured scene of the same geometry, whose default frames the
 # textured frames' host syncs are held to
 UNTEXTURED = {"tcornell": "cornell", "tcity": "city", "tcityfmt": "city",
               "tcitylegacy": "city", "tcitytiff": "city",
               "tcitystudio": "city", "tcitycodec": "city",
-              "tcityplugins": "city"}
+              "tcityplugins": "city", "tcityrare": "city"}
 # the decoded JPEG maps of the mixed-format city against the arrays they
 # encode (quality 85, 4:2:0): format_phase reads 42.2-48.8 dB
 JPEG_PSNR_DB = 35.0
@@ -352,15 +359,16 @@ MOVE, MOVE_FRAME = (0.05, 0.0, 0.0), 1
 # small version, its name with a "4" added)
 CITIES = (("mixed", "fmt"), ("legacy", "legacy"), ("tiff", "tiff"),
           ("studio", "studio"), ("tiffcodec", "codec"),
-          ("plugins", "plugins"))
+          ("plugins", "plugins"), ("rare", "rare"))
 CITY_SCENES = {"mixed": "tcityfmt", "legacy": "tcitylegacy",
                "tiff": "tcitytiff", "studio": "tcitystudio",
-               "tiffcodec": "tcitycodec", "plugins": "tcityplugins"}
-# the small frames' legacy, TIFF, studio, TIFF-codec and plugin cities:
-# their maps at 256^2, since a 64x48 frame needs no more, and two bakes of
-# the full maps would cost ~25 s on an NVIDIA H100 80GB HBM3 host at
-# 700.00 W
-SMALL_FORMATS = ("legacy", "tiff", "studio", "tiffcodec", "plugins")
+               "tiffcodec": "tcitycodec", "plugins": "tcityplugins",
+               "rare": "tcityrare"}
+# the small frames' legacy, TIFF, studio, TIFF-codec, plugin and
+# rare-format cities: their maps at 256^2, since a 64x48 frame needs no
+# more, and two bakes of the full maps would cost ~25 s on an NVIDIA H100
+# 80GB HBM3 host at 700.00 W
+SMALL_FORMATS = ("legacy", "tiff", "studio", "tiffcodec", "plugins", "rare")
 
 
 def asset_scenes(root):
@@ -374,10 +382,12 @@ def asset_scenes(root):
     likewise "tcitytiff" / "tcitytiff4" (the TIFF-textured city under
     `root/tiff`), "tcitystudio" / "tcitystudio4" (the studio-format city
     under `root/studio`), "tcitycodec" / "tcitycodec4" (the TIFF-codec
-    city under `root/codec`) and "tcityplugins" / "tcityplugins4" (the
-    plugin city under `root/plugins`), with the mixed, legacy, TIFF,
-    studio, TIFF-codec and plugin maps written: {file path: (map, RGBA its
-    file decodes to, or None for a JPEG or a LAB TIFF)}."""
+    city under `root/codec`), "tcityplugins" / "tcityplugins4" (the
+    plugin city under `root/plugins`) and "tcityrare" / "tcityrare4" (the
+    rare-format city under `root/rare`), with the mixed, legacy, TIFF,
+    studio, TIFF-codec, plugin and rare-format maps written: {file path:
+    (map, RGBA its file decodes to, or None for a JPEG, a LAB TIFF or a
+    PhotoCD)}."""
     from kajiya_tpu_torch.scene import assets
 
     def write(job):
@@ -449,10 +459,13 @@ def format_phase(maps):
     every TIFF-codec map (zstd RGB tiles with differencing, zstd 16-bit
     planar big-endian, ThunderScan 4-bit grey, a CCITT Group 4 mask) and
     every plugin map but the LAB ones (RLE Sun raster, XPM, ICNS with a PNG
-    member) equal the texels their writer reports, bit for bit; each JPEG
-    base colour is within JPEG_PSNR_DB of the map it encodes; each LAB base
-    colour (converted as LittleCMS does) has the SHA-256 that PIL gave for
-    that very map (tests/data/plugins/manifest.json, "city/..."). The
+    member) and every rare-format map but the PhotoCD one (BRUN FLC, IM
+    `RGB;L`, 8-bit FITS, 1-byte McIdas, SPIDER float) equal the texels
+    their writer reports, bit for bit; each JPEG base colour is within
+    JPEG_PSNR_DB of the map it encodes; each LAB base colour (converted as
+    LittleCMS does) and the PhotoCD base colour (PhotoYCC) has the SHA-256
+    that PIL gave for that very map (tests/data/plugins/manifest.json and
+    tests/data/rare/manifest.json, "city/..."). The
     bytes themselves are held to PIL in the CPU tests (this host has no
     PIL). Any failed decode raises."""
     import hashlib
@@ -466,10 +479,12 @@ def format_phase(maps):
     for build in (jpeg.decoder_library, dds.bcn_library, raster.library,
                   webp.library, tiff.library, tiff.zstd_library, lab.nodes):
         build()
-    with open(os.path.join(REPO, "tests", "data", "plugins",
-                           "manifest.json")) as f:
-        pil_digests = {k: v for k, v in json.load(f).items()
-                       if v.get("city_map")}
+    pil_digests = {}
+    for kind in ("plugins", "rare"):
+        with open(os.path.join(REPO, "tests", "data", kind,
+                               "manifest.json")) as f:
+            pil_digests.update({k: v for k, v in json.load(f).items()
+                                if v.get("city_map")})
     log(f"host decoders built in {time.perf_counter() - t0:.1f} s")
     out = {}
     for path, (img, want) in sorted(maps.items()):
@@ -483,12 +498,12 @@ def format_phase(maps):
         rec = dict(ms=ms, bytes=os.path.getsize(path),
                    shape=list(got.shape))
         city_map = "city/" + os.path.basename(path)
-        if want is None and path.endswith(".tif"):
+        if want is None and path.endswith((".tif", ".pcd")):
             digest = hashlib.sha256(got.tobytes()).hexdigest()
             pil = pil_digests[city_map]
             if list(got.shape) != pil["shape"] or \
                     digest != pil["rgba_sha256"]:
-                raise AssertionError(f"{name}: LAB map digest {digest}, "
+                raise AssertionError(f"{name}: map digest {digest}, "
                                      f"PIL's {pil['rgba_sha256']}")
             rec.update(pil_sha256_equal=True)
         elif want is None:
@@ -585,6 +600,13 @@ def plugin_phase():
     SUN, MSP, XV thumbnail, IMT, PIXAR) against PIL's digests
     (fixture_phase)."""
     return fixture_phase("plugins")
+
+
+def rare_phase():
+    """The rare-format fixtures (IM in every mode PIL opens, McIdas,
+    SPIDER, FITS with GZIP_1, FLI / FLC of every chunk type, PCD in each
+    orientation) against PIL's digests (fixture_phase)."""
+    return fixture_phase("rare")
 
 
 def _lookup(owner, name):
@@ -1727,7 +1749,7 @@ FRAME_KEYS["textured"] = FRAME_KEYS["superres"] = FRAME_KEYS["default"]
 # the scenes of each path's small GPU-vs-CPU frames ("city" is city(n=4))
 REF_SCENES = {"textured": ("tcornell", "tcity4", "tcitylegacy4",
                           "tcitytiff4", "tcitystudio4", "tcitycodec4",
-                          "tcityplugins4")}
+                          "tcityplugins4", "tcityrare4")}
 # the paths whose small frames are also rendered on the BVH route, forced
 # with brute_max_tris=0
 BVH_REF_PATHS = ("default", "refpt")
@@ -1826,7 +1848,8 @@ def reference_phase(dev, ibl, cpu_side):
     paths with the small irradiance cache (and the options path with the
     small world radiance cache); the textured path on the textured cornell
     and the textured asset city at n=4 (its 2048^2 PNG maps, and 256^2
-    legacy-format, TIFF, studio, TIFF-codec and plugin maps), whose texture
+    legacy-format, TIFF, studio, TIFF-codec, plugin and rare-format maps),
+    whose texture
     pages on the card must equal the CPU's byte for byte; the default and
     path-tracer frames again on the BVH route (`brute_max_tris=0`; "+bvh"
     in the names), where the CPU path runs `walk_plain`. The CPU side comes
@@ -1960,6 +1983,12 @@ def frame_phase(dev, path, ibl):
                        decode_sun=(textures._DECODERS, "SUN"),
                        decode_xpm=(textures._DECODERS, "XPM"),
                        decode_icns=(textures._DECODERS, "ICNS"),
+                       decode_fli=(textures._DECODERS, "FLI"),
+                       decode_pcd=(textures._DECODERS, "PCD"),
+                       decode_im=(textures._DECODERS, "IM"),
+                       decode_fits=(textures._DECODERS, "FITS"),
+                       decode_mcidas=(textures._DECODERS, "MCIDAS"),
+                       decode_spider=(textures._DECODERS, "SPIDER"),
                        lab_transform=(lab, "to_rgba"),
                        resize=(textures, "_resize"),
                        bake=(textures, "bake_texture_pages"),
@@ -1997,6 +2026,12 @@ def frame_phase(dev, path, ibl):
                         decode_sun_s=sec["decode_sun"],
                         decode_xpm_s=sec["decode_xpm"],
                         decode_icns_s=sec["decode_icns"],
+                        decode_fli_s=sec["decode_fli"],
+                        decode_pcd_s=sec["decode_pcd"],
+                        decode_im_s=sec["decode_im"],
+                        decode_fits_s=sec["decode_fits"],
+                        decode_mcidas_s=sec["decode_mcidas"],
+                        decode_spider_s=sec["decode_spider"],
                         lab_transform_s=sec["lab_transform"],
                         resize_s=sec["resize"],
                         pack_mips_s=sec["bake"] - sec["decode"]
@@ -2926,6 +2961,7 @@ def main():
     tiff_fixtures = timed("tiff", tiff_phase)
     studio_fixtures = timed("studio", studio_phase)
     plugin_fixtures = timed("plugins", plugin_phase)
+    rare_fixtures = timed("rare", rare_phase)
     # the small frames' CPU side runs beside the kernel phases
     pool, cpu_side = start_reference_cpu(tmp, ibl)
     try:
@@ -2986,6 +3022,8 @@ def main():
         frames["textured"]["tcitycodec"]["frame_ms"],
         "plugin city frame ms",
         frames["textured"]["tcityplugins"]["frame_ms"],
+        "rare-format city frame ms",
+        frames["textured"]["tcityrare"]["frame_ms"],
         "beside the untextured city's default frame ms",
         frames["default"]["city"]["frame_ms"], "(same call)")
     oracle = timed("oracle", oracle_phase, dev)
@@ -3033,7 +3071,8 @@ def main():
                    "webp_fixtures": webp_fixtures,
                    "tiff_fixtures": tiff_fixtures,
                    "studio_fixtures": studio_fixtures,
-                   "plugin_fixtures": plugin_fixtures, "sharded": sharded,
+                   "plugin_fixtures": plugin_fixtures,
+                   "rare_fixtures": rare_fixtures, "sharded": sharded,
                    "phase_s": PHASE_S}, f, indent=1)
     print(json.dumps({"frames": {
         path: {k: {"median_ms": v["median_ms"], "frame_ms": v["frame_ms"],
@@ -3051,6 +3090,8 @@ def main():
                               studio_fixtures.items()},
         "plugin_fixture_ms": {k: v.get("ms") for k, v in
                               plugin_fixtures.items()},
+        "rare_fixture_ms": {k: v.get("ms") for k, v in
+                            rare_fixtures.items()},
         "setup_s": {f"{p}/{sc}": v["setup_parts_s"]
                     for p, per_scene in frames.items()
                     for sc, v in per_scene.items() if sc == "city40"},

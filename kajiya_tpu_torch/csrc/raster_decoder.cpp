@@ -3,9 +3,10 @@
 // TgaRleDecode.c (scene/tga.py), GifDecode.c (scene/gif.py), PcxDecode.c
 // (scene/pcx.py), SgiRleDecode.c (scene/sgi.py), PackDecode.c (scene/psd.py),
 // QoiImagePlugin.QoiDecoder (scene/qoi.py), BlpImagePlugin's decode_dxt1
-// / 3 / 5 (scene/blp.py) and SunRleDecode.c (scene/sun.py), and the
-// encoders of the port's SGI, PCX, QOI and SUN writers (scene/assets.py's
-// studio and plugin cities). Python parses the headers and
+// / 3 / 5 (scene/blp.py), SunRleDecode.c (scene/sun.py), BitDecode.c
+// (scene/raster.py, for IM's odd bit depths) and FliDecode.c
+// (scene/fli.py), and the encoders of the port's SGI, PCX, QOI, SUN and
+// FLC writers (scene/assets.py's studio, plugin and rare-format cities). Python parses the headers and
 // unpacks the rows; these functions only expand the compressed streams.
 // Built with g++ at first use (hostlib.load) and called through ctypes.
 //
@@ -737,6 +738,274 @@ long long kt_sun_rle_encode(const uint8_t* in, long long n, uint8_t* out) {
         } else {
             out[len++] = in[i++];
         }
+    }
+    return len;
+}
+
+// BitDecode.c with the settings IM gives it (pad 8, fill 3, unsigned,
+// bottom-up): fields of `bits` bits from byte `pos` into a float image of
+// xsize x ysize. A byte enters the bit buffer above the bits it holds and
+// a field leaves from the buffer's low end. The bit count (not the buffer)
+// is reset at the end of each row, so a row's leftover high bits stay in
+// the buffer and are OR-ed into the next row's first byte, as in PIL. Rows
+// run from the bottom up. Status 1 when the bytes end before the last row.
+int kt_bit_decode(const char* data_, long long n, long long pos, int xsize,
+                  int ysize, int bits, float* out) {
+    const uint8_t* data = reinterpret_cast<const uint8_t*>(data_);
+    if (bits < 1 || bits >= 32) return kBroken;
+    unsigned long mask = (1UL << bits) - 1;
+    unsigned long bitbuffer = 0;
+    int bitcount = 0;
+    long long x = 0, y = ysize - 1;
+    for (long long k = pos; k < n; ++k) {
+        uint8_t byte = data[k];
+        bitbuffer |= (unsigned long)byte << bitcount;
+        bitcount += 8;
+        while (bitcount >= bits) {
+            unsigned long v = bitbuffer & mask;
+            if (bitcount > 32)
+                bitbuffer = byte >> (8 - (bitcount - bits));
+            else
+                bitbuffer >>= bits;
+            bitcount -= bits;
+            out[y * xsize + x] = (float)v;
+            if (++x >= xsize) {
+                if (--y < 0) return kOk;
+                x = 0;
+                bitcount = 0;
+            }
+        }
+    }
+    return kTruncated;
+}
+
+namespace {
+
+inline int fli_i16(const uint8_t* p) { return p[0] + (p[1] << 8); }
+
+inline int fli_i32(const uint8_t* p) {
+    return (int32_t)((uint32_t)p[0] | (uint32_t)p[1] << 8 |
+                     (uint32_t)p[2] << 16 | (uint32_t)p[3] << 24);
+}
+
+}  // namespace
+
+// FliDecode.c on one buffer of `bytes` bytes, as ImageFile.load hands it
+// over: the frame chunk (size, 0xF1FA, subchunk count) and its subchunks
+// (4 / 11 colour and 18 postage stamp ignored, 7 SS2 word delta, 12 LC
+// byte delta, 13 BLACK, 15 BRUN, 16 COPY), drawn into `img`, xsize x
+// ysize palette indices. Returns what PIL's decoder returns: -1 at the end
+// of the frame, else the bytes consumed (0: the frame is not all there
+// yet); *err is 0, or PIL's error code (-2 broken, -9 overrun, -10 unknown
+// chunk).
+long long kt_fli(const char* buf_, long long bytes, int xsize, int ysize,
+                 uint8_t* img, int* err) {
+    const uint8_t* buf = reinterpret_cast<const uint8_t*>(buf_);
+    const uint8_t* ptr = buf;
+    const int kBrokenCode = -2, kOverrunCode = -9, kUnknownCode = -10;
+    *err = 0;
+    if (bytes < 4) return 0;
+    long long framesize = (uint32_t)fli_i32(ptr);
+    if (bytes + (bytes % 2) < framesize) return 0;
+    if (bytes < 8) {
+        *err = kOverrunCode;
+        return -1;
+    }
+    if (fli_i16(ptr + 4) != 0xF1FA) {
+        *err = kUnknownCode;
+        return -1;
+    }
+    int chunks = fli_i16(ptr + 6);
+    ptr += 16;
+    bytes -= 16;
+#define KT_FLI_OOB(off)                                  \
+    if ((data + (off)) > ptr + bytes) {                  \
+        *err = kOverrunCode;                             \
+        return -1;                                       \
+    }
+    for (int c = 0; c < chunks; c++) {
+        if (bytes < 10) {
+            *err = kOverrunCode;
+            return -1;
+        }
+        const uint8_t* data = ptr + 6;
+        int i = 0, x = 0, y, l, lines, ymax;
+        switch (fli_i16(ptr + 4)) {
+            case 4:
+            case 11:
+                break;
+            case 7: {
+                lines = fli_i16(data);
+                data += 2;
+                for (l = y = 0; l < lines && y < ysize; l++, y++) {
+                    uint8_t* local = img + (long long)y * xsize;
+                    int p, packets;
+                    KT_FLI_OOB(2)
+                    packets = fli_i16(data);
+                    data += 2;
+                    while (packets & 0x8000) {
+                        if (packets & 0x4000) {
+                            y += 65536 - packets;
+                            if (y >= ysize) {
+                                *err = kOverrunCode;
+                                return -1;
+                            }
+                            local = img + (long long)y * xsize;
+                        } else {
+                            local[xsize - 1] = (uint8_t)packets;
+                        }
+                        KT_FLI_OOB(2)
+                        packets = fli_i16(data);
+                        data += 2;
+                    }
+                    for (p = x = 0; p < packets; p++) {
+                        KT_FLI_OOB(2)
+                        x += data[0];
+                        if (data[1] >= 128) {
+                            KT_FLI_OOB(4)
+                            i = 256 - data[1];
+                            if (x + i + i > xsize) break;
+                            for (int j = 0; j < i; j++) {
+                                local[x++] = data[2];
+                                local[x++] = data[3];
+                            }
+                            data += 2 + 2;
+                        } else {
+                            i = 2 * (int)data[1];
+                            if (x + i > xsize) break;
+                            KT_FLI_OOB(2 + i)
+                            std::memcpy(local + x, data + 2, i);
+                            data += 2 + i;
+                            x += i;
+                        }
+                    }
+                    if (p < packets) break;
+                }
+                if (l < lines) {
+                    *err = kOverrunCode;
+                    return -1;
+                }
+                break;
+            }
+            case 12: {
+                y = fli_i16(data);
+                ymax = y + fli_i16(data + 2);
+                data += 4;
+                for (; y < ymax && y < ysize; y++) {
+                    uint8_t* out = img + (long long)y * xsize;
+                    KT_FLI_OOB(1)
+                    int p, packets = *data++;
+                    for (p = x = 0; p < packets; p++, x += i) {
+                        KT_FLI_OOB(2)
+                        x += data[0];
+                        if (data[1] & 0x80) {
+                            i = 256 - data[1];
+                            if (x + i > xsize) break;
+                            KT_FLI_OOB(3)
+                            std::memset(out + x, data[2], i);
+                            data += 3;
+                        } else {
+                            i = data[1];
+                            if (x + i > xsize) break;
+                            KT_FLI_OOB(2 + i)
+                            std::memcpy(out + x, data + 2, i);
+                            data += i + 2;
+                        }
+                    }
+                    if (p < packets) break;
+                }
+                if (y < ymax) {
+                    *err = kOverrunCode;
+                    return -1;
+                }
+                break;
+            }
+            case 13:
+                std::memset(img, 0, (size_t)xsize * ysize);
+                break;
+            case 15:
+                for (y = 0; y < ysize; y++) {
+                    uint8_t* out = img + (long long)y * xsize;
+                    data += 1;
+                    for (x = 0; x < xsize; x += i) {
+                        KT_FLI_OOB(2)
+                        if (data[0] & 0x80) {
+                            i = 256 - data[0];
+                            if (x + i > xsize) break;
+                            KT_FLI_OOB(i + 1)
+                            std::memcpy(out + x, data + 1, i);
+                            data += i + 1;
+                        } else {
+                            i = data[0];
+                            if (x + i > xsize) break;
+                            std::memset(out + x, data[1], i);
+                            data += 2;
+                        }
+                    }
+                    if (x != xsize) {
+                        *err = kOverrunCode;
+                        return -1;
+                    }
+                }
+                break;
+            case 16:
+                if (data + (long long)xsize * ysize > ptr + bytes)
+                    return ptr - buf;
+                std::memcpy(img, data, (size_t)xsize * ysize);
+                break;
+            case 18:
+                break;
+            default:
+                *err = kUnknownCode;
+                return -1;
+        }
+        int advance = fli_i32(ptr);
+        if (advance == 0) {
+            *err = kBrokenCode;
+            return -1;
+        }
+        if (advance < 0 || advance > bytes) {
+            *err = kOverrunCode;
+            return -1;
+        }
+        ptr += advance;
+        bytes -= advance;
+    }
+#undef KT_FLI_OOB
+    return -1;
+}
+
+// The FLC writer's BRUN lines (FliDecode.c's case 15 inverse): a packet
+// count byte, then runs (count 1..127, one byte) and literals (-count
+// 1..128, the bytes); returns the bytes written.
+long long kt_fli_brun_encode(const uint8_t* in, int xsize, int ysize,
+                             uint8_t* out) {
+    long long len = 0;
+    for (int y = 0; y < ysize; ++y) {
+        const uint8_t* row = in + (long long)y * xsize;
+        long long count_at = len++;
+        int packets = 0, x = 0;
+        while (x < xsize) {
+            int j = x;
+            while (j + 1 < xsize && row[j + 1] == row[x] && j - x < 126) ++j;
+            if (j - x >= 2) {
+                out[len++] = (uint8_t)(j - x + 1);
+                out[len++] = row[x];
+                x = j + 1;
+            } else {
+                int k = x + 1;
+                while (k < xsize && k - x < 128 &&
+                       !(k + 2 < xsize && row[k] == row[k + 1] &&
+                         row[k] == row[k + 2]))
+                    ++k;
+                out[len++] = (uint8_t)(256 - (k - x));
+                std::memcpy(out + len, row + x, k - x);
+                len += k - x;
+                x = k;
+            }
+            ++packets;
+        }
+        out[count_at] = (uint8_t)(packets > 255 ? 0 : packets);
     }
     return len;
 }

@@ -42,7 +42,18 @@ normal map a 24-bit RLE Sun raster, each metallic-roughness map a `P` XPM
 of at most 256 colours (the map quantised: roughness to 64 levels), b1's
 emissive map an ICNS whose best member is a PNG, beside an `it32` / `t8mk`
 pair at 128^2 (`tiff.write_tiff`, `sun.encode_sun_rle`, `xpm.encode_xpm`,
-`icns.encode_icns`).
+`icns.encode_icns`). `formats="rare"` writes them in PIL's integer, float
+and animation plugins (the rare-format city): b0's and b1's base colours
+one-frame FLCs (a `COLOR_256` palette of the map's at most 256 colours,
+BRUN lines), b2's a PhotoCD base image (768 x 512, the map sampled; PIL
+converts PhotoYCC, so no texels are known here), each normal map an IM
+`RGB image` (line-interleaved, bottom-up), each metallic-roughness map an
+8-bit FITS of the roughness (glTF reads roughness from green and metallic
+from blue: both take the grey level), b1's emissive map a 1-byte McIdas
+area and b2's (only this city gives b2 one) a big-endian SPIDER float
+image, each of the map's brightest channel (`fli.encode_flc`,
+`pcd.encode_pcd`, `im.encode_im_rgb`, `fits.encode_fits`,
+`mcidas.encode_mcidas`, `spider.encode_spider`).
 """
 from __future__ import annotations
 
@@ -55,14 +66,20 @@ import numpy as np
 
 from .bmp import encode_bmp24
 from .dds import bc5_blocks, bc7_mode6_blocks, dds_header
+from .fits import encode_fits
+from .fli import encode_flc
 from .gif import encode_gif256
 from .icns import encode_icns, mask_member, rgb_member
+from .im import encode_im_rgb
+from .mcidas import encode_mcidas
+from .pcd import encode_pcd
 from .pcx import encode_pcx_rgb
 from .png import encode_png
 from .procedural import _subdiv_box
 from .psd import encode_psd
 from .qoi import encode_qoi
 from .sgi import encode_sgi_rle
+from .spider import encode_spider
 from .sun import encode_sun_rle
 from .tga import encode_tga_rle
 from .tiff import write_tiff
@@ -226,15 +243,52 @@ def _plugin_map(kind: str, img: np.ndarray):
     return ".icns", encode_icns(members), want
 
 
+def _rare_map(kind: str, img: np.ndarray, k: int):
+    """The rare-format city's (suffix, bytes, RGBA or None for the PhotoCD
+    map) of building `k`'s map."""
+    want = np.concatenate([img, np.full(img.shape[:2] + (1,), 255,
+                                        np.uint8)], -1)
+
+    def grey(v):
+        return np.concatenate([np.repeat(v[..., None], 3, -1),
+                               want[..., 3:]], -1)
+
+    if kind == "base" and k == 2:
+        h, w = img.shape[:2]
+        rows = np.arange(512) * h // 512
+        cols = np.arange(768) * w // 768
+        return ".pcd", encode_pcd(img[rows][:, cols]), None
+    if kind == "base":
+        code = (img.astype(np.int32) << np.array([16, 8, 0])).sum(-1)
+        codes, idx = np.unique(code, return_inverse=True)
+        if len(codes) > 256:
+            raise ValueError(f"{len(codes)} colours for an FLC palette")
+        pal = np.zeros((256, 3), np.uint8)
+        pal[:len(codes)] = (codes[:, None] >> np.array([16, 8, 0])) & 255
+        return ".flc", encode_flc(idx.reshape(img.shape[:2]), pal), want
+    if kind == "normal":
+        return ".im", encode_im_rgb(img), want
+    if kind == "mr":
+        return ".fits", encode_fits(img[..., 1], 8), grey(img[..., 1])
+    bright = img.max(-1)
+    if k == 1:
+        return ".area", encode_mcidas(bright), grey(bright)
+    # float texels a quarter above each level: PIL truncates them back
+    return ".spi", encode_spider(bright.astype(np.float32) + 0.25), \
+        grey(bright)
+
+
 # DXGI formats of the mixed-format city's maps
 DXGI_BC5_UNORM, DXGI_BC7_UNORM = 83, 98
 
 
-def _map_file(kind: str, img: np.ndarray, formats: str):
+def _map_file(kind: str, img: np.ndarray, formats: str, k: int = 0):
     """(file suffix, bytes, the RGBA the decoders must give back or None
-    where the format is lossy) of one building map."""
+    where the format is lossy) of building `k`'s map."""
     if formats == "png":
         return ".png", _png(img), None
+    if formats == "rare":
+        return _rare_map(kind, img, k)
     if formats == "plugins":
         return _plugin_map(kind, img)
     if formats == "tiff":
@@ -332,13 +386,16 @@ def write_city_assets(root: str, subdiv: int = 8, map_size: int = 2048,
     16-bit planar big-endian normals, ThunderScan 4-bit grey
     metallic-roughness, a CCITT Group 4 bilevel emissive window mask) or
     "plugins" (LAB TIFF base colour, RLE Sun raster normal, XPM
-    metallic-roughness and ICNS emissive maps). Returns {file name: (the
+    metallic-roughness and ICNS emissive maps) or "rare" (FLC and PhotoCD
+    base colours, IM normal, FITS metallic-roughness, McIdas and SPIDER
+    emissive maps; b2 also has an emissive map). Returns {file name: (the
     RGB map written, the RGBA its file decodes to, or None for a JPEG, an
-    8-bit PNG or a LAB TIFF)} of the building maps."""
+    8-bit PNG, a LAB TIFF or a PhotoCD)} of the building maps."""
     if formats not in ("png", "mixed", "legacy", "tiff", "studio",
-                       "tiffcodec", "plugins"):
+                       "tiffcodec", "plugins", "rare"):
         raise ValueError(f"formats {formats!r}: 'png', 'mixed', 'legacy', "
-                         "'tiff', 'studio', 'tiffcodec' or 'plugins'")
+                         "'tiff', 'studio', 'tiffcodec', 'plugins' or "
+                         "'rare'")
     rng = np.random.default_rng(seed)
     mdir = os.path.join(root, "meshes")
     os.makedirs(mdir, exist_ok=True)
@@ -354,7 +411,7 @@ def write_city_assets(root: str, subdiv: int = 8, map_size: int = 2048,
         mat = dict(base_color=(*tint, 1.0), metallic=metallic,
                    roughness=rough, base_color_texture=0, mr_texture=1,
                    normal_texture=2)
-        if k == 1:
+        if k == 1 or (formats == "rare" and k == 2):
             s = emissive_size
             y, x = np.mgrid[0:s, 0:s] * (16.0 / s)
             lit = (((x % 1) > 0.2) & ((x % 1) < 0.8) & ((y % 1) > 0.25)
@@ -367,7 +424,7 @@ def write_city_assets(root: str, subdiv: int = 8, map_size: int = 2048,
             mat.update(emissive=EMISSIVE_FACTOR, emissive_texture=3)
         names = []
         for kind, img in zip(kinds, maps):
-            suffix, data, want = _map_file(kind, img, formats)
+            suffix, data, want = _map_file(kind, img, formats, k)
             names.append(f"b{k}_{kind}{suffix}")
             with open(os.path.join(mdir, names[-1]), "wb") as f:
                 f.write(data)

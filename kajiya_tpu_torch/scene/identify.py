@@ -31,6 +31,12 @@ cases the header sweeps found (a TGA with a 28-byte id field and a colour
 map, which IPTC's check accepts; an ICO of no entries that passes GBR's)
 went with IPTC and GBR's decoders; none is known now.
 
+The port decodes every plugin named here but AVIF, EPS, JPEG2000, the
+stub plugins (BUFR, GRIB, HDF5, WMF: PIL identifies them and loads them
+only through a handler an application registers) and MPEG (PIL opens it
+and cannot load it): for those `textures._decode_image` raises
+NotImplementedError.
+
 `check_pixels` mirrors `Image.MAX_IMAGE_PIXELS`: PIL refuses an image of
 more than twice that many pixels (`DecompressionBombError`), and the JAX
 bake turns it white.
@@ -147,12 +153,10 @@ def _pcd(data: bytes) -> bool:
     return data[2048:2052] == b"PCD_"
 
 
-def _spider(data: bytes) -> bool:
-    """SpiderImagePlugin.isSpiderHeader on 27 floats, either byte order,
-    and a 2D image (iform 1)."""
-    f = data[:108]
-    if len(f) < 108:
-        return False
+def spider_header_length(t) -> int:
+    """SpiderImagePlugin.isSpiderHeader on the header's floats: the
+    header's length in bytes, or 0 where they are no SPIDER header."""
+    h = (99,) + tuple(t)
 
     def is_int(x):
         try:
@@ -160,15 +164,25 @@ def _spider(data: bytes) -> bool:
         except (ValueError, OverflowError):
             return False
 
+    if not all(is_int(h[i]) for i in (1, 2, 5, 12, 13, 22, 23)):
+        return 0
+    if int(h[5]) not in (1, 3, -11, -12, -21, -22):
+        return 0
+    if int(h[22]) != int(h[13]) * int(h[23]):
+        return 0
+    return int(h[22])
+
+
+def _spider(data: bytes) -> bool:
+    """SpiderImagePlugin: 27 floats that pass isSpiderHeader, big-endian
+    tried first, and a 2D image (iform 1)."""
+    f = data[:108]
+    if len(f) < 108:
+        return False
     for order in (">", "<"):
-        h = (99.0,) + struct.unpack(order + "27f", f)
-        if not all(is_int(h[i]) for i in (1, 2, 5, 12, 13, 22, 23)):
-            continue
-        if int(h[5]) not in (1, 3, -11, -12, -21, -22):
-            continue
-        if int(h[22]) != int(h[13]) * int(h[23]) or int(h[22]) == 0:
-            continue
-        return int(h[5]) == 1
+        t = struct.unpack(order + "27f", f)
+        if spider_header_length(t):
+            return int(t[4]) == 1
     return False
 
 

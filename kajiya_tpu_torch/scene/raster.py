@@ -1,21 +1,23 @@
 """What the BMP, ICO / CUR, TGA, GIF, TIFF, PCX, PPM, SGI, QOI, PSD, BLP,
-FTEX, SUN and the other small plugins' decoders share: a file-like view of
-the bytes, PIL's raw unpackers and palettes, its `raw` tile decoder, its
-`convert("RGBA")`, and the native loops of `csrc/raster_decoder.cpp`.
+FTEX, SUN, the other small plugins', the integer and float plugins' (IM,
+FITS, MCIDAS, SPIDER), FLI's and PCD's decoders share: a file-like view of
+the bytes, PIL's raw unpackers and palettes, its `raw` and `bit` tile
+decoders, its `convert("RGBA")` (YCbCr and PhotoYCC in PIL's fixed-point
+forms), and the native loops of `csrc/raster_decoder.cpp`.
 
 Each decoder follows its PIL 12.1.0 plugin statement by statement, so that
 it gives the same bytes and refuses where PIL refuses. An image is a
 (mode, pixels, palette) triple as PIL holds it before `convert("RGBA")`:
 mode "1" and "L" and "P" as (H, W) uint8 ("1" as 0 / 255), "I;16" and
-"I;16B" uint16, "I" int32, "F" float32, "LA" and "PA" (H, W, 2), "RGB"
-(H, W, 3), "RGBA" and "CMYK" (H, W, 4), "LAB" (H, W, 4) as `lab.py` holds
-it, and for "P" and "PA" a (256, 4) RGBA palette.
+"I;16B" and "I;16L" uint16, "I" int32, "F" float32, "LA" and "PA" (H, W,
+2), "RGB" and "YCbCr" (H, W, 3), "RGBA" and "CMYK" (H, W, 4), "LAB" (H,
+W, 4) as `lab.py` holds it, and for "P" and "PA" a (256, 4) RGBA palette.
 
 The sequential loops (BMP RLE4 / RLE8, TGA RLE, GIF LZW, PCX RLE, SGI RLE,
-PIL's PackBits, QOI, BLP's DXT, SUN RLE) and the writers' encoders run in
-C++, compiled with g++ at first use into the gitignored `_build/`
-(`hostlib.load`); a failed build raises, and there is no Python loop to
-fall back to.
+PIL's PackBits, QOI, BLP's DXT, SUN RLE, the `bit` decoder, FLI's chunks)
+and the writers' encoders run in C++, compiled with g++ at first use into
+the gitignored `_build/` (`hostlib.load`); a failed build raises, and
+there is no Python loop to fall back to.
 """
 from __future__ import annotations
 
@@ -74,6 +76,14 @@ def library() -> ctypes.CDLL:
         lib.kt_blp_dxt.argtypes = [ctypes.c_char_p, i64, i64, c_int, c_int,
                                    c_int, c_int, ptr]
         lib.kt_sun_rle.argtypes = [ctypes.c_char_p, i64, i64, i64, c_int, ptr]
+        lib.kt_bit_decode.argtypes = [ctypes.c_char_p, i64, i64, c_int,
+                                      c_int, c_int, ptr]
+        lib.kt_bit_decode.restype = c_int
+        lib.kt_fli.argtypes = [ctypes.c_char_p, i64, c_int, c_int, ptr,
+                               ctypes.POINTER(c_int)]
+        lib.kt_fli.restype = i64
+        lib.kt_fli_brun_encode.argtypes = [ptr, c_int, c_int, ptr]
+        lib.kt_fli_brun_encode.restype = i64
         for f in (lib.kt_pcx_rle, lib.kt_sgi_rle, lib.kt_packbits_rows,
                   lib.kt_qoi, lib.kt_blp_dxt, lib.kt_sun_rle):
             f.restype = c_int
@@ -154,13 +164,29 @@ RAW_BITS = {(m, r): b for m, r, b in (
     ("RGBA", "RGBa;16B", 64), ("RGBA", "RGBa;16N", 64),
     ("CMYK", "CMYK", 32), ("CMYK", "CMYKX", 40), ("CMYK", "CMYKXX", 48),
     ("CMYK", "CMYK;16L", 64), ("CMYK", "CMYK;16B", 64),
-    ("CMYK", "CMYK;16N", 64), ("LAB", "LAB", 24))}
+    ("CMYK", "CMYK;16N", 64), ("LAB", "LAB", 24),
+    # the integer and float plugins' (IM, FITS, MCIDAS, SPIDER)
+    ("I", "I;32", 32), ("I", "I;32B", 32), ("I", "I;16", 16),
+    ("I", "I;16B", 16), ("F", "F;8", 8), ("F", "F;8S", 8),
+    ("F", "F;16", 16), ("F", "F;16S", 16), ("F", "F;32", 32),
+    ("I;16", "I;16B", 16), ("I;16L", "I;16L", 16), ("P", "L", 8),
+    # IM's line-interleaved rows: each band's w bytes in turn
+    ("RGB", "RGB;L", 24), ("RGB", "RGBX;L", 32), ("RGB", "RGBA;L", 32),
+    ("RGBA", "RGBA;L", 32), ("LA", "LA;L", 16), ("PA", "PA;L", 16),
+    ("CMYK", "CMYK;L", 32), ("YCbCr", "YCbCr;L", 24))}
 # the bands each mode stores; a band of a multi-band mode is also a raw
 # mode of its own (a planar layer), 8 bits wide
-BANDS = {"1": 1, "L": 1, "P": 1, "I;16": 1, "I;16B": 1, "I": 1, "F": 1,
-         "LA": 2, "PA": 2, "RGB": 3, "RGBA": 4, "CMYK": 4, "LAB": 3}
+BANDS = {"1": 1, "L": 1, "P": 1, "I;16": 1, "I;16B": 1, "I;16L": 1, "I": 1,
+         "F": 1, "LA": 2, "PA": 2, "RGB": 3, "RGBA": 4, "CMYK": 4, "LAB": 3,
+         "YCbCr": 3}
 for _mode in ("RGB", "RGBA", "CMYK", "LAB"):
     RAW_BITS.update({(_mode, _band): 8 for _band in _mode})
+# the numpy type of each integer and float raw mode
+_SCALAR = {"I": "<i4", "I;16S": "<i2", "I;16BS": ">i2", "I;32N": "<i4",
+           "I;32S": "<i4", "I;32BS": ">i4", "I;32": "<i4", "I;32B": ">i4",
+           "I;16": "<u2", "I;16B": ">u2", "I;16L": "<u2", "F": "<f4",
+           "F;32F": "<f4", "F;32BF": ">f4", "F;8": "u1", "F;8S": "i1",
+           "F;16": "<u2", "F;16S": "<i2", "F;32": "<u4"}
 # byte order of the 32-bit raw modes: the source byte of R, G, B, A
 # (None: 255)
 _ORDER32 = {"BGRX": (2, 1, 0, None), "XBGR": (3, 2, 1, None),
@@ -183,7 +209,7 @@ def raw_bits(mode: str, rawmode: str) -> int:
 
 def new(mode: str, w: int, h: int) -> np.ndarray:
     """Image.core.new: zeros in the storage of `mode` that `unpack` gives."""
-    if mode in ("I;16", "I;16B"):
+    if mode in ("I;16", "I;16B", "I;16L"):
         return np.zeros((h, w), np.uint16)
     if mode == "I":
         return np.zeros((h, w), np.int32)
@@ -238,21 +264,23 @@ def unpack(rows: np.ndarray, rawmode: str, mode: str, w: int,
             if "I" in flags:
                 f = 255 - f
         return f.astype(np.uint8)
+    if rawmode.endswith(";L") and mode not in ("L", "P"):
+        base = rawmode[:-2]
+        n = 3 if base == "YCbCr" else len(base)
+        v = rows[:, :n * w].reshape(h, n, w).transpose(0, 2, 1)
+        return np.ascontiguousarray(v[..., :BANDS[mode]])
     if rawmode in ("PX", "PA", "LA"):
         v = rows[:, :2 * w].reshape(h, w, 2)
         return v[..., 0].copy() if rawmode == "PX" else v.copy()
-    if mode in ("I;16", "I;16B"):
+    if mode in ("I;16", "I;16B", "I;16L"):
         if rawmode == "I;12":
             return _bits(rows, w, 12)
         order = ">" if rawmode in ("I;16B", "I;16R") else "<"
         return rows[:, :2 * w].copy().view(order + "u2").astype(np.uint16)
-    if mode == "I":
-        dt = {"I": "<i4", "I;16S": "<i2", "I;16BS": ">i2", "I;32N": "<i4",
-              "I;32S": "<i4", "I;32BS": ">i4"}[rawmode]
-        return rows[:, :int(dt[-1]) * w].copy().view(dt).astype(np.int32)
-    if mode == "F":
-        dt = ">f4" if rawmode == "F;32BF" else "<f4"
-        return rows[:, :4 * w].copy().view(dt).astype(np.float32)
+    if mode in ("I", "F"):
+        dt = _SCALAR[rawmode]
+        v = rows[:, :int(dt[-1]) * w].copy().view(dt)
+        return v.astype(np.int32 if mode == "I" else np.float32)
     if mode == "LAB":
         return lab.unpack_lab(rows, w)
     if bits == 16:
@@ -406,8 +434,10 @@ def to_rgba(mode: str, px: np.ndarray, pal: np.ndarray | None = None,
     if mode == "RGB":
         return np.concatenate(
             [px, np.full(px.shape[:2] + (1,), 255, np.uint8)], -1)
-    if mode in ("I;16", "I;16B", "I", "F"):
+    if mode in ("I;16", "I;16B", "I;16L", "I", "F"):
         return to_rgba("L", grey(mode, px))
+    if mode == "YCbCr":
+        return ycbcr_to_rgba(px)
     if mode == "CMYK":
         return cmyk_to_rgba(px)
     if mode == "LAB":
@@ -425,6 +455,69 @@ def grey(mode: str, px: np.ndarray) -> np.ndarray:
         out = np.where(v <= 0, 0, np.where(v >= 255, 255, inner))
         return out.astype(np.uint8)
     return np.clip(px.astype(np.int64), 0, 255).astype(np.uint8)
+
+
+def _fixed(k: float, centre: int, scale: float = 1.0) -> np.ndarray:
+    """k scale (i - centre) for i in 0..255, rounded as C's (int)(x + 0.5)
+    rounds (toward zero)."""
+    return np.trunc(k * scale * (np.arange(256) - centre) + 0.5).astype(
+        np.int32)
+
+
+# PIL's YCbCr -> RGB (ITU-R BT.601, JPEG's full range): each term in 6
+# fractional bits, shifted down (an arithmetic shift) before the sum with Y
+_R_CR, _G_CB, _G_CR, _B_CB = (_fixed(k, 128, 64.0) for k in (
+    1.402, -0.34414, -0.71414, 1.772))
+
+
+def ycbcr_to_rgba(px: np.ndarray) -> np.ndarray:
+    """PIL's `convert("RGBA")` of a YCbCr image: (H, W, 3) uint8 ->
+    RGBA, alpha 255."""
+    y = px[..., 0].astype(np.int32)
+    cb, cr = px[..., 1], px[..., 2]
+    rgb = np.stack([y + (_R_CR[cr] >> 6),
+                    y + ((_G_CB[cb] + _G_CR[cr]) >> 6),
+                    y + (_B_CB[cb] >> 6)], -1)
+    out = np.full(px.shape[:2] + (4,), 255, np.uint8)
+    out[..., :3] = np.clip(rgb, 0, 255)
+    return out
+
+
+# PIL's PhotoYCC -> RGB (the `YCC;P` unpacker of Kodak PhotoCD):
+# luma 1.3584 Y, chroma C1 = 2.2179 (Cb - 156), C2 = 1.8215 (Cr - 137),
+# green L - 0.194 C1 - 0.509 C2, each term rounded as an integer
+_YCC_L = _fixed(1.3584, 0)
+_YCC_CB, _YCC_CR = _fixed(2.2179, 156), _fixed(1.8215, 137)
+_YCC_GB, _YCC_GR = _fixed(-0.194 * 2.2179, 156), _fixed(-0.509 * 1.8215, 137)
+
+
+def photoycc_to_rgb(y, cb, cr) -> np.ndarray:
+    """uint8 arrays of PhotoYCC -> (..., 3) uint8 RGB, as PIL's `YCC;P`
+    unpacker."""
+    lum = _YCC_L[y]
+    rgb = np.stack([lum + _YCC_CR[cr], lum + _YCC_GR[cr] + _YCC_GB[cb],
+                    lum + _YCC_CB[cb]], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def bit_decode(data: bytes, offset: int, w: int, h: int,
+               bits: int) -> np.ndarray:
+    """PIL's `bit` decoder (`BitDecode.c`, in `csrc/raster_decoder.cpp`)
+    with IM's settings (pad 8, fill 3, unsigned, bottom-up) over the bytes
+    from `offset`: unsigned fields of `bits` bits, taken from each byte's
+    low end, into an "F" image (H, W) float32, bottom-up, a row's leftover
+    bits dropped. Data that ends before the last row is PIL's "image file
+    is truncated"."""
+    if not 1 <= bits < 32:
+        raise DecodeError("bit decoder: bits out of range")
+    if offset < 0:
+        raise DecodeError("bit decoder: negative offset")
+    out = np.zeros((h, w), np.float32)
+    data = bytes(data)
+    st = library().kt_bit_decode(data, len(data), offset, w, h, bits,
+                                 out.ctypes.data)
+    check_status(st, "bit decoder")
+    return out
 
 
 def cmyk_to_rgba(px: np.ndarray) -> np.ndarray:

@@ -16,7 +16,9 @@ ICO and CUR in `ico.py`, TGA in `tga.py`, GIF in `gif.py`, WebP in
 `blp.py`, FTEX in `ftex.py`, ICNS in `icns.py`, GBR in `gbr.py`, IPTC in
 `iptc.py`, XBM in `xbm.py`, XPM in `xpm.py`, SUN in `sun.py`, MSP in
 `msp.py`, XV thumbnails in `xvthumb.py`, IMT in `imt.py`, PIXAR in
-`pixar.py`; LAB images through `lab.py`), and a Lanczos resize that gives
+`pixar.py`, MCIDAS in `mcidas.py`, SPIDER in `spider.py`, FITS in
+`fits.py`, IM in `im.py`, FLI / FLC in `fli.py`, PCD in `pcd.py`; LAB
+images through `lab.py`), and a Lanczos resize that gives
 PIL's `Image.resize(..., LANCZOS)` bytes, so the atlases are equal byte for
 byte.
 
@@ -24,8 +26,8 @@ Decoding dispatches on the content, not on the file name, in PIL's plugin
 order (`identify.py`): a plugin whose `_open` refuses the bytes passes
 them to the next that accepts them, as `Image.open` does (a TGA file that
 CUR's rule also accepts is read as a TGA). Where that walk reaches a
-format the port does not decode yet (JPEG 2000, AVIF and the rest of
-`identify.FORMATS`), it raises NotImplementedError naming it: a
+format the port does not decode yet (JPEG 2000, AVIF, EPS and the
+stub plugins of `identify.FORMATS`), it raises NotImplementedError naming it: a
 missing decoder never passes as a white texture. Bytes that no PIL plugin
 opens, a missing file, and a source that PIL also refuses (corrupt or
 truncated data, a layout PIL has no decoder for) become a 4x4 white image,
@@ -47,16 +49,21 @@ from ..device import resolve_device
 from .blp import decode_blp
 from .bmp import decode_bmp, decode_dib
 from .dds import decode_dds
+from .fits import decode_fits
+from .fli import decode_fli
 from .ftex import decode_ftex
 from .gbr import decode_gbr
 from .gif import decode_gif
 from .icns import decode_icns
 from .ico import decode_cur, decode_ico
 from .identify import Refused, candidates
+from .im import decode_im
 from .imt import decode_imt
 from .iptc import decode_iptc
 from .jpeg import decode_jpeg
+from .mcidas import decode_mcidas
 from .msp import decode_msp
+from .pcd import decode_pcd
 from .pcx import decode_dcx, decode_pcx
 from .pixar import decode_pixar
 from .png import decode_png
@@ -64,6 +71,7 @@ from .ppm import decode_ppm
 from .psd import decode_psd
 from .qoi import decode_qoi
 from .sgi import decode_sgi
+from .spider import decode_spider
 from .sun import decode_sun
 from .tga import decode_tga
 from .tiff import decode_tiff
@@ -87,11 +95,15 @@ _DECODERS = {"PNG": decode_png, "JPEG": decode_jpeg, "DDS": decode_dds,
              "FTEX": decode_ftex, "ICNS": decode_icns, "GBR": decode_gbr,
              "IPTC": decode_iptc, "XBM": decode_xbm, "XPM": decode_xpm,
              "SUN": decode_sun, "MSP": decode_msp, "XVTHUMB": decode_xvthumb,
-             "IMT": decode_imt, "PIXAR": decode_pixar}
+             "IMT": decode_imt, "PIXAR": decode_pixar,
+             "MCIDAS": decode_mcidas, "SPIDER": decode_spider,
+             "FITS": decode_fits, "IM": decode_im, "FLI": decode_fli,
+             "PCD": decode_pcd}
 # the decoders whose outcome depends on whether PIL reads a file or bytes
 # in memory (PCX seeks back from the end: a real file cannot seek before
-# its start, an in-memory one stops there)
-_FROM_FILE = ("PCX", "DCX")
+# its start, an in-memory one stops there; PIL memory-maps a McIdas file,
+# whose strides its `raw` decoder would refuse)
+_FROM_FILE = ("PCX", "DCX", "MCIDAS")
 
 
 def _read_source(path_or_data: str) -> bytes:

@@ -71,7 +71,9 @@ def test_port_imports_no_jax():
                 "scene/icns.py", "scene/gbr.py", "scene/iptc.py",
                 "scene/xbm.py", "scene/xpm.py", "scene/sun.py",
                 "scene/msp.py", "scene/xvthumb.py", "scene/imt.py",
-                "scene/pixar.py"):
+                "scene/pixar.py", "scene/mcidas.py", "scene/spider.py",
+                "scene/fits.py", "scene/im.py", "scene/fli.py",
+                "scene/pcd.py"):
         assert os.path.join("kajiya_tpu_torch", new) in names, new
     assert "chip_smoke.py" in names
     for path in files:
