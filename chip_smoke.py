@@ -53,10 +53,13 @@ the BVH, its `tlas_refit` range timed and its launches counted):
   1024^2 PNG) and in PIL's integer, float and animation plugins (one-frame
   BRUN FLC base colours and a PhotoCD base image, IM `RGB image` normal
   maps, 8-bit FITS metallic-roughness maps, a McIdas and a SPIDER emissive
-  map), each bake timed by format,
+  map) and in JPEG 2000 (lossless JP2 RGBA base colours, one in RPCL with
+  64 x 64 code-blocks and seven levels, raw RGB codestream normal maps,
+  grey codestream metallic-roughness maps, a JP2 RGB emissive map), each
+  bake timed by format,
 with the launch counters set to 0 just before each path and read just after,
-each map of the mixed, legacy, TIFF, studio, TIFF-codec, plugin and
-rare-format cities decoded on the host
+each map of the mixed, legacy, TIFF, studio, TIFF-codec, plugin,
+rare-format and JPEG 2000 cities decoded on the host
 equal to the texels its writer reports (the JPEGs within JPEG_PSNR_DB, the
 LAB and PhotoCD maps to the SHA-256 PIL gave for them), the
 committed WebP fixtures (tests/data/webp/: lossy, lossy with alpha,
@@ -72,8 +75,12 @@ what the bake turns white) and plugin fixtures (tests/data/plugins/: LAB
 TIFFs and PSDs, ICNS, GBR, IPTC, XBM, XPM, Sun rasters, MSP, XV thumbnail,
 IMT, PIXAR) and rare-format fixtures (tests/data/rare/: IM in every mode
 PIL opens, McIdas, SPIDER, FITS of every BITPIX and GZIP_1, FLI / FLC of
-every chunk type, PCD in each orientation) decoded on the host to the RGBA
-digests PIL gave for them,
+every chunk type, PCD in each orientation) and JPEG 2000 fixtures
+(tests/data/j2k/: J2K and JP2 in every mode PIL writes, both transforms,
+tiles, layers, the five progressions, code-block sizes and styles, SOP /
+EPH, PPT, PPM, a palette, ICNS members, a 1024^2 9/7 file; the HTJ2K style
+must raise NotImplementedError) decoded on the host to the RGBA digests
+PIL gave for them,
 and the host syncs of each frame counted (the textured frames may make no
 more than the untextured default frames of the same geometry). Then the
 oracle datum (the port's hybrid frame against its path tracer on cornell at
@@ -324,7 +331,8 @@ SCENES = {
     # (the TIFF-codec city: zstd, ThunderScan and CCITT Group 4 maps) and
     # "tcityplugins" / "tcityplugins4" (the plugin city: LAB TIFF, RLE Sun
     # raster, XPM and ICNS maps) and "tcityrare" / "tcityrare4" (the
-    # rare-format city: FLC, PhotoCD, IM, FITS, McIdas and SPIDER maps) are
+    # rare-format city: FLC, PhotoCD, IM, FITS, McIdas and SPIDER maps) and
+    # "tcityj2k" / "tcityj2k4" (the JPEG 2000 city: JP2 and J2K maps) are
     # added by main once `asset_scenes` wrote them
 }
 # the scenes each path renders at 1080p, and a cap on the frames of a scene
@@ -336,16 +344,17 @@ PATH_SCENES = {"raster": ("cornell", "city"), "gi": ("cornell", "city"),
                "options": ("cornell", "city"),
                "textured": ("tcornell", "tcity", "tcityfmt", "tcitylegacy",
                             "tcitytiff", "tcitystudio", "tcitycodec",
-                            "tcityplugins", "tcityrare")}
+                            "tcityplugins", "tcityrare", "tcityj2k")}
 FRAME_CAP = {"city3": 2, "tcity": 2, "tcityfmt": 2, "tcitylegacy": 2,
              "tcitytiff": 2, "tcitystudio": 2, "tcitycodec": 2,
-             "tcityplugins": 2, "tcityrare": 2, "city40": 2}
+             "tcityplugins": 2, "tcityrare": 2, "tcityj2k": 2, "city40": 2}
 # the untextured scene of the same geometry, whose default frames the
 # textured frames' host syncs are held to
 UNTEXTURED = {"tcornell": "cornell", "tcity": "city", "tcityfmt": "city",
               "tcitylegacy": "city", "tcitytiff": "city",
               "tcitystudio": "city", "tcitycodec": "city",
-              "tcityplugins": "city", "tcityrare": "city"}
+              "tcityplugins": "city", "tcityrare": "city",
+              "tcityj2k": "city"}
 # the decoded JPEG maps of the mixed-format city against the arrays they
 # encode (quality 85, 4:2:0): format_phase reads 42.2-48.8 dB
 JPEG_PSNR_DB = 35.0
@@ -359,16 +368,17 @@ MOVE, MOVE_FRAME = (0.05, 0.0, 0.0), 1
 # small version, its name with a "4" added)
 CITIES = (("mixed", "fmt"), ("legacy", "legacy"), ("tiff", "tiff"),
           ("studio", "studio"), ("tiffcodec", "codec"),
-          ("plugins", "plugins"), ("rare", "rare"))
+          ("plugins", "plugins"), ("rare", "rare"), ("j2k", "j2k"))
 CITY_SCENES = {"mixed": "tcityfmt", "legacy": "tcitylegacy",
                "tiff": "tcitytiff", "studio": "tcitystudio",
                "tiffcodec": "tcitycodec", "plugins": "tcityplugins",
-               "rare": "tcityrare"}
-# the small frames' legacy, TIFF, studio, TIFF-codec, plugin and
-# rare-format cities: their maps at 256^2, since a 64x48 frame needs no
+               "rare": "tcityrare", "j2k": "tcityj2k"}
+# the small frames' legacy, TIFF, studio, TIFF-codec, plugin, rare-format
+# and JPEG 2000 cities: their maps at 256^2, since a 64x48 frame needs no
 # more, and two bakes of the full maps would cost ~25 s on an NVIDIA H100
 # 80GB HBM3 host at 700.00 W
-SMALL_FORMATS = ("legacy", "tiff", "studio", "tiffcodec", "plugins", "rare")
+SMALL_FORMATS = ("legacy", "tiff", "studio", "tiffcodec", "plugins", "rare",
+                 "j2k")
 
 
 def asset_scenes(root):
@@ -383,9 +393,11 @@ def asset_scenes(root):
     `root/tiff`), "tcitystudio" / "tcitystudio4" (the studio-format city
     under `root/studio`), "tcitycodec" / "tcitycodec4" (the TIFF-codec
     city under `root/codec`), "tcityplugins" / "tcityplugins4" (the
-    plugin city under `root/plugins`) and "tcityrare" / "tcityrare4" (the
-    rare-format city under `root/rare`), with the mixed, legacy, TIFF,
-    studio, TIFF-codec, plugin and rare-format maps written: {file path:
+    plugin city under `root/plugins`), "tcityrare" / "tcityrare4" (the
+    rare-format city under `root/rare`) and "tcityj2k" / "tcityj2k4" (the
+    JPEG 2000 city under `root/j2k`), with the mixed, legacy, TIFF,
+    studio, TIFF-codec, plugin, rare-format and JPEG 2000 maps written:
+    {file path:
     (map, RGBA its file decodes to, or None for a JPEG, a LAB TIFF or a
     PhotoCD)}."""
     from kajiya_tpu_torch.scene import assets
@@ -460,7 +472,9 @@ def format_phase(maps):
     planar big-endian, ThunderScan 4-bit grey, a CCITT Group 4 mask) and
     every plugin map but the LAB ones (RLE Sun raster, XPM, ICNS with a PNG
     member) and every rare-format map but the PhotoCD one (BRUN FLC, IM
-    `RGB;L`, 8-bit FITS, 1-byte McIdas, SPIDER float) equal the texels
+    `RGB;L`, 8-bit FITS, 1-byte McIdas, SPIDER float) and every JPEG 2000
+    map (JP2 RGBA base colours, one in RPCL with 64 x 64 code-blocks and
+    seven levels, raw RGB and grey codestreams, a JP2 RGB) equal the texels
     their writer reports, bit for bit; each JPEG base colour is within
     JPEG_PSNR_DB of the map it encodes; each LAB base colour (converted as
     LittleCMS does) and the PhotoCD base colour (PhotoYCC) has the SHA-256
@@ -470,14 +484,15 @@ def format_phase(maps):
     PIL). Any failed decode raises."""
     import hashlib
 
-    from kajiya_tpu_torch.scene import (dds, jpeg, lab, raster, textures,
-                                        tiff, webp)
+    from kajiya_tpu_torch.scene import (dds, j2k, jpeg, lab, raster,
+                                        textures, tiff, webp)
 
     # the host decoders are built first: each decode ms leaves out g++
     # (raster.library holds the PCX, SGI, PackBits, QOI and DXT loops too)
     t0 = time.perf_counter()
     for build in (jpeg.decoder_library, dds.bcn_library, raster.library,
-                  webp.library, tiff.library, tiff.zstd_library, lab.nodes):
+                  webp.library, tiff.library, tiff.zstd_library, lab.nodes,
+                  j2k.library):
         build()
     pil_digests = {}
     for kind in ("plugins", "rare"):
@@ -607,6 +622,14 @@ def rare_phase():
     SPIDER, FITS with GZIP_1, FLI / FLC of every chunk type, PCD in each
     orientation) against PIL's digests (fixture_phase)."""
     return fixture_phase("rare")
+
+
+def j2k_phase():
+    """The JPEG 2000 fixtures (every mode, both transforms, tiles,
+    layers, progressions and precincts, code-block sizes and styles, SOP /
+    EPH, PPT, PPM, pclr, ICNS members, a 1024^2 9/7 file) against PIL's
+    digests (fixture_phase)."""
+    return fixture_phase("j2k")
 
 
 def _lookup(owner, name):
@@ -1749,7 +1772,7 @@ FRAME_KEYS["textured"] = FRAME_KEYS["superres"] = FRAME_KEYS["default"]
 # the scenes of each path's small GPU-vs-CPU frames ("city" is city(n=4))
 REF_SCENES = {"textured": ("tcornell", "tcity4", "tcitylegacy4",
                           "tcitytiff4", "tcitystudio4", "tcitycodec4",
-                          "tcityplugins4", "tcityrare4")}
+                          "tcityplugins4", "tcityrare4", "tcityj2k4")}
 # the paths whose small frames are also rendered on the BVH route, forced
 # with brute_max_tris=0
 BVH_REF_PATHS = ("default", "refpt")
@@ -1989,6 +2012,7 @@ def frame_phase(dev, path, ibl):
                        decode_fits=(textures._DECODERS, "FITS"),
                        decode_mcidas=(textures._DECODERS, "MCIDAS"),
                        decode_spider=(textures._DECODERS, "SPIDER"),
+                       decode_j2k=(textures._DECODERS, "JPEG2000"),
                        lab_transform=(lab, "to_rgba"),
                        resize=(textures, "_resize"),
                        bake=(textures, "bake_texture_pages"),
@@ -2032,6 +2056,7 @@ def frame_phase(dev, path, ibl):
                         decode_fits_s=sec["decode_fits"],
                         decode_mcidas_s=sec["decode_mcidas"],
                         decode_spider_s=sec["decode_spider"],
+                        decode_j2k_s=sec["decode_j2k"],
                         lab_transform_s=sec["lab_transform"],
                         resize_s=sec["resize"],
                         pack_mips_s=sec["bake"] - sec["decode"]
@@ -2962,6 +2987,7 @@ def main():
     studio_fixtures = timed("studio", studio_phase)
     plugin_fixtures = timed("plugins", plugin_phase)
     rare_fixtures = timed("rare", rare_phase)
+    j2k_fixtures = timed("j2k", j2k_phase)
     # the small frames' CPU side runs beside the kernel phases
     pool, cpu_side = start_reference_cpu(tmp, ibl)
     try:
@@ -3024,6 +3050,8 @@ def main():
         frames["textured"]["tcityplugins"]["frame_ms"],
         "rare-format city frame ms",
         frames["textured"]["tcityrare"]["frame_ms"],
+        "JPEG 2000 city frame ms",
+        frames["textured"]["tcityj2k"]["frame_ms"],
         "beside the untextured city's default frame ms",
         frames["default"]["city"]["frame_ms"], "(same call)")
     oracle = timed("oracle", oracle_phase, dev)
@@ -3072,7 +3100,8 @@ def main():
                    "tiff_fixtures": tiff_fixtures,
                    "studio_fixtures": studio_fixtures,
                    "plugin_fixtures": plugin_fixtures,
-                   "rare_fixtures": rare_fixtures, "sharded": sharded,
+                   "rare_fixtures": rare_fixtures,
+                   "j2k_fixtures": j2k_fixtures, "sharded": sharded,
                    "phase_s": PHASE_S}, f, indent=1)
     print(json.dumps({"frames": {
         path: {k: {"median_ms": v["median_ms"], "frame_ms": v["frame_ms"],
@@ -3092,6 +3121,8 @@ def main():
                               plugin_fixtures.items()},
         "rare_fixture_ms": {k: v.get("ms") for k, v in
                             rare_fixtures.items()},
+        "j2k_fixture_ms": {k: v.get("ms") for k, v in
+                           j2k_fixtures.items()},
         "setup_s": {f"{p}/{sc}": v["setup_parts_s"]
                     for p, per_scene in frames.items()
                     for sc, v in per_scene.items() if sc == "city40"},

@@ -69,6 +69,7 @@ from .dds import bc5_blocks, bc7_mode6_blocks, dds_header
 from .fits import encode_fits
 from .fli import encode_flc
 from .gif import encode_gif256
+from .j2k import encode_j2k
 from .icns import encode_icns, mask_member, rgb_member
 from .im import encode_im_rgb
 from .mcidas import encode_mcidas
@@ -278,6 +279,24 @@ def _rare_map(kind: str, img: np.ndarray, k: int):
         grey(bright)
 
 
+def _j2k_map(kind: str, img: np.ndarray, k: int):
+    """The JPEG 2000 city's (suffix, bytes, RGBA): lossless files of
+    `j2k.encode_j2k`."""
+    if kind == "base":
+        rgba = np.concatenate(
+            [img, np.full(img.shape[:2] + (1,), 255, np.uint8)], -1)
+        # b1's in another layout: more levels, 64 x 64 code-blocks, RPCL
+        # over 256 x 256 precincts
+        kw = dict(levels=7, cblk=64, progression="RPCL", precinct=256) \
+            if k == 1 else {}
+        return (".jp2", *encode_j2k(rgba, "RGBA", jp2=True, **kw))
+    if kind == "normal":
+        return (".j2k", *encode_j2k(img, "RGB"))
+    if kind == "mr":
+        return (".j2k", *encode_j2k(img[..., 1:2], "L"))
+    return (".jp2", *encode_j2k(img, "RGB", jp2=True))
+
+
 # DXGI formats of the mixed-format city's maps
 DXGI_BC5_UNORM, DXGI_BC7_UNORM = 83, 98
 
@@ -343,6 +362,8 @@ def _map_file(kind: str, img: np.ndarray, formats: str, k: int = 0):
                        "mr": (".pcx", encode_pcx_rgb),
                        "emissive": (".qoi", encode_qoi)}[kind]
         return (suffix, *enc(img))
+    if formats == "j2k":
+        return _j2k_map(kind, img, k)
     if formats == "legacy":
         suffix, enc = {"base": (".tga", encode_tga_rle),
                        "normal": (".bmp", encode_bmp24),
@@ -388,14 +409,16 @@ def write_city_assets(root: str, subdiv: int = 8, map_size: int = 2048,
     "plugins" (LAB TIFF base colour, RLE Sun raster normal, XPM
     metallic-roughness and ICNS emissive maps) or "rare" (FLC and PhotoCD
     base colours, IM normal, FITS metallic-roughness, McIdas and SPIDER
-    emissive maps; b2 also has an emissive map). Returns {file name: (the
+    emissive maps; b2 also has an emissive map) or "j2k" (JPEG 2000: JP2
+    RGBA base colours, raw RGB codestream normal, grey codestream
+    metallic-roughness and JP2 RGB emissive maps). Returns {file name: (the
     RGB map written, the RGBA its file decodes to, or None for a JPEG, an
     8-bit PNG, a LAB TIFF or a PhotoCD)} of the building maps."""
     if formats not in ("png", "mixed", "legacy", "tiff", "studio",
-                       "tiffcodec", "plugins", "rare"):
+                       "tiffcodec", "plugins", "rare", "j2k"):
         raise ValueError(f"formats {formats!r}: 'png', 'mixed', 'legacy', "
-                         "'tiff', 'studio', 'tiffcodec', 'plugins' or "
-                         "'rare'")
+                         "'tiff', 'studio', 'tiffcodec', 'plugins', 'rare' "
+                         "or 'j2k'")
     rng = np.random.default_rng(seed)
     mdir = os.path.join(root, "meshes")
     os.makedirs(mdir, exist_ok=True)

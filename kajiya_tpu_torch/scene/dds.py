@@ -104,17 +104,24 @@ def _shift_of(mask: int) -> int:
 def _masked(data: bytes, width: int, height: int, bitcount: int,
             masks) -> np.ndarray:
     """PIL's DdsRgbDecoder: each pixel a little-endian integer of
-    bitcount // 8 bytes (zeros past the end of the data), each channel
-    int((v & mask) >> shift) / (mask >> shift) * 255)."""
+    bitcount // 8 bytes, read with `fd.read` (pixel i starts at byte
+    i * k of the body, zeros past its end; only the low bytes reach the
+    32-bit masks), each channel int((v & mask) >> shift) / (mask >> shift)
+    * 255)."""
     nbytes = bitcount // 8
     n = width * height
-    raw = np.zeros(n * nbytes, np.uint8)
-    take = min(len(data), raw.size)
-    raw[:take] = np.frombuffer(data, np.uint8, take)
-    px = raw.reshape(n, nbytes)[:, :8].astype(np.uint64)
+    body = np.frombuffer(data, np.uint8)
     value = np.zeros(n, np.uint64)
-    for i in range(px.shape[1]):
-        value |= px[:, i] << np.uint64(8 * i)
+    if nbytes:
+        # the pixels that start inside the body; the rest read nothing
+        m = min(n, -(-body.size // nbytes))
+        start = np.arange(m, dtype=np.int64) * nbytes
+        for i in range(min(nbytes, 8)):
+            at = start + i
+            ok = at < body.size
+            byte = np.zeros(m, np.uint64)
+            byte[ok] = body[at[ok]]
+            value[:m] |= byte << np.uint64(8 * i)
     out = np.full((n, 4), 255, np.uint8)
     for c, mask in enumerate(masks):
         shift = _shift_of(mask)

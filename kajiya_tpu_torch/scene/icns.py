@@ -9,9 +9,11 @@ load reads every member of that size in the table's order: a PNG member
 info) wins over the RGB ones; else `it32` / `ih32` / `il32` / `is32` give
 RGB, raw or in PIL's PackBits-like RLE per channel (it32 behind four zero
 bytes), and a `t8mk` ... `s8mk` mask gives alpha (none: opaque). A
-JPEG 2000 member raises NotImplementedError once the other members of its
-size have been read. A PNG whose size no listed size divides raises, as
-PIL's size setter does.
+JPEG 2000 member (a codestream or a JP2 file) decodes through `j2k.py`, as
+`read_png_or_jpeg2000` opens it with `Jpeg2KImageFile` and converts it to
+RGBA; it is read at load time, so any of its errors whitens. A PNG or
+JPEG 2000 member whose size no listed size divides raises, as PIL's size
+setter does.
 """
 from __future__ import annotations
 
@@ -19,8 +21,8 @@ import struct
 
 import numpy as np
 
-from . import raster
-from .identify import opening
+from . import j2k, raster
+from .identify import Refused, opening
 from .png import PNG_SIGNATURE, decode_png
 from .raster import DecodeError, Stream
 
@@ -106,8 +108,7 @@ def decode_icns(data: bytes) -> np.ndarray:
         blocks, sizes, best = _open(fp)
     w, h = best[0] * best[2], best[1] * best[2]
     n = w * h
-    rgb = alpha = png = None
-    j2k = False
+    rgb = alpha = png = jp2k = None
     for code, reader in dict(SIZES)[best]:
         if code not in blocks:
             continue
@@ -117,7 +118,7 @@ def decode_icns(data: bytes) -> np.ndarray:
             if sig.startswith(PNG_SIGNATURE):
                 png = start
             elif sig.startswith(_J2K) or sig == _JP2:
-                j2k = True
+                jp2k = data[start:start + length]
             else:
                 raise DecodeError("Unsupported icon subimage format")
         elif reader == "32t":
@@ -131,12 +132,14 @@ def decode_icns(data: bytes) -> np.ndarray:
             if len(mask) < n:
                 raise DecodeError("ICNS mask: buffer is not large enough")
             alpha = np.frombuffer(mask, np.uint8)
-    if j2k:
-        raise NotImplementedError(
-            "ICNS JPEG 2000 member: JPEG 2000 texture decoding is not "
-            "ported (ROADMAP.md section 1)")
-    if png is not None:
-        out = decode_png(data[png:], transparency=False)
+    if png is not None or jp2k is not None:
+        if png is not None:
+            out = decode_png(data[png:], transparency=False)
+        else:
+            try:
+                out = j2k.decode_j2k(jp2k)
+            except Refused as e:
+                raise DecodeError(f"ICNS JPEG 2000 member: {e}") from e
         ph, pw = out.shape[:2]
         # IcnsImageFile's size setter: some listed size a multiple of it
         if not any((s[0] * s[2]) // pw == (s[1] * s[2]) / ph for s in sizes):

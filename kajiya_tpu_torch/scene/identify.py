@@ -31,8 +31,8 @@ cases the header sweeps found (a TGA with a 28-byte id field and a colour
 map, which IPTC's check accepts; an ICO of no entries that passes GBR's)
 went with IPTC and GBR's decoders; none is known now.
 
-The port decodes every plugin named here but AVIF, EPS, JPEG2000, the
-stub plugins (BUFR, GRIB, HDF5, WMF: PIL identifies them and loads them
+The port decodes every plugin named here but AVIF, EPS, the stub
+plugins (BUFR, GRIB, HDF5, WMF: PIL identifies them and loads them
 only through a handler an application registers) and MPEG (PIL opens it
 and cannot load it): for those `textures._decode_image` raises
 NotImplementedError.

@@ -17,8 +17,9 @@ ICO and CUR in `ico.py`, TGA in `tga.py`, GIF in `gif.py`, WebP in
 `iptc.py`, XBM in `xbm.py`, XPM in `xpm.py`, SUN in `sun.py`, MSP in
 `msp.py`, XV thumbnails in `xvthumb.py`, IMT in `imt.py`, PIXAR in
 `pixar.py`, MCIDAS in `mcidas.py`, SPIDER in `spider.py`, FITS in
-`fits.py`, IM in `im.py`, FLI / FLC in `fli.py`, PCD in `pcd.py`; LAB
-images through `lab.py`), and a Lanczos resize that gives
+`fits.py`, IM in `im.py`, FLI / FLC in `fli.py`, PCD in `pcd.py`, JPEG
+2000 in `j2k.py`; LAB images through `lab.py`), and a Lanczos resize that
+gives
 PIL's `Image.resize(..., LANCZOS)` bytes, so the atlases are equal byte for
 byte.
 
@@ -26,8 +27,8 @@ Decoding dispatches on the content, not on the file name, in PIL's plugin
 order (`identify.py`): a plugin whose `_open` refuses the bytes passes
 them to the next that accepts them, as `Image.open` does (a TGA file that
 CUR's rule also accepts is read as a TGA). Where that walk reaches a
-format the port does not decode yet (JPEG 2000, AVIF, EPS and the
-stub plugins of `identify.FORMATS`), it raises NotImplementedError naming it: a
+format the port does not decode yet (AVIF, EPS and the stub plugins of
+`identify.FORMATS`), it raises NotImplementedError naming it: a
 missing decoder never passes as a white texture. Bytes that no PIL plugin
 opens, a missing file, and a source that PIL also refuses (corrupt or
 truncated data, a layout PIL has no decoder for) become a 4x4 white image,
@@ -60,6 +61,7 @@ from .identify import Refused, candidates
 from .im import decode_im
 from .imt import decode_imt
 from .iptc import decode_iptc
+from .j2k import decode_j2k
 from .jpeg import decode_jpeg
 from .mcidas import decode_mcidas
 from .msp import decode_msp
@@ -98,7 +100,7 @@ _DECODERS = {"PNG": decode_png, "JPEG": decode_jpeg, "DDS": decode_dds,
              "IMT": decode_imt, "PIXAR": decode_pixar,
              "MCIDAS": decode_mcidas, "SPIDER": decode_spider,
              "FITS": decode_fits, "IM": decode_im, "FLI": decode_fli,
-             "PCD": decode_pcd}
+             "PCD": decode_pcd, "JPEG2000": decode_j2k}
 # the decoders whose outcome depends on whether PIL reads a file or bytes
 # in memory (PCX seeks back from the end: a real file cannot seek before
 # its start, an in-memory one stops there; PIL memory-maps a McIdas file,

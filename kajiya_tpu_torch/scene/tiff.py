@@ -39,6 +39,7 @@ from __future__ import annotations
 import ctypes
 import io
 import lzma
+import operator
 import os
 import re
 import struct
@@ -575,7 +576,12 @@ def _load_raw(data: bytes, im: _Image) -> np.ndarray:
     err = -3
     for extents, offset, (rawmode, stride) in kept:
         offset = _index(offset)
-        x0, y0, x1, y1 = extents
+        try:
+            x0, y0, x1, y1 = (operator.index(v) for v in extents)
+        except TypeError as e:
+            # the decoder's setimage takes four ints: PIL's load raises
+            # TypeError (a RowsPerStrip of a float type), which whitens
+            raise TiffError(f"tile extents {extents!r}: {e}") from e
         if x0 == 0 and x1 == 0:
             x0, y0, x1, y1 = 0, 0, xsize, ysize
         if x1 <= x0 or x1 > xsize or y1 <= y0 or y1 > ysize or x0 < 0 or \
@@ -630,9 +636,14 @@ class _Dir:
         self.photometric = self.scalar(262, None)
         self.planar = self.scalar(284, 1)
         self.fillorder = self.scalar(266, 1)
+        # libtiff reads Predictor as a SHORT: a value out of its range
+        # fails the check and the tag is ignored
         self.predictor = self.scalar(317, 1)
+        if not 0 <= self.predictor <= 0xFFFF:
+            self.predictor = 1
         self.sampleformat = self.per_sample(339, 1)
-        if self.photometric == 6 and self.planar == 1 and 530 in ifd and \
+        if self.photometric == 6 and self.planar == 1 and \
+                self.has_subsampling() and \
                 any(v not in (1, 2, 4) for v in self.entry(530)):
             raise TiffError("libtiff: invalid YCbCr subsampling")
         if self.planar not in (1, 2):
@@ -640,8 +651,12 @@ class _Dir:
         if self.fillorder not in (1, 2) or self.width <= 0 or \
                 self.length <= 0 or self.spp <= 0:
             raise _unported("directory values outside libtiff's checks")
+        # libtiff drops a Colormap of another count than 3 << bps; below 8
+        # bits a palette image then fails, at 8 bits with one sample it
+        # reads on (as min-is-black; PIL takes the palette it parsed)
         if self.photometric == 3 and (320 not in ifd or len(self.entry(320))
-                                      != 3 << self.bps):
+                                      != 3 << self.bps) and \
+                (self.bps != 8 or self.spp != 1 or 320 not in ifd):
             raise TiffError("libtiff: missing required Colormap")
         self.tiled = 322 in ifd or 323 in ifd or 324 in ifd or 325 in ifd
         if self.tiled:
@@ -669,6 +684,11 @@ class _Dir:
         self.extra = ifd.get(338, ())
         if 338 in ifd and ifd.raw[338][0] != 3:
             raise _unported("an ExtraSamples tag of another type")
+
+    def has_subsampling(self) -> bool:
+        """A YCbCrSubSampling tag libtiff keeps: one of another count
+        than two is ignored (the default (2, 2) stands)."""
+        return 530 in self.ifd and len(self.entry(530)) == 2
 
     def entry(self, tag):
         typ, data = self.ifd.raw[tag]
@@ -1085,7 +1105,7 @@ def _jpeg_setup(data: bytes, d: _Dir, state: dict) -> None:
         raise _unported(f"{d.bps}-bit JPEG")
     ycc = d.photometric == 6
     hs = vs = 1
-    if ycc and 530 in d.ifd:
+    if ycc and d.has_subsampling():
         # a YCbCrSubSampling tag is taken as it is
         hs, vs = d.entry(530)
     elif ycc:

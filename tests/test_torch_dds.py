@@ -10,6 +10,7 @@ luminance and palette pixels; sizes that are not a multiple of 4; mip chains
 (only the top image is read). Formats PIL refuses bake white in both
 packages. The test-scene writers' BC5 and BC7 blocks decode to the texels
 they report."""
+import base64
 import io
 import struct
 
@@ -198,3 +199,29 @@ def test_writers_decode_to_their_texels(writer):
     if writer == "bc5":
         err = np.abs(want[8:16, ..., :2].astype(int) - img[8:16, ..., :2])
         assert err.max() <= 2, err.max()
+
+
+@pytest.mark.parametrize("top", [0x8C, 0x01, 0xFF])
+@pytest.mark.parametrize("mode", ["RGB", "RGBA"])
+def test_huge_bit_count_reads_as_pil(mode, top):
+    """A masked DDS whose dwRGBBitCount's top byte is set: PIL's
+    DdsRgbDecoder reads bitcount // 8 bytes a pixel with `fd.read`, which
+    returns the rest of the file and then nothing, so pixel 0 takes the
+    body's first bytes and every other pixel reads zero. The port models
+    that read instead of allocating gigabytes (a MemoryError, which the
+    bake does not catch)."""
+    rng = np.random.default_rng(top)
+    im = Image.fromarray(rng.integers(0, 256, (17, 23, len(mode)), np.uint8),
+                         mode)
+    buf = io.BytesIO()
+    im.save(buf, "DDS")
+    data = bytearray(buf.getvalue())
+    data[91] = top
+    want = _pil(bytes(data))
+    got = decode_dds(bytes(data))
+    np.testing.assert_array_equal(got, want)
+    assert got.shape == (17, 23, 4)
+    assert not (got[1:] == got[0, 0]).all()
+    atlas, sub = textures.bake_texture_pages(
+        ["data:;base64," + base64.b64encode(bytes(data)).decode()])
+    assert sub.shape[0] == 2

@@ -73,7 +73,7 @@ def test_port_imports_no_jax():
                 "scene/msp.py", "scene/xvthumb.py", "scene/imt.py",
                 "scene/pixar.py", "scene/mcidas.py", "scene/spider.py",
                 "scene/fits.py", "scene/im.py", "scene/fli.py",
-                "scene/pcd.py"):
+                "scene/pcd.py", "scene/j2k.py"):
         assert os.path.join("kajiya_tpu_torch", new) in names, new
     assert "chip_smoke.py" in names
     for path in files:
@@ -142,7 +142,8 @@ def test_host_sources_built_only_by_their_builder():
     scene/jpeg.py, the BCn block decoder by scene/dds.py, the RLE / LZW /
     PackBits / QOI / DXT loops by scene/raster.py, the WebP decoder by
     scene/webp.py, the TIFF codecs and the zstd decoder by
-    scene/tiff.py, the LAB transform by scene/lab.py."""
+    scene/tiff.py, the LAB transform by scene/lab.py, the JPEG 2000
+    codec by scene/j2k.py."""
     builders = {"bvh_builder.cpp": "rt/bvh.py",
                 "jpeg_encoder.cpp": "scene/jpeg.py",
                 "jpeg_decoder.cpp": "scene/jpeg.py",
@@ -151,7 +152,8 @@ def test_host_sources_built_only_by_their_builder():
                 "webp_decoder.cpp": "scene/webp.py",
                 "tiff_decoder.cpp": "scene/tiff.py",
                 "zstd_decoder.cpp": "scene/tiff.py",
-                "lab_transform.cpp": "scene/lab.py"}
+                "lab_transform.cpp": "scene/lab.py",
+                "j2k_decoder.cpp": "scene/j2k.py"}
     on_disk = sorted(n for n in os.listdir(_native.CSRC)
                      if not n.endswith(".cu"))
     assert on_disk == sorted(builders)
@@ -162,7 +164,7 @@ def test_host_sources_built_only_by_their_builder():
         rel = os.path.relpath(path, os.path.join(ROOT, "kajiya_tpu_torch"))
         for src in named:
             assert builders[src] == rel, (src, rel)
-    from kajiya_tpu_torch.scene import dds, jpeg, raster, tiff, webp
+    from kajiya_tpu_torch.scene import dds, j2k, jpeg, raster, tiff, webp
 
     assert jpeg.ENCODER_SOURCE == os.path.join(_native.CSRC,
                                                "jpeg_encoder.cpp")
@@ -173,8 +175,10 @@ def test_host_sources_built_only_by_their_builder():
     assert jpeg.DECODER_SOURCE == os.path.join(_native.CSRC,
                                                "jpeg_decoder.cpp")
     assert dds.BCN_SOURCE == os.path.join(_native.CSRC, "bcn_decoder.cpp")
+    assert j2k.SOURCE == os.path.join(_native.CSRC, "j2k_decoder.cpp")
     assert (jpeg.BUILD_DIR == _native.BUILD_DIR == bvh.BUILD_DIR
-            == dds.BUILD_DIR == raster.BUILD_DIR == webp.BUILD_DIR)
+            == dds.BUILD_DIR == raster.BUILD_DIR == webp.BUILD_DIR
+            == j2k.BUILD_DIR)
 
 
 @pytest.mark.parametrize("kernel", ["brute", "culled", "warp", "tile_shift",

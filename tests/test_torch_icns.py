@@ -117,11 +117,14 @@ def _j2k(rng):
 
 
 def test_jpeg2000_member_raises_unported():
+    """An `ic12` JPEG 2000 member (a JP2 file PIL writes). It raised
+    NotImplementedError until JPEG 2000 was ported; it now decodes as PIL
+    decodes it (`read_png_or_jpeg2000`: the member through
+    `Jpeg2KImageFile`, converted to RGBA)."""
     rng = np.random.default_rng(4)
     data = icns.encode_icns([(b"ic12", _j2k(rng))])
     assert pil_rgba(data) is not None
-    with pytest.raises(NotImplementedError, match="JPEG 2000"):
-        textures._decode_image(uri(data))
+    assert_as_pil(data, must_decode=True)
 
 
 def _bad(case, rng):

@@ -152,10 +152,10 @@ def test_view_refuses_unported_inputs(tmp_path, argv):
     """What the viewer refuses, and what it bakes white as JAX does: a .ron
     scene whose texture is a JPEG head followed by zeros and a .gltf whose
     texture is such a DDS head are corrupt files PIL refuses too, so they
-    render with a white texture; a .gltf whose texture is a JPEG 2000
-    codestream PIL writes (a format PIL opens and the port cannot decode
-    yet; a PGM, then a Sun raster, then a FITS file, until the port decoded
-    them) raises rather than turn white.
+    render with a white texture; a .gltf whose texture is an AVIF file PIL
+    writes (a format PIL opens and the port cannot decode yet; a PGM, then
+    a Sun raster, then a FITS file, then a JPEG 2000 codestream, until the
+    port decoded them) raises rather than turn white.
     (`--watch`, refused here until hot reload was ported, is
     test_view_watch_reloads.)"""
     import io
@@ -164,15 +164,15 @@ def test_view_refuses_unported_inputs(tmp_path, argv):
 
     buf = io.BytesIO()
     Image.fromarray(np.arange(48, dtype=np.uint8).reshape(4, 4, 3)).save(
-        buf, "JPEG2000", no_jp2=True)
-    j2k = buf.getvalue()
+        buf, "AVIF")
+    avif = buf.getvalue()
     head = {"scene.ron": b"\xff\xd8\xff\xe0", "mesh.gltf": b"DDS ",
-            "anim.gltf": j2k}[argv[1]]
+            "anim.gltf": avif}[argv[1]]
     out = tmp_path / "x.png"
     argv = ["--scene", _scene_with_texture(tmp_path, argv[1], head)]
     run = argv + ["--device", "cpu", "--width", "8", "--height", "8", "-o",
                   str(out)]
-    if head == j2k:
+    if head == avif:
         Image.open(io.BytesIO(head + b"\0" * 64)).convert("RGBA")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             view_app.main(run)
