@@ -632,6 +632,29 @@ def j2k_phase():
     return fixture_phase("j2k")
 
 
+def avif_phase():
+    """The AVIF fixtures (PIL's files in each mode, subsampling, range,
+    tiles, film grain, a quantizer matrix, a sequence with alpha; files
+    built from PIL's payloads: a grid, idat, iloc / ipma versions,
+    transforms, Exif, and container faults) on the host: each one's
+    libavif parse result (`avif.parse_result`) is the manifest's, and the
+    bake's outcome too: "unported" (NotImplementedError where PIL decodes
+    the file with dav1d, which the port does not model) or "white"
+    (fixture_phase)."""
+    from kajiya_tpu_torch.scene import avif
+
+    root = os.path.join(REPO, "tests", "data", "avif")
+    with open(os.path.join(root, "manifest.json")) as f:
+        manifest = json.load(f)
+    for name, want in sorted(manifest.items()):
+        with open(os.path.join(root, name), "rb") as f:
+            code, _parsed = avif.parse_result(f.read())
+        if code != want["parse"]:
+            raise AssertionError(f"avif fixture {name}: parse result {code}, "
+                                 f"libavif's {want['parse']}")
+    return fixture_phase("avif")
+
+
 def _lookup(owner, name):
     return owner[name] if isinstance(owner, dict) else getattr(owner, name)
 
@@ -2988,6 +3011,7 @@ def main():
     plugin_fixtures = timed("plugins", plugin_phase)
     rare_fixtures = timed("rare", rare_phase)
     j2k_fixtures = timed("j2k", j2k_phase)
+    avif_fixtures = timed("avif", avif_phase)
     # the small frames' CPU side runs beside the kernel phases
     pool, cpu_side = start_reference_cpu(tmp, ibl)
     try:
@@ -3101,7 +3125,8 @@ def main():
                    "studio_fixtures": studio_fixtures,
                    "plugin_fixtures": plugin_fixtures,
                    "rare_fixtures": rare_fixtures,
-                   "j2k_fixtures": j2k_fixtures, "sharded": sharded,
+                   "j2k_fixtures": j2k_fixtures,
+                   "avif_fixtures": avif_fixtures, "sharded": sharded,
                    "phase_s": PHASE_S}, f, indent=1)
     print(json.dumps({"frames": {
         path: {k: {"median_ms": v["median_ms"], "frame_ms": v["frame_ms"],
@@ -3123,6 +3148,8 @@ def main():
                             rare_fixtures.items()},
         "j2k_fixture_ms": {k: v.get("ms") for k, v in
                            j2k_fixtures.items()},
+        "avif_fixtures": {k: ("unported" if "unported" in v else "white")
+                          for k, v in avif_fixtures.items()},
         "setup_s": {f"{p}/{sc}": v["setup_parts_s"]
                     for p, per_scene in frames.items()
                     for sc, v in per_scene.items() if sc == "city40"},

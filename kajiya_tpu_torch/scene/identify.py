@@ -35,7 +35,9 @@ The port decodes every plugin named here but AVIF, EPS, the stub
 plugins (BUFR, GRIB, HDF5, WMF: PIL identifies them and loads them
 only through a handler an application registers) and MPEG (PIL opens it
 and cannot load it): for those `textures._decode_image` raises
-NotImplementedError.
+NotImplementedError. For AVIF it does so only where PIL's open succeeds:
+`avif.py` mirrors libavif's parse, so the files PIL refuses or fails to
+open pass on or turn white as in the JAX bake.
 
 `check_pixels` mirrors `Image.MAX_IMAGE_PIXELS`: PIL refuses an image of
 more than twice that many pixels (`DecompressionBombError`), and the JAX

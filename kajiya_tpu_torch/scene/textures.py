@@ -27,9 +27,12 @@ Decoding dispatches on the content, not on the file name, in PIL's plugin
 order (`identify.py`): a plugin whose `_open` refuses the bytes passes
 them to the next that accepts them, as `Image.open` does (a TGA file that
 CUR's rule also accepts is read as a TGA). Where that walk reaches a
-format the port does not decode yet (AVIF, EPS and the stub plugins of
+format the port does not decode yet (EPS and the stub plugins of
 `identify.FORMATS`), it raises NotImplementedError naming it: a
-missing decoder never passes as a white texture. Bytes that no PIL plugin
+missing decoder never passes as a white texture. AVIF goes through
+`avif.py`, which mirrors libavif's parse: PIL's refusals pass the bytes
+on and its parse errors turn them white, and a file PIL would decode
+raises NotImplementedError (AV1 decoding is not ported). Bytes that no PIL plugin
 opens, a missing file, and a source that PIL also refuses (corrupt or
 truncated data, a layout PIL has no decoder for) become a 4x4 white image,
 as in the JAX package.
@@ -47,6 +50,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from .avif import decode_avif
 from .blp import decode_blp
 from .bmp import decode_bmp, decode_dib
 from .dds import decode_dds
@@ -126,6 +130,14 @@ def _decode_image(path_or_data: str) -> np.ndarray:
     data = _read_source(path_or_data)
     found = candidates(data)
     for i, fmt in enumerate(found):
+        if fmt == "AVIF":
+            # PIL's open is mirrored, its pixels are not decoded:
+            # decode_avif raises Refused, an error (white) or
+            # NotImplementedError
+            try:
+                decode_avif(data)
+            except Refused:
+                continue
         if fmt not in _DECODERS:
             raise NotImplementedError(
                 f"{' or '.join(found[i:])} texture decoding is not ported "

@@ -73,7 +73,7 @@ def test_port_imports_no_jax():
                 "scene/msp.py", "scene/xvthumb.py", "scene/imt.py",
                 "scene/pixar.py", "scene/mcidas.py", "scene/spider.py",
                 "scene/fits.py", "scene/im.py", "scene/fli.py",
-                "scene/pcd.py", "scene/j2k.py"):
+                "scene/pcd.py", "scene/j2k.py", "scene/avif.py"):
         assert os.path.join("kajiya_tpu_torch", new) in names, new
     assert "chip_smoke.py" in names
     for path in files:
