@@ -332,8 +332,10 @@ SCENES = {
     # "tcityplugins" / "tcityplugins4" (the plugin city: LAB TIFF, RLE Sun
     # raster, XPM and ICNS maps) and "tcityrare" / "tcityrare4" (the
     # rare-format city: FLC, PhotoCD, IM, FITS, McIdas and SPIDER maps) and
-    # "tcityj2k" / "tcityj2k4" (the JPEG 2000 city: JP2 and J2K maps) are
-    # added by main once `asset_scenes` wrote them
+    # "tcityj2k" / "tcityj2k4" (the JPEG 2000 city: JP2 and J2K maps) and
+    # "tcitytiffdir" / "tcitytiffdir4" (the TIFF-directory city: TIFFs whose
+    # directories libtiff recovers or converts) are added by main once
+    # `asset_scenes` wrote them
 }
 # the scenes each path renders at 1080p, and a cap on the frames of a scene
 # (city3 shows kernel B at the brute route's limit on the two paths that
@@ -344,17 +346,19 @@ PATH_SCENES = {"raster": ("cornell", "city"), "gi": ("cornell", "city"),
                "options": ("cornell", "city"),
                "textured": ("tcornell", "tcity", "tcityfmt", "tcitylegacy",
                             "tcitytiff", "tcitystudio", "tcitycodec",
-                            "tcityplugins", "tcityrare", "tcityj2k")}
+                            "tcityplugins", "tcityrare", "tcityj2k",
+                            "tcitytiffdir")}
 FRAME_CAP = {"city3": 2, "tcity": 2, "tcityfmt": 2, "tcitylegacy": 2,
              "tcitytiff": 2, "tcitystudio": 2, "tcitycodec": 2,
-             "tcityplugins": 2, "tcityrare": 2, "tcityj2k": 2, "city40": 2}
+             "tcityplugins": 2, "tcityrare": 2, "tcityj2k": 2,
+             "tcitytiffdir": 2, "city40": 2}
 # the untextured scene of the same geometry, whose default frames the
 # textured frames' host syncs are held to
 UNTEXTURED = {"tcornell": "cornell", "tcity": "city", "tcityfmt": "city",
               "tcitylegacy": "city", "tcitytiff": "city",
               "tcitystudio": "city", "tcitycodec": "city",
               "tcityplugins": "city", "tcityrare": "city",
-              "tcityj2k": "city"}
+              "tcityj2k": "city", "tcitytiffdir": "city"}
 # the decoded JPEG maps of the mixed-format city against the arrays they
 # encode (quality 85, 4:2:0): format_phase reads 42.2-48.8 dB
 JPEG_PSNR_DB = 35.0
@@ -368,17 +372,19 @@ MOVE, MOVE_FRAME = (0.05, 0.0, 0.0), 1
 # small version, its name with a "4" added)
 CITIES = (("mixed", "fmt"), ("legacy", "legacy"), ("tiff", "tiff"),
           ("studio", "studio"), ("tiffcodec", "codec"),
-          ("plugins", "plugins"), ("rare", "rare"), ("j2k", "j2k"))
+          ("plugins", "plugins"), ("rare", "rare"), ("j2k", "j2k"),
+          ("tiffdir", "tiffdir"))
 CITY_SCENES = {"mixed": "tcityfmt", "legacy": "tcitylegacy",
                "tiff": "tcitytiff", "studio": "tcitystudio",
                "tiffcodec": "tcitycodec", "plugins": "tcityplugins",
-               "rare": "tcityrare", "j2k": "tcityj2k"}
-# the small frames' legacy, TIFF, studio, TIFF-codec, plugin, rare-format
-# and JPEG 2000 cities: their maps at 256^2, since a 64x48 frame needs no
-# more, and two bakes of the full maps would cost ~25 s on an NVIDIA H100
-# 80GB HBM3 host at 700.00 W
+               "rare": "tcityrare", "j2k": "tcityj2k",
+               "tiffdir": "tcitytiffdir"}
+# the small frames' legacy, TIFF, studio, TIFF-codec, plugin, rare-format,
+# JPEG 2000 and TIFF-directory cities: their maps at 256^2, since a 64x48
+# frame needs no more, and two bakes of the full maps would cost ~25 s on
+# an NVIDIA H100 80GB HBM3 host at 700.00 W
 SMALL_FORMATS = ("legacy", "tiff", "studio", "tiffcodec", "plugins", "rare",
-                 "j2k")
+                 "j2k", "tiffdir")
 
 
 def asset_scenes(root):
@@ -394,9 +400,11 @@ def asset_scenes(root):
     under `root/studio`), "tcitycodec" / "tcitycodec4" (the TIFF-codec
     city under `root/codec`), "tcityplugins" / "tcityplugins4" (the
     plugin city under `root/plugins`), "tcityrare" / "tcityrare4" (the
-    rare-format city under `root/rare`) and "tcityj2k" / "tcityj2k4" (the
-    JPEG 2000 city under `root/j2k`), with the mixed, legacy, TIFF,
-    studio, TIFF-codec, plugin, rare-format and JPEG 2000 maps written:
+    rare-format city under `root/rare`), "tcityj2k" / "tcityj2k4" (the
+    JPEG 2000 city under `root/j2k`) and "tcitytiffdir" / "tcitytiffdir4"
+    (the TIFF-directory city under `root/tiffdir`), with the mixed,
+    legacy, TIFF, studio, TIFF-codec, plugin, rare-format, JPEG 2000 and
+    TIFF-directory maps written:
     {file path:
     (map, RGBA its file decodes to, or None for a JPEG, a LAB TIFF or a
     PhotoCD)}."""
@@ -474,14 +482,17 @@ def format_phase(maps):
     member) and every rare-format map but the PhotoCD one (BRUN FLC, IM
     `RGB;L`, 8-bit FITS, 1-byte McIdas, SPIDER float) and every JPEG 2000
     map (JP2 RGBA base colours, one in RPCL with 64 x 64 code-blocks and
-    seven levels, raw RGB and grey codestreams, a JP2 RGB) equal the texels
-    their writer reports, bit for bit; each JPEG base colour is within
-    JPEG_PSNR_DB of the map it encodes; each LAB base colour (converted as
-    LittleCMS does) and the PhotoCD base colour (PhotoYCC) has the SHA-256
-    that PIL gave for that very map (tests/data/plugins/manifest.json and
-    tests/data/rare/manifest.json, "city/..."). The
-    bytes themselves are held to PIL in the CPU tests (this host has no
-    PIL). Any failed decode raises."""
+    seven levels, raw RGB and grey codestreams, a JP2 RGB) and every
+    TIFF-directory map (one LZW strip without StripByteCounts, deflate
+    strips with signed size and offset tags, PackBits with SLONG
+    Compression and SamplesPerPixel, deflate RGBA with a LONG ExtraSamples)
+    equal the texels their writer reports, bit for bit; each JPEG base
+    colour is within JPEG_PSNR_DB of the map it encodes; each LAB base
+    colour (converted as LittleCMS does) and the PhotoCD base colour
+    (PhotoYCC) has the SHA-256 that PIL gave for that very map
+    (tests/data/plugins/manifest.json and tests/data/rare/manifest.json,
+    "city/..."). The bytes themselves are held to PIL in the CPU tests
+    (this host has no PIL). Any failed decode raises."""
     import hashlib
 
     from kajiya_tpu_torch.scene import (dds, j2k, jpeg, lab, raster,
@@ -1795,7 +1806,8 @@ FRAME_KEYS["textured"] = FRAME_KEYS["superres"] = FRAME_KEYS["default"]
 # the scenes of each path's small GPU-vs-CPU frames ("city" is city(n=4))
 REF_SCENES = {"textured": ("tcornell", "tcity4", "tcitylegacy4",
                           "tcitytiff4", "tcitystudio4", "tcitycodec4",
-                          "tcityplugins4", "tcityrare4", "tcityj2k4")}
+                          "tcityplugins4", "tcityrare4", "tcityj2k4",
+                          "tcitytiffdir4")}
 # the paths whose small frames are also rendered on the BVH route, forced
 # with brute_max_tris=0
 BVH_REF_PATHS = ("default", "refpt")
@@ -3076,6 +3088,8 @@ def main():
         frames["textured"]["tcityrare"]["frame_ms"],
         "JPEG 2000 city frame ms",
         frames["textured"]["tcityj2k"]["frame_ms"],
+        "TIFF-directory city frame ms",
+        frames["textured"]["tcitytiffdir"]["frame_ms"],
         "beside the untextured city's default frame ms",
         frames["default"]["city"]["frame_ms"], "(same call)")
     oracle = timed("oracle", oracle_phase, dev)

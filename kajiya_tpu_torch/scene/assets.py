@@ -53,7 +53,15 @@ from blue: both take the grey level), b1's emissive map a 1-byte McIdas
 area and b2's (only this city gives b2 one) a big-endian SPIDER float
 image, each of the map's brightest channel (`fli.encode_flc`,
 `pcd.encode_pcd`, `im.encode_im_rgb`, `fits.encode_fits`,
-`mcidas.encode_mcidas`, `spider.encode_spider`).
+`mcidas.encode_mcidas`, `spider.encode_spider`). `formats="tiffdir"`
+writes every map as a TIFF whose directory libtiff has to recover or
+convert (the TIFF-directory city): base colours one LZW strip without
+StripByteCounts (libtiff estimates the count, as old writers need),
+normal maps deflate strips with horizontal differencing whose ImageWidth,
+ImageLength and RowsPerStrip are SSHORT and StripOffsets SLONG,
+metallic-roughness maps PackBits whose Compression and SamplesPerPixel
+are SLONG, b1's emissive map deflate RGBA (opaque) whose ExtraSamples is
+a LONG.
 """
 from __future__ import annotations
 
@@ -297,6 +305,31 @@ def _j2k_map(kind: str, img: np.ndarray, k: int):
     return (".jp2", *encode_j2k(img, "RGB", jp2=True))
 
 
+def _tiffdir_map(kind: str, img: np.ndarray):
+    """A map of the TIFF-directory city: its texels as `formats="tiff"`
+    writes them, in a directory that old or odd writers leave and libtiff
+    reads (`tiff.write_tiff`'s `tag_types` and `omit`)."""
+    want = np.concatenate([img, np.full(img.shape[:2] + (1,), 255, np.uint8)],
+                          -1)
+    if kind == "base":
+        # one LZW strip and no StripByteCounts: libtiff estimates it
+        data = write_tiff(img, compression=5, omit=(279,))
+    elif kind == "normal":
+        # deflate strips with differencing; the size, RowsPerStrip and the
+        # strip offsets in signed types
+        data = write_tiff(img, compression=8, predictor=2, rows_per_strip=64,
+                          tag_types={256: 8, 257: 8, 278: 8, 273: 9})
+    elif kind == "mr":
+        # PackBits with Compression and SamplesPerPixel as SLONG
+        data = write_tiff(img, compression=32773, rows_per_strip=256,
+                          tag_types={259: 9, 277: 9})
+    else:
+        # deflate RGBA (opaque) with ExtraSamples (unassociated alpha) a LONG
+        data = write_tiff(want, compression=8, rows_per_strip=128,
+                          extra_samples=(2,), tag_types={338: 4})
+    return ".tif", data, want
+
+
 # DXGI formats of the mixed-format city's maps
 DXGI_BC5_UNORM, DXGI_BC7_UNORM = 83, 98
 
@@ -326,6 +359,8 @@ def _map_file(kind: str, img: np.ndarray, formats: str, k: int = 0):
             data = write_tiff(np.ascontiguousarray(np.rot90(img, 1)),
                               orientation=6)
         return ".tif", data, want
+    if formats == "tiffdir":
+        return _tiffdir_map(kind, img)
     if formats == "tiffcodec":
         want = np.concatenate(
             [img, np.full(img.shape[:2] + (1,), 255, np.uint8)], -1)
@@ -411,14 +446,18 @@ def write_city_assets(root: str, subdiv: int = 8, map_size: int = 2048,
     base colours, IM normal, FITS metallic-roughness, McIdas and SPIDER
     emissive maps; b2 also has an emissive map) or "j2k" (JPEG 2000: JP2
     RGBA base colours, raw RGB codestream normal, grey codestream
-    metallic-roughness and JP2 RGB emissive maps). Returns {file name: (the
+    metallic-roughness and JP2 RGB emissive maps) or "tiffdir" (TIFFs
+    whose directories libtiff recovers or converts: one LZW strip without
+    StripByteCounts, deflate strips with signed size and offset tags,
+    PackBits with SLONG Compression and SamplesPerPixel, deflate RGBA with
+    a LONG ExtraSamples). Returns {file name: (the
     RGB map written, the RGBA its file decodes to, or None for a JPEG, an
     8-bit PNG, a LAB TIFF or a PhotoCD)} of the building maps."""
     if formats not in ("png", "mixed", "legacy", "tiff", "studio",
-                       "tiffcodec", "plugins", "rare", "j2k"):
+                       "tiffcodec", "plugins", "rare", "j2k", "tiffdir"):
         raise ValueError(f"formats {formats!r}: 'png', 'mixed', 'legacy', "
-                         "'tiff', 'studio', 'tiffcodec', 'plugins', 'rare' "
-                         "or 'j2k'")
+                         "'tiff', 'studio', 'tiffcodec', 'plugins', 'rare', "
+                         "'j2k' or 'tiffdir'")
     rng = np.random.default_rng(seed)
     mdir = os.path.join(root, "meshes")
     os.makedirs(mdir, exist_ok=True)

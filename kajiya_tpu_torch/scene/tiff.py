@@ -17,8 +17,13 @@ Then the two routes of `_setup`:
   order, with the plugin's strides (an edge tile's, planar layers as
   single-band raw modes);
 - every other compression: libtiff 4.7.1 over the whole file, as PIL's
-  `TiffDecode.c` drives it. The port reads the directory as libtiff does
-  for the fields decoding needs, decodes each strip or tile (PackBits and
+  `TiffDecode.c` drives it. The port reads the directory again as
+  libtiff's `TIFFReadDirectory` does, from the file's bytes
+  (`tiff_dir.py`: its type conversions, range checks, repeated and
+  missing tags, strip arrays and estimated byte counts), and takes every
+  field it decodes with from there, PIL's view giving only the mode and
+  size; a strip whose unpacker row is not libtiff's scanline fails, as in
+  `_decodeStrip`. It decodes each strip or tile (PackBits and
   LZW in `csrc/tiff_decoder.cpp`; deflate through `zlib`; LZMA through
   `lzma`; JPEG through `jpeg.py`'s decoder with the JPEGTables spliced in
   and libjpeg's YCbCr -> RGB), undoes the predictors as libtiff does
@@ -54,7 +59,8 @@ from .. import hostlib
 from . import raster
 from .identify import _TIFF as PREFIXES
 from .identify import check_pixels, opening
-from .raster import DecodeError
+from .tiff_dir import PREDICTED as _PREDICTED
+from .tiff_dir import TiffError, read_directory
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "tiff_decoder.cpp")
@@ -131,8 +137,6 @@ COMPRESSION_INFO = {
     50000: "zstd", 50001: "webp"}
 # the CCITT compressions (tif_fax3.c)
 _FAX = (2, 3, 4, 32771)
-# the codecs whose strips libtiff's predictor undoes
-_PREDICTED = (5, 8, 32946, 34925, 50000)
 
 II, MM = b"II", b"MM"
 # (ByteOrder, PhotoInterpretation, SampleFormat, FillOrder, BitsPerSample,
@@ -287,11 +291,6 @@ _FMT = {3: "H", 4: "L", 6: "b", 8: "h", 9: "l", 11: "f", 12: "d", 13: "L",
 _TYPES_BYTE, _TYPES_UNDEFINED = 1, 7
 
 
-class TiffError(DecodeError):
-    """PIL raises while it opens or loads the TIFF: the bake turns the
-    source white."""
-
-
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"TIFF {what} is not decoded (ROADMAP.md section 1)")
@@ -329,25 +328,14 @@ class _Ifd:
     def load(self, fp: io.BytesIO) -> None:
         self.raw, self.values = {}, {}
         self.offset = fp.tell()
-        # what libtiff would read otherwise: the entry count, entries cut by
-        # the end of the file, entries PIL skips or reads twice
-        self.count, self.cut, self.odd = None, False, False
         big = self.bigtiff
-        seen = set()
         try:
             count = self.unpack("Q" if big else "H",
                                 _ensure_read(fp, 8 if big else 2))[0]
-            self.count = count
             for _ in range(count):
-                try:
-                    entry = _ensure_read(fp, 20 if big else 12)
-                except OSError:
-                    self.cut = True
-                    raise
+                entry = _ensure_read(fp, 20 if big else 12)
                 tag, typ, n, data = self.unpack("HHQ8s" if big else "HHL4s",
                                                 entry)
-                self.odd |= tag in seen or typ not in _UNIT
-                seen.add(tag)
                 if typ not in _UNIT:
                     continue            # an unsupported type is skipped
                 size = n * _UNIT[typ]
@@ -358,16 +346,11 @@ class _Ifd:
                         # BytesIO.seek's OverflowError escapes PIL's _open
                         raise TiffError("tag data offset out of range")
                     fp.seek(offset)
-                    try:
-                        data = _safe_read(fp, size)
-                    except OSError:
-                        self.odd = True
-                        raise
+                    data = _safe_read(fp, size)
                     fp.seek(here)
                 else:
                     data = data[:size]
                 if not data:
-                    self.odd = True     # libtiff reads an empty entry
                     continue
                 self.raw[tag] = (typ, data)
             (self.next,) = self.unpack("Q" if big else "L",
@@ -611,125 +594,7 @@ def _index(v) -> int:
 # the libtiff route (TiffDecode.c over libtiff 4.7.1)
 # ----------------------------------------------------------------------------
 
-class _Dir:
-    """The fields libtiff's TIFFReadDirectory gives the decoder, read from
-    the same directory; a field in a form whose libtiff reading the port
-    does not model raises NotImplementedError."""
-
-    def __init__(self, ifd: _Ifd, data: bytes):
-        self.ifd = ifd
-        # TIFFClientOpen's header checks, which PIL's prefixes do not make
-        version = struct.unpack_from(ifd.endian + "H", data, 2)[0]
-        if version not in (42, 43) or (version == 43 and struct.unpack_from(
-                ifd.endian + "HH", data, 4) != (8, 0)):
-            raise TiffError("libtiff: not a TIFF file (bad version)")
-        # TIFFFetchDirectory: a count of 1 to 4096 entries, all in the file
-        if ifd.count is None or not 0 < ifd.count <= 4096 or ifd.cut:
-            raise TiffError("libtiff cannot read the directory")
-        if ifd.odd:
-            raise _unported("a directory with entries PIL skips or repeats")
-        self.width = self.scalar(256, required=True)
-        self.length = self.scalar(257, required=True)
-        self.spp = self.scalar(277, 1)
-        self.bps = self.per_sample(258, 1)
-        self.compression = self.scalar(259, 1)
-        self.photometric = self.scalar(262, None)
-        self.planar = self.scalar(284, 1)
-        self.fillorder = self.scalar(266, 1)
-        # libtiff reads Predictor as a SHORT: a value out of its range
-        # fails the check and the tag is ignored
-        self.predictor = self.scalar(317, 1)
-        if not 0 <= self.predictor <= 0xFFFF:
-            self.predictor = 1
-        self.sampleformat = self.per_sample(339, 1)
-        if self.photometric == 6 and self.planar == 1 and \
-                self.has_subsampling() and \
-                any(v not in (1, 2, 4) for v in self.entry(530)):
-            raise TiffError("libtiff: invalid YCbCr subsampling")
-        if self.planar not in (1, 2):
-            raise TiffError("libtiff: bad PlanarConfiguration")
-        if self.fillorder not in (1, 2) or self.width <= 0 or \
-                self.length <= 0 or self.spp <= 0:
-            raise _unported("directory values outside libtiff's checks")
-        # libtiff drops a Colormap of another count than 3 << bps; below 8
-        # bits a palette image then fails, at 8 bits with one sample it
-        # reads on (as min-is-black; PIL takes the palette it parsed)
-        if self.photometric == 3 and (320 not in ifd or len(self.entry(320))
-                                      != 3 << self.bps) and \
-                (self.bps != 8 or self.spp != 1 or 320 not in ifd):
-            raise TiffError("libtiff: missing required Colormap")
-        self.tiled = 322 in ifd or 323 in ifd or 324 in ifd or 325 in ifd
-        if self.tiled:
-            self.tw = self.scalar(322, required=True)
-            self.th = self.scalar(323, required=True)
-            if self.tw <= 0 or self.th <= 0:
-                raise _unported("an empty tile size")
-            across = -(-self.width // self.tw)
-            down = -(-self.length // self.th)
-            n = across * down
-            self.across = across
-        else:
-            rps = self.scalar(278, 2 ** 32 - 1)
-            if rps <= 0:
-                raise _unported("a zero RowsPerStrip")
-            self.rps = rps
-            n = -(-self.length // rps) if rps < 2 ** 32 - 1 else 1
-        self.per_plane = n
-        if self.planar == 2:
-            n *= self.spp
-        self.offsets = self.array(324 if self.tiled else 273, n)
-        self.counts = self.array(325 if self.tiled else 279, n)
-        if self.counts[0] == 0 and self.offsets[0] != 0:
-            raise _unported("StripByteCounts that libtiff re-estimates")
-        self.extra = ifd.get(338, ())
-        if 338 in ifd and ifd.raw[338][0] != 3:
-            raise _unported("an ExtraSamples tag of another type")
-
-    def has_subsampling(self) -> bool:
-        """A YCbCrSubSampling tag libtiff keeps: one of another count
-        than two is ignored (the default (2, 2) stands)."""
-        return 530 in self.ifd and len(self.entry(530)) == 2
-
-    def entry(self, tag):
-        typ, data = self.ifd.raw[tag]
-        ints = (3, 4, 16) if self.ifd.bigtiff else (3, 4)
-        if typ not in ints:
-            raise _unported(f"tag {tag} of type {typ}")
-        return self.ifd.unpack(f"{len(data) // _UNIT[typ]}{_FMT[typ]}", data)
-
-    def scalar(self, tag, default=None, required=False):
-        if tag not in self.ifd:
-            if required:
-                raise _unported(f"a directory without tag {tag}")
-            return default
-        v = self.entry(tag)
-        if len(v) != 1:
-            raise _unported(f"tag {tag} with {len(v)} values")
-        return v[0]
-
-    def per_sample(self, tag, default):
-        if tag not in self.ifd:
-            return default
-        v = self.entry(tag)
-        if len(v) not in (1, self.spp) or len(set(v)) != 1:
-            raise _unported(f"tag {tag} with values that differ per sample")
-        return v[0]
-
-    def array(self, tag, n):
-        if tag not in self.ifd:
-            raise _unported(f"a directory without tag {tag}")
-        v = self.entry(tag)
-        if len(v) != n:
-            raise _unported(f"tag {tag} with {len(v)} values for {n}")
-        return v
-
-    def row_size(self, width: int) -> int:
-        """TIFFScanlineSize / TIFFTileRowSize of `width` pixels."""
-        s = self.spp if self.planar == 1 else 1
-        return (width * self.bps * s + 7) // 8
-
-
-def _read_segment(data: bytes, d: _Dir, i: int, size: int,
+def _read_segment(data: bytes, d, i: int, size: int,
                   state: dict | None = None) -> bytes:
     """TIFFFillStrip / TIFFFillTile's raw bytes of strip or tile i (its
     file offset kept in `state`: the RLEW codec aligns to even addresses,
@@ -749,7 +614,7 @@ def _read_segment(data: bytes, d: _Dir, i: int, size: int,
     return raw
 
 
-def _decode_segment(raw: bytes, d: _Dir, occ: int, state: dict,
+def _decode_segment(raw: bytes, d, occ: int, state: dict,
                     seg: tuple = (0, 0)) -> bytes:
     """One codec call of occ bytes (TIFFReadEncodedStrip / Tile); `seg` is
     the strip's or tile's (width, rows), which the JPEG codec checks."""
@@ -812,7 +677,7 @@ def _decode_fax(raw, d, occ, state, seg):
         raise TiffError("Samples/pixel shall be 1 for Group 3/4")
     width = seg[0]
     rowbytes = d.row_size(width)
-    opts = d.scalar(292, 0) if d.compression == 3 else 0
+    opts = d.t4options if d.compression == 3 else 0
     two_d = d.compression == 4 or (d.compression == 3 and opts & 1)
     if "fax" not in state:
         nruns = -(-(width + 1) // 32) * 32 * (2 if two_d else 1)
@@ -883,7 +748,7 @@ def _lzma(raw: bytes, occ: int) -> bytes:
     return bytes(out[:occ])
 
 
-def _check_predictor(d: _Dir) -> None:
+def _check_predictor(d) -> None:
     """PredictorSetupDecode: the codecs with a predictor (LZW, deflate,
     LZMA) refuse what they cannot undo."""
     if d.compression not in _PREDICTED or d.predictor == 1:
@@ -901,7 +766,7 @@ def _check_predictor(d: _Dir) -> None:
         raise TiffError(f"predictor {d.predictor} is not supported")
 
 
-def _post_decode(buf: bytes, d: _Dir, rowsize: int, order: str) -> np.ndarray:
+def _post_decode(buf: bytes, d, rowsize: int, order: str) -> np.ndarray:
     """The predictor's accumulation per row, and the swab of 16 / 32-bit
     samples to the host's (little-endian) order: (rows, rowsize) uint8."""
     rows = np.frombuffer(buf, np.uint8).reshape(-1, rowsize)
@@ -961,7 +826,7 @@ def _plane_unpack(rows, mode, band, bps, w, out):
 
 
 def _load_libtiff(data: bytes, im: _Image) -> np.ndarray:
-    d = _Dir(im.ifd, data)
+    d = read_directory(data, im.ifd.offset)
     if (d.width, d.length) != im.tile_size:
         raise TiffError("libtiff's size differs")
     if d.compression == 6:
@@ -1006,11 +871,17 @@ def _load_libtiff(data: bytes, im: _Image) -> np.ndarray:
                                         d, rowsize, order)
                     n = min(d.tw, xsize - x)
                     m = min(d.th, ysize - y)
-                    put(rows[:m], y, x, n, plane)
+                    # a plane's unpacker reads samples of libtiff's size
+                    urow = (n * (bits if planes == 1 else d.bps) + 7) // 8
+                    put(_tile_rows(rows, m, urow), y, x, n, plane)
     else:
         rps = d.rps if d.rps < 2 ** 32 - 1 else ysize
         rowsize = d.row_size(xsize)
-        if rowsize < (xsize * bits // planes + 7) // 8:
+        if rowsize != (xsize * bits // planes + 7) // 8:
+            # _decodeStrip fails unless its unpacker's row is libtiff's
+            # scanline (probed with PIL's and libtiff's views of a repeated
+            # BitsPerSample: a shorter row of either fails, a 1-bit PIL row
+            # over a 1-pixel-wide 8-bit libtiff row decodes)
             raise TiffError("unpacker row size")
         if rps >= 2 ** 31:
             # TiffDecode.c sizes its strip buffer from RowsPerStrip in a
@@ -1027,11 +898,24 @@ def _load_libtiff(data: bytes, im: _Image) -> np.ndarray:
                                                     state, (xsize, nrows)),
                                     d, rowsize, order)
                 put(rows, y, 0, xsize, plane)
-    if planes > 3 and mode == "RGBA":
-        extra = d.extra if d.extra else (0,) * (d.spp - 3)
-        if extra and extra[0] in (0, 1):
-            img = raster.unpremultiply(img)
+    if planes > 3 and mode == "RGBA" and d.extra and d.extra[0] in (0, 1):
+        img = raster.unpremultiply(img)
     return img
+
+
+def _tile_rows(rows: np.ndarray, m: int, urow: int) -> np.ndarray:
+    """The m rows _decodeTile's unpacker reads from a tile of libtiff's
+    rows: `urow` bytes from the start of each, which run into the rows
+    after it where PIL's row is the longer (where they would run past the
+    tile buffer, PIL reads memory it never wrote: NotImplementedError)."""
+    rowsize = rows.shape[1]
+    if urow <= rowsize:
+        return rows[:m]
+    flat = np.ascontiguousarray(rows).reshape(-1)
+    if (m - 1) * rowsize + urow > flat.size:
+        raise _unported("a tile whose rows PIL's unpacker reads past "
+                        "libtiff's tile buffer")
+    return np.lib.stride_tricks.as_strided(flat, (m, urow), (rowsize, 1))
 
 
 def _sof(stream: bytes):
@@ -1090,24 +974,22 @@ def _table_slots(stream: bytes) -> dict:
     return out
 
 
-def _jpeg_setup(data: bytes, d: _Dir, state: dict) -> None:
+def _jpeg_setup(data: bytes, d, state: dict) -> None:
     """JPEGPreDecode's fixed part: the JPEGTables stream, the colour mode
     (YCbCr is converted to RGB, anything else kept as coded) and the
     sampling of component 0 (the YCbCrSubSampling tag; without one,
     JPEGFixupTags reads it from the first strip or tile)."""
-    tables = b""
-    if 347 in d.ifd:
-        typ, tables = d.ifd.raw[347]
-        if typ != _TYPES_UNDEFINED or not tables.startswith(b"\xff\xd8") \
-                or not tables.endswith(b"\xff\xd9"):
-            raise _unported("a JPEGTables tag libjpeg may not read")
+    tables = d.jpegtables or b""
+    if tables and (not tables.startswith(b"\xff\xd8") or
+                   not tables.endswith(b"\xff\xd9")):
+        raise _unported("a JPEGTables tag libjpeg may not read")
     if d.bps != 8:
         raise _unported(f"{d.bps}-bit JPEG")
     ycc = d.photometric == 6
     hs = vs = 1
-    if ycc and d.has_subsampling():
+    if ycc and d.subsampling_tag:
         # a YCbCrSubSampling tag is taken as it is
-        hs, vs = d.entry(530)
+        hs, vs = d.subsampling
     elif ycc:
         first = _read_segment(data, d, 0, 0)
         sof = _sof(first)
@@ -1215,14 +1097,14 @@ class _OjpegSource:
         return bytes(out) + b"\xff\xd9"
 
 
-def _ojpeg_blocks(data: bytes, d: _Dir, strips: int) -> list:
+def _ojpeg_blocks(data: bytes, d, strips: int) -> list:
     """OJPEGReadBufferFill's sources: the JPEGInterchangeFormat block (its
     length cut to the file), then each strip's bytes (to the file's end
     where its count is 0). A strip libtiff skips (offset 0 or past the
     file) changes where it writes RSTn and EOI: not modelled."""
     size = len(data)
     blocks = []
-    jif, jifl = d.scalar(513, 0), d.scalar(514, 0)
+    jif, jifl = d.ojpeg_if, d.ojpeg_if_len
     if jif and jif < size:
         if jifl == 0 or jif + jifl > size:
             jifl = size - jif
@@ -1405,9 +1287,7 @@ def _ojpeg_tables(data, d, spp, hor, ver, qt, dc, ac):
     JPEGQTables, JPEGDCTables and JPEGACTables offsets, and the frame and
     scan headers libtiff writes for them."""
     def offsets(tag):
-        v = tuple(d.entry(tag)) if tag in d.ifd else ()
-        if len(v) > 3:
-            raise _unported(f"tag {tag} with {len(v)} values")
+        v = d.ojpeg_tables.get(tag, ())
         return v + (0,) * (spp - len(v)) if len(v) < spp else v
 
     def read(off, n):
@@ -1449,7 +1329,7 @@ def _ojpeg_tables(data, d, spp, hor, ver, qt, dc, ac):
     return (0xC0, d.length, d.width, comps), sos
 
 
-def _load_ojpeg(data: bytes, im: _Image, d: _Dir) -> np.ndarray:
+def _load_ojpeg(data: bytes, im: _Image, d) -> np.ndarray:
     """Old-style JPEG as libtiff's tif_ojpeg.c decodes it under PIL: the
     JPEG stream OJPEG writes for libjpeg (the JPEGInterchangeFormat block
     and the strips, or tables from the JPEGQTables / DCTables / ACTables
@@ -1461,15 +1341,6 @@ def _load_ojpeg(data: bytes, im: _Image, d: _Dir) -> np.ndarray:
     which is not modelled (NotImplementedError)."""
     from .jpeg import JpegError, decode_jpeg_planes, jpeg_frame
 
-    ifd = d.ifd
-    # TIFFReadDirectory's OJPEG fixups
-    if d.photometric is None or d.photometric == 2:
-        d.photometric = 6
-    if 258 not in ifd:
-        d.bps = 8
-    if 277 not in ifd:
-        d.spp = 3 if d.photometric == 6 else 1 if d.photometric in (0, 1) \
-            else d.spp
     if d.tiled or d.planar != 1:
         raise _unported("tiled or separate-plane old-style JPEG")
     spp = d.spp
@@ -1483,14 +1354,15 @@ def _load_ojpeg(data: bytes, im: _Image, d: _Dir) -> np.ndarray:
     if spp == 3:
         # OJPEGSubsamplingCorrect: the tag's values (2, 2 without one),
         # then the first frame header's
-        sub = d.entry(530) if 530 in ifd else (2, 2)
-        if len(sub) != 2:
-            raise _unported("a YCbCrSubSampling of other than two values")
-        hor, ver, force = _ojpeg_sof_sampling(blocks, *sub)
+        hor, ver, force = _ojpeg_sof_sampling(blocks, *d.subsampling)
         if force:
             raise _unported("old-style JPEG that libjpeg upsamples")
+        if d.photometric == 6 and (hor not in (1, 2, 4) or
+                                   ver not in (1, 2, 4)):
+            # TIFFReadDirectory's scanline size, from the corrected values
+            raise TiffError("libtiff: cannot handle zero scanline size")
     rps = d.rps if d.rps < 2 ** 32 - 1 else d.length
-    restart = d.scalar(515, 0)
+    restart = d.ojpeg_restart
     if rps < d.length:
         if hor not in (1, 2, 4) or ver not in (1, 2, 4):
             raise TiffError("old-style JPEG: invalid subsampling")
@@ -1608,18 +1480,7 @@ def _ycbcr_to_rgb(y, cb, cr, tables):
     return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
 
 
-def _rational_field(d: _Dir, tag: int, n: int, default):
-    if tag not in d.ifd:
-        return default
-    typ, raw = d.ifd.raw[tag]
-    if typ != 5 or len(raw) != 8 * n:
-        raise _unported(f"tag {tag} in a form libtiff may read otherwise")
-    v = d.ifd.unpack(f"{2 * n}L", raw)
-    return tuple(np.float32(a / b) if b else np.float32("nan")
-                 for a, b in zip(v[::2], v[1::2]))
-
-
-def _load_ycbcr(data: bytes, im: _Image, d: _Dir, sub=None,
+def _load_ycbcr(data: bytes, im: _Image, d, sub=None,
                 decode=None) -> np.ndarray:
     """_decodeAsRGBA: libtiff's TIFFRGBAImage over blocks of strips or
     tiles, 8-bit YCbCr with its subsampling converted by tif_color.c (PIL
@@ -1629,20 +1490,13 @@ def _load_ycbcr(data: bytes, im: _Image, d: _Dir, sub=None,
         raise _unported("separate-plane JPEG YCbCr")
     if d.bps not in (1, 2, 4, 8, 16) or d.sampleformat == 3:
         raise TiffError("TIFFRGBAImageOK refuses the sample format")
-    if sub is None:
-        sub = (2, 2)
-        if 530 in d.ifd:
-            sub = d.entry(530)
-            if len(sub) != 2:
-                raise _unported("a YCbCrSubSampling of other than two "
-                                "values")
-    hs, vs = sub
+    hs, vs = d.subsampling if sub is None else sub
     if d.bps != 8 or d.spp != 3 or (d.planar == 1 and (hs << 4 | vs) not in (
             0x11, 0x12, 0x21, 0x22, 0x41, 0x42, 0x44)) or \
             (d.planar == 2 and (hs, vs) != (1, 1)):
         raise TiffError("TIFFRGBAImageBegin: can not handle the format")
-    luma = _rational_field(d, 529, 3, tuple(np.float32(v) for v in _LUMA))
-    rbw = _rational_field(d, 532, 6, tuple(np.float32(v) for v in _RBW))
+    luma = d.ycbcr_coefficients or tuple(np.float32(v) for v in _LUMA)
+    rbw = d.reference_bw or tuple(np.float32(v) for v in _RBW)
     if any(np.isnan(v) for v in luma) or abs(luma[1]) < 1e-5 or \
             any(not (-2.0 ** 31 < v < 2.0 ** 31) for v in rbw):
         raise TiffError("invalid YCbCrCoefficients or ReferenceBlackWhite")
@@ -1834,12 +1688,18 @@ def _pack_rows(blk: np.ndarray, bits: int, dt: np.dtype) -> np.ndarray:
     return blk.reshape(blk.shape[0], -1).astype(dt)
 
 
+# the struct code of each integer type the writer stores
+_WRITE_CODE = {1: "B", 3: "H", 4: "L", 6: "b", 8: "h", 9: "l", 16: "Q"}
+
+
 def write_tiff(samples: np.ndarray, *, photometric: int = 2,
                compression: int = 1, predictor: int = 1, planar: int = 1,
                tile: tuple | None = None, rows_per_strip: int | None = None,
                order: str = "<", orientation: int | None = None,
                bits: int | None = None, fillorder: int = 1,
-               t4options: int | None = None) -> bytes:
+               t4options: int | None = None,
+               extra_samples: tuple | None = None,
+               tag_types: dict | None = None, omit: tuple = ()) -> bytes:
     """A baseline TIFF of (H, W, S) samples: uint8 or uint16 (8 or 16
     bits), or `bits` 1 or 4 (values below 2 ** bits), in strips or (tw, th)
     tiles, contiguous or planar (2), raw (1), LZW (5), deflate (8),
@@ -1848,7 +1708,11 @@ def write_tiff(samples: np.ndarray, *, photometric: int = 2,
     or ThunderScan (32809), horizontal differencing (predictor 2), FillOrder
     1 or 2 (the codec's bytes bit-reversed) and either byte order;
     `orientation` is written as the Orientation tag (the samples are stored
-    as given)."""
+    as given), `extra_samples` as ExtraSamples. `tag_types` {tag: type}
+    stores an integer tag as another TIFF type (BYTE 1, SHORT 3, LONG 4,
+    SBYTE 6, SSHORT 8, SLONG 9 or LONG8 16), and the tags of `omit` are
+    left out (a writer that drops StripByteCounts, say); the defaults write
+    SHORT and LONG tags, all of them."""
     samples = np.asarray(samples)
     if samples.ndim == 2:
         samples = samples[..., None]
@@ -1906,13 +1770,18 @@ def write_tiff(samples: np.ndarray, *, photometric: int = 2,
         tags[266] = (3, [fillorder])
     if t4options is not None:
         tags[292] = (4, [t4options])
+    if extra_samples is not None:
+        tags[338] = (3, list(extra_samples))
+    for tag, typ in (tag_types or {}).items():
+        tags[tag] = (typ, tags[tag][1])
+    for tag in omit:
+        del tags[tag]
     ifd_off = head + len(body)
     ext_off = ifd_off + 2 + 12 * len(tags) + 4
     entries, ext = bytearray(), bytearray()
     for tag in sorted(tags):
         typ, vals = tags[tag]
-        data = struct.pack(order + ("H" if typ == 3 else "L") * len(vals),
-                           *vals)
+        data = struct.pack(order + _WRITE_CODE[typ] * len(vals), *vals)
         if len(data) <= 4:
             field = data.ljust(4, b"\0")
         else:

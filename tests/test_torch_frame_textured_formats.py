@@ -7,11 +7,15 @@ normal maps as 24-bit BMP, metallic-roughness maps as 256-colour GIF, the
 emissive map a lossless WebP; and the TIFF-textured city
 (`formats="tiff"`): LZW tiled base colours with horizontal differencing,
 deflate planar normal maps, big-endian 16-bit PackBits metallic-roughness
-maps, a raw emissive map with Orientation 6; and the studio city
+maps, a raw emissive map with Orientation 6; and the TIFF-directory city
+(`formats="tiffdir"`): one LZW strip without StripByteCounts, deflate
+strips with SSHORT sizes and SLONG offsets, PackBits with SLONG
+Compression and SamplesPerPixel, deflate RGBA with a LONG ExtraSamples;
+and the studio city
 (`formats="studio"`): 4-channel PackBits PSD base colours, RLE SGI normal
 maps, 24-bit RLE PCX metallic-roughness maps, a QOI emissive map. JAX
 decodes them with PIL, the port with its own decoders; the same checks
-hold the four cities.
+hold the five cities.
 
 - The bake of the city's sources: atlas and slot table equal JAX's
   `build_texture_pages` byte for byte, no slot white.
@@ -249,6 +253,85 @@ def test_tiff_hit_attributes_match(tiff_scenes, cone):
     """The TIFF city's hits at the PNG city's tolerance, ATTR_TOL."""
     _check_hit_attributes(tiff_scenes, cone)
 
+
+
+# ----------------------------------------------------------------------------
+# the TIFF-directory city
+# ----------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def tiffdir_city(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("tcitytiffdir"))
+    written = assets.write_city_assets(root, map_size=128, emissive_size=64,
+                                       ground_size=(64, 256),
+                                       formats="tiffdir")
+    return root, written, assets.write_city_ron(root, n=4)
+
+
+def test_tiffdir_files(tiffdir_city):
+    """The maps are TIFFs whose directories libtiff recovers or converts:
+    the base colours lack StripByteCounts, the others store tags in signed
+    or LONG types."""
+    import struct
+
+    root, written, _ = tiffdir_city
+    names = sorted(os.listdir(os.path.join(root, "meshes")))
+    assert sum(n.endswith(".tif") for n in names) == 10
+    assert len(written) == 10
+    assert all(want is not None for _img, want in written.values())
+    for name in written:
+        with open(os.path.join(root, "meshes", name), "rb") as f:
+            data = f.read()
+        at = struct.unpack_from("<I", data, 4)[0]
+        n = struct.unpack_from("<H", data, at)[0]
+        types = dict(struct.unpack_from("<HH", data, at + 2 + 12 * k)
+                     for k in range(n))
+        kind = name.split("_")[1].split(".")[0]
+        want = {"base": 279 not in types,
+                "normal": types.get(256) == types.get(278) == 8 and
+                types.get(273) == 9,
+                "mr": types.get(259) == types.get(277) == 9,
+                "emissive": types.get(338) == 4}[kind]
+        assert want, (name, types)
+
+
+def test_tiffdir_bake_matches_jax(tiffdir_city):
+    root, written, _ = tiffdir_city
+    srcs = sorted(glob.glob(os.path.join(root, "meshes", "*_*.*")))
+    assert len(srcs) == 10
+    atlas_t, sub_t = tex_t.bake_texture_pages(srcs)
+    atlas_j, sub_j = tex_j.build_texture_pages(srcs)
+    np.testing.assert_array_equal(sub_t, np.asarray(sub_j))
+    np.testing.assert_array_equal(atlas_t, np.asarray(atlas_j))
+    for page, size, ox, oy in sub_t[1:]:
+        assert not (atlas_t[page, oy:oy + size, ox:ox + size] == 255).all()
+    for name, (_img, want) in written.items():
+        got = tex_t._decode_image(os.path.join(root, "meshes", name))
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def tiffdir_scenes(tiffdir_city):
+    ron = tiffdir_city[2]
+    ts_j, _ = build_ts_j(build_gpu_j(load_ron_j(ron)))
+    ts_t, _ = build_ts_t(build_gpu_t(load_ron_t(ron), device="cpu"),
+                         device="cpu")
+    return ts_j, ts_t
+
+
+def test_tiffdir_texture_tables_match(tiffdir_scenes):
+    ts_j, ts_t = tiffdir_scenes
+    for f in ("tex_pages", "page_sub", "mat_tex", "tri_mat"):
+        np.testing.assert_array_equal(_n(getattr(ts_t.gpu, f)),
+                                      np.asarray(getattr(ts_j.gpu, f)),
+                                      err_msg=f)
+
+
+@pytest.mark.parametrize("cone", [False, True], ids=["static_mip", "cone"])
+def test_tiffdir_hit_attributes_match(tiffdir_scenes, cone):
+    """The TIFF-directory city's hits at the PNG city's tolerance,
+    ATTR_TOL."""
+    _check_hit_attributes(tiffdir_scenes, cone)
 
 
 # ----------------------------------------------------------------------------

@@ -156,10 +156,10 @@ def _fuzz_base(k):
 
 
 # the sweep's files that raise NotImplementedError (a TIFF directory or
-# stream whose outcome in libtiff the port does not model), by part. Of the
-# 300: 136 PIL's bytes, 155 white (85 of them a refusal of the TIFF or PSD
-# plugin's `_open`), 9 NotImplementedError
-CUT_UNPORTED = (1, 2, 2, 1, 1, 2)
+# stream whose outcome in libtiff the port does not model), by part: none
+# since libtiff's directory reader was ported (scene/tiff_dir.py), of the
+# 300 files that gave 9 before it
+CUT_UNPORTED = (0, 0, 0, 0, 0, 0)
 
 
 @pytest.mark.parametrize("part", range(6))

@@ -9,7 +9,15 @@ the floating-point predictor, LZW CMYK, LAB, a little-endian BigTIFF
 later codecs: PIL's CCITT Group 3 (1D, and 2D with fill bits), Group 4 and
 RLE bilevel files and its zstd RGB with differencing, and the port's
 writer's RLEW, ThunderScan, old-style JPEG (4:2:0 in the interchange form
-in strips, 4:4:4 in the tables form) and SGILog files.
+in strips, 4:4:4 in the tables form) and SGILog files; then directories
+that libtiff recovers or converts (`dir_*.tif`): one LZW strip without
+StripByteCounts, and one with a byte count of 0 (both estimated), several
+strips without StripByteCounts (white), signed size and offset tags,
+PackBits with SLONG Compression and SamplesPerPixel, a LONG ExtraSamples,
+entries out of order, a StripOffsets shorter than the strips (white),
+repeated strip arrays (libtiff keeps the first copy, PIL the last), and
+the two views of a repeated BitsPerSample and SamplesPerPixel (PIL's
+mode over libtiff's strips; a strip row of another size, white).
 `manifest.json` holds each file's shape and the SHA-256 of the RGBA that
 PIL's `Image.open(f).convert("RGBA")` gives; one PIL fails to load
 (SGILog under an RGB photometric) is marked "white".
@@ -35,6 +43,7 @@ sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 from kajiya_tpu_torch.scene import tiff  # noqa: E402
 from test_torch_tiff import _jpeg_tiff, _tiff  # noqa: E402
 from test_torch_tiff_codecs import ojpeg_tiff  # noqa: E402
+from test_torch_tiff_dir import rebuilt, cut_view  # noqa: E402
 
 
 def picture(rng, h, w, c=3):
@@ -86,6 +95,52 @@ def codec_files(rng) -> dict:
     return out
 
 
+def dir_files(rng) -> dict:
+    """Directories libtiff recovers or converts, from the port's writer."""
+    img = picture(rng, 48, 64)
+
+    def reorder(es, bo, big):
+        return es[1:] + es[:1]
+
+    def repeat_strips(es, bo, big):
+        out = []
+        for e in es:
+            out.append(e)
+            if e[0] == 273:         # PIL keeps this copy, libtiff the first
+                out.append((273, 4, 3, (8).to_bytes(4, "little")))
+        return out
+
+    def short_offsets(es, bo, big):
+        return [(t, typ, 2 if t == 273 else n, v) for t, typ, n, v in es]
+
+    return {
+        "dir_no_bytecounts.tif": tiff.write_tiff(img, compression=5,
+                                                 omit=(279,)),
+        "dir_zero_bytecount.tif": rebuilt(
+            tiff.write_tiff(img, compression=32773),
+            lambda es, bo, big: [(t, typ, n, bytes(4) if t == 279 else v)
+                                 for t, typ, n, v in es]),
+        "dir_no_bytecounts_strips.tif": tiff.write_tiff(
+            img, compression=5, rows_per_strip=16, omit=(279,)),
+        "dir_signed.tif": tiff.write_tiff(
+            img, compression=8, predictor=2, rows_per_strip=16,
+            tag_types={256: 8, 257: 8, 278: 8, 273: 9}),
+        "dir_slong_packbits.tif": tiff.write_tiff(
+            img, compression=32773, order=">", tag_types={259: 9, 277: 9}),
+        "dir_extrasamples_long.tif": tiff.write_tiff(
+            picture(rng, 48, 64, 4), compression=8, extra_samples=(2,),
+            tag_types={338: 4}),
+        "dir_unsorted.tif": rebuilt(tiff.write_tiff(
+            img, compression=5, rows_per_strip=16), reorder),
+        "dir_short_offsets.tif": rebuilt(tiff.write_tiff(
+            img, compression=5, rows_per_strip=16), short_offsets),
+        "dir_repeated_strips.tif": rebuilt(tiff.write_tiff(
+            img, compression=8, rows_per_strip=16), repeat_strips),
+        "dir_pil_mode.tif": cut_view(16, 1),
+        "dir_row_mismatch.tif": cut_view(8, 1),
+    }
+
+
 def main():
     rng = np.random.default_rng(2026)
     os.makedirs(OUT, exist_ok=True)
@@ -112,6 +167,7 @@ def main():
                            tile=(16, 16), order=">"),
     }
     files.update(codec_files(rng))
+    files.update(dir_files(rng))
     manifest = {}
     for name, data in files.items():
         with open(os.path.join(OUT, name), "wb") as f:
