@@ -334,8 +334,10 @@ SCENES = {
     # rare-format city: FLC, PhotoCD, IM, FITS, McIdas and SPIDER maps) and
     # "tcityj2k" / "tcityj2k4" (the JPEG 2000 city: JP2 and J2K maps) and
     # "tcitytiffdir" / "tcitytiffdir4" (the TIFF-directory city: TIFFs whose
-    # directories libtiff recovers or converts) are added by main once
-    # `asset_scenes` wrote them
+    # directories libtiff recovers or converts) and "tcityjpeg" /
+    # "tcityjpeg4" (the JPEG-recovery city: JPEGs libjpeg decodes with a
+    # warning, and lossless ones) are added by main once `asset_scenes`
+    # wrote them
 }
 # the scenes each path renders at 1080p, and a cap on the frames of a scene
 # (city3 shows kernel B at the brute route's limit on the two paths that
@@ -347,18 +349,19 @@ PATH_SCENES = {"raster": ("cornell", "city"), "gi": ("cornell", "city"),
                "textured": ("tcornell", "tcity", "tcityfmt", "tcitylegacy",
                             "tcitytiff", "tcitystudio", "tcitycodec",
                             "tcityplugins", "tcityrare", "tcityj2k",
-                            "tcitytiffdir")}
+                            "tcitytiffdir", "tcityjpeg")}
 FRAME_CAP = {"city3": 2, "tcity": 2, "tcityfmt": 2, "tcitylegacy": 2,
              "tcitytiff": 2, "tcitystudio": 2, "tcitycodec": 2,
              "tcityplugins": 2, "tcityrare": 2, "tcityj2k": 2,
-             "tcitytiffdir": 2, "city40": 2}
+             "tcitytiffdir": 2, "tcityjpeg": 2, "city40": 2}
 # the untextured scene of the same geometry, whose default frames the
 # textured frames' host syncs are held to
 UNTEXTURED = {"tcornell": "cornell", "tcity": "city", "tcityfmt": "city",
               "tcitylegacy": "city", "tcitytiff": "city",
               "tcitystudio": "city", "tcitycodec": "city",
               "tcityplugins": "city", "tcityrare": "city",
-              "tcityj2k": "city", "tcitytiffdir": "city"}
+              "tcityj2k": "city", "tcitytiffdir": "city",
+              "tcityjpeg": "city"}
 # the decoded JPEG maps of the mixed-format city against the arrays they
 # encode (quality 85, 4:2:0): format_phase reads 42.2-48.8 dB
 JPEG_PSNR_DB = 35.0
@@ -373,18 +376,19 @@ MOVE, MOVE_FRAME = (0.05, 0.0, 0.0), 1
 CITIES = (("mixed", "fmt"), ("legacy", "legacy"), ("tiff", "tiff"),
           ("studio", "studio"), ("tiffcodec", "codec"),
           ("plugins", "plugins"), ("rare", "rare"), ("j2k", "j2k"),
-          ("tiffdir", "tiffdir"))
+          ("tiffdir", "tiffdir"), ("jpegrec", "jpegrec"))
 CITY_SCENES = {"mixed": "tcityfmt", "legacy": "tcitylegacy",
                "tiff": "tcitytiff", "studio": "tcitystudio",
                "tiffcodec": "tcitycodec", "plugins": "tcityplugins",
                "rare": "tcityrare", "j2k": "tcityj2k",
-               "tiffdir": "tcitytiffdir"}
+               "tiffdir": "tcitytiffdir", "jpegrec": "tcityjpeg"}
 # the small frames' legacy, TIFF, studio, TIFF-codec, plugin, rare-format,
-# JPEG 2000 and TIFF-directory cities: their maps at 256^2, since a 64x48
+# JPEG 2000, TIFF-directory and JPEG-recovery cities: their maps at 256^2,
+# since a 64x48
 # frame needs no more, and two bakes of the full maps would cost ~25 s on
 # an NVIDIA H100 80GB HBM3 host at 700.00 W
 SMALL_FORMATS = ("legacy", "tiff", "studio", "tiffcodec", "plugins", "rare",
-                 "j2k", "tiffdir")
+                 "j2k", "tiffdir", "jpegrec")
 
 
 def asset_scenes(root):
@@ -402,12 +406,13 @@ def asset_scenes(root):
     plugin city under `root/plugins`), "tcityrare" / "tcityrare4" (the
     rare-format city under `root/rare`), "tcityj2k" / "tcityj2k4" (the
     JPEG 2000 city under `root/j2k`) and "tcitytiffdir" / "tcitytiffdir4"
-    (the TIFF-directory city under `root/tiffdir`), with the mixed,
-    legacy, TIFF, studio, TIFF-codec, plugin, rare-format, JPEG 2000 and
-    TIFF-directory maps written:
+    (the TIFF-directory city under `root/tiffdir`) and "tcityjpeg" /
+    "tcityjpeg4" (the JPEG-recovery city under `root/jpegrec`), with the
+    mixed, legacy, TIFF, studio, TIFF-codec, plugin, rare-format, JPEG
+    2000, TIFF-directory and JPEG-recovery maps written:
     {file path:
-    (map, RGBA its file decodes to, or None for a JPEG, a LAB TIFF or a
-    PhotoCD)}."""
+    (map, RGBA its file decodes to, or None for a lossy JPEG, a LAB TIFF or
+    a PhotoCD)}."""
     from kajiya_tpu_torch.scene import assets
 
     def write(job):
@@ -486,13 +491,16 @@ def format_phase(maps):
     TIFF-directory map (one LZW strip without StripByteCounts, deflate
     strips with signed size and offset tags, PackBits with SLONG
     Compression and SamplesPerPixel, deflate RGBA with a LONG ExtraSamples)
-    equal the texels their writer reports, bit for bit; each JPEG base
-    colour is within JPEG_PSNR_DB of the map it encodes; each LAB base
-    colour (converted as LittleCMS does) and the PhotoCD base colour
-    (PhotoYCC) has the SHA-256 that PIL gave for that very map
-    (tests/data/plugins/manifest.json and tests/data/rare/manifest.json,
-    "city/..."). The bytes themselves are held to PIL in the CPU tests
-    (this host has no PIL). Any failed decode raises."""
+    and every lossless JPEG map of the JPEG-recovery city equal the texels
+    their writer reports, bit for bit; each JPEG base colour of the
+    mixed-format city is within JPEG_PSNR_DB of the map it encodes; each
+    LAB base colour (converted as LittleCMS does), the PhotoCD base colour
+    (PhotoYCC) and each damaged JPEG map of the JPEG-recovery city (a cut
+    scan closed with EOI, a renumbered RSTn, flipped entropy bytes) has the
+    SHA-256 that PIL gave for that very map (tests/data/plugins/,
+    tests/data/rare/ and tests/data/jpeg/manifest.json, "city/..."). The
+    bytes themselves are held to PIL in the CPU tests (this host has no
+    PIL). Any failed decode raises."""
     import hashlib
 
     from kajiya_tpu_torch.scene import (dds, j2k, jpeg, lab, raster,
@@ -506,7 +514,7 @@ def format_phase(maps):
                   j2k.library):
         build()
     pil_digests = {}
-    for kind in ("plugins", "rare"):
+    for kind in ("plugins", "rare", "jpeg"):
         with open(os.path.join(REPO, "tests", "data", kind,
                                "manifest.json")) as f:
             pil_digests.update({k: v for k, v in json.load(f).items()
@@ -523,8 +531,11 @@ def format_phase(maps):
             path))), os.path.basename(path))
         rec = dict(ms=ms, bytes=os.path.getsize(path),
                    shape=list(got.shape))
-        city_map = "city/" + os.path.basename(path)
-        if want is None and path.endswith((".tif", ".pcd")):
+        # the JPEG-recovery city's maps are keyed by city, the others by
+        # file
+        city_map = "city/" + name if "city/" + name in pil_digests else \
+            "city/" + os.path.basename(path)
+        if want is None and city_map in pil_digests:
             digest = hashlib.sha256(got.tobytes()).hexdigest()
             pil = pil_digests[city_map]
             if list(got.shape) != pil["shape"] or \
@@ -641,6 +652,16 @@ def j2k_phase():
     EPH, PPT, PPM, pclr, ICNS members, a 1024^2 9/7 file) against PIL's
     digests (fixture_phase)."""
     return fixture_phase("j2k")
+
+
+def jpeg_phase():
+    """The JPEG fixtures (lossless frames of every predictor, point
+    transforms, restarts and sampling; block-smoothed progressive files;
+    RSTn renumbered, dropped, duplicated or replaced; scans cut with and
+    without EOI, past PIL's 65536-byte blocks; bad Huffman codes; scans
+    out of the progression) against PIL's digests (fixture_phase); the
+    arithmetic-coded ones "unported"."""
+    return fixture_phase("jpeg")
 
 
 def avif_phase():
@@ -1807,7 +1828,7 @@ FRAME_KEYS["textured"] = FRAME_KEYS["superres"] = FRAME_KEYS["default"]
 REF_SCENES = {"textured": ("tcornell", "tcity4", "tcitylegacy4",
                           "tcitytiff4", "tcitystudio4", "tcitycodec4",
                           "tcityplugins4", "tcityrare4", "tcityj2k4",
-                          "tcitytiffdir4")}
+                          "tcitytiffdir4", "tcityjpeg4")}
 # the paths whose small frames are also rendered on the BVH route, forced
 # with brute_max_tris=0
 BVH_REF_PATHS = ("default", "refpt")
@@ -3024,6 +3045,7 @@ def main():
     rare_fixtures = timed("rare", rare_phase)
     j2k_fixtures = timed("j2k", j2k_phase)
     avif_fixtures = timed("avif", avif_phase)
+    jpeg_fixtures = timed("jpeg", jpeg_phase)
     # the small frames' CPU side runs beside the kernel phases
     pool, cpu_side = start_reference_cpu(tmp, ibl)
     try:
@@ -3090,6 +3112,8 @@ def main():
         frames["textured"]["tcityj2k"]["frame_ms"],
         "TIFF-directory city frame ms",
         frames["textured"]["tcitytiffdir"]["frame_ms"],
+        "JPEG-recovery city frame ms",
+        frames["textured"]["tcityjpeg"]["frame_ms"],
         "beside the untextured city's default frame ms",
         frames["default"]["city"]["frame_ms"], "(same call)")
     oracle = timed("oracle", oracle_phase, dev)
@@ -3140,7 +3164,8 @@ def main():
                    "plugin_fixtures": plugin_fixtures,
                    "rare_fixtures": rare_fixtures,
                    "j2k_fixtures": j2k_fixtures,
-                   "avif_fixtures": avif_fixtures, "sharded": sharded,
+                   "avif_fixtures": avif_fixtures,
+                   "jpeg_fixtures": jpeg_fixtures, "sharded": sharded,
                    "phase_s": PHASE_S}, f, indent=1)
     print(json.dumps({"frames": {
         path: {k: {"median_ms": v["median_ms"], "frame_ms": v["frame_ms"],
@@ -3164,6 +3189,9 @@ def main():
                            j2k_fixtures.items()},
         "avif_fixtures": {k: ("unported" if "unported" in v else "white")
                           for k, v in avif_fixtures.items()},
+        "jpeg_fixture_ms": {k: v.get("ms", "unported" if "unported" in v
+                                     else "white")
+                            for k, v in jpeg_fixtures.items()},
         "setup_s": {f"{p}/{sc}": v["setup_parts_s"]
                     for p, per_scene in frames.items()
                     for sc, v in per_scene.items() if sc == "city40"},

@@ -1,12 +1,17 @@
 // Baseline JFIF encoder for the live viewer's MJPEG stream
 // (kajiya_tpu_torch/apps/stream.py): 8-bit RGB in, 4:2:0 YCbCr, the Annex K
 // quantisation tables scaled as IJG quality 85 scales them, the Annex K
-// Huffman tables, markers SOI APP0 DQT SOF0 DHT SOS EOI. The colour
+// Huffman tables, markers SOI APP0 DQT SOF0 DHT SOS EOI (and DRI and RSTn
+// with a restart interval). The colour
 // conversion, the 2x2 chroma box filter and the float AAN forward DCT with
 // its quantiser follow libjpeg (jccolor.c, jcsample.c, jfdctflt.c,
 // jcdctmgr.c), the library behind the JAX package's encoder. Blocks that
 // straddle the image's edge repeat its last column and row; luma blocks of a
 // 16x16 MCU wholly outside it are jccoefct.c's dummy blocks.
+//
+// kt_jpeg_encode_lossless writes a grey lossless (SOF3) JPEG: one
+// predictor for the scan (H.1.2.1), no point transform, the Annex K
+// luminance DC table for the differences.
 //
 // Built with g++ at first use (scene/jpeg.py) and called through ctypes,
 // which releases the interpreter lock for the call.
@@ -107,6 +112,10 @@ class BitWriter {
   }
   void flush() {               // pad the last byte with 1 bits
     if (n_ > 0) put(0x7F, 8 - n_);
+  }
+  void marker(int code) {      // after flush(): a marker, not stuffed
+    out_[len_++] = 0xFF;
+    out_[len_++] = static_cast<uint8_t>(code);
   }
   long long len() const { return len_; }
 
@@ -251,7 +260,8 @@ void put_dht(std::vector<uint8_t>* h, int cls_id, const uint8_t* bits,
   h->insert(h->end(), vals, vals + n);
 }
 
-std::vector<uint8_t> headers(const Encoder& e, int width, int height) {
+std::vector<uint8_t> headers(const Encoder& e, int width, int height,
+                             int restart) {
   std::vector<uint8_t> h = {0xFF, 0xD8,                     // SOI
                             0xFF, 0xE0, 0x00, 0x10,         // APP0 JFIF 1.1
                             'J',  'F',  'I',  'F',  0x00, 0x01, 0x01,
@@ -269,6 +279,10 @@ std::vector<uint8_t> headers(const Encoder& e, int width, int height) {
   put_dht(&h, 0x10, kAcLumaBits, kAcLumaVals);
   put_dht(&h, 0x01, kDcChromaBits, kDcVals);
   put_dht(&h, 0x11, kAcChromaBits, kAcChromaVals);
+  if (restart) {                                            // DRI
+    h.insert(h.end(), {0xFF, 0xDD, 0x00, 0x04});
+    put16(&h, restart);
+  }
   h.insert(h.end(), {0xFF, 0xDA, 0x00, 0x0C, 0x03, 0x01, 0x00, 0x02, 0x11,
                      0x03, 0x11, 0x00, 0x3F, 0x00});        // SOS
   return h;
@@ -281,18 +295,21 @@ extern "C" {
 // The most bytes kt_jpeg_encode can write for a width x height image.
 long long kt_jpeg_bound(int width, int height) {
   const long long mw = (width + 15) / 16, mh = (height + 15) / 16;
-  return 1024 + mw * mh * 6 * kBlockBound;
+  return 1024 + mw * mh * (6 * kBlockBound + 3);
 }
 
 // Encode `rgb` (height packed rows of width x 3 bytes) into `out` (`cap`
-// bytes). Returns the JFIF's length, -1 for a bad size, -2 when `cap` is
-// below kt_jpeg_bound.
-long long kt_jpeg_encode(const uint8_t* rgb, int width, int height,
-                         uint8_t* out, long long cap) {
-  if (width < 1 || height < 1 || width > 65535 || height > 65535) return -1;
+// bytes), with a restart marker every `restart` MCUs (0: none). Returns the
+// JFIF's length, -1 for a bad size or interval, -2 when `cap` is below
+// kt_jpeg_bound.
+long long kt_jpeg_encode_rst(const uint8_t* rgb, int width, int height,
+                             int restart, uint8_t* out, long long cap) {
+  if (width < 1 || height < 1 || width > 65535 || height > 65535 ||
+      restart < 0 || restart > 65535)
+    return -1;
   if (cap < kt_jpeg_bound(width, height)) return -2;
   static const Encoder e;
-  const std::vector<uint8_t> hdr = headers(e, width, height);
+  const std::vector<uint8_t> hdr = headers(e, width, height, restart);
   std::memcpy(out, hdr.data(), hdr.size());
   BitWriter w(out + hdr.size());
 
@@ -311,6 +328,7 @@ long long kt_jpeg_encode(const uint8_t* rgb, int width, int height,
   std::vector<uint8_t> ybuf(16 * pw), cb(16 * pw), cr(16 * pw);
   int pred[3] = {0, 0, 0};
   float blk[64];
+  int todo = restart, rst = 0;
   for (int my = 0; my < mcus_y; ++my) {
     for (int r = 0; r < 16; ++r) {
       int sy = my * 16 + r;
@@ -328,6 +346,14 @@ long long kt_jpeg_encode(const uint8_t* rgb, int width, int height,
       }
     }
     for (int mx = 0; mx < mcus_x; ++mx) {
+      if (restart && todo == 0) {  // RSTn: the bits padded, DC reset
+        w.flush();
+        w.marker(0xD0 + rst);
+        rst = (rst + 1) & 7;
+        pred[0] = pred[1] = pred[2] = 0;
+        todo = restart;
+      }
+      --todo;
       for (int by = 0; by < 2; ++by) {
         for (int bx = 0; bx < 2; ++bx) {
           if (mx * 2 + bx >= luma_bx || my * 2 + by >= luma_by) {
@@ -360,6 +386,71 @@ long long kt_jpeg_encode(const uint8_t* rgb, int width, int height,
   }
   w.flush();
   long long n = static_cast<long long>(hdr.size()) + w.len();
+  out[n++] = 0xFF;                                          // EOI
+  out[n++] = 0xD9;
+  return n;
+}
+
+long long kt_jpeg_encode(const uint8_t* rgb, int width, int height,
+                         uint8_t* out, long long cap) {
+  return kt_jpeg_encode_rst(rgb, width, height, 0, out, cap);
+}
+
+// The most bytes kt_jpeg_encode_lossless can write.
+long long kt_jpeg_lossless_bound(int width, int height) {
+  return 1024 + 4LL * width * height;
+}
+
+// Encode `grey` (height rows of width bytes) as a lossless JPEG with
+// predictor `psv` (1-7) into `out` (`cap` bytes). Returns the length, -1
+// for a bad size or predictor, -2 when `cap` is below
+// kt_jpeg_lossless_bound.
+long long kt_jpeg_encode_lossless(const uint8_t* grey, int width, int height,
+                                  int psv, uint8_t* out, long long cap) {
+  if (width < 1 || height < 1 || width > 65535 || height > 65535 || psv < 1 ||
+      psv > 7)
+    return -1;
+  if (cap < kt_jpeg_lossless_bound(width, height)) return -2;
+  std::vector<uint8_t> h = {0xFF, 0xD8, 0xFF, 0xC3, 0x00, 0x0B, 0x08};
+  put16(&h, height);
+  put16(&h, width);
+  h.insert(h.end(), {0x01, 0x01, 0x11, 0x00});              // SOF3
+  put_dht(&h, 0x00, kDcLumaBits, kDcVals);
+  h.insert(h.end(), {0xFF, 0xDA, 0x00, 0x08, 0x01, 0x01, 0x00,
+                     static_cast<uint8_t>(psv), 0x00, 0x00});  // SOS
+  std::memcpy(out, h.data(), h.size());
+  BitWriter w(out + h.size());
+  Huffman dc;
+  make_huffman(kDcLumaBits, kDcVals, &dc);
+  for (int y = 0; y < height; ++y) {
+    const uint8_t* row = grey + static_cast<long long>(y) * width;
+    const uint8_t* up = row - width;
+    for (int x = 0; x < width; ++x) {
+      int p;
+      if (y == 0) {
+        p = x == 0 ? 128 : row[x - 1];   // the first row: 2^(P-1), then Ra
+      } else if (x == 0) {
+        p = up[0];                       // the first column: Rb
+      } else {
+        const int a = row[x - 1], b = up[x], c = up[x - 1];
+        switch (psv) {
+          case 1: p = a; break;
+          case 2: p = b; break;
+          case 3: p = c; break;
+          case 4: p = a + b - c; break;
+          case 5: p = a + ((b - c) >> 1); break;
+          case 6: p = b + ((a - c) >> 1); break;
+          default: p = (a + b) >> 1; break;
+        }
+      }
+      const int diff = row[x] - p;
+      const int n = nbits(diff);
+      w.put(dc.code[n], dc.size[n]);
+      if (n) w.put(diff < 0 ? diff - 1 : diff, n);
+    }
+  }
+  w.flush();
+  long long n = static_cast<long long>(h.size()) + w.len();
   out[n++] = 0xFF;                                          // EOI
   out[n++] = 0xD9;
   return n;

@@ -61,7 +61,15 @@ normal maps deflate strips with horizontal differencing whose ImageWidth,
 ImageLength and RowsPerStrip are SSHORT and StripOffsets SLONG,
 metallic-roughness maps PackBits whose Compression and SamplesPerPixel
 are SLONG, b1's emissive map deflate RGBA (opaque) whose ExtraSamples is
-a LONG.
+a LONG. `formats="jpegrec"` writes them as JPEGs that libjpeg decodes
+with a warning, as damaged assets come (the JPEG-recovery city): base
+colours baseline files whose scan is cut at 70% and closed with EOI (an
+interrupted download), normal maps with a restart marker every MCU row and
+one RSTn renumbered, metallic-roughness maps grey lossless (SOF3) files of
+the roughness, b1's emissive map with three entropy bytes flipped
+(`jpeg.encode_jpeg`, `jpeg.encode_jpeg_lossless`). Only the lossless maps'
+texels are known here; PIL's digests of the others are in
+tests/data/jpeg/manifest.json.
 """
 from __future__ import annotations
 
@@ -78,6 +86,7 @@ from .fits import encode_fits
 from .fli import encode_flc
 from .gif import encode_gif256
 from .j2k import encode_j2k
+from .jpeg import encode_jpeg, encode_jpeg_lossless
 from .icns import encode_icns, mask_member, rgb_member
 from .im import encode_im_rgb
 from .mcidas import encode_mcidas
@@ -330,6 +339,43 @@ def _tiffdir_map(kind: str, img: np.ndarray):
     return ".tif", data, want
 
 
+def _jpegrec_map(kind: str, img: np.ndarray):
+    """The JPEG-recovery city's (suffix, bytes, RGBA or None where only
+    PIL's digest is known) of a map."""
+    if kind == "mr":
+        # roughness as lossless grey: glTF reads roughness from green and
+        # metallic from blue, so both take the grey level
+        grey = np.ascontiguousarray(img[..., 1])
+        want = np.concatenate([np.repeat(grey[..., None], 3, -1),
+                               np.full(grey.shape + (1,), 255, np.uint8)], -1)
+        return ".jpg", encode_jpeg_lossless(grey, psv=4), want
+    if kind == "normal":
+        # a restart marker every MCU row; the middle one numbered as the one
+        # after it: libjpeg leaves it for the next row, which comes out
+        # empty, and then resynchronises
+        data = bytearray(encode_jpeg(img, restart=-(-img.shape[1] // 16)))
+        sos = data.index(b"\xff\xda")
+        rst = [i for i in range(sos, len(data) - 1)
+               if data[i] == 0xFF and 0xD0 <= data[i + 1] <= 0xD7]
+        i = rst[len(rst) // 2]
+        data[i + 1] = 0xD0 + ((data[i + 1] + 1) & 7)
+        return ".jpg", bytes(data), None
+    data = encode_jpeg(img)
+    sos = data.index(b"\xff\xda")
+    scan = len(data) - 2 - sos
+    if kind == "base":
+        # an interrupted download: the scan cut at 70%, closed with EOI
+        return ".jpg", data[:sos + scan * 7 // 10] + b"\xff\xd9", None
+    # the emissive map: three entropy bytes flipped (none next to an FF)
+    data = bytearray(data)
+    for f in (0.3, 0.5, 0.7):
+        i = sos + 20 + int(scan * f)
+        while 0xFF in (data[i - 1], data[i], data[i + 1], data[i] ^ 0x10):
+            i += 1
+        data[i] ^= 0x10
+    return ".jpg", bytes(data), None
+
+
 # DXGI formats of the mixed-format city's maps
 DXGI_BC5_UNORM, DXGI_BC7_UNORM = 83, 98
 
@@ -361,6 +407,8 @@ def _map_file(kind: str, img: np.ndarray, formats: str, k: int = 0):
         return ".tif", data, want
     if formats == "tiffdir":
         return _tiffdir_map(kind, img)
+    if formats == "jpegrec":
+        return _jpegrec_map(kind, img)
     if formats == "tiffcodec":
         want = np.concatenate(
             [img, np.full(img.shape[:2] + (1,), 255, np.uint8)], -1)
@@ -450,14 +498,18 @@ def write_city_assets(root: str, subdiv: int = 8, map_size: int = 2048,
     whose directories libtiff recovers or converts: one LZW strip without
     StripByteCounts, deflate strips with signed size and offset tags,
     PackBits with SLONG Compression and SamplesPerPixel, deflate RGBA with
-    a LONG ExtraSamples). Returns {file name: (the
-    RGB map written, the RGBA its file decodes to, or None for a JPEG, an
-    8-bit PNG, a LAB TIFF or a PhotoCD)} of the building maps."""
+    a LONG ExtraSamples) or "jpegrec" (JPEGs libjpeg recovers: base
+    colours cut and closed with EOI, normals with a renumbered RSTn,
+    lossless grey metallic-roughness, an emissive map with flipped bytes).
+    Returns {file name: (the RGB map written, the RGBA its file decodes
+    to, or None for a lossy JPEG, an 8-bit PNG, a LAB TIFF or a PhotoCD)}
+    of the building maps."""
     if formats not in ("png", "mixed", "legacy", "tiff", "studio",
-                       "tiffcodec", "plugins", "rare", "j2k", "tiffdir"):
+                       "tiffcodec", "plugins", "rare", "j2k", "tiffdir",
+                       "jpegrec"):
         raise ValueError(f"formats {formats!r}: 'png', 'mixed', 'legacy', "
                          "'tiff', 'studio', 'tiffcodec', 'plugins', 'rare', "
-                         "'j2k' or 'tiffdir'")
+                         "'j2k', 'tiffdir' or 'jpegrec'")
     rng = np.random.default_rng(seed)
     mdir = os.path.join(root, "meshes")
     os.makedirs(mdir, exist_ok=True)

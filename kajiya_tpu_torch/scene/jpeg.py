@@ -5,7 +5,7 @@ The JAX package encodes its stream with PIL; the port may not import PIL, so
 it has its own encoder: `csrc/jpeg_encoder.cpp` (8-bit, 4:2:0, the Annex K
 quantisation tables at IJG quality 85, PIL's setting in the JAX viewer, the
 Annex K Huffman tables, libjpeg's colour conversion, chroma box filter and
-float DCT), compiled with g++ at first use into the gitignored `_build/`
+float DCT; restart intervals; and a grey lossless writer), compiled with g++ at first use into the gitignored `_build/`
 (`hostlib.load`) and called through ctypes, which releases the interpreter
 lock during the call, so encoding does not stall the render thread. Where the
 encoder cannot be built, `encode_jpeg` raises with the compiler's output:
@@ -14,14 +14,16 @@ libjpeg does for the JAX package.
 
 `decode_jpeg` decodes a texture source to what PIL's
 `Image.open(f).convert("RGBA")` gives, byte for byte: `csrc/jpeg_decoder.cpp`
-follows libjpeg-turbo's default decompression as PIL drives it (baseline,
-extended and progressive Huffman frames; islow IDCT, fancy upsampling,
+follows libjpeg-turbo 3.1.3's default decompression as PIL drives it
+(baseline, extended and progressive frames, Huffman or arithmetic coded,
+and lossless frames; islow IDCT, block smoothing, fancy upsampling,
 jdcolor.c's tables; L, RGB and CMYK / YCCK as PIL reads them), built and
-loaded the same way. Corrupt data that makes PIL raise raises `JpegError`, a
-ValueError (the bake turns it white, as the JAX package's does); what the
-decoder does not cover (arithmetic coding, lossless, 12-bit,
-progressive files libjpeg would block-smooth, corrupt entropy data that
-libjpeg decodes with a warning) raises NotImplementedError.
+loaded the same way. Corrupt entropy data that libjpeg decodes with a
+warning (a segment that ends early, a bad code, restart markers out of
+sequence, scans out of the progression) comes out as libjpeg decodes it,
+PIL's 65536-byte feed included; corrupt data that makes PIL raise raises
+`JpegError`, a ValueError (the bake turns it white, as the JAX package's
+does).
 
 `decode_jpeg_planes` gives libjpeg's raw data output (each component's
 samples, no upsampling, no colour conversion), which libtiff's old-style
@@ -71,13 +73,23 @@ def encoder_library() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_longlong]
         lib.kt_jpeg_encode.restype = ctypes.c_longlong
+        lib.kt_jpeg_encode_rst.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_longlong]
+        lib.kt_jpeg_encode_rst.restype = ctypes.c_longlong
+        lib.kt_jpeg_lossless_bound.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.kt_jpeg_lossless_bound.restype = ctypes.c_longlong
+        lib.kt_jpeg_encode_lossless.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_longlong]
+        lib.kt_jpeg_encode_lossless.restype = ctypes.c_longlong
         _encoder = lib
         return lib
 
 
-def encode_jpeg(img: np.ndarray) -> bytes:
+def encode_jpeg(img: np.ndarray, restart: int = 0) -> bytes:
     """Encode an (H, W, 3) uint8 RGB image as a baseline 4:2:0 JFIF at
-    quality 85."""
+    quality 85, with a restart marker every `restart` MCUs (0: none)."""
     if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
         raise ValueError(f"encode_jpeg takes (H, W, 3) uint8, got "
                          f"{img.dtype} {img.shape}")
@@ -85,10 +97,29 @@ def encode_jpeg(img: np.ndarray) -> bytes:
     h, w = img.shape[:2]
     px = np.ascontiguousarray(img)
     out = np.empty(lib.kt_jpeg_bound(w, h), np.uint8)
-    n = lib.kt_jpeg_encode(px.ctypes.data, w, h, out.ctypes.data, out.size)
+    n = lib.kt_jpeg_encode_rst(px.ctypes.data, w, h, restart, out.ctypes.data,
+                               out.size)
     if n < 0:
         raise ValueError(f"the JPEG encoder refused a {w}x{h} image "
-                         f"(status {n})")
+                         f"(restart {restart}, status {n})")
+    return out[:n].tobytes()
+
+
+def encode_jpeg_lossless(grey: np.ndarray, psv: int = 1) -> bytes:
+    """Encode an (H, W) uint8 grey image as a lossless (SOF3) JPEG with
+    predictor `psv` (1-7), no point transform: it decodes to `grey`."""
+    if grey.dtype != np.uint8 or grey.ndim != 2:
+        raise ValueError(f"encode_jpeg_lossless takes (H, W) uint8, got "
+                         f"{grey.dtype} {grey.shape}")
+    lib = encoder_library()
+    h, w = grey.shape
+    px = np.ascontiguousarray(grey)
+    out = np.empty(lib.kt_jpeg_lossless_bound(w, h), np.uint8)
+    n = lib.kt_jpeg_encode_lossless(px.ctypes.data, w, h, psv,
+                                    out.ctypes.data, out.size)
+    if n < 0:
+        raise ValueError(f"the lossless JPEG encoder refused a {w}x{h} "
+                         f"image (predictor {psv}, status {n})")
     return out[:n].tobytes()
 
 
@@ -125,11 +156,7 @@ def decoder_library() -> ctypes.CDLL:
 
 
 def _raise(status: int, msg: ctypes.Array) -> None:
-    text = msg.value.decode("ascii", "replace")
-    if status == 2:
-        raise NotImplementedError(
-            f"JPEG: {text} (ROADMAP.md section 1)")
-    raise JpegError(f"corrupt JPEG: {text}")
+    raise JpegError(f"corrupt JPEG: {msg.value.decode('ascii', 'replace')}")
 
 
 # JpegImagePlugin.MARKER: the handler `_open` runs for each marker code

@@ -193,9 +193,9 @@ def _fuzz_base(k):
 
 
 # the sweep's files that raise NotImplementedError (a cut or flipped header
-# that an unported plugin accepts first, or corrupt JPEG data that libjpeg
-# decodes with a warning, which `scene/jpeg.py` does not model), by part
-CUT_UNPORTED = (2, 1, 0, 0, 0, 2)
+# that an unported plugin accepts first), by part: none since the JPEG
+# decoder follows libjpeg's recoveries (5 of 300 before)
+CUT_UNPORTED = (0, 0, 0, 0, 0, 0)
 
 
 @pytest.mark.parametrize("part", range(6))
